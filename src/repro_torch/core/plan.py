@@ -1,0 +1,643 @@
+"""Compile-once execution plans for the bit-serial matmul.
+
+A :class:`MatmulPlan` resolves *once* per :class:`PlanKey` — kernel route
+(fused / staged / cached / plain), tiles, pack layout, epilogue fusion —
+and ``plan(x, w)`` executes with no per-call dispatch logic. Plans are
+interned in a :class:`PlanRegistry`. :meth:`MatmulPlan.with_precision`
+re-plans to consume only the top planes of the stored decomposition:
+the runtime precision dial.
+
+Route names and their resolution are the reference's
+(``src/repro/core/plan.py``), with the backends renamed: ``"pallas"`` is
+``"cuda"`` (the Hopper kernels) and ``"jnp"`` is ``"torch"`` (the plain
+versions). On CUDA, ``fused_cached``/``fused_repack`` run the fused
+kernel and ``cached_planes``/``staged`` the plane-pair kernel;
+``cached_scan`` and ``oracle`` are plain PyTorch on any device, as they
+are jnp on any device in the reference. ``cached_packed`` and
+``staged_packed`` (the packed kernel) are a later slice and raise on
+CUDA; so do integrity-checked (ABFT) and tensor-parallel plans, whose key
+fields exist so later slices need not re-key plans.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+from repro_torch.core import bitplanes as bp
+from repro_torch.core import bitserial as bs
+from repro_torch.core.precision import LayerPrecision, PrecisionPolicy
+
+__all__ = [
+    "MatmulPlan",
+    "PlanKey",
+    "PlanRegistry",
+    "DEFAULT_REGISTRY",
+    "make_plan",
+    "plan_for_operands",
+    "plan_cacheable",
+]
+
+
+def _ops():
+    # kernels.ops imports core modules; the lazy import keeps the layering
+    # acyclic at import time
+    from repro_torch.kernels import ops
+
+    return ops
+
+
+def _dtype_name(dt) -> str:
+    return str(dt).replace("torch.", "") if isinstance(dt, torch.dtype) else str(dt)
+
+
+def _cache_spec(wp: Optional[bp.WeightPlanes]) -> Optional[tuple]:
+    """Static descriptor of a weight-plane cache (layout only)."""
+    if wp is None:
+        return None
+    packed = wp.packed
+    return (
+        wp.level,
+        wp.variant,
+        int(wp.w_bits),
+        packed is not None,
+        None if packed is None else packed.block,
+        wp.planes is not None,
+        len(wp.weights),
+        packed is not None and packed.checksum is not None,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanKey:
+    """Everything plan resolution depends on — static, hashable values."""
+
+    m: int
+    k: int
+    n: int
+    a_bits: int  # executed activation width
+    w_bits: int  # executed weight width
+    a_in_bits: int  # width activations are provided at (>= a_bits)
+    w_in_bits: int  # width weights are stored at (>= w_bits)
+    variant: str
+    level: str
+    mode: str
+    backend: str  # resolved: "cuda" | "torch"
+    accum: str  # accumulator dtype name
+    has_epilogue: bool
+    cache: Optional[tuple]  # _cache_spec of the weight-plane cache
+    fused: Optional[bool]  # requested flag (None = auto)
+    packed: Optional[bool]  # requested flag (None = auto)
+    bm: Optional[int]  # requested tiles (None = auto)
+    bn: Optional[int]
+    bk: Optional[int]
+    sparsity: str = "off"
+    integrity: str = "off"
+    #: tensor-parallel placement ``(axis_name, axis_size, role)`` or None
+    shard: Optional[tuple] = None
+
+
+class PlanRegistry:
+    """Interning cache ``PlanKey -> MatmulPlan``: a repeated key returns
+    the identical plan. ``hits``/``misses`` count lookups, ``calls`` counts
+    executions per route (the engine's route report)."""
+
+    def __init__(self) -> None:
+        self._plans: dict[PlanKey, "MatmulPlan"] = {}
+        self.hits = 0
+        self.misses = 0
+        self.calls: collections.Counter = collections.Counter()
+
+    def get(self, key: PlanKey) -> "MatmulPlan":
+        plan = self._plans.get(key)
+        if plan is None:
+            self.misses += 1
+            plan = _build_plan(key, self)
+            self._plans[key] = plan
+        else:
+            self.hits += 1
+        return plan
+
+    def clear(self) -> None:
+        self._plans.clear()
+        self.hits = 0
+        self.misses = 0
+        self.calls.clear()
+
+    def plans(self) -> tuple["MatmulPlan", ...]:
+        return tuple(self._plans.values())
+
+    def __len__(self) -> int:
+        return len(self._plans)
+
+    def __contains__(self, key: PlanKey) -> bool:
+        return key in self._plans
+
+
+#: Process-wide default registry.
+DEFAULT_REGISTRY = PlanRegistry()
+
+
+# ---------------------------------------------------------------------------
+# Plan resolution (the one-time dispatch logic)
+# ---------------------------------------------------------------------------
+
+
+def _resolve_packed(packed: Optional[bool], backend: str, level: str) -> bool:
+    if level != "bitplane":
+        return False
+    if packed is None:
+        return backend == "cuda"
+    return bool(packed)
+
+
+def _build_plan(key: PlanKey, registry: "PlanRegistry") -> "MatmulPlan":
+    """The reference's route-resolution tree, run once per key."""
+    serial = key.mode == "fully_serial"
+    int32_acc = key.accum == "int32"
+    kernel_ok = (
+        key.level == "bitplane" or (key.level == "digit" and key.variant == "booth")
+    ) and int32_acc
+    use_packed = serial and int32_acc and _resolve_packed(key.packed, key.backend, key.level)
+    if key.packed and not use_packed:
+        raise ValueError(
+            "packed=True requires level='bitplane', mode='fully_serial' and "
+            f"int32 accumulation; got level={key.level!r}, mode={key.mode!r}, "
+            f"accum_dtype={key.accum}"
+        )
+
+    fused_ok = (
+        key.has_epilogue
+        and serial
+        and int32_acc
+        and key.level == "bitplane"
+        and key.variant in ("sbmwc", "booth")
+        and key.a_bits <= 8
+        and key.w_bits <= 8
+    )
+    if key.fused and not fused_ok:
+        raise ValueError(
+            "fused=True requires an epilogue, level='bitplane', "
+            "mode='fully_serial', int32 accumulation and <=8-bit operands; "
+            f"got epilogue={'set' if key.has_epilogue else None}, "
+            f"level={key.level!r}, mode={key.mode!r}, "
+            f"a_bits={key.a_bits}, w_bits={key.w_bits}"
+        )
+    use_fused = fused_ok and key.backend != "torch" and key.fused is not False
+
+    check = key.integrity != "off"
+    if check:
+        if not (serial and int32_acc and key.level == "bitplane"):
+            raise ValueError(
+                "integrity-checked execution requires level='bitplane', "
+                "mode='fully_serial' and int32 accumulation; got "
+                f"level={key.level!r}, mode={key.mode!r}, accum={key.accum}"
+            )
+        if key.fused:
+            raise ValueError(
+                "fused=True cannot be integrity-checked: the fused epilogue "
+                "hides the int32 accumulator the row-sum identity compares"
+            )
+        use_fused = False
+
+    cache = key.cache
+    w_shift = key.w_in_bits - key.w_bits
+    cache_ok = (
+        cache is not None
+        and serial
+        and int32_acc
+        and cache[0] == key.level
+        and cache[1] == key.variant
+        and cache[2] == key.w_in_bits
+        and (w_shift == 0 or key.level == "bitplane")
+    )
+    fused_cache_ok = cache_ok and cache[3] and cache[4] is not None
+    if check and cache_ok and not cache[7]:
+        raise ValueError(
+            "integrity-checked cached execution needs a checksummed plane cache"
+        )
+    if use_fused and cache_ok and not fused_cache_ok and key.fused is None:
+        # a global-planar cache can't feed the fused kernel: keep the
+        # decompose-once staged path instead of re-packing every call
+        use_fused = False
+
+    if use_fused:
+        kernel = "fused_cached" if fused_cache_ok else "fused_repack"
+    elif cache_ok:
+        if key.backend == "torch" or (key.level == "digit" and key.variant != "booth"):
+            kernel = "cached_scan"
+        elif key.level == "bitplane" and use_packed and cache[3]:
+            kernel = "cached_packed"
+        else:
+            kernel = "cached_planes"
+    elif (key.backend == "torch" and not use_packed) or not kernel_ok or not serial:
+        kernel = "oracle"
+    elif use_packed:
+        kernel = "staged_packed"
+    else:
+        kernel = "staged"
+
+    pack_block = None
+    if kernel == "fused_cached":
+        pack_block = cache[4]
+    bm, bn, bk = _ops().hopper_tiles(
+        key.m, key.k, key.n, kernel=kernel, bm=key.bm, bn=key.bn, bk=key.bk,
+        pack_block=pack_block,
+    )
+    if kernel == "fused_repack":
+        pack_block = bk  # the weight is packed with the K tile as block
+
+    gate = key.sparsity in ("gate", "compact") and kernel in (
+        "fused_cached", "fused_repack", "cached_packed", "staged_packed"
+    ) and key.backend != "torch"
+
+    a_shift = key.a_in_bits - key.a_bits
+    requant_w = w_shift > 0 and kernel in (
+        "fused_repack", "staged", "staged_packed", "oracle"
+    )
+    trunc_cache = w_shift > 0 and kernel.startswith(("cached", "fused_cached"))
+    return MatmulPlan(
+        key=key,
+        registry=registry,
+        kernel=kernel,
+        bm=bm,
+        bn=bn,
+        bk=bk,
+        pack_block=pack_block or bk,
+        a_shift=a_shift,
+        w_shift=w_shift,
+        scale_mult=float(1 << (a_shift + w_shift)),
+        requant_w=requant_w,
+        trunc_cache=trunc_cache,
+        gate=gate,
+        check=check,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Executors — one per resolved route
+# ---------------------------------------------------------------------------
+
+
+def _shift_activations(x, from_bits: int, to_bits: int, variant: str):
+    """Runtime activation-width reduction; Booth's round half up saturates
+    at the two's-complement max so kernel and plain version agree."""
+    q = bp.shift_requantize(x, from_bits, to_bits, variant)
+    if variant == "booth":
+        q = torch.clamp_max(q, (1 << (to_bits - 1)) - 1)
+    return q.to(torch.int8 if to_bits <= 8 else torch.int32)
+
+
+def _finish(out2, lead, ep):
+    out = out2.reshape(lead + (out2.shape[-1],))
+    return out if ep is None else _ops().apply_epilogue(out, ep)
+
+
+def _trunc(plan: "MatmulPlan", wp: bp.WeightPlanes) -> bp.WeightPlanes:
+    return bp.truncate_weight_planes(wp, plan.key.w_bits) if plan.trunc_cache else wp
+
+
+def _flat(x):
+    return x.shape[:-1], x.reshape((-1, x.shape[-1]))
+
+
+def _a_scale_rows(ep):
+    return ep._replace(a_scale=ep.a_scale.reshape(-1, 1))
+
+
+def _exec_fused_cached(plan, x, w, wp, ep):
+    key = plan.key
+    lead, x2 = _flat(x)
+    packed_w = _trunc(plan, wp).packed
+    out2 = _ops().fused_linear(
+        x2.contiguous(), packed_w, _a_scale_rows(ep), a_bits=key.a_bits,
+        variant=key.variant, backend=key.backend, bm=plan.bm, gate=plan.gate,
+    )
+    return out2.reshape(lead + (packed_w.mag.shape[-1],))
+
+
+def _exec_fused_repack(plan, x, w, wp, ep):
+    key = plan.key
+    lead, x2 = _flat(x)
+    dec_w = bp.to_bitplanes(w, key.w_bits, key.variant)
+    packed_w = bp.pack_decomposition(
+        dec_w, axis=-2, variant=key.variant, block=plan.pack_block
+    )
+    out2 = _ops().fused_linear(
+        x2.contiguous(), packed_w, _a_scale_rows(ep), a_bits=key.a_bits,
+        variant=key.variant, backend=key.backend, bm=plan.bm, gate=plan.gate,
+    )
+    return out2.reshape(lead + (packed_w.mag.shape[-1],))
+
+
+def _exec_cached_packed(plan, x, w, wp, ep):
+    ops = _ops()
+    key = plan.key
+    lead, x2 = _flat(x)
+    wp_eff = _trunc(plan, wp)
+    dec_a = bp.to_bitplanes(x2, key.a_bits, key.variant)
+    pw = ops._pair_weights(dec_a.weights, wp_eff.weights, x.device)
+    pa = bp.pack_planes(
+        dec_a.planes, axis=-1, ternary=key.variant == "booth",
+        block=wp_eff.packed.block,
+    )
+    out2 = ops.plane_matmul_packed(pa, wp_eff.packed, pw, backend=key.backend)
+    return _finish(out2, lead, ep)
+
+
+def _exec_cached_planes(plan, x, w, wp, ep):
+    ops = _ops()
+    key = plan.key
+    lead, x2 = _flat(x)
+    wp_eff = _trunc(plan, wp)
+    if key.level == "bitplane":
+        dec_a = bp.to_bitplanes(x2, key.a_bits, key.variant)
+        wpl = (
+            wp_eff.planes
+            if wp_eff.planes is not None
+            else bp.unpack_planes(wp_eff.packed)
+        )
+    else:
+        dec_a = bp.to_digits(x2, key.a_bits, key.variant)
+        wpl = wp_eff.planes
+    pw = ops._pair_weights(dec_a.weights, wp_eff.weights, x.device)
+    out2 = ops.plane_matmul(
+        dec_a.planes.to(torch.int8).contiguous(), wpl.to(torch.int8).contiguous(), pw,
+        backend=key.backend, bm=plan.bm,
+    )
+    return _finish(out2, lead, ep)
+
+
+def _exec_cached_scan(plan, x, w, wp, ep):
+    key = plan.key
+    lead, x2 = _flat(x)
+    out2 = _ops()._matmul_cached(
+        x2, _trunc(plan, wp), a_bits=key.a_bits, variant=key.variant, level=key.level
+    )
+    return _finish(out2, lead, ep)
+
+
+def _exec_staged(plan, x, w, wp, ep):
+    ops = _ops()
+    key = plan.key
+    lead, x2 = _flat(x)
+    if key.level == "bitplane":
+        dec_a = bp.to_bitplanes(x2, key.a_bits, key.variant)
+        dec_w = bp.to_bitplanes(w, key.w_bits, key.variant)
+    else:
+        dec_a = bp.to_digits(x2, key.a_bits, key.variant)
+        dec_w = bp.to_digits(w, key.w_bits, key.variant)
+    pw = ops._pair_weights(dec_a.weights, dec_w.weights, x.device)
+    if plan.kernel == "staged_packed":
+        ternary = key.variant == "booth"
+        pa = bp.pack_planes(dec_a.planes, axis=-1, ternary=ternary)
+        pwk = bp.pack_planes(dec_w.planes, axis=-2, ternary=ternary)
+        out2 = ops.plane_matmul_packed(pa, pwk, pw, backend=key.backend)
+    else:
+        out2 = ops.plane_matmul(
+            dec_a.planes.to(torch.int8).contiguous(),
+            dec_w.planes.to(torch.int8).contiguous(), pw,
+            backend=key.backend, bm=plan.bm,
+        )
+    return _finish(out2, lead, ep)
+
+
+def _exec_oracle(plan, x, w, wp, ep):
+    key = plan.key
+    if key.accum != "int32":
+        raise NotImplementedError(
+            "float32-accumulated (> 8-bit) execution is not ported yet"
+        )
+    acc = bs.bitserial_matmul(
+        x, w, a_bits=key.a_bits, w_bits=key.w_bits, variant=key.variant,
+        level=key.level, mode=key.mode,
+    )
+    return acc if ep is None else _ops().apply_epilogue(acc, ep)
+
+
+_EXECUTORS: dict[str, Callable] = {
+    "fused_cached": _exec_fused_cached,
+    "fused_repack": _exec_fused_repack,
+    "cached_packed": _exec_cached_packed,
+    "cached_planes": _exec_cached_planes,
+    "cached_scan": _exec_cached_scan,
+    "staged_packed": _exec_staged,
+    "staged": _exec_staged,
+    "oracle": _exec_oracle,
+}
+
+
+# ---------------------------------------------------------------------------
+# MatmulPlan
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulPlan:
+    """A fully-resolved bit-serial matmul: ``plan(x_q, w_q, w_planes=…,
+    epilogue=…)`` runs its route with its tiles. A cached-route plan never
+    reads ``w_q``; an uncached one never reads ``w_planes``.
+
+    ``with_precision(a_bits, w_bits)`` returns the sibling plan executing
+    at a lower width against the same stored operands; the dequant
+    correction ``2^(a_shift + w_shift)`` folds into the epilogue's
+    ``w_scale`` (exact in float32).
+    """
+
+    key: PlanKey
+    registry: "PlanRegistry" = dataclasses.field(compare=False, repr=False)
+    kernel: str
+    bm: int
+    bn: int
+    bk: int
+    pack_block: int
+    a_shift: int
+    w_shift: int
+    scale_mult: float
+    requant_w: bool
+    trunc_cache: bool
+    gate: bool = False
+    check: bool = False
+
+    def __call__(self, x, w=None, *, w_planes=None, epilogue=None):
+        key = self.key
+        if self.check:
+            raise NotImplementedError(
+                "integrity-checked (ABFT) execution is ROADMAP slice 2"
+            )
+        if key.shard is not None:
+            raise NotImplementedError("tensor-parallel plans are not ported yet")
+        if key.has_epilogue != (epilogue is not None):
+            raise ValueError(
+                f"plan was resolved {'with' if key.has_epilogue else 'without'} "
+                f"an epilogue but called {'without' if epilogue is None else 'with'} "
+                "one; build a matching plan (has_epilogue=)"
+            )
+        if x.shape[-1] != key.k:
+            raise ValueError(f"plan expects K={key.k}, got x K={x.shape[-1]}")
+        if self.a_shift:
+            x = _shift_activations(x, key.a_in_bits, key.a_bits, key.variant)
+        if epilogue is not None and self.scale_mult != 1.0:
+            epilogue = epilogue._replace(w_scale=epilogue.w_scale * self.scale_mult)
+        if self.requant_w:
+            w = bp.shift_requantize(w, key.w_in_bits, key.w_bits, key.variant)
+        self.registry.calls[self.kernel] += 1
+        return _EXECUTORS[self.kernel](self, x, w, w_planes, epilogue)
+
+    def with_precision(
+        self, a_bits: Optional[int] = None, w_bits: Optional[int] = None
+    ) -> "MatmulPlan":
+        """Sibling plan at a lower runtime precision (same stored operands);
+        the ceiling is the provided/stored width."""
+        a = self.key.a_bits if a_bits is None else a_bits
+        w = self.key.w_bits if w_bits is None else w_bits
+        if not 1 <= a <= self.key.a_in_bits:
+            raise ValueError(
+                f"a_bits must be in [1, {self.key.a_in_bits}] "
+                f"(the provided operand width), got {a}"
+            )
+        if not 1 <= w <= self.key.w_in_bits:
+            raise ValueError(
+                f"w_bits must be in [1, {self.key.w_in_bits}] "
+                f"(the stored decomposition width), got {w}"
+            )
+        if (a, w) == (self.key.a_bits, self.key.w_bits):
+            return self
+        return self.registry.get(dataclasses.replace(self.key, a_bits=a, w_bits=w))
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def _norm_shapes(shapes) -> Tuple[int, int, int]:
+    """(m, k, n) ints, or ((…, k), (k, n)) shape pair."""
+    if len(shapes) == 3 and all(isinstance(s, int) for s in shapes):
+        return tuple(shapes)  # type: ignore[return-value]
+    if len(shapes) == 2:
+        x_shape, w_shape = shapes
+        m = 1
+        for d in x_shape[:-1]:
+            m *= int(d)
+        return m, int(x_shape[-1]), int(w_shape[-1])
+    raise ValueError(f"shapes must be (m, k, n) or (x_shape, w_shape), got {shapes!r}")
+
+
+def plan_for_operands(
+    shapes,
+    *,
+    a_bits: int,
+    w_bits: int,
+    variant: str = "booth",
+    level: str = "digit",
+    mode: str = "fully_serial",
+    backend: str = "auto",
+    device=None,
+    accum_dtype: Any = torch.int32,
+    has_epilogue: bool = False,
+    w_planes: Optional[bp.WeightPlanes] = None,
+    a_in_bits: Optional[int] = None,
+    w_in_bits: Optional[int] = None,
+    fused: Optional[bool] = None,
+    packed: Optional[bool] = None,
+    bm: Optional[int] = None,
+    bn: Optional[int] = None,
+    bk: Optional[int] = None,
+    sparsity: str = "off",
+    integrity: str = "off",
+    shard: Optional[tuple] = None,
+    registry: Optional[PlanRegistry] = None,
+) -> MatmulPlan:
+    """Policy-free plan construction from explicit operand metadata.
+    ``backend="auto"`` resolves against ``device`` (the operands')."""
+    if sparsity not in ("off", "gate", "compact"):
+        raise ValueError(
+            f"sparsity must be 'off', 'gate' or 'compact', got {sparsity!r}"
+        )
+    if integrity not in ("off", "detect", "scrub"):
+        raise ValueError(
+            f"integrity must be 'off', 'detect' or 'scrub', got {integrity!r}"
+        )
+    m, k, n = _norm_shapes(shapes)
+    key = PlanKey(
+        m=m, k=k, n=n,
+        a_bits=a_bits, w_bits=w_bits,
+        a_in_bits=a_bits if a_in_bits is None else a_in_bits,
+        w_in_bits=w_bits if w_in_bits is None else w_in_bits,
+        variant=variant, level=level, mode=mode,
+        backend=_ops().resolve_backend(backend, device),
+        accum=_dtype_name(accum_dtype),
+        has_epilogue=has_epilogue,
+        cache=_cache_spec(w_planes),
+        fused=fused, packed=packed,
+        bm=bm, bn=bn, bk=bk,
+        sparsity=sparsity,
+        integrity=integrity,
+        shard=shard,
+    )
+    return (DEFAULT_REGISTRY if registry is None else registry).get(key)
+
+
+def make_plan(
+    policy: PrecisionPolicy,
+    layer_name: str,
+    shapes,
+    backend: str = "auto",
+    *,
+    device=None,
+    w_planes: Optional[bp.WeightPlanes] = None,
+    w_stored_bits: Optional[int] = None,
+    has_epilogue: bool = True,
+    accum_dtype: Any = None,
+    registry: Optional[PlanRegistry] = None,
+    bm: Optional[int] = None,
+    bn: Optional[int] = None,
+    bk: Optional[int] = None,
+    shard: Optional[tuple] = None,
+) -> MatmulPlan:
+    """Resolve the execution plan for one layer of a policy. When the
+    policy's runtime dial lowers the executed width below
+    ``w_stored_bits``, the plan consumes the stored decomposition's plane
+    prefix."""
+    configured = policy.lookup(layer_name)
+    if not configured.active:
+        raise ValueError(f"layer {layer_name!r}: policy is inactive — no plan to build")
+    eff = policy.effective(configured)
+    if accum_dtype is None:
+        accum_dtype = torch.int32 if max(eff.w_bits, eff.a_bits) <= 8 else torch.float32
+    return plan_for_operands(
+        shapes,
+        a_bits=eff.a_bits,
+        w_bits=eff.w_bits,
+        a_in_bits=eff.a_bits,
+        w_in_bits=configured.w_bits if w_stored_bits is None else w_stored_bits,
+        variant=policy.variant,
+        level=policy.level,
+        mode=policy.mode,
+        backend=backend,
+        device=device,
+        accum_dtype=accum_dtype,
+        has_epilogue=has_epilogue,
+        w_planes=w_planes,
+        fused=policy.fuse_epilogue,
+        bm=bm, bn=bn, bk=bk,
+        sparsity=policy.sparsity,
+        integrity=policy.integrity,
+        shard=shard,
+        registry=registry,
+    )
+
+
+def plan_cacheable(policy: PrecisionPolicy, prec: LayerPrecision) -> bool:
+    """Whether a layer at ``prec`` uses the decompose-once weight-plane
+    cache: the int32-exact fully-serial configs."""
+    return (
+        policy.mode == "fully_serial"
+        and policy.level in ("bitplane", "digit")
+        and prec.active
+        and max(prec.w_bits, prec.a_bits) <= 8
+    )

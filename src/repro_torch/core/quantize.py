@@ -1,0 +1,55 @@
+"""Symmetric integer quantization.
+
+Weights are quantized per output channel, activations dynamically per
+token. The arithmetic repeats the reference's: divide by the scale (not
+multiply by its reciprocal, which would round differently), round half
+to even, clip.
+
+The scale itself is ``amax / qmax``. Inside the reference's compiled
+serving steps XLA folds that division by a constant into a multiply by
+``float32(1 / qmax)``, which rounds differently in about 5% of rows;
+``reciprocal_scale=True`` reproduces it (activations quantized per token
+during serving), the default divides (weights quantized at load, which
+the reference runs eagerly).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.bitplanes import signed_range
+
+
+class Quantized(NamedTuple):
+    values: torch.Tensor  # int8 (bits <= 8) or int32
+    scale: torch.Tensor  # float32, broadcastable against ``values``
+    bits: int
+
+
+def _qmax(bits: int) -> int:
+    _, hi = signed_range(bits)
+    return max(hi, 1)
+
+
+def quantize(x: torch.Tensor, bits: int, axis=None, *, reciprocal_scale: bool = False) -> Quantized:
+    """Symmetric quantization of ``x`` to ``bits``-bit integers.
+
+    ``axis``: axis to *reduce* for the scale (None = per tensor); for a
+    ``(K, N)`` weight ``axis=0`` (or -2) gives per-output-channel scales,
+    for ``(..., K)`` activations ``axis=-1`` gives per-token scales.
+    """
+    qmax = _qmax(bits)
+    if axis is None:
+        amax = x.abs().amax()
+    else:
+        amax = x.abs().amax(dim=axis, keepdim=True)
+    amax = torch.clamp_min(amax, 1e-8).to(torch.float32)
+    if reciprocal_scale:
+        scale = amax * torch.tensor(1.0 / qmax, dtype=torch.float32)
+    else:
+        scale = amax / qmax
+    q = torch.clamp(torch.round(x / scale), -qmax - 1 if bits > 1 else 0, qmax)
+    store_dtype = torch.int8 if bits <= 8 else torch.int32
+    return Quantized(q.to(store_dtype), scale, bits)

@@ -1,0 +1,211 @@
+"""Dispatch over the plane-pair kernels.
+
+Backends:
+  * ``"cuda"``  — the hand-written Hopper kernels (CUDA tensors only);
+  * ``"torch"`` — the plain PyTorch versions (any device);
+  * ``"auto"``  — ``"cuda"`` for CUDA tensors, ``"torch"`` otherwise.
+
+``"cuda"`` for a CPU tensor raises: the kernels have no host mode.
+Operands stay at their quantized storage width (int8).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import bitplanes as bp
+from repro_torch.core import bitserial as bs
+from repro_torch.kernels import plane_mm, plane_mm_fused
+from repro_torch.kernels.plane_mm_fused import ACTIVATIONS, epilogue_plain
+from repro_torch.kernels.ref import plane_matmul_ref
+
+BACKENDS = ("auto", "cuda", "torch")
+
+__all__ = [
+    "ACTIVATIONS",
+    "BACKENDS",
+    "Epilogue",
+    "apply_epilogue",
+    "fused_linear",
+    "hopper_tiles",
+    "plane_matmul",
+    "plane_matmul_packed",
+    "resolve_backend",
+]
+
+
+def resolve_backend(backend: str, device=None) -> str:
+    """Resolve ``"auto"`` against the operands' device; reject ``"cuda"``
+    for host operands."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    is_cuda = device is not None and torch.device(device).type == "cuda"
+    if backend == "auto":
+        return "cuda" if is_cuda else "torch"
+    if backend == "cuda" and not is_cuda:
+        raise ValueError(
+            "backend 'cuda' runs the Hopper kernels and needs CUDA tensors "
+            f"(got device {device}); use 'torch' for the plain version"
+        )
+    return backend
+
+
+def hopper_tiles(
+    m: int,
+    k: int,
+    n: int,
+    *,
+    kernel: str,
+    bm: Optional[int] = None,
+    bn: Optional[int] = None,
+    bk: Optional[int] = None,
+    pack_block: Optional[int] = None,
+) -> tuple[int, int, int]:
+    """Tiles of the Hopper kernels: ``bm`` the row tile (smallest of 1, 2,
+    4, 8, 16 covering M), ``bn`` the output columns per CUDA block, ``bk``
+    the K extent one block iteration consumes (the pack block on the fused
+    routes). Explicit values pass through and the kernels check them."""
+    fused = kernel in ("fused_cached", "fused_repack")
+    mod = plane_mm_fused if fused else plane_mm
+    if bm is None:
+        bm = mod.row_tile(m)
+    if bn is None:
+        bn = mod.COLS_PER_BLOCK
+    if bk is None:
+        if fused:
+            bk = pack_block or min(bp.DEFAULT_BLOCK, max(128, -(-k // 128) * 128))
+        else:
+            bk = plane_mm.K_TILE
+    return bm, bn, bk
+
+
+# ---------------------------------------------------------------------------
+# Epilogue
+# ---------------------------------------------------------------------------
+
+
+class Epilogue(NamedTuple):
+    """Dequant/bias/activation epilogue of a quantized linear layer.
+
+    ``a_scale``: per-token activation scales broadcastable against the
+    accumulator's leading dims (``lead + (1,)``); ``w_scale``: per-channel
+    weight scales. On the fused route it runs inside the kernel; every
+    other route applies the same float32 operation order with
+    :func:`apply_epilogue`.
+    """
+
+    a_scale: torch.Tensor
+    w_scale: torch.Tensor
+    bias: Optional[torch.Tensor] = None
+    activation: str = "none"
+    out_dtype: torch.dtype = torch.bfloat16
+
+
+def apply_epilogue(acc: torch.Tensor, ep: Epilogue) -> torch.Tensor:
+    return epilogue_plain(acc, ep.a_scale, ep.w_scale, ep.bias, ep.activation, ep.out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dispatchers
+# ---------------------------------------------------------------------------
+
+_PAIR_WEIGHTS: dict = {}
+
+
+def _pair_weights(wa: tuple, ww: tuple, device) -> torch.Tensor:
+    """int32-wrapped pair weights ``wa[i] * ww[j]``, built once per
+    (plane weights, device): the serving loop asks for the same few."""
+    key = (tuple(wa), tuple(ww), str(device))
+    pw = _PAIR_WEIGHTS.get(key)
+    if pw is None:
+        pw = bs._wrap_weights([x * y for x in wa for y in ww], device=device)
+        _PAIR_WEIGHTS[key] = pw
+    return pw
+
+
+def plane_matmul(
+    a_planes: torch.Tensor,
+    w_planes: torch.Tensor,
+    pair_weights: torch.Tensor,
+    *,
+    backend: str = "auto",
+    bm: Optional[int] = None,
+) -> torch.Tensor:
+    """Plane-pair matmul: the Hopper kernel or its plain version."""
+    backend = resolve_backend(backend, a_planes.device)
+    if backend == "torch":
+        return plane_matmul_ref(a_planes, w_planes, pair_weights)
+    return plane_mm.plane_matmul(a_planes, w_planes, pair_weights, bm=bm)
+
+
+def plane_matmul_packed(
+    packed_a: bp.PackedPlanes,
+    packed_w: bp.PackedPlanes,
+    pair_weights: torch.Tensor,
+    *,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Packed plane matmul. Only its plain version is ported: the Hopper
+    kernel for ``plane_matmul_packed`` is ROADMAP slice 2."""
+    if backend == "cuda" or (backend == "auto" and packed_a.mag.is_cuda):
+        raise NotImplementedError(
+            "plane_matmul_packed has no Hopper kernel yet (ROADMAP slice 2: "
+            "plane_matmul_packed with the integrity routes and --no-fused at "
+            "bitplane level)"
+        )
+    resolve_backend(backend, packed_a.mag.device)
+    return plane_matmul_ref(
+        bp.unpack_planes(packed_a), bp.unpack_planes(packed_w), pair_weights
+    )
+
+
+def fused_linear(
+    x_q: torch.Tensor,
+    packed_w: bp.PackedPlanes,
+    epilogue: Optional[Epilogue],
+    *,
+    a_bits: int,
+    variant: str,
+    backend: str = "auto",
+    bm: Optional[int] = None,
+    gate: bool = False,
+) -> torch.Tensor:
+    """Fully-fused bit-serial linear over 2-D quantized activations.
+
+    ``x_q`` (M, K) int8; ``packed_w`` blocked-layout packed weight planes;
+    ``epilogue`` the dequant epilogue (``None`` returns the raw int32
+    accumulator). The torch backend is the kernel's plain version.
+    """
+    backend = resolve_backend(backend, x_q.device)
+    pair_w = _pair_weights(bp.plane_weights(a_bits, variant), packed_w.weights, x_q.device)
+    ep = {} if epilogue is None else dict(
+        a_scale=epilogue.a_scale, w_scale=epilogue.w_scale, bias=epilogue.bias,
+        activation=epilogue.activation, out_dtype=epilogue.out_dtype,
+    )
+    if backend == "torch":
+        return plane_mm_fused.fused_plane_linear_plain(
+            x_q, packed_w, pair_w, a_bits=a_bits, variant=variant, **ep
+        )
+    return plane_mm_fused.fused_plane_linear(
+        x_q, packed_w, pair_w, a_bits=a_bits, variant=variant, bm=bm, gate=gate, **ep
+    )
+
+
+def _matmul_cached(
+    a2: torch.Tensor, w_planes: bp.WeightPlanes, *, a_bits: int, variant: str, level: str
+) -> torch.Tensor:
+    """Plain plane-pair contraction over cached weight planes (the
+    reference's ``_matmul_cached_jnp``), minus the weight-side work."""
+    if level == "bitplane":
+        dec_a = bp.to_bitplanes(a2, a_bits, variant)
+        wpl = (
+            w_planes.planes
+            if w_planes.planes is not None
+            else bp.unpack_planes(w_planes.packed)
+        )
+    else:
+        dec_a = bp.to_digits(a2, a_bits, variant)
+        wpl = w_planes.planes
+    return bs._plane_pair_scan(dec_a, bp.PlaneDecomposition(wpl, w_planes.weights))

@@ -1,0 +1,261 @@
+"""Fully-fused bit-serial linear: the Hopper kernel, its wrapper and its
+plain PyTorch version.
+
+Port of ``src/repro/kernels/plane_mm_fused.py::fused_plane_linear``. One
+launch slices the raw int8 activation into bit planes on chip, unpacks
+the blocked packed weight plane words, accumulates the ``a_bits x P_w``
+plane-pair products in int32 and applies the dequant/bias/activation
+epilogue, writing bf16 (or the raw int32 accumulator with no scales).
+The kernel source, with its design note, is ``csrc/plane_mm_fused.cu``.
+
+:func:`fused_plane_linear` launches the kernel for CUDA tensors and runs
+:func:`fused_plane_linear_plain` for CPU tensors — the device of the
+operands decides, nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.core.bitplanes import WORD_BITS, PackedPlanes, unpack_planes
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import plane_matmul_ref
+
+#: K values per pack block the kernel stages in shared memory
+MAX_BLOCK = 512
+#: row tiles the kernel is instantiated for
+ROW_TILES = (1, 2, 4, 8, 16)
+#: output columns per CUDA block
+COLS_PER_BLOCK = 32
+_ACT_CODES = {"none": 0, "silu": 1, "gelu": 2}
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    # the reference's jax.nn.gelu (tanh form), one rounding per operation
+    x3 = x * x * x
+    inner = 0.7978845608028654 * (x + 0.044715 * x3)
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+ACTIVATIONS = {
+    "none": lambda x: x,
+    "gelu": _gelu_tanh,
+    "silu": _silu,
+}
+
+
+def epilogue_plain(
+    acc: torch.Tensor,
+    a_scale: torch.Tensor,
+    w_scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    activation: str = "none",
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """``((acc * a_scale) * w_scale) [+ bias] -> activation -> out_dtype`` in
+    float32, one rounding per operation — the kernel's epilogue order."""
+    out = acc.to(torch.float32) * a_scale * w_scale
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    out = ACTIVATIONS[activation](out)
+    return out.to(out_dtype)
+
+
+def slice_activation_planes(x: torch.Tensor, a_bits: int, variant: str) -> list[torch.Tensor]:
+    """Bit-slice live integer activations into int8 planes (shift/mask, as
+    the kernel does on chip); Booth planes are ``b[i-1] - b[i]``."""
+    u = x.to(torch.int32) & ((1 << a_bits) - 1)
+    cur = [(u >> i) & 1 for i in range(a_bits)]
+    if variant == "booth":
+        planes = [(cur[i - 1] if i else 0) - cur[i] for i in range(a_bits)]
+    else:  # sbmwc / unsigned share raw bit planes; only the weights differ
+        planes = cur
+    return [p.to(torch.int8) for p in planes]
+
+
+def _check(x_q, packed_w, pair_weights, a_bits, gate, a_scale, bias):
+    if gate and packed_w.occupancy is None:
+        raise ValueError(
+            "gate=True needs weight occupancy metadata; re-pack the weight "
+            "operand (pack_planes computes it) or pass gate=False"
+        )
+    if packed_w.axis != 1:
+        raise ValueError(f"expected W packed on axis 1, got {packed_w.axis}")
+    if packed_w.block is None:
+        raise ValueError(
+            "fused_plane_linear needs blocked-layout packed weights "
+            "(pack_planes(..., block=...)); the global planar layout permutes "
+            "K and cannot contract against raw activations"
+        )
+    if x_q.dim() != 2:
+        raise ValueError(f"x_q must be (M, K), got {tuple(x_q.shape)}")
+    if x_q.shape[1] != packed_w.k:
+        raise ValueError(
+            f"K mismatch: x {tuple(x_q.shape)} vs packed weight k={packed_w.k}"
+        )
+    if tuple(pair_weights.shape) != (a_bits * packed_w.mag.shape[0],):
+        raise ValueError("pair_weights must have shape (a_bits * P_w,)")
+    if bias is not None and a_scale is None:
+        raise ValueError("bias requires the epilogue (a_scale/w_scale)")
+
+
+def fused_plane_linear_plain(
+    x_q: torch.Tensor,
+    packed_w: PackedPlanes,
+    pair_weights: torch.Tensor,
+    *,
+    a_bits: int,
+    variant: str,
+    a_scale: Optional[torch.Tensor] = None,
+    w_scale: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    activation: str = "none",
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Plain PyTorch version of the fused kernel (any device): slice,
+    unpack, exact plane-pair contraction, epilogue."""
+    _check(x_q, packed_w, pair_weights, a_bits, False, a_scale, bias)
+    a_planes = torch.stack(slice_activation_planes(x_q, a_bits, variant))
+    acc = plane_matmul_ref(a_planes, unpack_planes(packed_w), pair_weights)
+    if a_scale is None:
+        return acc
+    m, n = acc.shape
+    asc = torch.broadcast_to(a_scale.reshape(-1, 1).to(torch.float32), (m, 1))
+    wsc = torch.broadcast_to(w_scale.reshape(1, -1).to(torch.float32), (1, n))
+    return epilogue_plain(acc, asc, wsc, bias, activation, out_dtype)
+
+
+def _vec(t: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
+    if t is None:
+        return None
+    return torch.broadcast_to(t.reshape(-1).to(torch.float32), (n,)).contiguous()
+
+
+def row_tile(m: int, bm: Optional[int] = None) -> int:
+    """Kernel row tile: the smallest instantiated tile covering M (<= 16)."""
+    if bm is not None:
+        if bm not in ROW_TILES:
+            raise ValueError(f"bm must be one of {ROW_TILES}, got {bm}")
+        return bm
+    return next((t for t in ROW_TILES if t >= m), ROW_TILES[-1])
+
+
+def _lib():
+    lib = _build.load("plane_mm_fused")
+    fn = lib.fused_plane_linear_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [
+            p, i, i,  # x, M, K
+            p, p, i, i, i, i,  # wmag, wsign, n_w, kw, N, bkw
+            p, i, i,  # pair_w, a_bits, booth
+            p, p, p, i,  # a_scale, w_scale, bias, act
+            p, i, p, i, i,  # out, raw, ws, ksplit, bm
+            p,  # stream
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def fused_plane_linear(
+    x_q: torch.Tensor,
+    packed_w: PackedPlanes,
+    pair_weights: torch.Tensor,
+    *,
+    a_bits: int,
+    variant: str,
+    a_scale: Optional[torch.Tensor] = None,
+    w_scale: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    activation: str = "none",
+    out_dtype: torch.dtype = torch.bfloat16,
+    bm: Optional[int] = None,
+    gate: bool = False,
+) -> torch.Tensor:
+    """Fused bit-serial linear: quantized matmul + dequant epilogue.
+
+    ``x_q`` (M, K) int8 in natural K order; ``packed_w`` blocked-layout
+    words (P_w, KW, N) packed on axis 1; ``pair_weights`` (a_bits*P_w,)
+    int32. With ``a_scale``/``w_scale`` the epilogue runs and the result
+    is bf16; without, the raw int32 accumulator comes back. ``gate``
+    (occupancy-gated pairs) gives the same result; the kernel takes every
+    pair. CPU tensors run the plain version; CUDA tensors launch the
+    kernel, and arguments it does not take raise.
+    """
+    if not x_q.is_cuda:
+        return fused_plane_linear_plain(
+            x_q, packed_w, pair_weights, a_bits=a_bits, variant=variant,
+            a_scale=a_scale, w_scale=w_scale, bias=bias, activation=activation,
+            out_dtype=out_dtype,
+        )
+    _check(x_q, packed_w, pair_weights, a_bits, gate, a_scale, bias)
+    if activation not in _ACT_CODES:
+        raise ValueError(f"unknown activation {activation!r}")
+    if a_scale is not None and out_dtype != torch.bfloat16:
+        raise ValueError(f"the kernel's epilogue writes bfloat16, got {out_dtype}")
+    if not 1 <= a_bits <= 8 or a_bits * packed_w.mag.shape[0] > 64:
+        raise ValueError("the kernel takes a_bits <= 8 and P_w <= 8")
+    if packed_w.block > MAX_BLOCK:
+        raise ValueError(f"pack block {packed_w.block} exceeds the kernel's {MAX_BLOCK}")
+    dev = x_q.device
+    tensors = [x_q, packed_w.mag, pair_weights]
+    if packed_w.sign is not None:
+        tensors.append(packed_w.sign)
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"operands must share one device, got {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    if x_q.dtype != torch.int8:
+        raise ValueError(f"x_q must be int8, got {x_q.dtype}")
+    if packed_w.mag.dtype != torch.int32 or (
+        packed_w.sign is not None and packed_w.sign.dtype != torch.int32
+    ):
+        raise ValueError("packed words must be int32")
+    if pair_weights.dtype != torch.int32:
+        raise ValueError(f"pair_weights must be int32, got {pair_weights.dtype}")
+    m, k = x_q.shape
+    n_w, kw, n = packed_w.mag.shape
+    if packed_w.sign is not None and packed_w.sign.shape != packed_w.mag.shape:
+        raise ValueError("sign words must match the magnitude words' shape")
+    bkw = packed_w.block // WORD_BITS
+    nk = kw // bkw
+    raw = a_scale is None
+    asc = None if raw else _vec(a_scale, m)
+    wsc = None if raw else _vec(w_scale, n)
+    bia = None if bias is None else _vec(bias, n)
+    for t in (asc, wsc, bia):
+        if t is not None and t.device != dev:
+            raise ValueError("scales and bias must be on the operands' device")
+    tile = row_tile(m, bm)
+    blocks = -(-n // COLS_PER_BLOCK) * -(-m // tile)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ksplit = max(1, min(nk, -(-2 * sms // blocks)))
+    out = torch.empty((m, n), dtype=torch.int32 if raw else torch.bfloat16, device=dev)
+    ws = torch.empty((m, n), dtype=torch.int32, device=dev) if ksplit > 1 else None
+    fused_plane_linear.launches += 1
+    err = _lib()(
+        _ptr(x_q), m, k,
+        _ptr(packed_w.mag), _ptr(packed_w.sign), n_w, kw, n, bkw,
+        _ptr(pair_weights), a_bits, int(variant == "booth"),
+        _ptr(asc), _ptr(wsc), _ptr(bia), _ACT_CODES[activation],
+        _ptr(out), int(raw), _ptr(ws), ksplit, tile,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_plane_linear launch failed: CUDA error {err}")
+    return out
+
+
+fused_plane_linear.launches = 0

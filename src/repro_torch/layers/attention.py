@@ -1,0 +1,202 @@
+"""Grouped-query attention over a dense, slot-indexed KV cache.
+
+Prefill runs an online-softmax scan over KV chunks (the flash schedule in
+plain PyTorch); when it fills a cache it attends over the cache's whole
+extent under a kv-length mask, as the reference does. Decode attends one
+token per slot against the cache; an int8 cache stays int8 — the K scale
+folds into the scores and the V scale into the softmax weights, so
+dequantized K/V are never materialized. Projections go through
+:mod:`repro_torch.layers.linear`.
+
+Q/K/V keep their storage dtype (bf16) and the score and value products
+accumulate in float32, the reference's dtypes. Paged and sliding-window
+caches are later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.layers.linear import linear_init, projection
+from repro_torch.layers.norms import rmsnorm_apply, rmsnorm_init
+from repro_torch.layers.rotary import apply_rope
+from repro_torch.models.cache import quantize_kv
+
+NEG_INF = -1e30
+
+
+def attention_init(gen, d_model, n_heads, n_kv_heads, head_dim, dtype=torch.bfloat16,
+                   qk_norm=False, device=None):
+    params = {
+        "q_proj": linear_init(gen, d_model, n_heads * head_dim, dtype, device),
+        "k_proj": linear_init(gen, d_model, n_kv_heads * head_dim, dtype, device),
+        "v_proj": linear_init(gen, d_model, n_kv_heads * head_dim, dtype, device),
+        "o_proj": linear_init(gen, n_heads * head_dim, d_model, dtype, device),
+    }
+    if qk_norm:
+        params["q_norm"] = rmsnorm_init(head_dim, device)
+        params["k_norm"] = rmsnorm_init(head_dim, device)
+    return params
+
+
+def _chunked_gqa(q, k, v, *, causal: bool, chunk: int, q_offset: int, kv_len=None):
+    """Online-softmax attention. q: (B,Sq,Hq,D); k,v: (B,Skv,Hkv,D) bf16.
+
+    ``q_offset``: absolute position of q[0] minus that of k[0];
+    ``kv_len``: valid KV length (the rest of the extent is masked)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    qf = q.reshape(b, sq, hkv, group, d).to(torch.float32)
+    chunk = min(chunk, skv)
+    n_chunks = -(-skv // chunk)
+    pad = n_chunks * chunk - skv
+    dev = q.device
+    q_pos = torch.arange(sq, device=dev)[:, None] + q_offset
+    m = torch.full((b, sq, hkv, group, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, sq, hkv, group, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, sq, hkv, group, d), dtype=torch.float32, device=dev)
+    for j in range(n_chunks):
+        kj = k[:, j * chunk:(j + 1) * chunk]
+        vj = v[:, j * chunk:(j + 1) * chunk]
+        if kj.shape[1] < chunk:
+            extra = chunk - kj.shape[1]
+            kj = torch.cat([kj, kj.new_zeros((b, extra, hkv, d))], dim=1)
+            vj = torch.cat([vj, vj.new_zeros((b, extra, hkv, d))], dim=1)
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kj.to(torch.float32)) * (d**-0.5)
+        k_pos = j * chunk + torch.arange(chunk, device=dev)[None, :]
+        mask = torch.ones((sq, chunk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= q_pos >= k_pos
+        if kv_len is not None:
+            mask &= k_pos < kv_len
+        if pad:
+            mask &= k_pos < skv
+        s = torch.where(mask[None, :, None, None, :], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        pv = torch.einsum(
+            "bqhgk,bkhd->bqhgd", p.to(vj.dtype).to(torch.float32), vj.to(torch.float32)
+        )
+        acc = acc * alpha + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.reshape(b, sq, hq, d)
+
+
+def _decode_gqa(q, k_cache, v_cache, valid, k_scale=None, v_scale=None):
+    """One-token decode over a slot cache. q: (B,1,Hq,D); ``valid`` (B,S)
+    marks live KV positions; int8 caches pass their per-(position, head)
+    scales, folded into scores (K) and softmax weights (V)."""
+    b, _, hq, d = q.shape
+    hkv = k_cache.shape[2]
+    group = hq // hkv
+    qf = q.reshape(b, hkv, group, d).to(torch.float32)
+    kc = (k_cache.to(q.dtype) if k_scale is not None else k_cache).to(torch.float32)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, kc) * (d**-0.5)
+    if k_scale is not None:  # (B,S,Hkv) -> (B,Hkv,1,S)
+        s = s * k_scale.permute(0, 2, 1)[:, :, None, :]
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    vc = v_cache.to(q.dtype) if v_scale is not None else v_cache
+    if v_scale is not None:
+        p = p * v_scale.permute(0, 2, 1)[:, :, None, :]
+    out = torch.einsum(
+        "bhgk,bkhd->bhgd", p.to(vc.dtype).to(torch.float32), vc.to(torch.float32)
+    ) / torch.clamp_min(l, 1e-30)
+    return out.reshape(b, 1, hq, d)
+
+
+def attention_apply(
+    params,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    causal: bool = True,
+    rope_theta: float = 10000.0,
+    qk_norm: bool = False,
+    chunk: int = 1024,
+    policy,
+    backend: str = "auto",
+    name: str = "attn",
+    cache: Optional[dict] = None,
+):
+    """Returns (out, new_cache). ``cache``: a dense slot cache
+    ``{'k_q','k_scale','v_q','v_scale','len'}`` (int8) or ``{'k','v','len'}``
+    (raw bf16) with k/v (B, S_max, Hkv, D); one token per slot decodes,
+    several prefill (into a raw cache only)."""
+    b, s, _ = x.shape
+    la = projection(policy=policy, backend=backend)
+    q = la(params["q_proj"], x, name=f"{name}/q_proj").reshape(b, s, n_heads, head_dim)
+    k = la(params["k_proj"], x, name=f"{name}/k_proj").reshape(b, s, n_kv_heads, head_dim)
+    v = la(params["v_proj"], x, name=f"{name}/v_proj").reshape(b, s, n_kv_heads, head_dim)
+    if qk_norm:
+        q = rmsnorm_apply(params["q_norm"], q)
+        k = rmsnorm_apply(params["k_norm"], k)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+
+    new_cache = cache
+    if cache is not None and s == 1:  # decode step
+        quantized = "k_q" in cache
+        pos = cache["len"]  # (B,) tokens already in each slot
+        s_max = (cache["k_q"] if quantized else cache["k"]).shape[1]
+        # per-slot write positions differ: a masked select over the
+        # position axis (a slot at or past the extent writes nothing)
+        rows = torch.arange(s_max, device=x.device)[None, :]
+        write_row = rows == pos[:, None]
+        kv_len = pos + 1
+        valid = rows < kv_len[:, None]
+        if quantized:
+            k_new, ks_new = quantize_kv(k)
+            v_new, vs_new = quantize_kv(v)
+            k_cache = torch.where(write_row[:, :, None, None], k_new, cache["k_q"])
+            v_cache = torch.where(write_row[:, :, None, None], v_new, cache["v_q"])
+            k_scale = torch.where(write_row[:, :, None], ks_new, cache["k_scale"])
+            v_scale = torch.where(write_row[:, :, None], vs_new, cache["v_scale"])
+            out = _decode_gqa(q, k_cache, v_cache, valid, k_scale, v_scale)
+            new_cache = {
+                "k_q": k_cache, "k_scale": k_scale,
+                "v_q": v_cache, "v_scale": v_scale, "len": kv_len,
+            }
+        else:
+            k_cache = torch.where(write_row[:, :, None, None], k.to(cache["k"].dtype), cache["k"])
+            v_cache = torch.where(write_row[:, :, None, None], v.to(cache["v"].dtype), cache["v"])
+            out = _decode_gqa(q, k_cache, v_cache, valid)
+            new_cache = {"k": k_cache, "v": v_cache, "len": kv_len}
+    elif cache is None:
+        out = _chunked_gqa(q, k, v, causal=causal, chunk=chunk, q_offset=0)
+    else:
+        # prefill into a raw scratch: append at the running length (0
+        # when fresh) and attend the cache's whole extent under a
+        # length mask; int8 KV is made afterwards (quantize_scratch)
+        if "k" not in cache:
+            raise ValueError(
+                "prefill runs against a raw (bf16) scratch cache; quantize it "
+                "afterwards with models.cache.quantize_scratch"
+            )
+        s_max = cache["k"].shape[1]
+        off = int(cache["len"][0])
+        if off + s > s_max:
+            raise ValueError(f"{off + s} tokens exceed the cache extent {s_max}")
+        k_cache = cache["k"].clone()
+        v_cache = cache["v"].clone()
+        k_cache[:, off:off + s] = k.to(k_cache.dtype)
+        v_cache[:, off:off + s] = v.to(v_cache.dtype)
+        new_cache = {"k": k_cache, "v": v_cache, "len": cache["len"] + s}
+        out = _chunked_gqa(
+            q, k_cache.to(q.dtype), v_cache.to(q.dtype),
+            causal=causal, chunk=chunk, q_offset=off, kv_len=off + s,
+        )
+
+    out = out.reshape(b, s, n_heads * head_dim).to(x.dtype)
+    return la(params["o_proj"], out, name=f"{name}/o_proj"), new_cache

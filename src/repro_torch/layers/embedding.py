@@ -1,0 +1,24 @@
+"""Token embedding and the LM head."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.layers.linear import linear_apply, linear_init
+
+
+def embedding_init(gen, vocab: int, d_model: int, dtype=torch.bfloat16, device=None):
+    emb = torch.randn((vocab, d_model), generator=gen, dtype=torch.float32, device=device)
+    return {"embedding": (emb * (d_model**-0.5)).to(dtype)}
+
+
+def embedding_apply(params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embedding"][tokens]
+
+
+def lm_head_init(gen, d_model: int, vocab: int, dtype=torch.bfloat16, device=None):
+    return {"head": linear_init(gen, d_model, vocab, dtype, device)}
+
+
+def lm_head_apply(params, x, *, policy, backend="auto", name="lm_head"):
+    return linear_apply(params["head"], x, name=name, policy=policy, backend=backend)

@@ -1,0 +1,132 @@
+"""QuantizedLinear: every dense projection goes through here.
+
+Regimes, selected by the :class:`~repro_torch.core.precision.PrecisionPolicy`
+and the parameter contents:
+
+* dense bf16 (``{'w'}``) with an inactive policy — the reference path;
+* bit-serial inference — stored-quantized ``{'w_q','w_scale'[, 'w_planes']}``
+  from :func:`repro_torch.models.quant.quantize_params`, or ``{'w'}`` with an
+  active policy (quantized on the fly). Activations are quantized per
+  token and the product runs through a :class:`~repro_torch.core.plan.MatmulPlan`
+  fetched from the plan registry; dequant, bias and activation ride into
+  the plan call as an :class:`~repro_torch.kernels.ops.Epilogue` (inside the
+  fused kernel on CUDA).
+
+Quantization-aware training (fake-quant) and tensor-parallel projections
+are later slices.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.core import plan as plan_mod
+from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.core.quantize import quantize
+from repro_torch.kernels import ops
+
+
+def _accum_dtype(w_bits: int, a_bits: int):
+    return torch.int32 if max(w_bits, a_bits) <= 8 else torch.float32
+
+
+def linear_init(gen, d_in: int, d_out: int, dtype=torch.bfloat16, device=None,
+                scale: float | None = None):
+    """Normal(0, 1/d_in) weights drawn in float32, stored in ``dtype``."""
+    scale = (1.0 / d_in) ** 0.5 if scale is None else scale
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=device) * scale
+    return {"w": w.to(dtype)}
+
+
+def _finish_dense(y, bias, activation: str, out_dtype):
+    if bias is None and activation == "none":
+        return y
+    out = y.to(torch.float32)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    out = ops.ACTIVATIONS[activation](out)
+    return out.to(out_dtype)
+
+
+def projection(*, policy: PrecisionPolicy, training: bool = False, backend: str = "auto"):
+    """Bind the per-model-call context once; layer code then applies
+    projections by (params, x, name) alone."""
+    return functools.partial(linear_apply, policy=policy, training=training, backend=backend)
+
+
+def linear_apply(
+    params: dict,
+    x: torch.Tensor,
+    *,
+    name: str,
+    policy: PrecisionPolicy,
+    training: bool = False,
+    backend: str = "auto",
+    bias: torch.Tensor | None = None,
+    activation: str = "none",
+    x_f32: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Apply a (possibly bit-serial) linear layer. x: (..., d_in).
+
+    ``x_f32``: x's value before its rounding to x's dtype, when known
+    (the gate*up product); the activation quantizer reads it, as the
+    reference's compiled graph does (XLA keeps the fused product's excess
+    precision into the quantizer)."""
+    prec = policy.lookup(name)
+    if training:
+        raise NotImplementedError("quantization-aware training is not ported yet")
+
+    if "w_q" in params:  # stored-quantized weights (serving path)
+        if not prec.active:
+            raise ValueError(f"layer {name}: quantized params but inactive policy")
+        eff = policy.effective(prec)
+        xsrc = x.to(torch.float32) if x_f32 is None else x_f32
+        xq = quantize(xsrc, eff.a_bits, axis=-1, reciprocal_scale=True)
+        plan = plan_mod.make_plan(
+            policy, name, (tuple(x.shape), tuple(params["w_q"].shape)), backend,
+            device=x.device,
+            w_planes=params.get("w_planes"),
+            w_stored_bits=prec.w_bits,
+            has_epilogue=True,
+            accum_dtype=_accum_dtype(eff.w_bits, eff.a_bits),
+        )
+        return plan(
+            xq.values,
+            params["w_q"],
+            w_planes=params.get("w_planes"),
+            epilogue=ops.Epilogue(
+                a_scale=xq.scale,
+                w_scale=params["w_scale"],
+                bias=bias,
+                activation=activation,
+                out_dtype=x.dtype,
+            ),
+        )
+
+    w = params["w"]
+    if not prec.active:
+        return _finish_dense(x @ w.to(x.dtype), bias, activation, x.dtype)
+
+    # on-the-fly quantized inference from dense weights: both operands
+    # quantize at the effective width (no stored decomposition to truncate)
+    eff = policy.effective(prec)
+    wq = quantize(w.to(torch.float32), eff.w_bits, axis=0, reciprocal_scale=True)
+    xsrc = x.to(torch.float32) if x_f32 is None else x_f32
+    xq = quantize(xsrc, eff.a_bits, axis=-1, reciprocal_scale=True)
+    plan = plan_mod.make_plan(
+        policy, name, (tuple(x.shape), tuple(w.shape)), backend,
+        device=x.device,
+        w_stored_bits=eff.w_bits,
+        has_epilogue=True,
+        accum_dtype=_accum_dtype(eff.w_bits, eff.a_bits),
+    )
+    return plan(
+        xq.values,
+        wq.values,
+        epilogue=ops.Epilogue(
+            a_scale=xq.scale, w_scale=wq.scale, bias=bias,
+            activation=activation, out_dtype=x.dtype,
+        ),
+    )

@@ -1,0 +1,120 @@
+"""Decode-state (KV) cache, slot-indexed.
+
+The cache is ``{"step": (B,) int32, "layers": [per-layer KV dict]}``; the
+leading axis of every leaf is a **slot** for the continuous-batching
+engine, each with its own length. :func:`insert_slot` writes a batch-1
+prefill cache into one slot, overwriting the slot's whole extent (so
+eviction is host bookkeeping only); it updates the slot cache in place,
+which saves a copy of the whole cache per admission.
+
+With ``kv_quant=True`` KV is stored int8 with per-(position, head) float32
+scales (``k_q``/``k_scale``/``v_q``/``v_scale``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+
+KV_SCALE_EPS = 1e-8
+KV_QMAX = 127.0
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization over the trailing (head_dim) axis:
+    x (..., D) -> (int8 (..., D), float32 scales (...,)). The scale is
+    ``amax * float32(1/127)``: the reference quantizes KV only inside its
+    compiled steps, where XLA turns the division by the constant into
+    that multiply."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp_min(amax, KV_SCALE_EPS) * torch.tensor(
+        1.0 / KV_QMAX, dtype=torch.float32
+    )
+    q = torch.clamp(torch.round(xf / scale[..., None]), -KV_QMAX, KV_QMAX)
+    return q.to(torch.int8), scale
+
+
+def _attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, kv_quant: bool, device):
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if kv_quant:
+        cache.update(
+            k_q=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            v_q=torch.zeros(shape, dtype=torch.int8, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        )
+    else:
+        cache.update(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+        )
+    return cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               kv_quant: bool = False, device=None):
+    """The decode cache: ``batch`` slots of ``max_len`` positions per layer."""
+    cfg.layer_kinds()  # dense only
+    return {
+        "step": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "layers": [
+            _attn_cache(cfg, batch, max_len, dtype, kv_quant, device)
+            for _ in range(cfg.n_layers)
+        ],
+    }
+
+
+def insert_slot(cache, seq_cache, slot: int):
+    """Write the batch-1 ``seq_cache`` into slot ``slot`` of ``cache`` (in
+    place; returns ``cache``). Both come from the same ``init_cache``
+    configuration, so leaves match one for one; every leaf of the slot's
+    extent is overwritten, which makes readmission leak-free."""
+    if len(cache["layers"]) != len(seq_cache["layers"]):
+        raise ValueError("insert_slot: caches have different layer counts")
+    for blk, sblk in zip(cache["layers"], seq_cache["layers"]):
+        if set(blk) != set(sblk):
+            raise ValueError(
+                f"insert_slot: leaf sets differ ({sorted(blk)} vs {sorted(sblk)}) "
+                "— both caches must use the same kv_quant"
+            )
+        for key, leaf in blk.items():
+            src = sblk[key][0]
+            if src.shape != leaf.shape[1:]:
+                raise ValueError(
+                    f"insert_slot: leaf {key} has seq-cache shape {tuple(src.shape)}, "
+                    f"slot-cache shape {tuple(leaf.shape[1:])} (check max_len)"
+                )
+            leaf[slot] = src.to(leaf.dtype)
+    cache["step"][slot] = seq_cache["step"][0]
+    return cache
+
+
+def quantize_scratch(scratch):
+    """Quantize a raw (bf16) prefill cache into the int8 layout. Every
+    prefill runs raw and quantizes here, after the fact, as the
+    reference's does."""
+    layers = []
+    for blk in scratch["layers"]:
+        if "k" not in blk:
+            layers.append(blk)
+            continue
+        kq, ks = quantize_kv(blk["k"])
+        vq, vs = quantize_kv(blk["v"])
+        layers.append({"len": blk["len"], "k_q": kq, "k_scale": ks, "v_q": vq, "v_scale": vs})
+    return {"step": scratch["step"], "layers": layers}
+
+
+_KV_LEAF_KEYS = frozenset({"k", "v", "k_q", "v_q", "k_scale", "v_scale"})
+
+
+def cache_kv_bytes(cache) -> int:
+    """Bytes of attention KV state (values + scales) held by ``cache``."""
+    return sum(
+        leaf.numel() * leaf.element_size()
+        for blk in cache["layers"]
+        for key, leaf in blk.items()
+        if key in _KV_LEAF_KEYS
+    )

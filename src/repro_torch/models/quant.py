@@ -1,0 +1,99 @@
+"""Parameter-tree quantization for the serving path.
+
+Converts dense linear weights to stored-quantized form
+(``{'w_q','w_scale'}``) per the :class:`PrecisionPolicy`; with
+``plane_cache=True`` each quantized weight is also decomposed once into
+its bit/digit planes (packed int32 words at bit-plane level, blocked
+layout) and rides in the tree as ``'w_planes'``. Weights are quantized
+and decomposed at the configured (storage) width, so one tree serves
+every runtime precision at or below it.
+
+Policy lookups use the reference's parameter-tree paths: the port keeps
+its layers in a list, and layer ``i`` is looked up as
+``/periods/b0_dense/...`` (the reference's scanned stack) or, for an
+unrolled stack, ``/layers/<i>/...`` — so a policy regex selects the same
+weights in both packages.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import bitplanes as bp
+from repro_torch.core.plan import plan_cacheable
+from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.core.quantize import quantize
+
+
+def _is_linear(node) -> bool:
+    return isinstance(node, dict) and isinstance(node.get("w"), torch.Tensor) and node["w"].dim() >= 2
+
+
+def decompose_linear_weight(
+    w_q: torch.Tensor,
+    *,
+    w_bits: int,
+    variant: str,
+    level: str,
+    block: int | None = bp.DEFAULT_BLOCK,
+    checksum: bool = False,
+) -> bp.WeightPlanes:
+    """Decompose one stored-quantized ``(K, N)`` weight into cached planes."""
+    return bp.make_weight_planes(
+        w_q, w_bits=w_bits, variant=variant, level=level, block=block, checksum=checksum,
+    )
+
+
+def quantize_params(
+    params,
+    policy: PrecisionPolicy,
+    *,
+    plane_cache: bool = False,
+    value_bits: int | None = None,
+    scan_layers: bool = True,
+):
+    """Walk the parameter tree, converting policy-active linears.
+
+    ``value_bits`` quantizes the weight values narrower than the storage
+    width (a narrow checkpoint served from the wide cache). Plane-cache
+    compaction (``policy.sparsity == "compact"``) is a later slice."""
+    if plane_cache and policy.sparsity == "compact" and policy.level == "bitplane":
+        raise NotImplementedError("plane-cache compaction is not ported yet")
+
+    def rec(node, path):
+        if _is_linear(node):
+            prec = policy.lookup(path)
+            if not prec.active:
+                return node
+            if value_bits is not None and not 1 <= value_bits <= prec.w_bits:
+                raise ValueError(
+                    f"layer {path}: value_bits must be in [1, {prec.w_bits}] "
+                    f"(the configured storage width), got {value_bits}"
+                )
+            q = quantize(node["w"].to(torch.float32), value_bits or prec.w_bits, axis=-2)
+            out = {"w_q": q.values, "w_scale": q.scale}
+            if plane_cache and plan_cacheable(policy, prec):
+                out["w_planes"] = decompose_linear_weight(
+                    q.values,
+                    w_bits=prec.w_bits,
+                    variant=policy.variant,
+                    level=policy.level,
+                    checksum=policy.integrity != "off",
+                )
+            return out
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                if k == "layers" and path == "" and isinstance(v, list):
+                    out[k] = [
+                        rec(blk, "/periods/b0_dense" if scan_layers else f"/layers/{i}")
+                        for i, blk in enumerate(v)
+                    ]
+                else:
+                    out[k] = rec(v, f"{path}/{k}")
+            return out
+        if isinstance(node, (list, tuple)):
+            return type(node)(rec(v, f"{path}/{i}") for i, v in enumerate(node))
+        return node
+
+    return rec(params, "")

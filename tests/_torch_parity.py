@@ -1,0 +1,37 @@
+"""Helpers shared by the ``test_torch_*`` parity files: move arrays
+between the JAX reference and the PyTorch port through numpy (bf16 via
+its uint16 bit pattern)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+# The parity shapes are tiny: one intra-op thread is as fast, and it keeps
+# torch's thread pool from spinning against the JAX compiles of other test
+# processes on the same cores (that contention slowed these tests ~50x).
+torch.set_num_threads(1)
+
+
+def to_numpy_tree(tree):
+    """A JAX pytree as numpy arrays, bf16 leaves as uint16 views."""
+    return jax.tree_util.tree_map(
+        lambda a: np.asarray(a).view(np.uint16) if a.dtype == jnp.bfloat16 else np.asarray(a),
+        tree,
+    )
+
+
+def j2t(a) -> torch.Tensor:
+    """One JAX/numpy array as a CPU tensor (bf16 bit-exact)."""
+    a = np.asarray(a)
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(a.view(np.uint16).view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def t2n(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy (bf16 widened to float32, exactly)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
