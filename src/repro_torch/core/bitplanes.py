@@ -181,7 +181,9 @@ class PackedPlanes:
     ``occupancy``: per-(plane, word) {0,1} int32 bitmap — 1 where any value
                  packed into that word is non-zero.
     ``checksum``: optional per-plane column sums of the unpacked values
-                 over the non-packed axes (integrity checks, a later slice).
+                 over the non-packed axes: ``checksum[p, k] = sum_n
+                 plane[p, k, n]`` for a ``(P, K, N)`` weight, the reference
+                 side of the ABFT row-sum identity (:func:`checksum_vector`).
     """
 
     mag: torch.Tensor
@@ -197,6 +199,10 @@ class PackedPlanes:
     def n_planes(self) -> int:
         return self.mag.shape[0]
 
+    @property
+    def n_words(self) -> int:
+        return self.mag.shape[self.axis]
+
 
 def _pad_axis(x: torch.Tensor, axis: int, pad: int) -> torch.Tensor:
     if not pad:
@@ -209,17 +215,19 @@ def _pad_axis(x: torch.Tensor, axis: int, pad: int) -> torch.Tensor:
 def _to_words(bits01: torch.Tensor, axis: int, n_words: int) -> torch.Tensor:
     """Pack a {0,1} int tensor along ``axis`` into int32 words (planar).
 
-    The extent splits into an adjacent (32, W) pair and bit t is OR'd in
-    from slice t. Words are assembled in int64 and wrapped to the int32
-    bit pattern explicitly (bit 31 set gives a negative word, as in the
+    The extent splits into an adjacent (32, W) pair and bit t comes from
+    slice t: one shift and one sum over the 32 slices (the bits are
+    disjoint, so the sum is their OR), a few launches on the card however
+    many bits. Words are assembled in int64 and wrapped to the int32 bit
+    pattern explicitly (bit 31 set gives a negative word, as in the
     reference), so no signed shift overflows."""
     x = _pad_axis(bits01, axis, n_words * WORD_BITS - bits01.shape[axis])
     sh = x.shape
     x = x.reshape(sh[:axis] + (WORD_BITS, n_words) + sh[axis + 1 :])
-    words = None
-    for t in range(WORD_BITS):
-        bit = x.select(axis, t).to(torch.int64) << t
-        words = bit if words is None else words | bit
+    shifts = torch.arange(WORD_BITS, dtype=torch.int64, device=x.device).reshape(
+        (WORD_BITS,) + (1,) * (x.dim() - 1 - axis)
+    )
+    words = (x.to(torch.int64) << shifts).sum(dim=axis)
     words = words - ((words >> 31) & 1) * (1 << 32)
     return words.to(torch.int32)
 
@@ -408,6 +416,80 @@ def make_weight_planes(
 
 
 # ---------------------------------------------------------------------------
+# Occupancy and plane compaction
+# ---------------------------------------------------------------------------
+#
+# Per-(plane, word) occupancy bitmaps let a kernel skip plane-pair work
+# (:func:`occupancy_per_tile` reduces words onto K tiles); compaction
+# drops planes that are zero everywhere. Kept planes keep their original
+# shift: ``weights`` is filtered, not renumbered, so every consumer reads
+# the plane weights rather than assuming a dense bit index.
+
+
+def occupancy_per_tile(occ: torch.Tensor, words_per_tile: int) -> torch.Tensor:
+    """Reduce a ``(P, W)`` occupancy bitmap onto word-aligned K tiles:
+    entry ``(p, t)`` is 1 iff any word of tile ``t`` in plane ``p`` is
+    occupied. The word axis zero-pads to a whole tile (padding is inert)."""
+    p, w = occ.shape
+    nt = -(-w // words_per_tile)
+    occ = _pad_axis(occ, 1, nt * words_per_tile - w)
+    return (occ.reshape(p, nt, words_per_tile) != 0).any(dim=-1).to(torch.int32)
+
+
+def compact_packed(packed: PackedPlanes) -> PackedPlanes:
+    """Drop planes whose occupancy bitmap is all zero. The kept set is
+    shape information, so it is read back to the host: call this at load
+    time. Surviving planes keep their shift weights, so the result
+    reconstructs the same integers; an all-zero operand keeps one inert
+    plane so no kernel sees an empty planes axis."""
+    if packed.occupancy is None:
+        raise ValueError("compact_packed needs occupancy metadata (re-pack first)")
+    occ = packed.occupancy
+    if len(packed.weights) != occ.shape[-2]:
+        raise ValueError(
+            "compaction needs per-plane weights to renumber shifts; pack via "
+            "pack_decomposition / make_weight_planes (got "
+            f"{len(packed.weights)} weights for {occ.shape[-2]} planes)"
+        )
+    plane_axis = occ.dim() - 2
+    reduce_axes = tuple(a for a in range(occ.dim()) if a != plane_axis)
+    alive = (occ != 0).any(dim=reduce_axes).tolist()
+    idx = [i for i, a in enumerate(alive) if a] or [0]
+    if len(idx) == len(packed.weights):
+        return packed
+    mag_pa = packed.mag.dim() - 3
+    return PackedPlanes(
+        mag=_take_planes(packed.mag, idx, mag_pa),
+        sign=_take_planes(packed.sign, idx, mag_pa),
+        k=packed.k,
+        axis=packed.axis,
+        weights=tuple(packed.weights[i] for i in idx),
+        block=packed.block,
+        occupancy=_take_planes(occ, idx, plane_axis),
+        checksum=None if packed.checksum is None
+        else _take_planes(packed.checksum, idx, packed.checksum.dim() - 2),
+    )
+
+
+def compact_weight_planes(wp: WeightPlanes) -> WeightPlanes:
+    """Compact a bit-plane weight cache: the packed words and the optional
+    raw planes lose the same all-zero planes. ``w_bits`` is unchanged, so
+    prefix truncation of the result stays exact."""
+    if wp.level != "bitplane" or wp.packed is None:
+        raise ValueError("compaction needs a packed bitplane cache")
+    packed = compact_packed(wp.packed)
+    if packed is wp.packed:
+        return wp
+    keep = set(packed.weights)
+    idx = [i for i, w in enumerate(wp.weights) if w in keep]
+    planes = None if wp.planes is None else _take_planes(wp.planes, idx, wp.planes.dim() - 3)
+    return WeightPlanes(
+        packed=packed, planes=planes, weights=packed.weights,
+        level=wp.level, variant=wp.variant, w_bits=wp.w_bits,
+    )
+
+
+# ---------------------------------------------------------------------------
 # Prefix truncation (runtime precision reconfiguration)
 # ---------------------------------------------------------------------------
 #
@@ -507,3 +589,49 @@ def truncate_weight_planes(wp: WeightPlanes, to_bits: int) -> WeightPlanes:
         packed=packed, planes=planes, weights=weights,
         level=wp.level, variant=wp.variant, w_bits=to_bits,
     )
+
+
+# ---------------------------------------------------------------------------
+# ABFT column checksums
+# ---------------------------------------------------------------------------
+#
+# A checksummed pack stores, per plane, the signed sum of plane values
+# over the non-packed axes. checksum_vector folds it with the plane
+# weights into the row-sum vector of the integer weight the kernel
+# consumes (the plans' matmul-time identity); verify_packed recomputes
+# checksums and occupancy from the stored words (an at-rest probe).
+# Truncation and compaction slice the checksum rows with the words, so
+# the identity holds at every tier of one stored cache.
+
+
+def checksum_vector(packed: PackedPlanes, dtype=torch.int32) -> torch.Tensor:
+    """``sum_p weights[p] * checksum[p]``: the row-sum vector (length K,
+    plus any leading batch dims) of the reconstructed integer matrix."""
+    if packed.checksum is None:
+        raise ValueError(
+            "checksum_vector needs a checksummed pack (pack_planes(..., checksum=True))"
+        )
+    ww = torch.tensor(packed.weights, dtype=dtype, device=packed.checksum.device)
+    return torch.sum(packed.checksum.to(dtype) * ww.reshape(-1, 1), dim=-2, dtype=dtype)
+
+
+def verify_packed(packed: PackedPlanes) -> torch.Tensor:
+    """Recompute column checksums (and occupancy) from the stored words and
+    compare with the stored copies: a 0-dim bool tensor, True when they
+    agree. Catches any single flip in the consumed extent of the words,
+    occupancy or checksums, and a sign bit set without its mag bit; flips
+    in padding bit positions need the bit-pattern fingerprint."""
+    if packed.checksum is None:
+        raise ValueError("verify_packed needs a checksummed pack")
+    vals = unpack_planes(packed, dtype=torch.int32)
+    reduce_axes = tuple(a for a in range(vals.dim()) if a not in (0, packed.axis))
+    sums = vals.sum(dim=reduce_axes, dtype=torch.int32) if reduce_axes else vals
+    ok = torch.all(sums == packed.checksum)
+    if packed.occupancy is not None:
+        occ_axes = tuple(a for a in range(packed.mag.dim()) if a not in (0, packed.axis))
+        nz = packed.mag != 0
+        occ = (nz.any(dim=occ_axes) if occ_axes else nz).to(torch.int32)
+        ok = ok & torch.all(occ == packed.occupancy)
+    if packed.sign is not None:
+        ok = ok & torch.all((packed.sign & ~packed.mag) == 0)
+    return ok

@@ -12,11 +12,14 @@ Route names and their resolution are the reference's
 ``"cuda"`` (the Hopper kernels) and ``"jnp"`` is ``"torch"`` (the plain
 versions). On CUDA, ``fused_cached``/``fused_repack`` run the fused
 kernel and ``cached_planes``/``staged`` the plane-pair kernel;
-``cached_scan`` and ``oracle`` are plain PyTorch on any device, as they
-are jnp on any device in the reference. ``cached_packed`` and
-``staged_packed`` (the packed kernel) are a later slice and raise on
-CUDA; so do integrity-checked (ABFT) and tensor-parallel plans, whose key
-fields exist so later slices need not re-key plans.
+``cached_planes``/``staged`` the plane-pair kernel and
+``cached_packed``/``staged_packed`` the packed kernel; ``cached_scan`` and
+``oracle`` are plain PyTorch on any device, as they are jnp on any device
+in the reference. Integrity-checked plans (``integrity != "off"``) verify
+the ABFT row-sum identity on the raw int32 accumulator of every route that
+has one and report the flag to :mod:`~repro_torch.core.integrity`.
+Tensor-parallel plans raise: their key field exists so a later slice need
+not re-key plans.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 
 from repro_torch.core import bitplanes as bp
 from repro_torch.core import bitserial as bs
+from repro_torch.core import integrity
 from repro_torch.core.precision import LayerPrecision, PrecisionPolicy
 
 __all__ = [
@@ -308,6 +312,27 @@ def _a_scale_rows(ep):
     return ep._replace(a_scale=ep.a_scale.reshape(-1, 1))
 
 
+_MASK32 = 0xFFFFFFFF
+
+
+def _row_dot_mod32(x2: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``x2 @ v`` modulo 2^32 (as int64), exact: an int64 multiply and sum
+    (the card has no integer matmul; |x| <= 128, |v| <= 128 * 49408 and
+    K <= 12800 keep every partial sum far below 2^63)."""
+    return (x2.to(torch.int64) * v.to(torch.int64)).sum(dim=-1) & _MASK32
+
+
+def _abft_check(plan: "MatmulPlan", x2, out2, check_vec) -> None:
+    """ABFT row-sum identity on the pre-epilogue int32 accumulator:
+    ``sum_n out2[m, n] == x2 @ check_vec`` modulo 2^32 on both sides (the
+    reference's int32 wraparound), where ``check_vec`` is the row-sum
+    vector of the integer weight the kernel consumed. The mismatch flag
+    stays on the device and goes to the active integrity collector."""
+    expected = _row_dot_mod32(x2, check_vec)
+    got = out2.to(torch.int64).sum(dim=-1) & _MASK32
+    integrity.report(plan.key, torch.any(expected != got))
+
+
 def _exec_fused_cached(plan, x, w, wp, ep):
     key = plan.key
     lead, x2 = _flat(x)
@@ -344,7 +369,11 @@ def _exec_cached_packed(plan, x, w, wp, ep):
         dec_a.planes, axis=-1, ternary=key.variant == "booth",
         block=wp_eff.packed.block,
     )
-    out2 = ops.plane_matmul_packed(pa, wp_eff.packed, pw, backend=key.backend)
+    out2 = ops.plane_matmul_packed(
+        pa, wp_eff.packed, pw, backend=key.backend, bm=plan.bm, gate=plan.gate
+    )
+    if plan.check:
+        _abft_check(plan, x2, out2, bp.checksum_vector(wp_eff.packed))
     return _finish(out2, lead, ep)
 
 
@@ -368,15 +397,20 @@ def _exec_cached_planes(plan, x, w, wp, ep):
         dec_a.planes.to(torch.int8).contiguous(), wpl.to(torch.int8).contiguous(), pw,
         backend=key.backend, bm=plan.bm,
     )
+    if plan.check:
+        _abft_check(plan, x2, out2, bp.checksum_vector(wp_eff.packed))
     return _finish(out2, lead, ep)
 
 
 def _exec_cached_scan(plan, x, w, wp, ep):
     key = plan.key
     lead, x2 = _flat(x)
+    wp_eff = _trunc(plan, wp)
     out2 = _ops()._matmul_cached(
-        x2, _trunc(plan, wp), a_bits=key.a_bits, variant=key.variant, level=key.level
+        x2, wp_eff, a_bits=key.a_bits, variant=key.variant, level=key.level
     )
+    if plan.check:
+        _abft_check(plan, x2, out2, bp.checksum_vector(wp_eff.packed))
     return _finish(out2, lead, ep)
 
 
@@ -395,13 +429,19 @@ def _exec_staged(plan, x, w, wp, ep):
         ternary = key.variant == "booth"
         pa = bp.pack_planes(dec_a.planes, axis=-1, ternary=ternary)
         pwk = bp.pack_planes(dec_w.planes, axis=-2, ternary=ternary)
-        out2 = ops.plane_matmul_packed(pa, pwk, pw, backend=key.backend)
+        out2 = ops.plane_matmul_packed(
+            pa, pwk, pw, backend=key.backend, bm=plan.bm, gate=plan.gate
+        )
     else:
         out2 = ops.plane_matmul(
             dec_a.planes.to(torch.int8).contiguous(),
             dec_w.planes.to(torch.int8).contiguous(), pw,
             backend=key.backend, bm=plan.bm,
         )
+    if plan.check:
+        # uncached route: the row sums come from the in-hand integer weight
+        # (already requantized to the executed width)
+        _abft_check(plan, x2, out2, w.to(torch.int32).sum(dim=-1, dtype=torch.int32))
     return _finish(out2, lead, ep)
 
 
@@ -415,6 +455,11 @@ def _exec_oracle(plan, x, w, wp, ep):
         x, w, a_bits=key.a_bits, w_bits=key.w_bits, variant=key.variant,
         level=key.level, mode=key.mode,
     )
+    if plan.check:
+        _abft_check(
+            plan, x.reshape((-1, x.shape[-1])), acc.reshape((-1, acc.shape[-1])),
+            w.to(torch.int32).sum(dim=-1, dtype=torch.int32),
+        )
     return acc if ep is None else _ops().apply_epilogue(acc, ep)
 
 
@@ -464,10 +509,6 @@ class MatmulPlan:
 
     def __call__(self, x, w=None, *, w_planes=None, epilogue=None):
         key = self.key
-        if self.check:
-            raise NotImplementedError(
-                "integrity-checked (ABFT) execution is ROADMAP slice 2"
-            )
         if key.shard is not None:
             raise NotImplementedError("tensor-parallel plans are not ported yet")
         if key.has_epilogue != (epilogue is not None):

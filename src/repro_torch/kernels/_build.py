@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with :mod:`ctypes` (no
 PyTorch headers, so a build takes seconds). Libraries go to the
 git-ignored ``build/repro_torch/`` directory of the checkout, named by a
-hash of the source and flags: the first use builds, later runs reuse,
-an edited source rebuilds. :func:`build_all` starts one ``nvcc`` per
+hash of the source, the shared ``csrc/*.cuh`` headers and the flags: the
+first use builds, later runs reuse, an edited source rebuilds. :func:`build_all` starts one ``nvcc`` per
 source at once and waits for all of them.
 
 Nothing here runs at import time; the CPU tests import every module.
@@ -33,7 +33,7 @@ NVCC_FLAGS = (
     "-fmad=false",
 )
 
-SOURCES = ("plane_mm_fused", "plane_mm")
+SOURCES = ("plane_mm_fused", "plane_mm", "plane_mm_packed")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -54,6 +54,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))  # shared headers
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

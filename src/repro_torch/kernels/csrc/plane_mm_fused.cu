@@ -34,7 +34,9 @@
 // * Each weight word is read from device memory once per block, by the
 //   thread that owns its output column (32 columns per block, lanes on
 //   neighbouring columns: coalesced); the four warps split the words of a
-//   pack block and reduce through shared memory at the end.
+//   pack block and reduce through shared memory at the end. This weight
+//   side and the reduction are plane_mm_common.cuh, shared with the packed
+//   kernel.
 // * Decode shapes give few blocks, so K is split across blocks (ksplit)
 //   when that fills the card: partial sums go by integer atomics (exact in
 //   any order) into an int32 workspace and a second small kernel applies
@@ -46,11 +48,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "plane_mm_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBN = 32;          // output columns per block
+using plane_mm::kBN;
+using plane_mm::kThreads;
 constexpr int kMaxBlock = 512;   // K values per pack block staged in shared memory
 constexpr int kMaxPairs = 64;    // a_bits * P_w <= 8 * 8
 
@@ -101,9 +104,7 @@ fused_plane_linear_kernel(const int8_t* __restrict__ x, int M, int K,
   __shared__ uint32_t pws[kMaxPairs];
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n = blockIdx.x * kBN + lane;
+  const int n = blockIdx.x * kBN + (tid & 31);
   const int m0 = blockIdx.y * BM;
   const int bk = bkw * 32;
   const int nk = kw / bkw;
@@ -141,34 +142,16 @@ fused_plane_linear_kernel(const int8_t* __restrict__ x, int M, int K,
       }
       __syncthreads();
       if (n < N) {
-        for (int w = warp; w < bkw; w += kWarps) {
-          const size_t off = ((size_t)j * kw + (size_t)kb * bkw + w) * N + n;
-          const uint32_t mag = (uint32_t)wmag[off];
-          const uint32_t sgn = wsign != nullptr ? (uint32_t)wsign[off] : 0u;
-          if (mag == 0u) continue;  // an all-zero word adds nothing
-#pragma unroll 4
-          for (int t = 0; t < 32; ++t) {
-            const int wv = (int)((mag >> t) & 1u) - 2 * (int)((sgn >> t) & 1u);
-            const uint32_t* urow = us[t * bkw + w];
-#pragma unroll
-            for (int m = 0; m < BM; ++m) acc[m] += (uint32_t)wv * urow[m];
-          }
-        }
+        const size_t off = ((size_t)j * kw + (size_t)kb * bkw) * N + n;
+        plane_mm::accumulate_column<BM>(
+            acc, reinterpret_cast<const uint32_t*>(wmag) + off,
+            wsign != nullptr ? reinterpret_cast<const uint32_t*>(wsign) + off : nullptr,
+            N, bkw, us, bkw, /*skip_zero=*/true);
       }
     }
   }
 
-  // cross-warp reduction through shared memory (reuses us)
-  __syncthreads();
-  uint32_t* red = &us[0][0];
-#pragma unroll
-  for (int m = 0; m < BM; ++m) red[(warp * BM + m) * kBN + lane] = acc[m];
-  __syncthreads();
-  for (int idx = tid; idx < BM * kBN; idx += kThreads) {
-    const int m = idx / kBN, c = idx - m * kBN;
-    uint32_t s = 0u;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[(w * BM + m) * kBN + c];
+  plane_mm::reduce_warps<BM>(acc, &us[0][0], [&](uint32_t s, int m, int c) {
     const int mg = m0 + m, ng = blockIdx.x * kBN + c;
     if (mg < M && ng < N) {
       if (ws != nullptr) {
@@ -177,7 +160,7 @@ fused_plane_linear_kernel(const int8_t* __restrict__ x, int M, int K,
         store_out(s, mg, ng, N, a_scale, w_scale, bias, act, out, raw);
       }
     }
-  }
+  });
 }
 
 __global__ void epilogue_kernel(const int32_t* __restrict__ ws, int M, int N,

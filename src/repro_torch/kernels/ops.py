@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.core import bitplanes as bp
 from repro_torch.core import bitserial as bs
-from repro_torch.kernels import plane_mm, plane_mm_fused
+from repro_torch.kernels import plane_mm, plane_mm_fused, plane_mm_packed
 from repro_torch.kernels.plane_mm_fused import ACTIVATIONS, epilogue_plain
 from repro_torch.kernels.ref import plane_matmul_ref
 
@@ -66,9 +66,11 @@ def hopper_tiles(
     """Tiles of the Hopper kernels: ``bm`` the row tile (smallest of 1, 2,
     4, 8, 16 covering M), ``bn`` the output columns per CUDA block, ``bk``
     the K extent one block iteration consumes (the pack block on the fused
-    routes). Explicit values pass through and the kernels check them."""
+    routes, one chunk of packed words on the packed ones). Explicit values
+    pass through and the kernels check them."""
     fused = kernel in ("fused_cached", "fused_repack")
-    mod = plane_mm_fused if fused else plane_mm
+    packed = kernel in ("cached_packed", "staged_packed")
+    mod = plane_mm_fused if fused else plane_mm_packed if packed else plane_mm
     if bm is None:
         bm = mod.row_tile(m)
     if bn is None:
@@ -76,6 +78,8 @@ def hopper_tiles(
     if bk is None:
         if fused:
             bk = pack_block or min(bp.DEFAULT_BLOCK, max(128, -(-k // 128) * 128))
+        elif packed:
+            bk = plane_mm_packed.CHUNK_WORDS * bp.WORD_BITS
         else:
             bk = plane_mm.K_TILE
     return bm, bn, bk
@@ -146,18 +150,18 @@ def plane_matmul_packed(
     pair_weights: torch.Tensor,
     *,
     backend: str = "auto",
+    bm: Optional[int] = None,
+    gate: bool = False,
 ) -> torch.Tensor:
-    """Packed plane matmul. Only its plain version is ported: the Hopper
-    kernel for ``plane_matmul_packed`` is ROADMAP slice 2."""
-    if backend == "cuda" or (backend == "auto" and packed_a.mag.is_cuda):
-        raise NotImplementedError(
-            "plane_matmul_packed has no Hopper kernel yet (ROADMAP slice 2: "
-            "plane_matmul_packed with the integrity routes and --no-fused at "
-            "bitplane level)"
-        )
-    resolve_backend(backend, packed_a.mag.device)
-    return plane_matmul_ref(
-        bp.unpack_planes(packed_a), bp.unpack_planes(packed_w), pair_weights
+    """Packed plane matmul: the Hopper kernel or its plain version.
+    ``gate`` skips all-zero plane work in the kernel (bit-identical); the
+    plain version has no passes to skip and ignores it, as the
+    reference's jnp oracle does."""
+    backend = resolve_backend(backend, packed_a.mag.device)
+    if backend == "torch":
+        return plane_mm_packed.plane_matmul_packed_plain(packed_a, packed_w, pair_weights)
+    return plane_mm_packed.plane_matmul_packed(
+        packed_a, packed_w, pair_weights, bm=bm, gate=gate
     )
 
 

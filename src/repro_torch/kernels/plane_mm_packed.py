@@ -1,0 +1,167 @@
+"""Packed plane-pair matrix multiplication: the Hopper kernel, its wrapper
+and its plain PyTorch version.
+
+Port of ``src/repro/kernels/plane_mm_packed.py::plane_matmul_packed``:
+both operands arrive as packed plane words, A ``(P_a, M, KW)`` packed on
+axis 2 and W ``(P_w, KW, N)`` packed on axis 1 (optional Booth sign words
+of the same shapes), and the result is
+``sum_{i,j} pw[i*P_w+j] * (A_i @ W_j)`` exactly in int32. Both operands
+must share one word layout (global planar or blocked); the contraction
+runs over (word, bit) pairs, so neither side is un-permuted. The kernel
+source, with its design note, is ``csrc/plane_mm_packed.cu``.
+
+:func:`plane_matmul_packed` launches the kernel for CUDA tensors and runs
+:func:`plane_matmul_packed_plain` for CPU tensors — the operands' device
+decides, nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.core.bitplanes import PackedPlanes, occupancy_per_tile, unpack_planes
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import plane_matmul_ref
+
+#: row tiles the kernel is instantiated for
+ROW_TILES = (1, 2, 4, 8, 16)
+#: output columns per CUDA block
+COLS_PER_BLOCK = 32
+#: packed words per K chunk (one block iteration; the gate's tile)
+CHUNK_WORDS = 16
+#: planes per operand the kernel takes
+MAX_PLANES = 32
+
+
+def validate_packed_operands(
+    packed_a: PackedPlanes, packed_w: PackedPlanes, pair_weights: torch.Tensor
+) -> None:
+    """Operand checks shared by the kernel and the plain version, so the
+    contract errors do not depend on the device."""
+    if packed_a.axis != 2 or packed_w.axis != 1:
+        raise ValueError(
+            f"expected A packed on axis 2 and W on axis 1, got "
+            f"{packed_a.axis} / {packed_w.axis}"
+        )
+    if packed_a.k != packed_w.k or packed_a.n_words != packed_w.n_words:
+        raise ValueError(
+            f"operands packed against different K: "
+            f"{packed_a.k}/{packed_a.n_words} vs {packed_w.k}/{packed_w.n_words}"
+        )
+    if packed_a.block != packed_w.block:
+        # a shared word layout contracts matching K subsets per word slice;
+        # a global-planar operand against a blocked one would not
+        raise ValueError(
+            f"operands packed with different layouts: block="
+            f"{packed_a.block} vs {packed_w.block}"
+        )
+    n_a = packed_a.mag.shape[0]
+    n_w = packed_w.mag.shape[0]
+    if tuple(pair_weights.shape) != (n_a * n_w,):
+        raise ValueError("pair_weights must have shape (P_a * P_w,)")
+
+
+def plane_matmul_packed_plain(
+    packed_a: PackedPlanes, packed_w: PackedPlanes, pair_weights: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch version (any device): unpack both operands, then the
+    exact plane-pair contraction."""
+    validate_packed_operands(packed_a, packed_w, pair_weights)
+    return plane_matmul_ref(unpack_planes(packed_a), unpack_planes(packed_w), pair_weights)
+
+
+def row_tile(m: int, bm: Optional[int] = None) -> int:
+    """Kernel row tile: the smallest instantiated tile covering M (<= 16)."""
+    if bm is not None:
+        if bm not in ROW_TILES:
+            raise ValueError(f"bm must be one of {ROW_TILES}, got {bm}")
+        return bm
+    return next((t for t in ROW_TILES if t >= m), ROW_TILES[-1])
+
+
+def _lib():
+    fn = _build.load("plane_mm_packed").plane_matmul_packed_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [
+            p, p, i, i,  # amag, asign, n_a, M
+            p, p, i, i, i,  # wmag, wsign, n_w, kw, N
+            p, p, i,  # pair_w, wocc, gate
+            p, i, i,  # out, ksplit, bm
+            p,  # stream
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def plane_matmul_packed(
+    packed_a: PackedPlanes,
+    packed_w: PackedPlanes,
+    pair_weights: torch.Tensor,
+    *,
+    bm: Optional[int] = None,
+    gate: bool = False,
+) -> torch.Tensor:
+    """sum_{i,j} pair_weights[i*P_w+j] * (A_i @ W_j) as (M, N) int32 from
+    packed planes. ``gate`` skips weight tiles and words that are zero
+    (from the weight's pack-time occupancy) with a bit-identical result.
+    CPU tensors run the plain version; CUDA tensors launch the kernel,
+    and arguments it does not take raise."""
+    if gate and packed_w.occupancy is None:
+        raise ValueError(
+            "gate=True needs weight occupancy metadata; re-pack the weight "
+            "operand (pack_planes computes it) or pass gate=False"
+        )
+    if not packed_a.mag.is_cuda:
+        return plane_matmul_packed_plain(packed_a, packed_w, pair_weights)
+    validate_packed_operands(packed_a, packed_w, pair_weights)
+    dev = packed_a.mag.device
+    n_a, m, kw = packed_a.mag.shape
+    n_w, _, n = packed_w.mag.shape
+    if n_a > MAX_PLANES or n_w > MAX_PLANES:
+        raise ValueError(f"the kernel takes at most {MAX_PLANES} planes per operand")
+    for side in (packed_a, packed_w):
+        if side.sign is not None and side.sign.shape != side.mag.shape:
+            raise ValueError("sign words must match the magnitude words' shape")
+    words = [packed_a.mag, packed_a.sign, packed_w.mag, packed_w.sign]
+    for t in [*words, pair_weights]:
+        if t is not None and (t.device != dev or t.dtype != torch.int32):
+            raise ValueError(
+                f"packed words and pair_weights must be int32 on {dev}, got "
+                f"{t.dtype} on {t.device}"
+            )
+    # the words of one call are packed per call (A) or sliced from the cache
+    # (truncated tiers): make them dense row-major, as the kernel indexes them
+    am, asg, wm, wsg = (None if t is None else t.contiguous() for t in words)
+    pw = pair_weights.contiguous()
+    occ = None
+    if gate:
+        if packed_w.occupancy.device != dev:
+            raise ValueError(f"weight occupancy is on {packed_w.occupancy.device}, expected {dev}")
+        occ = occupancy_per_tile(packed_w.occupancy, CHUNK_WORDS).contiguous()
+    tile = row_tile(m, bm)
+    blocks = -(-n // COLS_PER_BLOCK) * -(-m // tile)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ksplit = max(1, min(-(-kw // CHUNK_WORDS), -(-2 * sms // blocks)))
+    out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    plane_matmul_packed.launches += 1
+    err = _lib()(
+        _ptr(am), _ptr(asg), n_a, m,
+        _ptr(wm), _ptr(wsg), n_w, kw, n,
+        _ptr(pw), _ptr(occ), int(gate),
+        _ptr(out), ksplit, tile,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"plane_matmul_packed launch failed: CUDA error {err}")
+    return out
+
+
+plane_matmul_packed.launches = 0

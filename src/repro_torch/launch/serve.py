@@ -15,6 +15,14 @@ evicts each request the step it finishes. :meth:`set_precision` dials
 the steps to a lower width against the same weight tree (plane-prefix
 truncation); ``run(precision_schedule={step: bits})`` automates it.
 
+With ``policy.integrity == "detect"`` the engine layers three detectors
+and counts their alarms in ``stats()["integrity"]``: the per-matmul ABFT
+row-sum check of every projection (alarm vectors read back once per step,
+with the tokens), an at-rest fingerprint of the whole quantized weight
+tree audited every ``audit_interval`` iterations against the load-time
+one, and per-slot KV checksums compared with their post-step baselines.
+Detection only: scrub-and-retry recovery is not ported yet.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
         --reduced --bits 8 --level bitplane --prompt-lens 8,32,64 --gen 16 \
         --precision-switch 8:4
@@ -35,14 +43,27 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.configs import ARCH_NAMES, get_config, get_reduced
+from repro_torch.core import integrity
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.launch import sampling
 from repro_torch.launch.steps import make_cb_decode_step, make_prefill_step
-from repro_torch.models.cache import cache_kv_bytes, init_cache, insert_slot
+from repro_torch.models.cache import (
+    cache_kv_bytes,
+    cache_slot_checksums,
+    init_cache,
+    insert_slot,
+)
 from repro_torch.models.quant import quantize_params
 from repro_torch.models.transformer import init_params
 from repro_torch.runtime.scheduler import Request, SlotScheduler
+
+
+SCRUB_NOT_PORTED = (
+    "integrity='scrub' (scrub-and-retry recovery) is not ported yet: see "
+    "ROADMAP.md, open item 8 'Fault tolerance' (scrub half, next slice); "
+    "use integrity='detect'"
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -98,7 +119,9 @@ class ContinuousBatchingEngine:
     ``torch.profiler`` range (``serve.prefill``, ``serve.decode_step``),
     free when no profiler runs. ``backend`` picks the matmul kernels:
     ``"auto"`` (the Hopper kernels on CUDA) or ``"torch"`` (the plain
-    versions, on any device).
+    versions, on any device). ``audit_interval``: with integrity on, the
+    at-rest parameter audit runs every N iterations (0 disables it and
+    the KV checks, leaving the per-matmul ABFT checks).
     """
 
     def __init__(
@@ -113,9 +136,16 @@ class ContinuousBatchingEngine:
         seed: int = 0,
         device=None,
         backend: str = "auto",
+        audit_interval: int = 1,
     ):
         if not cfg.is_decoder:
             raise ValueError(f"{cfg.name} is encoder-only: no decode path")
+        self.integrity = integrity.check_integrity_mode(policy.integrity)
+        if self.integrity == "scrub":
+            raise NotImplementedError(SCRUB_NOT_PORTED)
+        if audit_interval < 0:
+            raise ValueError(f"audit_interval must be >= 0, got {audit_interval}")
+        self.audit_interval = audit_interval
         self.device = resolve_device(device)
         self.cfg = cfg
         self.policy = policy
@@ -133,6 +163,10 @@ class ContinuousBatchingEngine:
             if policy.default.active
             else params
         )
+        # the load-time fingerprint the at-rest audits compare against
+        self._params_ref = (
+            int(integrity.tree_checksum(self.q_params)) if self.integrity != "off" else None
+        )
         self._precision: Optional[Tuple[int, int]] = None
         self._compiled: dict = {}
         self._last_stats: dict = {}
@@ -141,14 +175,20 @@ class ContinuousBatchingEngine:
     # -- runtime precision dial ---------------------------------------------
 
     def _make_steps(self, precision):
+        check = self.integrity != "off"
+        pcol = integrity.Collector() if check else None
+        scol = integrity.Collector() if check else None
         return (
             make_prefill_step(
                 self.cfg, self.policy, max_len=self.max_len, kv_quant=self.kv_quant,
-                precision=precision, backend=self.backend,
+                precision=precision, backend=self.backend, collector=pcol,
             ),
             make_cb_decode_step(
-                self.cfg, self.policy, precision=precision, backend=self.backend
+                self.cfg, self.policy, precision=precision, backend=self.backend,
+                collector=scol,
             ),
+            pcol,
+            scol,
         )
 
     def _steps_for(self, precision):
@@ -157,7 +197,7 @@ class ContinuousBatchingEngine:
         return self._compiled[precision]
 
     def _bind_steps(self, steps) -> None:
-        self._prefill, self._step = steps
+        self._prefill, self._step, self._prefill_col, self._step_col = steps
 
     def set_precision(self, precision) -> None:
         """Dial subsequent prefills/decodes to ``precision`` (an int or an
@@ -196,6 +236,27 @@ class ContinuousBatchingEngine:
     def precision(self) -> Optional[Tuple[int, int]]:
         return self._precision
 
+    # -- integrity (detect) -------------------------------------------------
+
+    def _audit_params(self) -> bool:
+        """True if the at-rest parameter fingerprint drifted from the
+        reference; the reference is then re-baselined, so one upset alarms
+        once, not at every audit."""
+        fp = int(integrity.tree_checksum(self.q_params))
+        if fp == self._params_ref:
+            return False
+        self._params_ref = fp
+        return True
+
+    @staticmethod
+    def _harvest(col, alarms, integ: dict) -> None:
+        """Tally one step's read-back alarm vector: every flag is a check,
+        a step with any flag set is one alarm."""
+        res = col.harvest(alarms)
+        integ["abft_checks"] += len(res)
+        if any(bad for _, bad in res):
+            integ["abft_alarms"] += 1
+
     # -- serving loop -------------------------------------------------------
 
     def _first_token(self, logits, request: Request) -> torch.Tensor:
@@ -228,6 +289,13 @@ class ContinuousBatchingEngine:
         )
         tokens = torch.zeros((self.n_slots, 1), dtype=torch.int32, device=self.device)
         kv_bytes = cache_kv_bytes(cache)
+        check = self.integrity != "off"
+        kv_ref = cache_slot_checksums(cache).cpu() if check else None
+        integ = {
+            "audits": 0, "audit_alarms": 0,
+            "abft_checks": 0, "abft_alarms": 0,
+            "kv_checks": 0, "kv_alarms": 0,
+        }
         calls0 = collections.Counter(plan_mod.DEFAULT_REGISTRY.calls)
         step_i = 0
         decode_steps = 0
@@ -237,6 +305,19 @@ class ContinuousBatchingEngine:
         decode_s = 0.0
         t0 = time.perf_counter()
         while not sched.done:
+            if check and self.audit_interval:
+                # at-rest audits against the baselines of the last iteration:
+                # the parameter fingerprint and the per-slot KV checksums
+                if step_i % self.audit_interval == 0:
+                    integ["audits"] += 1
+                    if self._audit_params():
+                        integ["audit_alarms"] += 1
+                sums = cache_slot_checksums(cache).cpu()
+                integ["kv_checks"] += 1
+                n_bad = int((sums != kv_ref).sum())
+                if n_bad:
+                    integ["kv_alarms"] += n_bad
+                    kv_ref = sums
             due = [s for s in schedule if s <= decode_steps]
             for s in sorted(due):
                 self.set_precision(schedule.pop(s))
@@ -245,8 +326,18 @@ class ContinuousBatchingEngine:
                 tp = time.perf_counter()
                 with record_function("serve.prefill"):
                     prompt = torch.as_tensor(req.tokens, device=self.device)[None, :]
-                    logits, seq_cache = self._prefill(self.q_params, prompt)
-                    tok = int(self._first_token(logits, req))
+                    if check:
+                        logits, seq_cache, alarms = self._prefill(self.q_params, prompt)
+                        # one read-back: the first token, then the alarm vector
+                        vals = torch.cat([
+                            self._first_token(logits, req).reshape(1).to(torch.int64),
+                            alarms.to(torch.int64),
+                        ]).cpu()
+                        tok = int(vals[0])
+                        self._harvest(self._prefill_col, vals[1:], integ)
+                    else:
+                        logits, seq_cache = self._prefill(self.q_params, prompt)
+                        tok = int(self._first_token(logits, req))
                     cache = insert_slot(cache, seq_cache, slot)
                 tokens[slot, 0] = tok
                 sched.start(slot, req, tok)
@@ -257,8 +348,18 @@ class ContinuousBatchingEngine:
                 with record_function("serve.decode_step"):
                     gen = _seeded(self.seed, 1, step_i, self.device)
                     temps = torch.as_tensor(sched.temperatures(), device=self.device)
-                    tokens, cache = self._step(self.q_params, cache, tokens, temps, gen)
-                    toks_np = tokens[:, 0].cpu().numpy()
+                    if check:
+                        tokens, cache, alarms = self._step(
+                            self.q_params, cache, tokens, temps, gen
+                        )
+                        vals = torch.cat(
+                            [tokens[:, 0].to(torch.int64), alarms.to(torch.int64)]
+                        ).cpu()
+                        toks_np = vals[: self.n_slots].numpy()
+                        self._harvest(self._step_col, vals[self.n_slots:], integ)
+                    else:
+                        tokens, cache = self._step(self.q_params, cache, tokens, temps, gen)
+                        toks_np = tokens[:, 0].cpu().numpy()
                 for slot in active:
                     sched.record(slot, int(toks_np[slot]))
                     decoded_tokens += 1
@@ -271,6 +372,8 @@ class ContinuousBatchingEngine:
                 sched.observe_step(step_i)
                 nxt = sched.next_arrival()
                 step_i = step_i + 1 if nxt is None else max(nxt, step_i + 1)
+            if check and self.audit_interval:
+                kv_ref = cache_slot_checksums(cache).cpu()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = max(time.perf_counter() - t0, 1e-9)
@@ -294,6 +397,8 @@ class ContinuousBatchingEngine:
             "route_calls": dict(calls),
             "device": str(self.device),
         }
+        if check:
+            stats["integrity"] = dict(integ, mode=self.integrity)
         self._last_stats = stats
         return sched.finished, stats
 
@@ -328,6 +433,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-fused", action="store_true",
                     help="stage the linear (separate plane kernel + epilogue) "
                     "instead of the fused kernel")
+    ap.add_argument("--integrity", default="off", choices=("off", "detect", "scrub"),
+                    help="'detect' runs the ABFT row-sum check on every "
+                    "bit-serial matmul plus at-rest fingerprint audits and "
+                    "per-slot KV checksums, and counts alarms (requires "
+                    "--level bitplane); 'scrub' is not ported yet")
+    ap.add_argument("--audit-interval", type=int, default=1,
+                    help="integrity: run the at-rest parameter fingerprint "
+                    "audit every N engine iterations (0 disables at-rest "
+                    "audits, leaving per-matmul ABFT only)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the plain "
                     "versions on the host)")
@@ -344,9 +458,17 @@ def validate_args(args) -> None:
     if not args.bits:
         for flag, val in (("--no-fused", args.no_fused),
                           ("--precision", args.precision is not None),
-                          ("--precision-switch", args.precision_switch)):
+                          ("--precision-switch", args.precision_switch),
+                          ("--integrity", args.integrity != "off")):
             if val:
                 die(f"{flag} needs an active quantization policy (--bits > 0)")
+    if args.integrity == "scrub":
+        die(f"--integrity scrub: {SCRUB_NOT_PORTED}")
+    if args.integrity != "off" and args.level != "bitplane":
+        die("--integrity needs --level bitplane: the ABFT column "
+            "checksums ride in the packed bit-plane cache")
+    if args.audit_interval < 0:
+        die("--audit-interval must be >= 0")
     if args.level == "digit" and args.variant == "sbmwc":
         die("--level digit --variant sbmwc has no kernel (SBMwC radix-256 "
             "digits exceed int8); use --variant booth or --level bitplane")
@@ -376,6 +498,7 @@ def main(argv=None):
         PrecisionPolicy.uniform(
             args.bits, args.bits, variant=args.variant, level=args.level,
             fuse_epilogue=False if args.no_fused else None,
+            integrity=args.integrity,
         )
         if args.bits
         else PrecisionPolicy.off()
@@ -386,7 +509,7 @@ def main(argv=None):
     lens = [int(x) for x in args.prompt_lens.split(",")]
     engine = ContinuousBatchingEngine(
         cfg, params, policy, n_slots=args.n_slots, max_len=max(lens) + args.gen,
-        device=device,
+        device=device, audit_interval=args.audit_interval,
     )
     if args.precision:
         engine.set_precision(args.precision)
@@ -413,6 +536,14 @@ def main(argv=None):
         f"kv cache {stats['kv_cache_bytes'] / 1024:.1f} KiB"
     )
     print(f"[serve] routes: {stats['route_calls']}")
+    if "integrity" in stats:
+        ig = stats["integrity"]
+        print(
+            f"[serve] integrity={ig['mode']}: {ig['abft_checks']} ABFT checks "
+            f"({ig['abft_alarms']} alarms), {ig['audits']} audits "
+            f"({ig['audit_alarms']} alarms), {ig['kv_checks']} KV checks "
+            f"({ig['kv_alarms']} alarms)"
+        )
     for step_i, prec in stats["precision_switches"]:
         print(f"[serve] precision switch at decode step {step_i}: -> {prec}")
     for rid in sorted(results):

@@ -6,6 +6,11 @@ dial: the policy is re-stamped with
 its plan at the dialed width (weight planes by MSB-prefix truncation of
 the stored decomposition, activations quantized at the lower width).
 Steps run eagerly.
+
+With a ``collector`` (:class:`~repro_torch.core.integrity.Collector`) a
+step runs its forward under ABFT alarm collection and returns one more
+output, the ``(n_checks,)`` bool alarm vector on the device: the engine
+reads it back once per step, with the tokens.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.integrity import Collector
 from repro_torch.launch import sampling
 from repro_torch.models.cache import init_cache, quantize_scratch
 from repro_torch.models.config import ModelConfig
@@ -26,6 +32,16 @@ def _dial(policy, precision: Optional[Tuple[int, int]]):
     return policy.with_runtime_bits(*precision)
 
 
+def _collected(collector: Optional[Collector], body, device):
+    """Run ``body()`` under ``collector``: (result, alarm vector)."""
+    if collector is None:
+        return body(), None
+    with collector.collect():
+        result = body()
+        alarms = collector.stacked(device)
+    return result, alarms
+
+
 def make_prefill_step(
     cfg: ModelConfig,
     policy=None,
@@ -33,8 +49,10 @@ def make_prefill_step(
     kv_quant: bool = False,
     precision: Optional[Tuple[int, int]] = None,
     backend: str = "auto",
+    collector: Optional[Collector] = None,
 ):
-    """prefill_step(params, tokens (B, S)) -> (last_logits (B, V), cache).
+    """prefill_step(params, tokens (B, S)) -> (last_logits (B, V), cache[,
+    alarms]).
 
     The forward runs against a **raw** bf16 scratch of ``max_len``
     positions (attention over the whole extent under a length mask) and,
@@ -47,14 +65,19 @@ def make_prefill_step(
         cache = init_cache(
             cfg, bsz, max_len or s, cfg.dtype, kv_quant=False, device=tokens.device
         )
-        with torch.no_grad():
-            logits, _aux, cache = forward(
-                cfg, params, {"tokens": tokens}, policy=policy, cache=cache,
-                last_only=True, backend=backend,
-            )
+        def body():
+            with torch.no_grad():
+                return forward(
+                    cfg, params, {"tokens": tokens}, policy=policy, cache=cache,
+                    last_only=True, backend=backend,
+                )
+
+        (logits, _aux, cache), alarms = _collected(collector, body, tokens.device)
         if kv_quant:
             cache = quantize_scratch(cache)
-        return logits[:, -1, :], cache
+        if collector is None:
+            return logits[:, -1, :], cache
+        return logits[:, -1, :], cache, alarms
 
     return prefill_step
 
@@ -64,21 +87,27 @@ def make_cb_decode_step(
     policy=None,
     precision: Optional[Tuple[int, int]] = None,
     backend: str = "auto",
+    collector: Optional[Collector] = None,
 ):
     """One continuous-batching iteration over the whole slot array:
     cb_step(params, cache, tokens (B, 1), temps (B,), gen) ->
-    (next_tokens (B, 1), cache). Every slot decodes one token at its own
-    length; free slots compute too (their lanes are never read)."""
+    (next_tokens (B, 1), cache[, alarms]). Every slot decodes one token at
+    its own length; free slots compute too (their lanes are never read)."""
     policy = _dial(policy, precision)
 
     def cb_step(params, cache, tokens, temps, gen=None):
-        with torch.no_grad():
-            logits, _aux, cache = forward(
-                cfg, params, {"tokens": tokens}, policy=policy, cache=cache,
-                backend=backend,
-            )
+        def body():
+            with torch.no_grad():
+                return forward(
+                    cfg, params, {"tokens": tokens}, policy=policy, cache=cache,
+                    backend=backend,
+                )
+
+        (logits, _aux, cache), alarms = _collected(collector, body, tokens.device)
         logits = sampling.mask_vocab(logits[:, -1, :], cfg.vocab_size)
         next_tok = sampling.sample_tokens(logits, temps, gen)[:, None]
-        return next_tok, cache
+        if collector is None:
+            return next_tok, cache
+        return next_tok, cache, alarms
 
     return cb_step

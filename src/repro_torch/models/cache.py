@@ -118,3 +118,22 @@ def cache_kv_bytes(cache) -> int:
         for key, leaf in blk.items()
         if key in _KV_LEAF_KEYS
     )
+
+
+def cache_slot_checksums(cache) -> torch.Tensor:
+    """Per-slot uint32 fold of the bytes of the whole decode cache (dense
+    layout): ``(n_slots,)`` int64 holding uint32 values, on the cache's
+    device. Entry ``i`` sums every byte of every leaf that belongs to slot
+    ``i`` (the leading axis) modulo 2^32, so one flipped bit in slot ``i``'s
+    KV, scales or lengths moves ``out[i]`` and only it — the reference's
+    ``cache_slot_checksums``, value for value."""
+
+    def fold(leaf: torch.Tensor) -> torch.Tensor:
+        b = leaf.contiguous().view(torch.uint8)
+        return b.reshape(leaf.shape[0], -1).sum(dim=1, dtype=torch.int64)
+
+    total = fold(cache["step"])
+    for blk in cache["layers"]:
+        for leaf in blk.values():
+            total = total + fold(leaf)
+    return total & 0xFFFFFFFF

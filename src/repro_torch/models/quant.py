@@ -55,10 +55,9 @@ def quantize_params(
     """Walk the parameter tree, converting policy-active linears.
 
     ``value_bits`` quantizes the weight values narrower than the storage
-    width (a narrow checkpoint served from the wide cache). Plane-cache
-    compaction (``policy.sparsity == "compact"``) is a later slice."""
-    if plane_cache and policy.sparsity == "compact" and policy.level == "bitplane":
-        raise NotImplementedError("plane-cache compaction is not ported yet")
+    width (a narrow checkpoint served from the wide cache). With
+    ``policy.sparsity == "compact"`` each bit-plane cache drops its
+    all-zero planes at load (:func:`~repro_torch.core.bitplanes.compact_weight_planes`)."""
 
     def rec(node, path):
         if _is_linear(node):
@@ -80,6 +79,8 @@ def quantize_params(
                     level=policy.level,
                     checksum=policy.integrity != "off",
                 )
+                if policy.sparsity == "compact" and policy.level == "bitplane":
+                    out["w_planes"] = bp.compact_weight_planes(out["w_planes"])
             return out
         if isinstance(node, dict):
             out = {}

@@ -12,11 +12,13 @@ in both packages. The stack runs as a Python loop, eagerly.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import integrity
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.layers.attention import attention_apply, attention_init
 from repro_torch.layers.embedding import (
@@ -146,14 +148,18 @@ def forward(
         positions = torch.arange(s, dtype=torch.int32, device=dev)[None, :].expand(b, s)
 
     new_layers = []
-    for i, (kind, blk) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
-        name = f"layers/{kind}" if cfg.scan_layers else f"layers/{i}/{kind}"
-        blk_cache = cache["layers"][i] if cache is not None else None
-        x, nc = _apply_block(
-            cfg, kind, blk, x, positions, policy=policy, backend=backend, name=name,
-            cache=blk_cache,
-        )
-        new_layers.append(nc)
+    # a scanned stack reports its ABFT checks as one folded flag, as the
+    # reference's lax.scan body does; an unrolled stack reports each
+    stack = integrity.scan_scope() if cfg.scan_layers else contextlib.nullcontext()
+    with stack:
+        for i, (kind, blk) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
+            name = f"layers/{kind}" if cfg.scan_layers else f"layers/{i}/{kind}"
+            blk_cache = cache["layers"][i] if cache is not None else None
+            x, nc = _apply_block(
+                cfg, kind, blk, x, positions, policy=policy, backend=backend, name=name,
+                cache=blk_cache,
+            )
+            new_layers.append(nc)
     new_cache = None
     if cache is not None:
         new_cache = {"step": cache["step"] + s, "layers": new_layers}

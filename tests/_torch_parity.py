@@ -7,6 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from repro.core import bitplanes as jbp
+
 # The parity shapes are tiny: one intra-op thread is as fast, and it keeps
 # torch's thread pool from spinning against the JAX compiles of other test
 # processes on the same cores (that contention slowed these tests ~50x).
@@ -35,3 +37,22 @@ def t2n(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def packed_to_jax(pt):
+    """The reference's PackedPlanes holding the port's words (the words
+    are held equal to the reference's own by test_torch_core.py; building
+    them with the reference's eager packing compiles every primitive per
+    shape, seconds per case)."""
+    conv = (lambda t: None if t is None else jnp.asarray(t2n(t)))
+    return jbp.PackedPlanes(conv(pt.mag), conv(pt.sign), pt.k, pt.axis, pt.weights,
+                            pt.block, conv(pt.occupancy), conv(pt.checksum))
+
+
+def weight_planes_to_jax(wt):
+    """The reference's WeightPlanes holding the port's cache."""
+    return jbp.WeightPlanes(
+        packed=None if wt.packed is None else packed_to_jax(wt.packed),
+        planes=None if wt.planes is None else jnp.asarray(t2n(wt.planes)),
+        weights=wt.weights, level=wt.level, variant=wt.variant, w_bits=wt.w_bits,
+    )

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.core import bitplanes as tbp
 from repro_torch.core.bitserial import _wrap_weights
-from repro_torch.kernels import plane_mm, plane_mm_fused
+from repro_torch.kernels import plane_mm, plane_mm_fused, plane_mm_packed
 
 
 @pytest.fixture
@@ -64,4 +64,29 @@ def test_plane_matmul_kernel_equals_plain_on_card(cuda_device, level, m, k, n):
     a_pl, w_pl = da.planes.contiguous(), dw.planes.contiguous()
     got = plane_mm.plane_matmul(a_pl, w_pl, pw)
     assert torch.equal(got, plane_mm.plane_matmul_plain(a_pl, w_pl, pw))
+    assert torch.equal(got.double(), x.double() @ w.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,a_bits,w_bits,block", [
+    ("booth", 8, 8, 512), ("booth", 8, 8, None), ("sbmwc", 8, 8, None), ("booth", 4, 4, 32),
+])
+@pytest.mark.parametrize("m,k,n", [(1, 33, 16), (4, 4096, 1024), (40, 1000, 129)])
+def test_packed_kernel_equals_plain_on_card(cuda_device, variant, a_bits, w_bits, block,
+                                            m, k, n):
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(m * 7 + k + n)
+    alo, ahi = tbp.signed_range(a_bits)
+    wlo, whi = tbp.signed_range(w_bits)
+    x = torch.randint(alo, ahi + 1, (m, k), generator=g, device=cuda_device, dtype=torch.int32)
+    w = torch.randint(wlo, whi + 1, (k, n), generator=g, device=cuda_device, dtype=torch.int32)
+    w[: k // 2] >>= 3  # the top planes of the first half of K are zero: gated tiles
+    ternary = variant == "booth"
+    da, dw = tbp.to_bitplanes(x, a_bits, variant), tbp.to_bitplanes(w, w_bits, variant)
+    pa = tbp.pack_planes(da.planes, axis=-1, ternary=ternary, block=block)
+    pk = tbp.pack_planes(dw.planes, axis=-2, ternary=ternary, block=block)
+    pw = _wrap_weights([a * b for a in da.weights for b in dw.weights], device=cuda_device)
+    got = plane_mm_packed.plane_matmul_packed(pa, pk, pw)
+    assert torch.equal(got, plane_mm_packed.plane_matmul_packed_plain(pa, pk, pw))
+    assert torch.equal(got, plane_mm_packed.plane_matmul_packed(pa, pk, pw, gate=True))
     assert torch.equal(got.double(), x.double() @ w.double())

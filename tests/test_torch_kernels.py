@@ -143,7 +143,7 @@ def test_plane_matmul_plain_equals_reference(level, backend, rng):
 
 
 def test_plane_matmul_packed_plain_is_exact(rng):
-    """The packed route's plain version (its kernel is a later slice)."""
+    """The packed route's plain version through the dispatcher."""
     a = rng.integers(-8, 8, (5, 70)).astype(np.int32)
     w = rng.integers(-8, 8, (70, 6)).astype(np.int32)
     ta = tbp.to_bitplanes(torch.from_numpy(a), 4, "booth")

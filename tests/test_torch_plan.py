@@ -150,17 +150,27 @@ def test_route_outputs_equal_reference(level, variant, dial, rng):
 
 
 def test_later_slice_routes_raise_not_implemented(rng):
+    """Tensor-parallel plans are a later slice and raise. The packed route
+    and ABFT-checked plans run now: a CUDA-backend packed plan given host
+    tensors raises instead of falling back to the plain version, and a
+    checked host plan returns the exact product."""
     w = rng.integers(-8, 8, (64, 8)).astype(np.int8)
+    x = rng.integers(-8, 8, (4, 64)).astype(np.int8)
     wt = tbp.make_weight_planes(torch.from_numpy(w), w_bits=8, variant="booth",
-                                level="bitplane")
+                                level="bitplane", checksum=True)
     p = tplan.plan_for_operands((4, 64, 8), a_bits=8, w_bits=8, level="bitplane",
                                 backend="cuda", device=CUDA, w_planes=wt, fused=False,
                                 registry=tplan.PlanRegistry())
     assert p.kernel == "cached_packed"
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        p(torch.zeros((4, 64), dtype=torch.int8), w_planes=wt)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        p(torch.from_numpy(x), w_planes=wt)
     chk = tplan.plan_for_operands((4, 64, 8), a_bits=8, w_bits=8, level="bitplane",
                                   backend="torch", device=CPU, integrity="detect",
                                   registry=tplan.PlanRegistry())
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        chk(torch.zeros((4, 64), dtype=torch.int8), torch.from_numpy(w))
+    got = chk(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_array_equal(t2n(got), x.astype(np.int64) @ w)
+    tp_plan = tplan.plan_for_operands((4, 64, 8), a_bits=8, w_bits=8, level="bitplane",
+                                      backend="torch", device=CPU, shard=("model", 2, "col"),
+                                      registry=tplan.PlanRegistry())
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        tp_plan(torch.from_numpy(x), torch.from_numpy(w))
