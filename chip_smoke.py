@@ -39,7 +39,28 @@ Phases, each failing the run on any error:
    same again on the default scanned layer stack (bitplane-detect-scan),
    which folds the stack's checks into one per forward: a clean run counts
    two checks per forward (the stack and lm_head) and no alarm, and the
-   flipped bit again raises both alarms.
+   flipped bit again raises both alarms;
+7. attention kernel checks at granite-3-8b's heads (32 / 8, head_dim 128):
+   the paged decode kernel at B=4, pages of 16, lengths 1/16/37/272 (pool
+   pages in a permuted order, the null page holding garbage) against its
+   plain version and, bit for bit, against the dense kernel on the gathered
+   pools; at load (B=64, lengths 512-4096 from a seed); the dense kernel at
+   Sq=Sk=256 and 4096, causal, bf16, against its plain version (and at 256
+   against attention_ref); each timed beside its bound, its plain version
+   and scaled_dot_product_attention on dequantized, expanded K/V (a
+   yardstick the port never calls); then one counted call of the
+   ops.flash_attention entry point;
+8. engine bitplane-paged — int8 KV in pages of 16, prefill in chunks of 64,
+   shared prefixes: 10 requests one step apart, the first 8 opening with
+   one 64-token prefix, bodies of 16-192 tokens, 16 new tokens, 4 slots.
+   The kernel run must launch the paged kernel layers x decode steps times
+   and never take the gather path, every projection through the fused
+   kernel, with at least one shared-prefix hit and a peak of resident pages
+   below the dense reservation; the plain paged run's tokens must equal the
+   plain dense engine's with the same prefill chunks; an attention replay (16 decode steps of four
+   prefilled requests, each forward run with the kernel and with the plain
+   path from clones of one cache) must keep max|dlogit| within the bound
+   and the greedy token wherever the plain top-2 margin exceeds twice it.
 
 Prints one JSON line per kernel check, one ``{"kernels": [...]}`` summary
 line, the card's name and power limit, and last ``{"ok": true, ...}``.
@@ -59,9 +80,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and int8 tensor-core op/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, int8 and bf16 tensor-core op/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS_PER_S = 1.979e15
+PEAK_BF16_OPS_PER_S = 0.989e15
 
 GRANITE_SHAPES = (  # (name, K, N, activation) of the main path's projections
     ("gate", 4096, 12800, "silu"),
@@ -100,9 +122,9 @@ def _time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def _bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_INT8_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_INT8_OPS_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -307,6 +329,208 @@ def check_kernels(summary: dict) -> list:
     return lines
 
 
+# granite-3-8b's attention at full width
+HQ, HKV, HEAD_DIM = 32, 8, 128
+PAGE = 16
+# tolerances of the attention kernels against their plain versions (PERF.md,
+# written before the first chip run): float32 outputs within ATTN_RTOL of
+# max|plain| (the two sum q.k over d and p.v over positions in other
+# orders); bf16 outputs within one bf16 step of the element on top of it
+ATTN_RTOL = 1e-4
+
+
+def _attn_err(got: torch.Tensor, plain: torch.Tensor) -> tuple[float, bool]:
+    """(max |got - plain|, within the tolerance for got's dtype)."""
+    diff = (got.float() - plain.float()).abs()
+    atol = ATTN_RTOL * float(plain.float().abs().max())
+    if got.dtype == torch.bfloat16:
+        mag = torch.maximum(got.float().abs(), plain.float().abs()).clamp_min(1e-30)
+        ok = bool((diff <= atol + torch.exp2(torch.floor(torch.log2(mag)) - 7)).all())
+    else:
+        ok = bool((diff <= atol).all())
+    return float(diff.max()), ok
+
+
+def _paged_inputs(gen, lens, extra_pages: int = 8):
+    """Pools holding every lane's pages in a random permuted order, tables
+    padded with the null page 0, which holds non-zero garbage."""
+    dev = torch.device("cuda")
+    b = len(lens)
+    per = [-(-n // PAGE) for n in lens]
+    p = max(per)
+    n_pages = sum(per) + 1 + extra_pages
+    kq = torch.randint(-127, 128, (n_pages, PAGE, HKV, HEAD_DIM), generator=gen, device=dev,
+                       dtype=torch.int8)
+    vq = torch.randint(-127, 128, kq.shape, generator=gen, device=dev, dtype=torch.int8)
+    ks = torch.rand(kq.shape[:-1], generator=gen, device=dev) * 0.02 + 1e-3
+    vs = torch.rand(kq.shape[:-1], generator=gen, device=dev) * 0.02 + 1e-3
+    perm = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1).tolist()
+    tables = torch.zeros((b, p), dtype=torch.int32)
+    at = 0
+    for i, n in enumerate(per):
+        tables[i, :n] = torch.tensor(perm[at:at + n], dtype=torch.int32)
+        at += n
+    q = torch.randn((b, HQ, 1, HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kq, vq, ks, vs, tables.to(dev), kv_lens
+
+
+def _gather_dense(pool, tables):
+    """(n_pages, PAGE, H[, D]) pools through (B, P) tables -> (B, H, P*PAGE[, D])."""
+    b, p = tables.shape
+    x = pool[tables.long().reshape(-1)].reshape(b, p * PAGE, *pool.shape[2:])
+    return (x.permute(0, 2, 1) if x.ndim == 3 else x.permute(0, 2, 1, 3)).contiguous()
+
+
+def _sdpa_ms(q, k, v, **kw):
+    """The library yardstick: one scaled_dot_product_attention call on K/V
+    already dequantized to bf16 and expanded to the query heads."""
+    import torch.nn.functional as F
+
+    return _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, **kw))
+
+
+def check_paged(name: str, gen, lens) -> dict:
+    """The paged kernel against its plain version (float32 and bf16
+    outputs), timed beside its byte bound and the library call; on the
+    first check also against the dense kernel on the gathered pools, bit
+    for bit."""
+    from repro_torch.kernels import flash_attention as fa
+
+    args = _paged_inputs(gen, lens)
+    q, kq, vq, ks, vs, tables, kv_lens = args
+    errs, oks = [], []
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = fa.paged_flash_attention(*args, out_dtype=out_dtype)
+        plain = fa.paged_flash_attention_plain(*args, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        err, ok = _attn_err(got, plain)
+        errs.append(err)
+        oks.append(ok)
+    line = {"kernel": "paged_flash_attention", "check": name, "B": len(lens),
+            "lens": lens if len(lens) <= 8 else [min(lens), max(lens)],
+            "page_size": PAGE, "heads": [HQ, HKV], "head_dim": HEAD_DIM,
+            "f32_max_abs_err": errs[0], "bf16_max_abs_err": errs[1],
+            "within_tolerance": all(oks), "max_abs_err": errs[0]}
+    kd, vd = _gather_dense(kq, tables), _gather_dense(vq, tables)
+    ksd, vsd = _gather_dense(ks, tables), _gather_dense(vs, tables)
+    if len(lens) <= 8:
+        equal = []
+        for out_dtype in (torch.float32, torch.bfloat16):
+            paged = fa.paged_flash_attention(*args, out_dtype=out_dtype)
+            dense = fa.flash_attention(q, kd, vd, causal=False, kv_lens=kv_lens, k_scale=ksd,
+                                       v_scale=vsd, block_q=1, block_k=PAGE, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            equal.append(bool(torch.equal(paged, dense)))
+        line["equals_dense_kernel_on_gathered_pools"] = all(equal)
+    line["kernel_ms"] = _time_ms(lambda: fa.paged_flash_attention(*args))
+    line["plain_ms"] = _time_ms(lambda: fa.paged_flash_attention_plain(*args), reps=3, warmup=1)
+    # yardstick inputs: dequantized to bf16, expanded to the query heads
+    kx = (kd.float() * ksd[..., None]).to(torch.bfloat16).repeat_interleave(HQ // HKV, dim=1)
+    vx = (vd.float() * vsd[..., None]).to(torch.bfloat16).repeat_interleave(HQ // HKV, dim=1)
+    mask = (torch.arange(kd.shape[2], device=q.device)[None, :] < kv_lens[:, None].long())
+    line["library_ms"] = _sdpa_ms(q, kx, vx, attn_mask=mask[:, None, None, :])
+    del kx, vx
+    # the function reads each live position's K/V (one byte a value) and
+    # scales once, the queries, tables and lengths, and writes the output
+    live = int(sum(lens))
+    n_bytes = (q.numel() * 2 + live * HKV * (2 * HEAD_DIM + 2 * 4) + tables.numel() * 4
+               + kv_lens.numel() * 4 + q.numel() * 2)
+    line["bound_ms"], line["bound_by"] = _bound(n_bytes, 4.0 * HQ * live * HEAD_DIM,
+                                                PEAK_BF16_OPS_PER_S)
+    print(json.dumps(line), flush=True)
+    if not all(oks):
+        _die(f"paged_flash_attention {name} is outside the tolerance of its plain version: {errs}")
+    if line.get("equals_dense_kernel_on_gathered_pools") is False:
+        _die(f"paged_flash_attention {name} differs from the dense kernel on gathered pools")
+    return line
+
+
+def check_dense(name: str, gen, s: int, versus_oracle: bool) -> tuple[dict, tuple]:
+    """The dense kernel (through its entry point's block sizes, 128 x 128)
+    against its plain version at B=1, Sq=Sk=s, causal, bf16; with
+    ``versus_oracle`` also against attention_ref (Sq == Sk: the kernels'
+    top-left causal mask and the oracle's bottom-right one agree).
+    Returns the line and the inputs."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+
+    dev = torch.device("cuda")
+    q = torch.randn((1, HQ, s, HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((1, HKV, s, HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((1, HKV, s, HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(causal=True, block_q=128, block_k=128)
+    errs, oks = [], []
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = fa.flash_attention(q, k, v, out_dtype=out_dtype, **kw)
+        plain = fa.flash_attention_plain(q, k, v, out_dtype=out_dtype, **kw)
+        torch.cuda.synchronize()
+        err, ok = _attn_err(got, plain)
+        errs.append(err)
+        oks.append(ok)
+        del plain
+    line = {"kernel": "flash_attention", "check": name, "B": 1, "Sq": s, "Sk": s,
+            "causal": True, "heads": [HQ, HKV], "head_dim": HEAD_DIM, "blocks": [128, 128],
+            "f32_max_abs_err": errs[0], "bf16_max_abs_err": errs[1],
+            "within_tolerance": all(oks), "max_abs_err": errs[0]}
+    if versus_oracle:
+        oracle = attention_ref(q, k, v, causal=True)
+        err, ok = _attn_err(got, oracle)  # got: the bf16 output
+        line.update(oracle_max_abs_err=err, oracle_within_tolerance=ok)
+        oks.append(ok)
+    line["kernel_ms"] = _time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+    line["plain_ms"] = _time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), reps=3, warmup=1)
+    kx = k.repeat_interleave(HQ // HKV, dim=1)
+    vx = v.repeat_interleave(HQ // HKV, dim=1)
+    line["library_ms"] = _sdpa_ms(q, kx, vx, is_causal=True)
+    # causal (top-left): query i attends keys 0..i, s(s+1)/2 pairs a head
+    pairs = s * (s + 1) / 2
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    line["bound_ms"], line["bound_by"] = _bound(n_bytes, 4.0 * HQ * pairs * HEAD_DIM,
+                                                PEAK_BF16_OPS_PER_S)
+    del kx, vx, got
+    print(json.dumps(line), flush=True)
+    if not all(oks):
+        _die(f"flash_attention {name} is outside its tolerance: {line}")
+    return line, (q, k, v)
+
+
+def check_attention(summary: dict) -> tuple:
+    """A1-A4: the attention kernels at granite-3-8b's heads. Returns A4's
+    inputs."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    summary["paged_flash_attention"] = [check_paged("A1 paged decode", gen, [1, 16, 37, 272])]
+    rng = np.random.default_rng(7)
+    lens = [int(x) for x in rng.integers(512, 4097, 64)]
+    summary["paged_flash_attention"].append(check_paged("A2 paged decode at load", gen, lens))
+    torch.cuda.empty_cache()
+    a3, _ = check_dense("A3 dense prefill", gen, 256, True)
+    a4, inputs = check_dense("A4 dense long", gen, 4096, False)
+    summary["flash_attention"] = [a3, a4]
+    torch.cuda.empty_cache()
+    return inputs
+
+
+def count_dense_entry_point(q, k, v) -> int:
+    """The dense kernel's own path: one call of the port's
+    ``ops.flash_attention`` entry point on A4's inputs, counted: it must
+    launch the dense kernel once and nothing else."""
+    from repro_torch.kernels import ops
+
+    _reset_counts()
+    out = ops.flash_attention(q, k, v, causal=True, backend="auto")
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    if counts["flash_attention"] != 1 or sum(counts.values()) != 1:
+        _die(f"ops.flash_attention launched {counts}")
+    if out.shape != q.shape or not bool(torch.isfinite(out).all()):
+        _die("ops.flash_attention gave a malformed result")
+    return counts["flash_attention"]
+
+
 def _profile(engine, reqs, schedule) -> dict:
     """Device side of one served run under ``torch.profiler``: the time
     and number of device events (kernels, copies, sets) in all, and the
@@ -335,9 +559,11 @@ def _profile(engine, reqs, schedule) -> dict:
     plane_us = sum(us for name, _, us in device
                    if any(tag in name for tag in ("plane_linear", "plane_mm", "packed_mm",
                                                   "epilogue_kernel")))
+    attn_us = sum(us for name, _, us in device
+                  if any(tag in name for tag in ("paged_kernel", "dense_kernel")))
     return {
         "device_events": len(device), "device_busy_s": busy_us / 1e6,
-        "plane_kernels_s": plane_us / 1e6,
+        "plane_kernels_s": plane_us / 1e6, "attention_kernels_s": attn_us / 1e6,
         "prefill_ranges": len(spans["serve.prefill"]),
         "prefill_device_s": in_range["serve.prefill"] / 1e6,
         "decode_ranges": len(spans["serve.decode_step"]),
@@ -347,12 +573,14 @@ def _profile(engine, reqs, schedule) -> dict:
 
 
 def _counters() -> dict:
-    from repro_torch.kernels import plane_mm, plane_mm_fused, plane_mm_packed
+    from repro_torch.kernels import flash_attention, plane_mm, plane_mm_fused, plane_mm_packed
 
     return {
         "fused_plane_linear": plane_mm_fused.fused_plane_linear,
         "plane_matmul": plane_mm.plane_matmul,
         "plane_matmul_packed": plane_mm_packed.plane_matmul_packed,
+        "flash_attention": flash_attention.flash_attention,
+        "paged_flash_attention": flash_attention.paged_flash_attention,
     }
 
 
@@ -581,6 +809,322 @@ def run_detect(cfg, params, nofused: dict, nofused_results: dict) -> dict:
     return out
 
 
+# the bitplane-paged cell: int8 KV in pages, chunked prefill, shared prefixes
+PAGED_MAX_LEN = 272  # longest prompt (64 + 192) + GEN_TOKENS
+PAGED_CHUNK = 64
+PAGED_PREFIX = 64
+PAGED_REQUESTS = 10
+PAGED_SHARED = 8  # the first 80% open with the shared prefix, as the serving bench's
+# bound on max|logit(kernel) - logit(plain)| in the attention replay (PERF.md,
+# written before the first chip run)
+DLOGIT_BOUND = 0.5
+# planted wiring faults for the replay's negative control: what the attention
+# layer hands the paged kernel, (tables, kv_lens) -> (tables, kv_lens)
+WIRING_FAULTS = {
+    "kv_lens - 1": lambda tables, kv_lens: (tables, kv_lens - 1),
+    "table shifted one page": lambda tables, kv_lens: (torch.roll(tables, 1, dims=1), kv_lens),
+}
+
+
+def _paged_requests(cfg) -> list:
+    """Ten requests arriving one step apart; the first eight open with the
+    same 64-token prefix and declare it shared; bodies of 16-192 tokens."""
+    from repro_torch.runtime.scheduler import Request
+
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, (PAGED_PREFIX,))
+    body = np.random.default_rng(1)
+    reqs = []
+    for i in range(PAGED_REQUESTS):
+        shared = i < PAGED_SHARED
+        blen = int(body.integers(16, 193))
+        toks = (np.concatenate([prefix, body.integers(0, cfg.vocab_size, (blen,))]) if shared
+                else body.integers(0, cfg.vocab_size, (PAGED_PREFIX + blen,)))
+        reqs.append(Request(rid=i, tokens=toks, max_new_tokens=GEN_TOKENS, arrival_step=i,
+                            shared_prefix_len=PAGED_PREFIX if shared else 0))
+    return reqs
+
+
+def _paged_engine(cfg, params, policy, paged=True, **kw):
+    from repro_torch.launch.serve import ContinuousBatchingEngine
+
+    if paged:
+        kw.update(page_size=PAGE, prefill_chunk=PAGED_CHUNK, share_prefixes=True)
+    return ContinuousBatchingEngine(cfg, params, policy, n_slots=N_SLOTS,
+                                    max_len=PAGED_MAX_LEN, device="cuda", **kw)
+
+
+class _GatherCount:
+    """Counts calls of the attention layer's ``_decode_gqa`` (the plain
+    paged path gathers the pages and calls it; the kernel path never)."""
+
+    def __enter__(self):
+        from repro_torch.layers import attention
+
+        self.mod, self.orig, self.calls = attention, attention._decode_gqa, 0
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self.orig(*a, **k)
+
+        attention._decode_gqa = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._decode_gqa = self.orig
+
+
+class _AttentionTap:
+    """Records every paged-kernel call of the attention layer as (query,
+    output); with ``fault``, the layer's tables and lengths pass through
+    it on their way to the kernel (a planted wiring fault)."""
+
+    def __init__(self, fault=None):
+        self.fault = fault
+
+    def __enter__(self):
+        from repro_torch.layers import attention
+
+        self.mod, self.orig, self.calls = attention, attention.paged_flash_attention, []
+
+        def tapped(q, k_pool, v_pool, k_scale_pool, v_scale_pool, tables, kv_lens, **kw):
+            if self.fault is not None:
+                tables, kv_lens = self.fault(tables, kv_lens)
+            out = self.orig(q, k_pool, v_pool, k_scale_pool, v_scale_pool, tables, kv_lens, **kw)
+            self.calls.append((q, out))
+            return out
+
+        attention.paged_flash_attention = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.paged_flash_attention = self.orig
+
+
+def _layer_errs(calls, before, after) -> list:
+    """Each layer's paged-kernel output against the kernel's plain
+    function on that layer's pools after the append, its block table and
+    its length + 1, all read from the caches before and after the step,
+    not from the call: a fault in what the layer hands the kernel shows
+    here at the kernel's own tolerance. Returns [(max|err|, within), ...]."""
+    from repro_torch.kernels import flash_attention as fa
+
+    if len(calls) != len(before["layers"]):
+        _die(f"attention replay: {len(calls)} paged-kernel calls in one step of "
+             f"{len(before['layers'])} layers")
+    errs = []
+    for (q, out), blk0, blk1 in zip(calls, before["layers"], after["layers"]):
+        plain = fa.paged_flash_attention_plain(
+            q, blk1["k_q"], blk1["v_q"], blk1["k_scale"], blk1["v_scale"],
+            blk0["block_table"], blk0["len"] + 1)
+        errs.append(_attn_err(out, plain))
+    return errs
+
+
+def _finished(name, cfg, results, stats, n) -> None:
+    if stats["failed"] or sorted(results) != list(range(n)):
+        _die(f"{name}: not every request finished: {stats['failed']}")
+    for rid, toks in results.items():
+        if toks.shape != (GEN_TOKENS,) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            _die(f"{name}: request {rid} produced malformed tokens {toks}")
+
+
+def _replay(cfg, engine) -> dict:
+    """B4: four requests prefilled through the paged path (prefill chunks
+    and paged_commit), then 16 decode steps, each run twice from clones of
+    the same paged cache and tokens: backend "cuda" (the paged kernel) and
+    "torch" (gather + _decode_gqa). The projections are bit-equal between
+    the two, so only the attention differs; the trajectory follows the
+    kernel's tokens. Every layer's kernel output is also held against the
+    kernel's plain function on the inputs read from the cache
+    (:func:`_layer_errs`), and before the first step each planted wiring
+    fault must fail that check."""
+    from repro_torch.launch import sampling
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import paging
+    from repro_torch.models.transformer import forward
+
+    ps = PAGE
+    n_pages = N_SLOTS * (PAGED_MAX_LEN // ps) + 1
+    cache = paging.paged_init_cache(cfg, N_SLOTS, PAGED_MAX_LEN, ps, n_pages, device="cuda")
+    pager = paging.SlotPager(paging.PageAllocator(n_pages, ps), N_SLOTS, PAGED_MAX_LEN // ps)
+    prefill = make_prefill_step(cfg, engine.policy, max_len=PAGED_MAX_LEN, backend="auto")
+    first = []
+    for slot, req in enumerate(_paged_requests(cfg)[:N_SLOTS]):
+        scratch = None
+        for a in range(0, req.tokens.size, PAGED_CHUNK):
+            toks = torch.as_tensor(req.tokens[a:a + PAGED_CHUNK], device="cuda")[None, :]
+            logits, scratch = prefill(engine.q_params, toks, scratch)
+        table, mask = pager.assign(slot, [], pager.pages_needed(req.tokens.size + GEN_TOKENS))
+        paging.paged_commit(cache, scratch, slot, table, mask, int(req.tokens.size))
+        first.append(int(sampling.greedy(sampling.mask_vocab(logits, cfg.vocab_size))[0]))
+    tokens = torch.tensor(first, dtype=torch.int32, device="cuda")[:, None]
+
+    def clone(c):
+        return {"step": c["step"].clone(),
+                "layers": [{k: v.clone() for k, v in blk.items()} for blk in c["layers"]]}
+
+    def kernel_step(fault=None):
+        with _AttentionTap(fault) as tap:
+            logits, _, after = forward(cfg, engine.q_params, {"tokens": tokens},
+                                       policy=engine.policy, cache=clone(cache), backend="cuda")
+        return logits[:, -1, :cfg.vocab_size].float(), after, _layer_errs(tap.calls, cache, after)
+
+    deltas, margins, near_ties, mismatches = [], [], 0, []
+    layer_err, layer_bad, faults = 0.0, [], {}
+    with torch.no_grad():
+        for step in range(GEN_TOKENS):
+            lk, new_cache, errs = kernel_step()
+            lt, _, _ = forward(cfg, engine.q_params, {"tokens": tokens}, policy=engine.policy,
+                               cache=clone(cache), backend="torch")
+            lt = lt[:, -1, :cfg.vocab_size].float()
+            if step == 0:
+                # negative control: the same step with each planted fault
+                for fname, fault in WIRING_FAULTS.items():
+                    lf, _, ferrs = kernel_step(fault)
+                    faults[fname] = {
+                        "layers_outside_tolerance": sum(not ok for _, ok in ferrs),
+                        "layer_max_abs_err": max(e for e, _ in ferrs),
+                        "max_abs_dlogit": float((lf - lt).abs().max()),
+                    }
+            layer_err = max([layer_err] + [e for e, _ in errs])
+            layer_bad += [(step, layer) for layer, (_, ok) in enumerate(errs) if not ok]
+            delta = float((lk - lt).abs().max())
+            top = lt.topk(2, dim=-1).values
+            margin = (top[:, 0] - top[:, 1]).cpu()
+            tk, tt = lk.argmax(-1).cpu(), lt.argmax(-1).cpu()
+            for s_ in range(N_SLOTS):
+                if float(margin[s_]) > 2 * delta:
+                    if int(tk[s_]) != int(tt[s_]):
+                        mismatches.append((step, s_))
+                else:
+                    near_ties += 1
+            deltas.append(delta)
+            margins.append(float(margin.min()))
+            cache = new_cache
+            tokens = tk.to(device="cuda", dtype=torch.int32)[:, None]
+    out = {"steps": GEN_TOKENS, "slots": N_SLOTS, "max_abs_dlogit": max(deltas),
+           "dlogit_per_step": deltas, "dlogit_bound": DLOGIT_BOUND,
+           "least_plain_top2_margin": min(margins), "near_ties": near_ties,
+           "greedy_mismatches_beyond_ties": mismatches,
+           "layer_checks": GEN_TOKENS * cfg.n_layers, "layer_max_abs_err": layer_err,
+           "layers_outside_tolerance": layer_bad, "planted_faults": faults}
+    print(json.dumps({"attention_replay": out}), flush=True)
+    if layer_bad:
+        _die(f"attention replay: the paged kernel's output is outside its plain function's "
+             f"tolerance at (step, layer) {layer_bad}")
+    missed = [f for f, r in faults.items() if not r["layers_outside_tolerance"]]
+    if missed:
+        _die(f"attention replay: the per-layer check did not see the planted faults {missed}")
+    if max(deltas) > DLOGIT_BOUND:
+        _die(f"attention replay: max|dlogit| {max(deltas)} above the bound {DLOGIT_BOUND}")
+    if mismatches:
+        _die(f"attention replay: greedy tokens differ at (step, slot) {mismatches} "
+             f"where the plain top-2 margin exceeds 2 max|dlogit|")
+    return out
+
+
+def _chunked_vs_monolithic(cfg, engine) -> dict:
+    """Reported, not gated: each prompt's last-token logits from a one-chunk
+    plain prefill against chunks of PAGED_CHUNK tokens."""
+    from repro_torch.launch.steps import make_prefill_step
+
+    prefill = make_prefill_step(cfg, engine.policy, max_len=PAGED_MAX_LEN, backend="torch")
+    unequal, worst = [], 0.0
+    for req in _paged_requests(cfg):
+        toks = torch.as_tensor(req.tokens, device="cuda")[None, :]
+        lm, _ = prefill(engine.q_params, toks)
+        scratch = None
+        for a in range(0, toks.shape[1], PAGED_CHUNK):
+            lc, scratch = prefill(engine.q_params, toks[:, a:a + PAGED_CHUNK], scratch)
+        if not torch.equal(lm, lc):
+            unequal.append([req.rid, int(toks.shape[1])])
+        worst = max(worst, float((lm.float() - lc.float()).abs().max()))
+    return {"prompts": PAGED_REQUESTS, "unequal_rid_len": unequal, "max_abs_dlogit": worst}
+
+
+def run_paged(cfg, params) -> dict:
+    """The bitplane-paged cell: B1 the kernel run (paged attention kernel,
+    fused projections), B2 the plain paged run, B3 the plain dense engine
+    with the same prefill chunks (B2's tokens must equal B3's), B4 the
+    attention replay."""
+    from repro_torch.core.precision import PrecisionPolicy
+
+    name = "bitplane-paged"
+    policy = PrecisionPolicy.uniform(8, 8, variant="booth", level="bitplane")
+    engine = _paged_engine(cfg, params, policy)
+    engine.run(_paged_requests(cfg)[:2])  # warm-up: a registry miss and a hit
+    with _GatherCount() as gathers:
+        _reset_counts()
+        results, stats = engine.run(_paged_requests(cfg))
+        counts = _read_counts()
+    _finished(name, cfg, results, stats, PAGED_REQUESTS)
+    steps = stats["decode_steps"]
+    pg = stats["paging"]
+    others = {k: v for k, v in counts.items()
+              if k not in ("fused_plane_linear", "paged_flash_attention") and v}
+    if (counts["paged_flash_attention"] != LAYERS * steps or gathers.calls
+            or counts["fused_plane_linear"] != stats["route_calls"].get("fused_cached", 0)
+            or set(stats["route_calls"]) != {"fused_cached"} or others):
+        _die(f"{name}: launches {counts}, {gathers.calls} gather-path calls, routes "
+             f"{stats['route_calls']}, {steps} decode steps x {LAYERS} layers")
+    if pg["shared_prefix_hits"] < 1:
+        _die(f"{name}: no shared-prefix hit: {pg}")
+    if pg["peak_used_pages"] >= N_SLOTS * pg["pages_per_slot"]:
+        _die(f"{name}: peak pages {pg['peak_used_pages']} not below the dense reservation "
+             f"{N_SLOTS * pg['pages_per_slot']}")
+    profile = _profile(engine, _paged_requests(cfg), None)
+
+    plain = _paged_engine(cfg, params, policy, backend="torch")
+    with _GatherCount() as plain_gathers:
+        _reset_counts()
+        res_plain, st_plain = plain.run(_paged_requests(cfg))
+        plain_counts = _read_counts()
+    del plain
+    _finished(f"{name} plain", cfg, res_plain, st_plain, PAGED_REQUESTS)
+    if (any(plain_counts.values()) or set(st_plain["route_calls"]) != {"cached_scan"}
+            or plain_gathers.calls != LAYERS * st_plain["decode_steps"]):
+        _die(f"{name}: the plain paged run launched {plain_counts}, took routes "
+             f"{st_plain['route_calls']}, {plain_gathers.calls} gather-path calls")
+    # the dense engine with the same prefill chunks: on the card the plain
+    # prefill's float32 reductions depend on a chunk's row count, so a
+    # monolithic prefill is not bit-equal to a chunked one (measured below)
+    dense = _paged_engine(cfg, params, policy, paged=False, backend="torch",
+                          prefill_chunk=PAGED_CHUNK)
+    res_dense, st_dense = dense.run(_paged_requests(cfg))
+    chunking = _chunked_vs_monolithic(cfg, dense)
+    del dense
+    _finished(f"{name} plain dense", cfg, res_dense, st_dense, PAGED_REQUESTS)
+    _same_tokens(f"{name} plain paged", res_plain, res_dense, "the plain dense engine")
+    torch.cuda.empty_cache()
+
+    replay = _replay(cfg, engine)
+    del engine
+    torch.cuda.empty_cache()
+    # reported, not gated: the kernel's float32 probabilities against the
+    # plain path's bf16 ones move near-tied greedy choices
+    equal = sum(int(np.sum(results[r] == res_plain[r])) for r in results)
+    diverged = [(r, int(np.argmax(results[r] != res_plain[r]))) for r in sorted(results)
+                if not np.array_equal(results[r], res_plain[r])]
+    out = _summary(name, cfg, results, stats, counts, "paged_flash_attention", [stats], profile)
+    out.update(
+        paging=pg, prefill_chunks=stats["prefill_chunks"],
+        shared_prefix_hits=pg["shared_prefix_hits"],
+        dense_reservation_pages=N_SLOTS * pg["pages_per_slot"],
+        decode_iter_p99_ms=stats["decode_iter_p99_ms"],
+        paged_kernel_launches=counts["paged_flash_attention"],
+        fused_kernel_launches=counts["fused_plane_linear"], gather_path_calls=0,
+        attention_device_ms_per_decode_step=1e3 * profile["attention_kernels_s"]
+        / max(profile["decode_ranges"], 1),
+        plain_tok_per_s=st_plain["tok_per_s"], plain_dense_tok_per_s=st_dense["tok_per_s"],
+        plain_paged_tokens_equal_plain_dense=True, chunked_vs_monolithic_prefill=chunking,
+        kernel_vs_plain_equal_tokens=[equal, PAGED_REQUESTS * GEN_TOKENS],
+        kernel_vs_plain_first_divergence=diverged[:1], replay=replay,
+    )
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _die("no CUDA device: this smoke run needs one GPU")
@@ -604,6 +1148,9 @@ def main() -> None:
     summary: dict = {}
     check_kernels(summary)
     print(f"[chip_smoke] kernel checks done at {time.perf_counter() - t0:.1f} s", flush=True)
+    dense_launches = count_dense_entry_point(*check_attention(summary))
+    print(f"[chip_smoke] attention kernel checks done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     full = get_config("granite-3-8b")
     cfg = dataclasses.replace(full, n_layers=LAYERS)
@@ -625,6 +1172,12 @@ def main() -> None:
     print(f"[chip_smoke] engine bitplane-detect done at {time.perf_counter() - t0:.1f} s "
           f"(detect adds {eng_det['overhead_wall_s']:.3f} s wall, "
           f"{eng_det['overhead_decode_step_ms']:.2f} ms per decode step)", flush=True)
+    eng_pag = run_paged(cfg, params)
+    rp = eng_pag["replay"]
+    print(f"[chip_smoke] engine bitplane-paged done at {time.perf_counter() - t0:.1f} s "
+          f"({eng_pag['tok_per_s']:.2f} tok/s; replay max|dlogit| {rp['max_abs_dlogit']:.4g}, "
+          f"least margin {rp['least_plain_top2_margin']:.4g}, {rp['near_ties']} near ties)",
+          flush=True)
 
     def entry(name, source, replaces, lines, launches):
         rep = lines[0]  # decode gate projection, M=4: the most frequent main-path call
@@ -648,6 +1201,24 @@ def main() -> None:
         entry("plane_matmul_packed", "src/repro_torch/kernels/csrc/plane_mm_packed.cu",
               "src/repro/kernels/plane_mm_packed.py:160", summary["plane_matmul_packed"],
               eng_nof["launches"]),
+    ]
+
+    def attn_entry(name, replaces, rep, lines, launches, path):
+        return {
+            "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(l["max_abs_err"] for l in lines),
+            "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            "shape": rep["check"], "path": path,
+        }
+
+    paged_lines, dense_lines = summary["paged_flash_attention"], summary["flash_attention"]
+    kernels += [
+        attn_entry("flash_attention", "src/repro/kernels/flash_attention.py:126", dense_lines[-1],
+                   dense_lines, dense_launches, "ops.flash_attention (not on the serving path)"),
+        attn_entry("paged_flash_attention", "src/repro/kernels/flash_attention.py:328",
+                   paged_lines[0], paged_lines, eng_pag["launches"], "bitplane-paged decode"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

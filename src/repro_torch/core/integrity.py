@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -156,15 +156,17 @@ class Collector:
             out = f.reshape(()) | out.to(f.device)
         return out
 
-    def harvest(self, alarms) -> list:
+    def harvest(self, alarms, keys: Optional[list] = None) -> list:
         """Tally read-back alarm values against the keys of this step's
-        reports; returns ``[(key, bad), ...]``."""
+        reports (or ``keys``, kept from an earlier step whose alarms were
+        read back later); returns ``[(key, bad), ...]``."""
+        keys = self.keys if keys is None else keys
         vals = [bool(v) for v in torch.as_tensor(alarms).reshape(-1).tolist()]
         # report/report_carried append a key with every flag, so the step's
         # alarm vector and the keys always pair up
-        assert len(self.keys) == len(vals), (len(self.keys), len(vals))
+        assert len(keys) == len(vals), (len(keys), len(vals))
         out = []
-        for key, bad in zip(self.keys, vals):
+        for key, bad in zip(keys, vals):
             record(key, bad)
             out.append((key, bad))
         return out

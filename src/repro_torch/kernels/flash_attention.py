@@ -1,0 +1,416 @@
+"""Blockwise (flash) attention with online softmax: the Hopper kernels,
+their wrappers and their plain PyTorch versions.
+
+Port of ``src/repro/kernels/flash_attention.py``:
+
+* :func:`flash_attention` (``flash_attention``, body ``_flash_kernel``) —
+  q ``(B, Hq, Sq, D)`` against K/V ``(B, Hkv, Sk, D)`` (bf16, float32, or
+  int8 with ``(B, Hkv, Sk)`` float32 scales folded into the scores and the
+  probabilities), GQA by head index, causal masking aligned to the top
+  left (``q_pos >= k_pos``, both from 0) with KV blocks above the diagonal
+  skipped, padding masked by the static ``kv_len`` or per-lane ``kv_lens``;
+* :func:`paged_flash_attention` (``paged_flash_attention``, body
+  ``_paged_kernel``) — decode attention straight off the int8 page pools
+  ``(n_pages, page_size, Hkv, D)`` and their scale pools through block
+  tables ``(B, P)``; pages at or past a lane's length are skipped.
+
+Both compute, per KV block (one page for the paged kernel), in float32::
+
+    s = (q . k) * sm_scale; s *= k_scale; masked -> -1e30
+    m_new = max(m, rowmax s); p = exp(s - m_new); alpha = exp(m - m_new)
+    l = alpha * l + sum p; p *= v_scale; acc = acc * alpha + p . v
+
+and return ``acc / max(l, 1e-30)``. This is the kernels' function, not
+the serving path's ``_decode_gqa`` (which rounds the probabilities to
+bf16 before the value product). The kernel source, with its design note,
+is ``csrc/flash_attn.cu``; the per-block update is shared between the two
+kernels in ``csrc/attn_common.cuh``, so on gathered pools the paged kernel
+equals the dense kernel with ``block_k == page_size`` bit for bit, as
+the plain versions here do.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+version for CPU tensors — the query's device decides, nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import _exact_matmul
+
+NEG_INF = -1e30
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+# ---------------------------------------------------------------------------
+# Argument checks (shared by the kernels and the plain versions, with the
+# reference wrappers' messages)
+# ---------------------------------------------------------------------------
+
+
+def _check_dense(q, k, v, *, block_q, block_k, kv_len, kv_lens, k_scale, v_scale) -> int:
+    """The reference ``flash_attention``'s checks; returns the static
+    KV length."""
+    b, hq, sq, _ = q.shape
+    _, hkv, sk, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"GQA requires Hq % Hkv == 0, got {hq} % {hkv}")
+    if sq % block_q or sk % block_k:
+        raise ValueError(f"seq lens ({sq},{sk}) must tile by ({block_q},{block_k})")
+    if kv_lens is not None and kv_len is not None:
+        raise ValueError("kv_len (static) and kv_lens (per-sequence) are exclusive")
+    if kv_lens is not None and tuple(kv_lens.shape) != (b,):
+        raise ValueError(f"kv_lens must be ({b},), got {tuple(kv_lens.shape)}")
+    for name, scale in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if scale is not None and tuple(scale.shape) != (b, hkv, sk):
+            raise ValueError(f"{name} must be ({b},{hkv},{sk}), got {tuple(scale.shape)}")
+    static_kv_len = sk if kv_len is None else kv_len
+    if not 0 < static_kv_len <= sk:
+        raise ValueError(f"kv_len {static_kv_len} out of range (0, {sk}]")
+    return static_kv_len
+
+
+def _check_paged(q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables, kv_lens, *,
+                 block_q) -> None:
+    """The reference ``paged_flash_attention``'s checks."""
+    b, hq, sq, _ = q.shape
+    hkv = k_pool.shape[2]
+    if hq % hkv:
+        raise ValueError(f"GQA requires Hq % Hkv == 0, got {hq} % {hkv}")
+    if sq % block_q:
+        raise ValueError(f"Sq={sq} must tile by block_q={block_q}")
+    if block_tables.shape[0] != b or block_tables.ndim != 2:
+        raise ValueError(f"block_tables must be ({b}, P), got {tuple(block_tables.shape)}")
+    if tuple(kv_lens.shape) != (b,):
+        raise ValueError(f"kv_lens must be ({b},), got {tuple(kv_lens.shape)}")
+    for name, pool, shape in (
+        ("v_pool", v_pool, tuple(k_pool.shape)),
+        ("k_scale_pool", k_scale_pool, tuple(k_pool.shape[:-1])),
+        ("v_scale_pool", v_scale_pool, tuple(k_pool.shape[:-1])),
+    ):
+        if tuple(pool.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(pool.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def _block_update(state, q, k, v, ks, vs, mask, sm_scale):
+    """One KV block of the online softmax, in the kernels' operation order.
+    q (B, H, R, D), k / v (B, H, BK, D) float32; ks / vs (B, H, BK) or
+    None; ``mask`` broadcasts against the (B, H, R, BK) scores."""
+    m, l, acc = state
+    s = _exact_matmul(q, k.transpose(-1, -2)) * sm_scale
+    if ks is not None:
+        s = s * ks[:, :, None, :]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    p = torch.exp(s - m_new)
+    alpha = torch.exp(m - m_new)
+    l = alpha * l + p.sum(dim=-1, keepdim=True)
+    if vs is not None:
+        p = p * vs[:, :, None, :]
+    acc = acc * alpha + _exact_matmul(p, v)
+    return m_new, l, acc
+
+
+def _keep(run, new, old):
+    """The state after a block that runs only where ``run`` holds."""
+    return tuple(torch.where(run, n, o) for n, o in zip(new, old))
+
+
+def _init_state(b, h, r, d, device):
+    return (
+        torch.full((b, h, r, 1), NEG_INF, dtype=torch.float32, device=device),
+        torch.zeros((b, h, r, 1), dtype=torch.float32, device=device),
+        torch.zeros((b, h, r, d), dtype=torch.float32, device=device),
+    )
+
+
+def _f32_block(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32).contiguous()
+
+
+def flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    sm_scale: Optional[float] = None,
+    block_q: int = 128,
+    block_k: int = 128,
+    kv_len: Optional[int] = None,
+    kv_lens: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the dense kernel (any device): the same
+    blocks, masks, skipped blocks and float32 operation order."""
+    static_kv_len = _check_dense(q, k, v, block_q=block_q, block_k=block_k, kv_len=kv_len,
+                                 kv_lens=kv_lens, k_scale=k_scale, v_scale=v_scale)
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    group = hq // hkv
+    if sm_scale is None:
+        sm_scale = d**-0.5
+    dev = q.device
+    # the group's query heads share one K/V head: rows (g, i) of one KV head
+    qf = q.to(torch.float32).reshape(b, hkv, group * sq, d)
+    q_pos = torch.arange(group * sq, device=dev) % sq
+    kv_steps = sk // block_k
+    lens = None if kv_lens is None else kv_lens.to(device=dev, dtype=torch.int64)
+    state = _init_state(b, hkv, group * sq, d, dev)
+    for ki in range(kv_steps):
+        blk = slice(ki * block_k, (ki + 1) * block_k)
+        k_pos = ki * block_k + torch.arange(block_k, device=dev)
+        mask = torch.ones((group * sq, block_k), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (q_pos[:, None] >= k_pos[None, :])
+        if lens is not None:
+            mask = mask & (k_pos[None, None, None, :] < lens[:, None, None, None])
+        elif static_kv_len < kv_steps * block_k:
+            mask = mask & (k_pos[None, :] < static_kv_len)
+        new = _block_update(
+            state, qf, _f32_block(k[:, :, blk]), _f32_block(v[:, :, blk]),
+            None if k_scale is None else k_scale[:, :, blk].to(torch.float32),
+            None if v_scale is None else v_scale[:, :, blk].to(torch.float32),
+            mask, sm_scale,
+        )
+        if causal:  # the kernel skips blocks above each query block's diagonal
+            run = ki * block_k <= (q_pos // block_q) * block_q + block_q - 1
+            state = _keep(run[None, None, :, None], new, state)
+        else:
+            state = new
+    _, l, acc = state
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.reshape(b, hq, sq, d).to(q.dtype if out_dtype is None else out_dtype)
+
+
+def paged_flash_attention_plain(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    k_scale_pool: torch.Tensor,
+    v_scale_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    kv_lens: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    block_q: int = 1,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the paged kernel (any device): one block
+    per page through the table, pages at or past a lane's length skipped."""
+    _check_paged(q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables, kv_lens,
+                 block_q=block_q)
+    b, hq, sq, d = q.shape
+    _, page_size, hkv, _ = k_pool.shape
+    group = hq // hkv
+    if sm_scale is None:
+        sm_scale = d**-0.5
+    dev = q.device
+    qf = q.to(torch.float32).reshape(b, hkv, group * sq, d)
+    tables = block_tables.to(device=dev, dtype=torch.int64)
+    lens = kv_lens.to(device=dev, dtype=torch.int64)
+    state = _init_state(b, hkv, group * sq, d, dev)
+    for ki in range(tables.shape[1]):
+        pages = tables[:, ki]
+        k_pos = ki * page_size + torch.arange(page_size, device=dev)
+        mask = k_pos[None, None, None, :] < lens[:, None, None, None]
+        new = _block_update(
+            state, qf,
+            _f32_block(k_pool[pages].permute(0, 2, 1, 3)),
+            _f32_block(v_pool[pages].permute(0, 2, 1, 3)),
+            k_scale_pool[pages].permute(0, 2, 1).to(torch.float32),
+            v_scale_pool[pages].permute(0, 2, 1).to(torch.float32),
+            mask, sm_scale,
+        )
+        run = ki * page_size < lens
+        state = _keep(run[:, None, None, None], new, state)
+    _, l, acc = state
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.reshape(b, hq, sq, d).to(torch.bfloat16 if out_dtype is None else out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernels
+# ---------------------------------------------------------------------------
+
+
+def _lib():
+    lib = _build.load("flash_attn")
+    dense, paged = lib.flash_attention_launch, lib.paged_flash_attention_launch
+    if dense.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        dense.argtypes = [
+            p, i, p, p, i,  # q, q dtype, k, v, kv dtype
+            p, p, p,  # k_scale, v_scale, kv_lens
+            p, i,  # out, out dtype
+            i, i, i, i, i, i,  # B, Hq, Hkv, Sq, Sk, D
+            i, i, i, i, f, i,  # block_q, block_k, causal, kv_len, sm_scale, vec
+            p,  # stream
+        ]
+        dense.restype = ctypes.c_int
+        paged.argtypes = [
+            p, i, p, p, p, p,  # q, q dtype, pools
+            p, p,  # tables, kv_lens
+            p, i,  # out, out dtype
+            i, i, i, i, i, i, i,  # B, Hq, Hkv, Sq, D, page_size, P
+            f, i,  # sm_scale, vec
+            p,  # stream
+        ]
+        paged.restype = ctypes.c_int
+    return dense, paged
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _on(t: torch.Tensor, dev, dtypes, name) -> torch.Tensor:
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} must be one of {[str(x) for x in dtypes]}, got {t.dtype}")
+    return t.contiguous()
+
+
+def _vec(d: int, elem: int, *tensors) -> int:
+    """16-byte loads: every row 16-byte aligned."""
+    return int((d * elem) % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    sm_scale: Optional[float] = None,
+    block_q: int = 128,
+    block_k: int = 128,
+    kv_len: Optional[int] = None,
+    kv_lens: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); Hq % Hkv == 0 (GQA).
+
+    Sq % block_q == 0 and Sk % block_k == 0 (``ops.flash_attention`` pads
+    otherwise). ``kv_len``: the number of real KV positions (<= Sk), the
+    rest masked; ``kv_lens``: (B,) per-lane valid lengths instead (lanes of
+    length 0 give finite values, never NaN). ``k_scale``/``v_scale``: (B,
+    Hkv, Sk) float32 scales of an int8 K/V. ``out_dtype`` defaults to q's.
+    Returns (B, Hq, Sq, D). CPU tensors run :func:`flash_attention_plain`;
+    CUDA tensors launch the kernel, and arguments it does not take raise."""
+    kw = dict(causal=causal, sm_scale=sm_scale, block_q=block_q, block_k=block_k,
+              kv_len=kv_len, kv_lens=kv_lens, k_scale=k_scale, v_scale=v_scale,
+              out_dtype=out_dtype)
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, **kw)
+    static_kv_len = _check_dense(q, k, v, block_q=block_q, block_k=block_k, kv_len=kv_len,
+                                 kv_lens=kv_lens, k_scale=k_scale, v_scale=v_scale)
+    dev = q.device
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if k.dtype != v.dtype:
+        raise ValueError(f"k and v must share a dtype, got {k.dtype} / {v.dtype}")
+    qc = _on(q, dev, _FLOATS, "q")
+    kc = _on(k, dev, tuple(_DTYPE_CODES), "k")
+    vc = _on(v, dev, tuple(_DTYPE_CODES), "v")
+    ksc = None if k_scale is None else _on(k_scale.to(torch.float32), dev, _FLOATS, "k_scale")
+    vsc = None if v_scale is None else _on(v_scale.to(torch.float32), dev, _FLOATS, "v_scale")
+    lens = None if kv_lens is None else _on(kv_lens.to(torch.int32), dev, (torch.int32,),
+                                            "kv_lens")
+    out_dtype = q.dtype if out_dtype is None else out_dtype
+    if out_dtype not in _FLOATS:
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    out = torch.empty(q.shape, dtype=out_dtype, device=dev)
+    flash_attention.launches += 1
+    err = _lib()[0](
+        _ptr(qc), _DTYPE_CODES[qc.dtype], _ptr(kc), _ptr(vc), _DTYPE_CODES[kc.dtype],
+        _ptr(ksc), _ptr(vsc), _ptr(lens), _ptr(out), _DTYPE_CODES[out_dtype],
+        b, hq, hkv, sq, sk, d, block_q, block_k, int(causal), static_kv_len,
+        float(d**-0.5 if sm_scale is None else sm_scale), _vec(d, kc.element_size(), kc, vc),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    return out
+
+
+flash_attention.launches = 0
+
+
+def paged_flash_attention(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    k_scale_pool: torch.Tensor,
+    v_scale_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    kv_lens: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    block_q: int = 1,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Decode attention straight off the paged int8 KV pools.
+
+    q: (B, Hq, Sq, D); pools: (n_pages, page_size, Hkv, D) int8 with
+    (n_pages, page_size, Hkv) float32 scales (one layer's pools, as
+    ``models.paging.paged_init_cache`` stores them); block_tables: (B, P);
+    kv_lens: (B,). One KV block is one page; pages at or past a lane's
+    length are skipped, so table entries past it (the null page) are never
+    read. The length mask is the only mask (a decode query sits at
+    ``len - 1``). Returns (B, Hq, Sq, D) in ``out_dtype`` (bf16 by
+    default). CPU tensors run :func:`paged_flash_attention_plain`; CUDA
+    tensors launch the kernel, and arguments it does not take raise."""
+    if not q.is_cuda:
+        return paged_flash_attention_plain(
+            q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables, kv_lens,
+            sm_scale=sm_scale, block_q=block_q, out_dtype=out_dtype,
+        )
+    _check_paged(q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables, kv_lens,
+                 block_q=block_q)
+    dev = q.device
+    b, hq, sq, d = q.shape
+    _, page_size, hkv, _ = k_pool.shape
+    qc = _on(q, dev, _FLOATS, "q")
+    kp = _on(k_pool, dev, (torch.int8,), "k_pool")
+    vp = _on(v_pool, dev, (torch.int8,), "v_pool")
+    ksp = _on(k_scale_pool.to(torch.float32), dev, (torch.float32,), "k_scale_pool")
+    vsp = _on(v_scale_pool.to(torch.float32), dev, (torch.float32,), "v_scale_pool")
+    tables = _on(block_tables.to(torch.int32), dev, (torch.int32,), "block_tables")
+    lens = _on(kv_lens.to(torch.int32), dev, (torch.int32,), "kv_lens")
+    out_dtype = torch.bfloat16 if out_dtype is None else out_dtype
+    if out_dtype not in _FLOATS:
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    out = torch.empty(q.shape, dtype=out_dtype, device=dev)
+    paged_flash_attention.launches += 1
+    err = _lib()[1](
+        _ptr(qc), _DTYPE_CODES[qc.dtype], _ptr(kp), _ptr(vp), _ptr(ksp), _ptr(vsp),
+        _ptr(tables), _ptr(lens), _ptr(out), _DTYPE_CODES[out_dtype],
+        b, hq, hkv, sq, d, page_size, tables.shape[1],
+        float(d**-0.5 if sm_scale is None else sm_scale), _vec(d, 1, kp, vp),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"paged_flash_attention launch failed: CUDA error {err}")
+    return out
+
+
+paged_flash_attention.launches = 0

@@ -1,4 +1,4 @@
-"""Dispatch over the plane-pair kernels.
+"""Dispatch over the plane-pair and flash-attention kernels.
 
 Backends:
   * ``"cuda"``  — the hand-written Hopper kernels (CUDA tensors only);
@@ -17,9 +17,10 @@ import torch
 
 from repro_torch.core import bitplanes as bp
 from repro_torch.core import bitserial as bs
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import plane_mm, plane_mm_fused, plane_mm_packed
 from repro_torch.kernels.plane_mm_fused import ACTIVATIONS, epilogue_plain
-from repro_torch.kernels.ref import plane_matmul_ref
+from repro_torch.kernels.ref import attention_ref, plane_matmul_ref
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -28,6 +29,7 @@ __all__ = [
     "BACKENDS",
     "Epilogue",
     "apply_epilogue",
+    "flash_attention",
     "fused_linear",
     "hopper_tiles",
     "plane_matmul",
@@ -213,3 +215,62 @@ def _matmul_cached(
         dec_a = bp.to_digits(a2, a_bits, variant)
         wpl = w_planes.planes
     return bs._plane_pair_scan(dec_a, bp.PlaneDecomposition(wpl, w_planes.weights))
+
+
+def _pad_to(x: torch.Tensor, multiples: tuple) -> torch.Tensor:
+    """Zero-pad each axis of ``x`` up to a multiple of ``multiples[i]``
+    (0 leaves the axis)."""
+    pads = []
+    for dim, mult in zip(reversed(x.shape), reversed(multiples)):
+        pads += [0, (-dim) % mult if mult else 0]
+    if any(pads):
+        x = torch.nn.functional.pad(x, pads)
+    return x
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    sm_scale: Optional[float] = None,
+    backend: str = "auto",
+    block_q: int = 128,
+    block_k: int = 128,
+    kv_lens: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Padding + dispatch wrapper over the dense flash-attention kernel.
+    q (B, Hq, Sq, D); k, v (B, Hkv, Sk, D); ``kv_lens`` (B,) per-lane
+    valid lengths; ``k_scale``/``v_scale`` (B, Hkv, Sk) scales of an int8
+    K/V, folded into the kernel. The torch backend dequantizes K/V, casts
+    them to q's dtype and runs :func:`attention_ref`, as the reference's
+    jnp path does (its causal mask is aligned to the bottom right, the
+    kernel's to the top left: they agree when Sq == Sk)."""
+    backend = resolve_backend(backend, q.device)
+    if backend == "torch":
+        if k_scale is not None:
+            k = k.to(torch.float32) * k_scale[..., None]
+        if v_scale is not None:
+            v = v.to(torch.float32) * v_scale[..., None]
+        return attention_ref(q, k.to(q.dtype), v.to(q.dtype), causal=causal,
+                             sm_scale=sm_scale, kv_lens=kv_lens)
+    sq, sk = q.shape[2], k.shape[2]
+    quant_kw = {}
+    if k_scale is not None:
+        quant_kw["k_scale"] = _pad_to(k_scale, (0, 0, block_k))
+    if v_scale is not None:
+        quant_kw["v_scale"] = _pad_to(v_scale, (0, 0, block_k))
+    out = fa.flash_attention(
+        _pad_to(q, (0, 0, block_q, 0)),
+        _pad_to(k, (0, 0, block_k, 0)),
+        _pad_to(v, (0, 0, block_k, 0)),
+        causal=causal, sm_scale=sm_scale, block_q=block_q, block_k=block_k,
+        # padded KV columns are masked out of the softmax, either by the
+        # per-lane lengths or by the static unpadded length
+        kv_len=None if kv_lens is not None else sk,
+        kv_lens=kv_lens, **quant_kw,
+    )
+    return out[:, :, :sq, :]

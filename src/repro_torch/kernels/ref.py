@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the plane-pair contraction (the references
-every kernel is held against).
+"""Plain PyTorch oracles: the plane-pair contraction (the reference every
+plane kernel is held against) and naive softmax attention.
 
 The products are taken by a floating-point matmul of the integer planes
 and are exact: the dtype is chosen from the operands' value bound (float32
@@ -54,3 +54,39 @@ def plane_matmul_ref(
         for i in range(n_a):
             acc += pw[i, j] * prods[i]
     return acc
+
+
+def attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    sm_scale: float | None = None,
+    kv_lens: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Naive softmax attention with GQA broadcast. q: (B,Hq,Sq,D);
+    k, v: (B,Hkv,Sk,D). ``kv_lens``: optional (B,) per-sequence valid KV
+    lengths. The causal mask is aligned to the bottom right (query ``i``
+    sees keys ``<= i + Sk - Sq``), as the reference's oracle aligns it;
+    the flash kernels align theirs to the top left, and the two agree
+    only when Sq == Sk."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    group = hq // hkv
+    if sm_scale is None:
+        sm_scale = d**-0.5
+    k = torch.repeat_interleave(k, group, dim=1)
+    v = torch.repeat_interleave(v, group, dim=1)
+    s = _exact_matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2))
+    s = s * sm_scale
+    neg = torch.tensor(-1e30, dtype=torch.float32, device=q.device)
+    if causal:
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril(diagonal=sk - sq)
+        s = torch.where(mask, s, neg)
+    if kv_lens is not None:
+        valid = torch.arange(sk, device=q.device)[None, :] < kv_lens.to(q.device)[:, None]
+        s = torch.where(valid[:, None, None, :], s, neg)
+    p = torch.softmax(s, dim=-1)
+    out = _exact_matmul(p, v.to(torch.float32))
+    return out.to(q.dtype)

@@ -23,6 +23,17 @@ tree audited every ``audit_interval`` iterations against the load-time
 one, and per-slot KV checksums compared with their post-step baselines.
 Detection only: scrub-and-retry recovery is not ported yet.
 
+Every prefill is staged: each admission runs against a raw scratch
+cache, in ``prefill_chunk``-token chunks (one per engine iteration) or at
+once, and commits by quantizing the scratch into its slot (or its pages).
+With ``page_size > 0`` the KV cache is **paged** (``models/paging.py``):
+int8 page pools with a block table per slot, admission by free-page
+capacity, and with ``share_prefixes`` copy-on-write reuse of the pages of
+a declared shared prompt prefix. On the card every decode step's
+attention reads the pools straight through the block tables in the paged
+flash-attention kernel. Paged KV with integrity checks (per-page
+checksums) is not ported yet.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
         --reduced --bits 8 --level bitplane --prompt-lens 8,32,64 --gen 16 \
         --precision-switch 8:4
@@ -35,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import time
 from typing import Optional, Tuple
 
@@ -47,22 +59,34 @@ from repro_torch.core import integrity
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.launch import sampling
-from repro_torch.launch.steps import make_cb_decode_step, make_prefill_step
+from repro_torch.launch.steps import (
+    make_cb_decode_step,
+    make_prefill_step,
+)
+from repro_torch.models import paging
 from repro_torch.models.cache import (
     cache_kv_bytes,
     cache_slot_checksums,
     init_cache,
     insert_slot,
+    quantize_scratch,
 )
 from repro_torch.models.quant import quantize_params
 from repro_torch.models.transformer import init_params
-from repro_torch.runtime.scheduler import Request, SlotScheduler
+from repro_torch.runtime.scheduler import HISTORY_LIMIT, Request, SlotScheduler
 
 
 SCRUB_NOT_PORTED = (
     "integrity='scrub' (scrub-and-retry recovery) is not ported yet: see "
     "ROADMAP.md, open item 8 'Fault tolerance' (scrub half, next slice); "
     "use integrity='detect'"
+)
+
+PAGED_DETECT_NOT_PORTED = (
+    "paged KV with integrity='detect' (per-page KV checksums, "
+    "models.paging.paged_checksums) is not ported yet: see ROADMAP.md, "
+    "'Next slices' item 2 'Paged integrity'; use the dense KV cache "
+    "(page_size=0) with detect"
 )
 
 
@@ -108,20 +132,57 @@ def _seeded(seed: int, stream: int, n: int, device) -> torch.Generator:
     return gen
 
 
+@dataclasses.dataclass
+class _PrefillJob:
+    """One staged prefill in flight: the request owns a reserved slot and a
+    raw bf16 scratch cache that fills in chunks — one chunk per engine
+    iteration under ``prefill_chunk``, or the whole prompt at admission
+    (``prefill_chunk=0``). Commit quantizes the scratch once and installs
+    it (paged scatter or dense ``insert_slot``), then the slot decodes."""
+
+    slot: int
+    req: Request
+    steps: tuple  # (prefill_fn, collector) at the admission dial
+    precision: object  # the admission-time dial (registry tag)
+    scratch: object
+    bounds: list  # [(a, b), ...] token ranges to prefill
+    next_i: int = 0
+    logits: object = None  # last chunk's (1, V) last-token logits
+    table: object = None  # paged: (pages_per_slot,) block-table row
+    mask: object = None  # paged: owned-page write mask
+    snapshot_at: int = -1  # chunk index whose result is the prefix snapshot
+    snapshot: object = None
+    prefix_tokens: object = None  # register these at commit (miss path)
+    prefix_pages: tuple = ()
+    from_hit: bool = False  # resumed from a registry snapshot
+    # detect: [(keys, alarm vector on the device)] per chunk, read back at once
+    alarms: list = dataclasses.field(default_factory=list)
+
+
 class ContinuousBatchingEngine:
     """Slot-scheduled serving over a shared, optionally int8, KV cache.
 
     ``n_slots`` decode lanes share one slot cache of ``max_len`` positions
     per slot. :meth:`run` drives a :class:`SlotScheduler`: each iteration
-    admits pending requests into free slots (per-request prefill at the
-    prompt's own length + :func:`insert_slot`), then runs one decode pass
-    over the whole slot array; each prefill and decode step is a
+    admits pending requests into free slots (a staged prefill into a raw
+    scratch, committed by :func:`insert_slot` or the page scatter), then
+    runs one decode pass over the whole slot array; each prefill and
+    decode step is a
     ``torch.profiler`` range (``serve.prefill``, ``serve.decode_step``),
     free when no profiler runs. ``backend`` picks the matmul kernels:
     ``"auto"`` (the Hopper kernels on CUDA) or ``"torch"`` (the plain
     versions, on any device). ``audit_interval``: with integrity on, the
     at-rest parameter audit runs every N iterations (0 disables it and
     the KV checks, leaving the per-matmul ABFT checks).
+
+    ``page_size > 0`` pages the KV cache (``kv_quant`` required, ``max_len``
+    a multiple of it): ``kv_pages`` physical pages (default: every slot's
+    full extent plus the null page), admission by free pages.
+    ``prefill_chunk > 0`` runs each prefill in chunks of that many tokens,
+    one per iteration (paged or dense; 0: the whole prompt at admission);
+    ``share_prefixes`` (paged) maps the
+    pages of a request's declared shared prefix read-only from an earlier
+    request's and resumes prefill from its snapshot.
     """
 
     def __init__(
@@ -137,6 +198,10 @@ class ContinuousBatchingEngine:
         device=None,
         backend: str = "auto",
         audit_interval: int = 1,
+        page_size: int = 0,
+        kv_pages: Optional[int] = None,
+        prefill_chunk: int = 0,
+        share_prefixes: bool = False,
     ):
         if not cfg.is_decoder:
             raise ValueError(f"{cfg.name} is encoder-only: no decode path")
@@ -145,6 +210,48 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(SCRUB_NOT_PORTED)
         if audit_interval < 0:
             raise ValueError(f"audit_interval must be >= 0, got {audit_interval}")
+        # paged KV + staged (chunked) prefill
+        self.page_size = int(page_size)
+        self.paged = self.page_size > 0
+        self.prefill_chunk = int(prefill_chunk)
+        self.share_prefixes = bool(share_prefixes)
+        if self.prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0, got {prefill_chunk}")
+        if self.share_prefixes and not self.paged:
+            raise ValueError(
+                "share_prefixes needs the paged KV cache (page_size > 0): "
+                "physical pages are the sharing unit"
+            )
+        self._pages_per_slot = 0
+        self._kv_pages = 0
+        if self.paged:
+            if not kv_quant:
+                raise ValueError(
+                    "paged KV requires kv_quant=True: pages hold int8 values "
+                    "plus their per-(position, head) scale vectors — there is "
+                    "no raw bf16 page layout"
+                )
+            if max_len % self.page_size:
+                raise ValueError(
+                    f"max_len={max_len} must be divisible by "
+                    f"page_size={self.page_size} so a slot's pages span "
+                    "the dense extent"
+                )
+            self._pages_per_slot = max_len // self.page_size
+            self._kv_pages = (
+                int(kv_pages) if kv_pages is not None
+                else n_slots * self._pages_per_slot + 1
+            )
+            if self._kv_pages < self._pages_per_slot + 1:
+                raise ValueError(
+                    f"kv_pages={self._kv_pages} cannot hold one full slot "
+                    f"({self._pages_per_slot} pages) plus the null page"
+                )
+            paging._check_kinds(cfg)  # fail at construction, not first run
+            if self.integrity != "off":
+                raise NotImplementedError(PAGED_DETECT_NOT_PORTED)
+        elif kv_pages is not None:
+            raise ValueError("kv_pages needs page_size > 0 (paged KV)")
         self.audit_interval = audit_interval
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -179,9 +286,10 @@ class ContinuousBatchingEngine:
         pcol = integrity.Collector() if check else None
         scol = integrity.Collector() if check else None
         return (
+            # staged: every prefill chunk is given the job's raw scratch
             make_prefill_step(
-                self.cfg, self.policy, max_len=self.max_len, kv_quant=self.kv_quant,
-                precision=precision, backend=self.backend, collector=pcol,
+                self.cfg, self.policy, precision=precision, backend=self.backend,
+                collector=pcol,
             ),
             make_cb_decode_step(
                 self.cfg, self.policy, precision=precision, backend=self.backend,
@@ -249,10 +357,10 @@ class ContinuousBatchingEngine:
         return True
 
     @staticmethod
-    def _harvest(col, alarms, integ: dict) -> None:
+    def _harvest(col, alarms, integ: dict, keys=None) -> None:
         """Tally one step's read-back alarm vector: every flag is a check,
         a step with any flag set is one alarm."""
-        res = col.harvest(alarms)
+        res = col.harvest(alarms, keys)
         integ["abft_checks"] += len(res)
         if any(bad for _, bad in res):
             integ["abft_alarms"] += 1
@@ -271,6 +379,108 @@ class ContinuousBatchingEngine:
         """Stats of the last :meth:`run`."""
         return dict(self._last_stats)
 
+    # -- staged prefill + paged KV ------------------------------------------
+
+    def _open_job(self, slot, req, sched, pager, registry) -> _PrefillJob:
+        """Reserve ``slot`` and stage ``req``'s prefill: resolve the
+        shared-prefix registry (hit: map its pages read-only and resume
+        from its scratch snapshot; miss: cut the chunk schedule at the
+        prefix boundary and snapshot there for registration at commit),
+        assign pages, and lay out the chunk bounds."""
+        sched.reserve(slot)
+        precision = self._precision
+        S = int(req.tokens.size)
+        # always leave >= 1 suffix token: the request's first sampled token
+        # needs the last prompt position's logits from its own chunk
+        Lp = (
+            min(int(req.shared_prefix_len), S - 1)
+            if (self.share_prefixes and req.shared_prefix_len > 0)
+            else 0
+        )
+        entry = registry.lookup(req.tokens[:Lp], tag=precision) if Lp else None
+        if entry is not None:
+            scratch, start, shared = entry.scratch, Lp, list(entry.page_ids)
+        else:
+            scratch = init_cache(self.cfg, 1, self.max_len, self.cfg.dtype, kv_quant=False,
+                                 device=self.device)
+            start, shared = 0, []
+        c = self.prefill_chunk if self.prefill_chunk > 0 else S
+        bounds, pos = [], start
+        while pos < S:
+            nxt = min(pos + c, S)
+            if entry is None and Lp and pos < Lp:
+                nxt = min(nxt, Lp)  # miss: land a chunk edge exactly at Lp
+            bounds.append((pos, nxt))
+            pos = nxt
+        job = _PrefillJob(slot=slot, req=req, steps=(self._prefill, self._prefill_col),
+                          precision=precision, scratch=scratch, bounds=bounds,
+                          from_hit=entry is not None)
+        if entry is None and Lp:
+            job.snapshot_at = next(i for i, (_, b) in enumerate(bounds) if b == Lp)
+            job.prefix_tokens = req.tokens[:Lp].copy()
+        if self.paged:
+            n_total = pager.pages_needed(S + req.max_new_tokens - 1)
+            job.table, job.mask = pager.assign(slot, shared, n_total)
+            if job.prefix_tokens is not None:
+                job.prefix_pages = tuple(int(p) for p in job.table[: Lp // self.page_size])
+        return job
+
+    def _job_step(self, job: _PrefillJob, integ) -> bool:
+        """Run the job's next chunk; True when the prefill is complete."""
+        a, b = job.bounds[job.next_i]
+        toks = torch.as_tensor(job.req.tokens[a:b], device=self.device)[None, :]
+        prefill, pcol = job.steps
+        with record_function("serve.prefill"):
+            if pcol is None:
+                job.logits, job.scratch = prefill(self.q_params, toks, job.scratch)
+            else:
+                job.logits, job.scratch, alarms = prefill(self.q_params, toks, job.scratch)
+                job.alarms.append((pcol.keys, alarms))
+        if job.next_i == job.snapshot_at:
+            job.snapshot = job.scratch
+        job.next_i += 1
+        return job.next_i >= len(job.bounds)
+
+    def _settle(self, job: _PrefillJob, integ, tok=None) -> Optional[int]:
+        """One read-back of the first token ``tok`` (a device tensor, at
+        commit) together with the alarm vectors of the job's chunks since
+        the last read-back, which are tallied; returns the token."""
+        parts = [] if tok is None else [tok.reshape(1).to(torch.int64)]
+        parts += [alarms.to(torch.int64) for _, alarms in job.alarms]
+        vals = torch.cat(parts).cpu() if parts else None
+        at = 0 if tok is None else 1
+        for keys, alarms in job.alarms:
+            self._harvest(job.steps[1], vals[at:at + alarms.numel()], integ, keys)
+            at += alarms.numel()
+        job.alarms.clear()
+        return None if tok is None else int(vals[0])
+
+    def _job_commit(self, job, cache, tokens, sched, pager, registry, integ):
+        """Install the finished scratch (paged scatter or dense insert),
+        sample the first token, start the slot. Returns the cache."""
+        req, slot = job.req, job.slot
+        with record_function("serve.prefill"):
+            tok = self._settle(job, integ, self._first_token(job.logits, req))
+            if self.paged:
+                cache = paging.paged_commit(cache, job.scratch, slot, job.table, job.mask,
+                                            int(req.tokens.size))
+                if job.prefix_tokens is not None and registry is not None:
+                    registry.register(job.prefix_tokens, job.prefix_pages, job.snapshot,
+                                      tag=job.precision)
+            else:
+                seq = quantize_scratch(job.scratch) if self.kv_quant else job.scratch
+                cache = insert_slot(cache, seq, slot)
+        tokens[slot, 0] = tok
+        done_now = sched.start(slot, req, tok)
+        if done_now and self.paged:
+            # clear immediately, not deferred: a same-iteration admission
+            # may reallocate the freed pages before the next flush point,
+            # and this lane's garbage decode write must land on the null
+            # page, not in the new tenant's data
+            pager.release(slot)
+            cache = paging.clear_slot(cache, slot)
+        return cache
+
     def run(self, requests: list[Request], precision_schedule: Optional[dict] = None):
         """Serve ``requests`` to completion. Returns (results, stats):
         ``results`` maps rid -> generated int32 tokens.
@@ -283,10 +493,47 @@ class ContinuousBatchingEngine:
         sched = SlotScheduler(self.n_slots, max_extent=self.max_len)
         for r in sorted(requests, key=lambda r: r.arrival_step):
             sched.submit(r)
-        cache = init_cache(
-            self.cfg, self.n_slots, self.max_len, self.cfg.dtype,
-            kv_quant=self.kv_quant, device=self.device,
-        )
+        allocator = pager = registry = None
+        job: Optional[_PrefillJob] = None
+        clears: list[int] = []  # deferred null-page clears (flushed pre-admission)
+        prefill_chunks = 0
+        shared_hits = 0
+        capacity = None
+        if self.paged:
+            cache = paging.paged_init_cache(
+                self.cfg, self.n_slots, self.max_len, self.page_size, self._kv_pages,
+                device=self.device,
+            )
+            allocator = paging.PageAllocator(self._kv_pages, self.page_size)
+            pager = paging.SlotPager(allocator, self.n_slots, self._pages_per_slot)
+            if self.share_prefixes:
+                registry = paging.PrefixRegistry(allocator)
+            page_nbytes = paging.page_nbytes(cache)
+
+            def capacity(req: Request) -> bool:
+                # free-page admission gate: the ask is the request's full
+                # extent minus whatever a registry hit would map shared;
+                # under pressure, evict cold registry entries (their pages
+                # free once no live slot also maps them)
+                S = int(req.tokens.size)
+                need = pager.pages_needed(S + req.max_new_tokens - 1)
+                protect = None
+                if self.share_prefixes and req.shared_prefix_len > 0:
+                    Lp = min(int(req.shared_prefix_len), S - 1)
+                    if Lp:
+                        protect = registry.key(req.tokens[:Lp], tag=self._precision)
+                        hit = registry.peek(req.tokens[:Lp], tag=self._precision)
+                        if hit is not None:
+                            need -= len(hit.page_ids)
+                while (allocator.free_pages < need and registry is not None
+                       and registry.evict_oldest(protect)):
+                    pass
+                return allocator.free_pages >= need
+        else:
+            cache = init_cache(
+                self.cfg, self.n_slots, self.max_len, self.cfg.dtype,
+                kv_quant=self.kv_quant, device=self.device,
+            )
         tokens = torch.zeros((self.n_slots, 1), dtype=torch.int32, device=self.device)
         kv_bytes = cache_kv_bytes(cache)
         check = self.integrity != "off"
@@ -303,8 +550,19 @@ class ContinuousBatchingEngine:
         switches = []
         prefill_s = 0.0
         decode_s = 0.0
+        # per-iteration wall time including any admission or prefill work,
+        # for iterations that emitted decode tokens: the inter-token latency
+        # an active request sees (a chunked prefill bounds its stall)
+        decode_iter_lat: collections.deque = collections.deque(maxlen=HISTORY_LIMIT)
         t0 = time.perf_counter()
-        while not sched.done:
+        while not sched.done or job is not None:
+            t_iter = time.perf_counter()
+            pre_expire = set(sched.active_slots) if self.paged else set()
+            sched.expire(step_i)
+            if self.paged:
+                for s_ in pre_expire - set(sched.active_slots):
+                    pager.release(s_)
+                    clears.append(s_)
             if check and self.audit_interval:
                 # at-rest audits against the baselines of the last iteration:
                 # the parameter fingerprint and the per-slot KV checksums
@@ -322,26 +580,44 @@ class ContinuousBatchingEngine:
             for s in sorted(due):
                 self.set_precision(schedule.pop(s))
                 switches.append((decode_steps, self._precision))
-            for slot, req in sched.admissible(step_i):
-                tp = time.perf_counter()
-                with record_function("serve.prefill"):
-                    prompt = torch.as_tensor(req.tokens, device=self.device)[None, :]
-                    if check:
-                        logits, seq_cache, alarms = self._prefill(self.q_params, prompt)
-                        # one read-back: the first token, then the alarm vector
-                        vals = torch.cat([
-                            self._first_token(logits, req).reshape(1).to(torch.int64),
-                            alarms.to(torch.int64),
-                        ]).cpu()
-                        tok = int(vals[0])
-                        self._harvest(self._prefill_col, vals[1:], integ)
-                    else:
-                        logits, seq_cache = self._prefill(self.q_params, prompt)
-                        tok = int(self._first_token(logits, req))
-                    cache = insert_slot(cache, seq_cache, slot)
-                tokens[slot, 0] = tok
-                sched.start(slot, req, tok)
-                prefill_s += time.perf_counter() - tp
+            tp = time.perf_counter()
+            # flush deferred clears BEFORE admission: pages released since
+            # the last flush may be reallocated and committed into below,
+            # and the releasing slot's table must point at the null page
+            # before that happens
+            for s_ in clears:
+                cache = paging.clear_slot(cache, s_)
+            clears.clear()
+            if (job is not None and job.req.deadline_step is not None
+                    and step_i >= job.req.deadline_step):
+                self._settle(job, integ)
+                if self.paged:
+                    pager.release(job.slot)
+                    clears.append(job.slot)
+                sched.unreserve(job.slot)
+                sched.fail(job.req.rid, f"deadline: staged prefill expired at step {step_i}")
+                job = None
+            if job is None:
+                for slot, req in sched.admissible(step_i, capacity=capacity):
+                    job = self._open_job(slot, req, sched, pager, registry)
+                    shared_hits += int(job.from_hit)
+                    if self.prefill_chunk > 0:
+                        # chunked: ONE job in flight, one chunk per engine
+                        # iteration, so decode keeps its cadence
+                        break
+                    # whole prompt: run to completion now
+                    done = False
+                    while not done:
+                        done = self._job_step(job, integ)
+                        prefill_chunks += 1
+                    cache = self._job_commit(job, cache, tokens, sched, pager, registry, integ)
+                    job = None
+            if job is not None:
+                if self._job_step(job, integ):
+                    cache = self._job_commit(job, cache, tokens, sched, pager, registry, integ)
+                    job = None
+                prefill_chunks += 1
+            prefill_s += time.perf_counter() - tp
             if sched.active_slots:
                 td = time.perf_counter()
                 active = sched.active_slots
@@ -361,17 +637,27 @@ class ContinuousBatchingEngine:
                         tokens, cache = self._step(self.q_params, cache, tokens, temps, gen)
                         toks_np = tokens[:, 0].cpu().numpy()
                 for slot in active:
-                    sched.record(slot, int(toks_np[slot]))
+                    evicted = sched.record(slot, int(toks_np[slot]))
                     decoded_tokens += 1
+                    if evicted and self.paged:
+                        # free the pages now (host side); the device-side
+                        # null-page clear flushes before the next admission
+                        pager.release(slot)
+                        clears.append(slot)
                 decode_s += time.perf_counter() - td
                 sched.observe_step(step_i)
+                decode_iter_lat.append(time.perf_counter() - t_iter)
                 decode_steps += 1
                 step_i += 1
             else:
-                # nothing in flight: fast-forward to the next arrival
+                # nothing in flight: fast-forward to the next arrival (not
+                # while a staged prefill progresses: its deadline counts steps)
                 sched.observe_step(step_i)
                 nxt = sched.next_arrival()
-                step_i = step_i + 1 if nxt is None else max(nxt, step_i + 1)
+                if job is not None:
+                    step_i += 1
+                else:
+                    step_i = step_i + 1 if nxt is None else max(nxt, step_i + 1)
             if check and self.audit_interval:
                 kv_ref = cache_slot_checksums(cache).cpu()
         if self.device.type == "cuda":
@@ -392,11 +678,30 @@ class ContinuousBatchingEngine:
             "admitted": s.admitted,
             "peak_occupancy": s.peak_occupancy,
             "queue_steps": s.queue_steps,
+            "decode_iter_p99_ms": (
+                float(np.percentile(np.asarray(decode_iter_lat), 99)) * 1e3
+                if decode_iter_lat else 0.0
+            ),
             "precision_switches": switches,
             "failed": dict(sched.failed),
             "route_calls": dict(calls),
             "device": str(self.device),
         }
+        stats["prefill_chunks"] = prefill_chunks
+        if self.paged:
+            stats["paging"] = {
+                "page_size": self.page_size,
+                "kv_pages": self._kv_pages,
+                "pages_per_slot": self._pages_per_slot,
+                "page_nbytes": page_nbytes,
+                "peak_used_pages": allocator.peak_used,
+                # bytes of pages ever live at once; dense serving holds
+                # n_slots * pages_per_slot pages whatever the prompts
+                "kv_bytes_resident_peak": allocator.peak_used * page_nbytes,
+                "shared_prefix_hits": shared_hits,
+                "prefix_entries": len(registry) if registry is not None else 0,
+                "prefix_evictions": registry.evictions if registry is not None else 0,
+            }
         if check:
             stats["integrity"] = dict(integ, mode=self.integrity)
         self._last_stats = stats
@@ -442,6 +747,27 @@ def build_parser() -> argparse.ArgumentParser:
                     help="integrity: run the at-rest parameter fingerprint "
                     "audit every N engine iterations (0 disables at-rest "
                     "audits, leaving per-matmul ABFT only)")
+    ap.add_argument("--kv-page-size", type=int, default=0, metavar="POS",
+                    help="paged KV cache: store KV in fixed-size pages of POS "
+                    "positions with per-slot block tables instead of dense "
+                    "per-slot extents; admission checks free-page capacity "
+                    "(0 = dense)")
+    ap.add_argument("--kv-pages", type=int, default=None, metavar="N",
+                    help="physical page-pool size (default: enough for "
+                    "every slot's full extent plus the null page); smaller "
+                    "pools admit by free-page capacity")
+    ap.add_argument("--prefill-chunk", type=int, default=0, metavar="TOKENS",
+                    help="chunked prefill: stage each admission's prefill "
+                    "in TOKENS-sized chunks interleaved with decode steps "
+                    "(0 = monolithic)")
+    ap.add_argument("--share-prefixes", action="store_true",
+                    help="copy-on-write shared-prefix reuse: requests "
+                    "declaring a byte-identical prompt prefix map the same "
+                    "physical KV pages read-only and resume prefill from "
+                    "the registered snapshot (needs --kv-page-size)")
+    ap.add_argument("--shared-prefix-len", type=int, default=0, metavar="N",
+                    help="synthetic workload: give every request the same "
+                    "first N prompt tokens and declare them shared")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the plain "
                     "versions on the host)")
@@ -469,6 +795,22 @@ def validate_args(args) -> None:
             "checksums ride in the packed bit-plane cache")
     if args.audit_interval < 0:
         die("--audit-interval must be >= 0")
+    if args.kv_page_size < 0:
+        die("--kv-page-size must be >= 0 (0 = dense KV)")
+    if args.prefill_chunk < 0:
+        die("--prefill-chunk must be >= 0 (0 = monolithic prefill)")
+    if args.kv_pages is not None:
+        if not args.kv_page_size:
+            die("--kv-pages needs --kv-page-size (paged KV)")
+        if args.kv_pages < 2:
+            die("--kv-pages must be >= 2 (page 0 is the reserved null page)")
+    if args.share_prefixes and not args.kv_page_size:
+        die("--share-prefixes needs --kv-page-size: physical pages are "
+            "the sharing unit")
+    if args.shared_prefix_len < 0:
+        die("--shared-prefix-len must be >= 0")
+    if args.kv_page_size and args.integrity != "off":
+        die(f"--kv-page-size with --integrity {args.integrity}: {PAGED_DETECT_NOT_PORTED}")
     if args.level == "digit" and args.variant == "sbmwc":
         die("--level digit --variant sbmwc has no kernel (SBMwC radix-256 "
             "digits exceed int8); use --variant booth or --level bitplane")
@@ -507,17 +849,38 @@ def main(argv=None):
     gen.manual_seed(0)
     params = init_params(cfg, gen, device=device)
     lens = [int(x) for x in args.prompt_lens.split(",")]
+    if args.shared_prefix_len and args.shared_prefix_len >= min(lens):
+        raise SystemExit(
+            f"[serve] invalid flags: --shared-prefix-len {args.shared_prefix_len} "
+            f"must be shorter than every prompt length (min {min(lens)})"
+        )
+    max_len = max(lens) + args.gen
+    if args.kv_page_size:
+        # round up to a whole number of pages (paged_init_cache requires it)
+        max_len = -(-max_len // args.kv_page_size) * args.kv_page_size
     engine = ContinuousBatchingEngine(
-        cfg, params, policy, n_slots=args.n_slots, max_len=max(lens) + args.gen,
+        cfg, params, policy, n_slots=args.n_slots, max_len=max_len,
         device=device, audit_interval=args.audit_interval,
+        page_size=args.kv_page_size, kv_pages=args.kv_pages,
+        prefill_chunk=args.prefill_chunk, share_prefixes=args.share_prefixes,
     )
     if args.precision:
         engine.set_precision(args.precision)
     rng = np.random.default_rng(0)
+    prefix = (
+        rng.integers(0, cfg.vocab_size, (args.shared_prefix_len,))
+        if args.shared_prefix_len else None
+    )
+
+    def _prompt(s):
+        if prefix is None:
+            return rng.integers(0, cfg.vocab_size, (s,))
+        return np.concatenate([prefix, rng.integers(0, cfg.vocab_size, (s - prefix.size,))])
+
     requests = [
         Request(
-            rid=i, tokens=rng.integers(0, cfg.vocab_size, (s,)),
-            max_new_tokens=args.gen, arrival_step=i * args.stagger,
+            rid=i, tokens=_prompt(s), max_new_tokens=args.gen,
+            arrival_step=i * args.stagger, shared_prefix_len=args.shared_prefix_len,
         )
         for i, s in enumerate(lens)
     ]
@@ -536,6 +899,15 @@ def main(argv=None):
         f"kv cache {stats['kv_cache_bytes'] / 1024:.1f} KiB"
     )
     print(f"[serve] routes: {stats['route_calls']}")
+    if "paging" in stats:
+        pg = stats["paging"]
+        print(
+            f"[serve] paging: {pg['kv_pages']} pages x {pg['page_size']} pos, "
+            f"peak {pg['peak_used_pages']} pages resident "
+            f"({pg['kv_bytes_resident_peak'] / 1024:.1f} KiB), "
+            f"{pg['shared_prefix_hits']} shared-prefix hits, "
+            f"{stats['prefill_chunks']} prefill chunks"
+        )
     if "integrity" in stats:
         ig = stats["integrity"]
         print(

@@ -1,4 +1,5 @@
-"""Serving step functions: prefill and the continuous-batching decode step.
+"""Serving step functions: prefill (whole or in chunks) and the
+continuous-batching decode step.
 
 The factories take an optional ``precision=(a_bits, w_bits)`` runtime
 dial: the policy is re-stamped with
@@ -51,24 +52,35 @@ def make_prefill_step(
     backend: str = "auto",
     collector: Optional[Collector] = None,
 ):
-    """prefill_step(params, tokens (B, S)) -> (last_logits (B, V), cache[,
-    alarms]).
+    """prefill_step(params, tokens (B, S), scratch=None) -> (last_logits
+    (B, V), cache[, alarms]).
 
-    The forward runs against a **raw** bf16 scratch of ``max_len``
-    positions (attention over the whole extent under a length mask) and,
-    with ``kv_quant``, quantizes it once at the end — the reference's
-    schedule, so prefill logits and committed KV match it."""
+    The forward appends ``tokens`` to a **raw** bf16 scratch cache at its
+    running length and attends the whole written extent under a length
+    mask: a fresh scratch of ``max_len`` positions (default ``S``), or the
+    given ``scratch``. Chunked prefill passes the previous chunk's result;
+    the input scratch is not modified, so shared-prefix snapshots keep
+    earlier chunk states. With ``kv_quant`` the result is quantized once at
+    the end — the reference's schedule, so prefill logits and committed KV
+    match it.
+
+    On the CPU any chunk schedule gives the one-chunk prefill's logits bit
+    for bit, as the reference's does. On CUDA it need not: the float32
+    reductions of the plain operations can depend on a chunk's row count
+    (PERF.md, PR 14)."""
     policy = _dial(policy, precision)
 
-    def prefill_step(params, tokens):
-        bsz, s = tokens.shape
-        cache = init_cache(
-            cfg, bsz, max_len or s, cfg.dtype, kv_quant=False, device=tokens.device
-        )
+    def prefill_step(params, tokens, scratch=None):
+        if scratch is None:
+            bsz, s = tokens.shape
+            scratch = init_cache(
+                cfg, bsz, max_len or s, cfg.dtype, kv_quant=False, device=tokens.device
+            )
+
         def body():
             with torch.no_grad():
                 return forward(
-                    cfg, params, {"tokens": tokens}, policy=policy, cache=cache,
+                    cfg, params, {"tokens": tokens}, policy=policy, cache=scratch,
                     last_only=True, backend=backend,
                 )
 

@@ -1,4 +1,4 @@
-"""Grouped-query attention over a dense, slot-indexed KV cache.
+"""Grouped-query attention over a dense or paged, slot-indexed KV cache.
 
 Prefill runs an online-softmax scan over KV chunks (the flash schedule in
 plain PyTorch); when it fills a cache it attends over the cache's whole
@@ -8,9 +8,21 @@ folds into the scores and the V scale into the softmax weights, so
 dequantized K/V are never materialized. Projections go through
 :mod:`repro_torch.layers.linear`.
 
+A paged cache (``models/paging.py``: int8 page pools, a block table per
+slot) is decode-only. The append scatters each slot's new vector into its
+current page, in place (as ``models.paging`` updates the cache); the
+attention then reads the pools through the tables: with
+the Hopper kernels (backend ``"auto"`` on the card, or ``"cuda"``) in the
+paged flash-attention kernel, with no gather; with the plain versions
+(``"torch"``) as the reference does, by gathering each slot's pages into
+the dense view and running the same ``_decode_gqa`` as a dense cache.
+The two are close but not bit-equal: ``_decode_gqa`` rounds the softmax
+weights to bf16 before the value product, the kernel keeps them in
+float32.
+
 Q/K/V keep their storage dtype (bf16) and the score and value products
-accumulate in float32, the reference's dtypes. Paged and sliding-window
-caches are later slices.
+accumulate in float32, the reference's dtypes. Sliding-window caches are
+a later slice.
 """
 
 from __future__ import annotations
@@ -19,6 +31,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention import paged_flash_attention
+from repro_torch.kernels.ops import resolve_backend
 from repro_torch.layers.linear import linear_init, projection
 from repro_torch.layers.norms import rmsnorm_apply, rmsnorm_init
 from repro_torch.layers.rotary import apply_rope
@@ -132,8 +146,10 @@ def attention_apply(
 ):
     """Returns (out, new_cache). ``cache``: a dense slot cache
     ``{'k_q','k_scale','v_q','v_scale','len'}`` (int8) or ``{'k','v','len'}``
-    (raw bf16) with k/v (B, S_max, Hkv, D); one token per slot decodes,
-    several prefill (into a raw cache only)."""
+    (raw bf16) with k/v (B, S_max, Hkv, D), or a paged block
+    ``{'k_q','k_scale','v_q','v_scale','block_table','len'}`` with pools
+    (n_pages, page_size, Hkv, D); one token per slot decodes, several
+    prefill (into a raw cache only)."""
     b, s, _ = x.shape
     la = projection(policy=policy, backend=backend)
     q = la(params["q_proj"], x, name=f"{name}/q_proj").reshape(b, s, n_heads, head_dim)
@@ -146,7 +162,36 @@ def attention_apply(
     k = apply_rope(k, positions, rope_theta)
 
     new_cache = cache
-    if cache is not None and s == 1:  # decode step
+    if cache is not None and s == 1 and "block_table" in cache:  # paged decode
+        # the append, in place: one (position, head) vector into each slot's
+        # current page; free lanes (table cleared to the null page 0) write
+        # there, never into a page since reallocated to another tenant — also
+        # once a lane has been free for longer than its table spans (its
+        # length keeps counting), hence the clamp to the last table entry
+        bt = cache["block_table"]  # (B, P) int32
+        ps = cache["k_q"].shape[1]
+        pos = cache["len"].to(torch.int64)
+        page = torch.clamp(pos // ps, max=bt.shape[1] - 1)
+        phys = torch.gather(bt.to(torch.int64), 1, page[:, None])[:, 0]
+        row = pos % ps
+        k_new, ks_new = quantize_kv(k)
+        v_new, vs_new = quantize_kv(v)
+        for key, val in (("k_q", k_new), ("k_scale", ks_new), ("v_q", v_new), ("v_scale", vs_new)):
+            cache[key][phys, row] = val[:, 0]
+        kv_len = cache["len"] + 1
+        pools = (cache["k_q"], cache["v_q"], cache["k_scale"], cache["v_scale"])
+        if resolve_backend(backend, x.device) == "cuda":
+            out = paged_flash_attention(q.permute(0, 2, 1, 3), *pools, bt, kv_len)
+            out = out.permute(0, 2, 1, 3)
+        else:
+            b_, p_ = bt.shape
+            s_max = p_ * ps
+            flat = bt.to(torch.int64).reshape(-1)
+            kd, vd, ksd, vsd = (pool[flat].reshape(b_, s_max, *pool.shape[2:]) for pool in pools)
+            valid = torch.arange(s_max, device=x.device)[None, :] < kv_len[:, None]
+            out = _decode_gqa(q, kd, vd, valid, ksd, vsd)
+        new_cache = dict(cache, len=kv_len)
+    elif cache is not None and s == 1:  # decode step
         quantized = "k_q" in cache
         pos = cache["len"]  # (B,) tokens already in each slot
         s_max = (cache["k_q"] if quantized else cache["k"]).shape[1]
@@ -179,6 +224,11 @@ def attention_apply(
         # prefill into a raw scratch: append at the running length (0
         # when fresh) and attend the cache's whole extent under a
         # length mask; int8 KV is made afterwards (quantize_scratch)
+        if "block_table" in cache:
+            raise ValueError(
+                "paged caches are decode-only: prefill runs against a raw "
+                "scratch cache and commits via models.paging.paged_commit"
+            )
         if "k" not in cache:
             raise ValueError(
                 "prefill runs against a raw (bf16) scratch cache; quantize it "

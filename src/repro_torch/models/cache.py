@@ -8,7 +8,10 @@ eviction is host bookkeeping only); it updates the slot cache in place,
 which saves a copy of the whole cache per admission.
 
 With ``kv_quant=True`` KV is stored int8 with per-(position, head) float32
-scales (``k_q``/``k_scale``/``v_q``/``v_scale``).
+scales (``k_q``/``k_scale``/``v_q``/``v_scale``). The paged layout
+(``models.paging``) keeps the same ``{"step", "layers"}`` frame and leaf
+names, with page pools and a block table per layer in place of the dense
+extents; :func:`cache_kv_bytes` counts its pools.
 """
 
 from __future__ import annotations

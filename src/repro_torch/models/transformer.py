@@ -130,7 +130,9 @@ def forward(
 ):
     """Returns (logits, aux_loss, new_cache). ``batch = {"tokens": (B, S)}``;
     with a cache, S == 1 decodes at each slot's own position and S > 1
-    prefills from the running per-slot offset. ``last_only`` computes the
+    prefills from the running per-slot offset. The cache's layer blocks
+    are dense (``models.cache``) or paged (``models.paging``: page pools,
+    block table, length; decode only), passed to each layer's attention. ``last_only`` computes the
     LM head for the final position only. ``backend`` picks the matmul
     kernels ("auto": the Hopper kernels for CUDA tensors)."""
     policy = policy or PrecisionPolicy.off()

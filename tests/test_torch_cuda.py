@@ -90,3 +90,93 @@ def test_packed_kernel_equals_plain_on_card(cuda_device, variant, a_bits, w_bits
     assert torch.equal(got, plane_mm_packed.plane_matmul_packed_plain(pa, pk, pw))
     assert torch.equal(got, plane_mm_packed.plane_matmul_packed(pa, pk, pw, gate=True))
     assert torch.equal(got.double(), x.double() @ w.double())
+
+
+def _paged_case(dev, g, b, hq, hkv, d, ps, lens):
+    """Pools in a permuted page order, tables padded with the null page,
+    which holds non-zero garbage; the same pools gathered into the dense
+    (B, Hkv, S, D) view."""
+    p = max(-(-n // ps) for n in lens) + 1
+    n_pages = b * p + 1
+    kq = torch.randint(-127, 128, (n_pages, ps, hkv, d), generator=g, device=dev, dtype=torch.int8)
+    vq = torch.randint(-127, 128, (n_pages, ps, hkv, d), generator=g, device=dev, dtype=torch.int8)
+    ks = torch.rand((n_pages, ps, hkv), generator=g, device=dev) * 0.02 + 0.001
+    vs = torch.rand((n_pages, ps, hkv), generator=g, device=dev) * 0.02 + 0.001
+    perm = torch.randperm(n_pages - 1, generator=g, device=dev)[: b * p] + 1
+    tables = perm.reshape(b, p).to(torch.int32)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for i, n in enumerate(lens):
+        tables[i, -(-n // ps):] = 0
+    q = torch.randn((b, hq, 1, d), generator=g, device=dev).to(torch.bfloat16)
+    flat = tables.long().reshape(-1)
+
+    def gather(pool):
+        x = pool[flat].reshape(b, p * ps, *pool.shape[2:])
+        return (x.permute(0, 2, 1) if x.ndim == 3 else x.permute(0, 2, 1, 3)).contiguous()
+
+    return (q, kq, vq, ks, vs, tables, kv_lens), (gather(kq), gather(vq), gather(ks), gather(vs))
+
+
+def _within(got, want, rtol=1e-5):
+    """float32: the summation-order tolerance of max|want|; bf16: one bf16
+    step of the element on top of it."""
+    atol = rtol * max(1.0, float(want.float().abs().max()))
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        mag = torch.maximum(got.float().abs(), want.float().abs()).clamp_min(1e-30)
+        atol = atol + torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool((diff <= atol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,d,ps,lens", [
+    (8, 2, 16, 8, (37, 1, 48, 0)), (32, 8, 128, 16, (1, 16, 37, 272)),
+])
+def test_paged_attention_kernel_equals_plain_and_dense_kernel_on_card(cuda_device, hq, hkv, d,
+                                                                     ps, lens):
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(d + ps)
+    args, (kd, vd, ksd, vsd) = _paged_case(cuda_device, g, len(lens), hq, hkv, d, ps, lens)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = fa.paged_flash_attention(*args, out_dtype=out_dtype)
+        assert _within(got, fa.paged_flash_attention_plain(*args, out_dtype=out_dtype))
+        dense = fa.flash_attention(args[0], kd, vd, causal=False, kv_lens=args[6], k_scale=ksd,
+                                   v_scale=vsd, block_q=1, block_k=ps, out_dtype=out_dtype)
+        live = torch.tensor([n > 0 for n in lens], device=cuda_device)
+        # lanes of length >= 1: the same bits; a lane of length 0 is finite
+        assert torch.equal(got[live], dense[live])
+        assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,kv,sq,sk,bq,bk", [
+    (True, "bf16", 64, 64, 32, 16), (False, "int8", 1, 80, 1, 16), (True, "f32", 40, 40, 8, 8),
+    (True, "bf16", 16, 48, 16, 16),
+])
+def test_flash_attention_kernel_equals_plain_on_card(cuda_device, causal, kv, sq, sk, bq, bk):
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(sq * 100 + sk)
+    b, hq, hkv, d = 2, 8, 2, 64
+    q = torch.randn((b, hq, sq, d), generator=g, device=cuda_device).to(torch.bfloat16)
+    kw = dict(causal=causal, block_q=bq, block_k=bk)
+    if kv == "int8":
+        k = torch.randint(-127, 128, (b, hkv, sk, d), generator=g, device=cuda_device,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, (b, hkv, sk, d), generator=g, device=cuda_device,
+                          dtype=torch.int8)
+        kw.update(k_scale=torch.rand((b, hkv, sk), generator=g, device=cuda_device) * 0.02,
+                  v_scale=torch.rand((b, hkv, sk), generator=g, device=cuda_device) * 0.02,
+                  kv_lens=torch.tensor([sk // 3, 0], dtype=torch.int32, device=cuda_device))
+    else:
+        dt = torch.bfloat16 if kv == "bf16" else torch.float32
+        k = torch.randn((b, hkv, sk, d), generator=g, device=cuda_device).to(dt)
+        v = torch.randn((b, hkv, sk, d), generator=g, device=cuda_device).to(dt)
+        kw["kv_len"] = sk - 3
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = fa.flash_attention(q, k, v, out_dtype=out_dtype, **kw)
+        assert _within(got, fa.flash_attention_plain(q, k, v, out_dtype=out_dtype, **kw))
+        assert bool(torch.isfinite(got).all())

@@ -1,0 +1,235 @@
+"""Port parity of the flash-attention kernels' functions.
+
+On the CPU the plain PyTorch versions (``kernels/flash_attention.py``) are
+held against the reference's Pallas kernels run in interpret mode, and
+the port's ``ops.flash_attention`` against the reference's jnp path, on
+seeded numpy inputs. Tolerances: float32 outputs within 1e-5 of max|ref|
+(the two sum the q.k and p.v products in different orders; the measured
+gap is ~4e-7 at these sizes); bf16 outputs within one bf16 step of the
+element plus that float32 tolerance (a float32 difference can flip one
+rounding). The paged plain version equals the dense plain version on
+gathered pools bit for bit, as the reference's kernels do. The Hopper
+kernels are held against these plain versions on the card by
+test_torch_cuda.py.
+
+Two traps are pinned here: the kernels' causal mask is aligned to the top
+left and the oracle's to the bottom right (they agree only when Sq == Sk),
+and the serving path's ``_decode_gqa`` rounds the softmax weights to bf16
+where the kernels keep float32 (close, not bit-equal).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as jflash
+from repro.kernels.flash_attention import paged_flash_attention as jpaged
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.layers.attention import _decode_gqa
+
+from _torch_parity import t2n
+
+F32_RTOL = 1e-5  # of max|ref|: summation order
+
+
+def _close(got: torch.Tensor, want, what=""):
+    """float32: within F32_RTOL of max|ref|; bf16: one bf16 step of the
+    element on top of that."""
+    want = np.asarray(want).astype(np.float32)
+    g = t2n(got).astype(np.float32)
+    atol = F32_RTOL * max(1.0, float(np.abs(want).max()))
+    if got.dtype == torch.bfloat16:
+        mag = np.maximum(np.abs(want), np.abs(g))
+        step = np.exp2(np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
+        atol = atol + step
+    bad = np.abs(g - want) > atol
+    assert not bad.any(), f"{what}: {int(bad.sum())} elements off, max {np.abs(g - want).max()}"
+
+
+def _arr(rng, shape, dtype):
+    if dtype == "int8":
+        return rng.integers(-127, 128, shape).astype(np.int8)
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _to_j(a, dtype):
+    return jnp.asarray(a, jnp.bfloat16 if dtype == "bf16" else None)
+
+
+def _to_t(a, dtype):
+    t = torch.from_numpy(a.copy())
+    return t.to(torch.bfloat16) if dtype == "bf16" else t
+
+
+DENSE_CASES = {
+    # name: (B, Hq, Hkv, Sq, Sk, D, block_q, block_k, causal, q/kv dtype, extra)
+    "causal_gqa": (2, 4, 2, 16, 16, 16, 8, 8, True, "f32", {}),
+    "noncausal": (1, 2, 2, 8, 24, 16, 8, 8, False, "f32", {}),
+    "kv_len_padding": (2, 4, 1, 8, 16, 16, 8, 8, False, "f32", {"kv_len": 11}),
+    "kv_lens": (3, 4, 2, 8, 16, 16, 4, 8, True, "f32", {"kv_lens": [0, 5, 16]}),
+    "int8_scales_bf16": (2, 4, 2, 1, 32, 16, 1, 8, False, "int8", {"kv_lens": [9, 32]}),
+    "causal_sq_lt_sk": (1, 2, 1, 8, 16, 16, 8, 8, True, "f32", {}),
+}
+
+
+@pytest.mark.parametrize("case", list(DENSE_CASES))
+def test_plain_flash_attention_matches_reference_kernel(case):
+    b, hq, hkv, sq, sk, d, bq, bk, causal, dt, extra = DENSE_CASES[case]
+    rng = np.random.default_rng(len(case))
+    q = rng.standard_normal((b, hq, sq, d)).astype(np.float32)
+    k, v = _arr(rng, (b, hkv, sk, d), dt), _arr(rng, (b, hkv, sk, d), dt)
+    jkw, tkw = {}, {}
+    if "kv_len" in extra:
+        jkw["kv_len"] = tkw["kv_len"] = extra["kv_len"]
+    if "kv_lens" in extra:
+        lens = np.asarray(extra["kv_lens"], np.int32)
+        jkw["kv_lens"], tkw["kv_lens"] = jnp.asarray(lens), torch.from_numpy(lens)
+    qd = "f32"
+    if dt == "int8":  # a quantized cache: bf16 queries, scales folded in
+        qd = "bf16"
+        for name in ("k_scale", "v_scale"):
+            sc = rng.uniform(0.001, 0.02, (b, hkv, sk)).astype(np.float32)
+            jkw[name], tkw[name] = jnp.asarray(sc), torch.from_numpy(sc)
+    want = jflash(_to_j(q, qd), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                  block_q=bq, block_k=bk, interpret=True, **jkw)
+    got = tfa.flash_attention(_to_t(q, qd), torch.from_numpy(k), torch.from_numpy(v),
+                              causal=causal, block_q=bq, block_k=bk, **tkw)
+    assert got.dtype == (torch.bfloat16 if qd == "bf16" else torch.float32)
+    _close(got, want, case)
+    if case == "causal_sq_lt_sk":
+        # trap: the kernel's causal mask is aligned to the top left, the
+        # oracle's to the bottom right — the same inputs give other rows
+        oracle = tref.attention_ref(_to_t(q, qd), torch.from_numpy(k), torch.from_numpy(v))
+        _close(oracle, jref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)),
+               "attention_ref")
+        assert not np.allclose(t2n(oracle), t2n(got), atol=1e-3)
+
+
+def _paged_inputs(rng, b=3, hq=8, hkv=2, d=16, ps=8, p=6, lens=(37, 1, 48)):
+    """Pools in a permuted page order, tables padded with the null page,
+    which holds non-zero garbage."""
+    n_pages = b * p + 1
+    kq = rng.integers(-127, 128, (n_pages, ps, hkv, d)).astype(np.int8)
+    vq = rng.integers(-127, 128, (n_pages, ps, hkv, d)).astype(np.int8)
+    ks = rng.uniform(0.001, 0.02, (n_pages, ps, hkv)).astype(np.float32)
+    vs = rng.uniform(0.001, 0.02, (n_pages, ps, hkv)).astype(np.float32)
+    tables = rng.permutation(np.arange(1, n_pages))[: b * p].reshape(b, p).astype(np.int32)
+    lens = np.asarray(lens, np.int32)
+    for i in range(b):
+        tables[i, -(-int(lens[i]) // ps):] = 0
+    q = rng.standard_normal((b, hq, 1, d)).astype(np.float32)
+    return q, kq, vq, ks, vs, tables, lens
+
+
+def _gathered(pool, tables, scales=False):
+    b, p = tables.shape
+    g = pool[tables].reshape(b, p * pool.shape[1], *pool.shape[2:])
+    return g.transpose(0, 2, 1) if scales else g.transpose(0, 2, 1, 3)
+
+
+def test_plain_paged_matches_reference_kernel_and_dense_bit_for_bit():
+    rng = np.random.default_rng(0)
+    q, kq, vq, ks, vs, tables, lens = _paged_inputs(rng)
+    jargs = [jnp.asarray(q, jnp.bfloat16)] + [jnp.asarray(a) for a in (kq, vq, ks, vs, tables, lens)]
+    targs = [_to_t(q, "bf16")] + [torch.from_numpy(a.copy()) for a in (kq, vq, ks, vs, tables, lens)]
+    want = jpaged(*jargs, interpret=True)
+    got = tfa.paged_flash_attention(*targs)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, "paged")
+    for out_dtype in (torch.float32, torch.bfloat16):
+        paged = tfa.paged_flash_attention(*targs, out_dtype=out_dtype)
+        dense = tfa.flash_attention(
+            targs[0], torch.from_numpy(_gathered(kq, tables).copy()),
+            torch.from_numpy(_gathered(vq, tables).copy()), causal=False,
+            kv_lens=torch.from_numpy(lens), k_scale=torch.from_numpy(_gathered(ks, tables, True).copy()),
+            v_scale=torch.from_numpy(_gathered(vs, tables, True).copy()),
+            block_q=1, block_k=kq.shape[1], out_dtype=out_dtype)
+        assert torch.equal(paged, dense), out_dtype
+
+
+def test_paged_kernel_function_is_close_to_decode_gqa_but_not_equal():
+    """The serving path's ``_decode_gqa`` (used on gathered pools by the
+    plain paged engine) rounds the softmax weights to bf16 before the
+    value product; the kernels keep them in float32."""
+    rng = np.random.default_rng(1)
+    q, kq, vq, ks, vs, tables, lens = _paged_inputs(rng)
+    qt = _to_t(q, "bf16")
+    kernel = tfa.paged_flash_attention(
+        qt, *(torch.from_numpy(a.copy()) for a in (kq, vq, ks, vs, tables, lens)),
+        out_dtype=torch.float32)
+    s_max = tables.shape[1] * kq.shape[1]
+    valid = torch.arange(s_max)[None, :] < torch.from_numpy(lens)[:, None].long()
+    g = lambda pool: torch.from_numpy(pool[tables].reshape(len(lens), s_max, *pool.shape[2:]).copy())  # noqa: E731
+    serving = _decode_gqa(qt.permute(0, 2, 1, 3), g(kq), g(vq), valid, g(ks), g(vs))
+    serving = serving.permute(0, 2, 1, 3)
+    diff = (kernel - serving).abs()
+    assert float(diff.max()) <= 2.0**-8 * float(serving.abs().max())
+    assert float(diff.max()) > 0
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_ops_flash_attention_matches_reference_jnp_path(quant):
+    rng = np.random.default_rng(5 + quant)
+    b, hq, hkv, sq, sk, d = 2, 4, 2, 5, 11, 16
+    q = rng.standard_normal((b, hq, sq, d)).astype(np.float32)
+    kw_j, kw_t = {}, {}
+    if quant:
+        k, v = _arr(rng, (b, hkv, sk, d), "int8"), _arr(rng, (b, hkv, sk, d), "int8")
+        for name in ("k_scale", "v_scale"):
+            sc = rng.uniform(0.001, 0.02, (b, hkv, sk)).astype(np.float32)
+            kw_j[name], kw_t[name] = jnp.asarray(sc), torch.from_numpy(sc)
+        lens = np.array([7, 11], np.int32)
+        kw_j["kv_lens"], kw_t["kv_lens"] = jnp.asarray(lens), torch.from_numpy(lens)
+    else:
+        k, v = _arr(rng, (b, hkv, sk, d), "f32"), _arr(rng, (b, hkv, sk, d), "f32")
+    qd = "bf16" if quant else "f32"
+    want = jops.flash_attention(_to_j(q, qd), jnp.asarray(k), jnp.asarray(v), backend="jnp",
+                                causal=not quant, **kw_j)
+    got = tops.flash_attention(_to_t(q, qd), torch.from_numpy(k), torch.from_numpy(v),
+                               causal=not quant, **kw_t)
+    _close(got, want, f"ops quant={quant}")
+
+
+def test_wrappers_raise_the_reference_errors():
+    """Every ValueError of the reference wrappers, with the same words."""
+    q = torch.zeros((2, 4, 1, 16), dtype=torch.bfloat16)
+    pool = torch.zeros((5, 8, 2, 16), dtype=torch.int8)
+    scale = torch.zeros((5, 8, 2))
+    tables = torch.zeros((2, 3), dtype=torch.int32)
+    lens = torch.zeros((2,), dtype=torch.int32)
+    paged = tfa.paged_flash_attention
+    with pytest.raises(ValueError, match="block_tables"):
+        paged(q, pool, pool, scale, scale, torch.zeros((3, 3), dtype=torch.int32), lens)
+    with pytest.raises(ValueError, match="kv_lens"):
+        paged(q, pool, pool, scale, scale, tables, torch.zeros((3,), dtype=torch.int32))
+    with pytest.raises(ValueError, match="v_scale_pool"):
+        paged(q, pool, pool, scale, torch.zeros((5, 8, 3)), tables, lens)
+    with pytest.raises(ValueError, match="GQA"):
+        paged(torch.zeros((2, 3, 1, 16)), pool, pool, scale, scale, tables, lens)
+    with pytest.raises(ValueError, match="tile"):
+        paged(torch.zeros((2, 4, 3, 16)), pool, pool, scale, scale, tables, lens, block_q=2)
+
+    dense = tfa.flash_attention
+    qd, kd = torch.zeros((2, 4, 8, 16)), torch.zeros((2, 2, 16, 16))
+    with pytest.raises(ValueError, match="GQA"):
+        dense(torch.zeros((2, 3, 8, 16)), kd, kd)
+    with pytest.raises(ValueError, match="tile"):
+        dense(qd, kd, kd, block_q=3)
+    with pytest.raises(ValueError, match="exclusive"):
+        dense(qd, kd, kd, block_q=8, block_k=8, kv_len=4, kv_lens=torch.ones(2))
+    with pytest.raises(ValueError, match="kv_lens"):
+        dense(qd, kd, kd, block_q=8, block_k=8, kv_lens=torch.ones(3))
+    with pytest.raises(ValueError, match="k_scale"):
+        dense(qd, kd, kd, block_q=8, block_k=8, k_scale=torch.ones((2, 2, 8)))
+    with pytest.raises(ValueError, match="out of range"):
+        dense(qd, kd, kd, block_q=8, block_k=8, kv_len=17)
+    # the reference raises the same words for the same arguments
+    with pytest.raises(ValueError, match="exclusive"):
+        jflash(jnp.zeros((2, 4, 8, 16)), jnp.zeros((2, 2, 16, 16)),
+                            jnp.zeros((2, 2, 16, 16)), block_q=8, block_k=8, kv_len=4,
+                            kv_lens=jnp.ones((2,), jnp.int32), interpret=True)
