@@ -5,15 +5,22 @@
 Phases, each failing the run on any error:
 
 1. build — compile every CUDA kernel of the path from ``src/repro_torch/
-   kernels/csrc`` (one nvcc per source, in parallel) into build/repro_torch/;
+   kernels/csrc`` (one nvcc per source, in parallel) into build/repro_torch/,
+   and count the tensor-core instructions (IMMA, IGMMA) in each library's
+   SASS (``cuobjdump -sass``): the fused and packed libraries must hold some;
 2. kernel checks — each kernel against its plain PyTorch version on the
    card at the main path's shapes (granite-3-8b gate / down / lm_head at
    decode M=4 and prefill M=256): raw int32 bit-equal, the bf16 epilogue
    bit-equal, one truncated (4-bit) tier bit-equal; the packed kernel also
    on the blocked 8x8 Booth cache, SBMwC in the global planar layout, and
    gated against dense on a weight whose top planes are zero; plus timings
-   (CUDA events, median of repeated launches) beside the bound and a
-   library yardstick (``torch._int_mm``, never used by the port);
+   (CUDA events: the median of single eager calls, and the device time of
+   a CUDA-graph replay of the call; for the fused and packed kernels also
+   the wrapper's host time per call) beside the bound and a library
+   yardstick (``torch._int_mm``, never used by the port). Then the fused and
+   packed kernels beyond those shapes: corrupted words (flipped bits, sign
+   bits without their magnitude bits), unsigned activations, a_bits 1/3/5,
+   ragged M (1, 5, 17, 100) and N (4099), packed K = 1000 — bit-equal;
 3. engine at --level bitplane — continuous batching over full-width
    granite-3-8b (depth cut to 4 layers), 8-bit Booth plane cache, 4 slots,
    prompts 32/64/128/256 arriving 2 steps apart, 16 new tokens, int8 KV,
@@ -70,6 +77,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -91,6 +99,28 @@ GRANITE_SHAPES = (  # (name, K, N, activation) of the main path's projections
     ("lm_head", 4096, 49408, "none"),
 )
 ROWS = (4, 256)  # decode M = n_slots, prefill M = longest prompt
+
+# kernel cases beyond the main path's shapes, each bit-equal to its plain
+# version: fused (variant, a_bits, M, corrupt words) at K = 4096 and a
+# ragged N; packed (variant, bits, M, pack block, corrupt words) at K = 1000
+CASE_N = 4099  # a multiple of no tile (4-column vectors, 32-column warps, 128-column blocks)
+FUSED_CASES = (
+    ("booth", 8, 4, True),
+    ("unsigned", 8, 5, False),
+    ("booth", 1, 1, False),
+    ("booth", 3, 17, True),
+    ("sbmwc", 5, 100, True),
+)
+FUSED_CASE_K = 4096
+PACKED_CASES = (
+    ("booth", 8, 5, 512, True),
+    ("unsigned", 8, 17, None, False),
+    ("sbmwc", 8, 100, None, True),
+    ("booth", 8, 1, None, False),
+)
+PACKED_CASE_K = 1000
+# the libraries whose main loops run on the int8 tensor cores
+TENSOR_CORE_LIBS = ("plane_mm_fused", "plane_mm_packed")
 
 # the engine workload: full-width granite-3-8b, depth cut to LAYERS
 LAYERS = 4
@@ -122,6 +152,60 @@ def _time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def _graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call: CUDA events around replays of a CUDA graph
+    of it (its launches back to back, none of the wrapper's host time,
+    which ``_time_ms`` includes when the card waits for the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture stream, as capture asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _host_ms(fn, reps: int = 50) -> float:
+    """Host time of one call: the host clock over back-to-back calls,
+    before the synchronise (what the wrapper costs the host per call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+def _signed_bytes(t: torch.Tensor) -> int:
+    """Signed bytes that hold every value of the integer tensor ``t``."""
+    lo, hi, n = int(t.min()), int(t.max()), 1
+    while not (-(1 << (8 * n - 1)) <= lo and hi < (1 << (8 * n - 1))):
+        n += 1
+    return n
+
+
+def _split_products(a: torch.Tensor, w: torch.Tensor) -> int:
+    """Fewest int8 products per (m, n, k) that the byte split proves enough
+    for these operands: the signed bytes of A's values times those of W's
+    (plane sums regrouped by the outer-product pair weights). The kernels
+    run at least this many (two at 8 Booth weight planes), so the bound
+    stays a floor."""
+    return _signed_bytes(a) * _signed_bytes(w)
+
+
 def _bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_INT8_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / peak_ops * 1e3
@@ -130,7 +214,8 @@ def _bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_INT8_OPS_PER_S) 
 
 def _library_ms(x_q: torch.Tensor, w_q: torch.Tensor):
     """``torch._int_mm`` of the same int8 product (rows padded to 32, the
-    smallest M it takes) — a yardstick; None with the reason if refused."""
+    smallest M it takes) — a yardstick: (call ms, device ms, None), or
+    (None, None, reason) if refused."""
     m = x_q.shape[0]
     xp = torch.zeros((max(m, 32), x_q.shape[1]), dtype=torch.int8, device=x_q.device)
     xp[:m] = x_q
@@ -140,24 +225,25 @@ def _library_ms(x_q: torch.Tensor, w_q: torch.Tensor):
         except RuntimeError as e:  # layout the library does not take
             reason = str(e).splitlines()[0]
             continue
-        return _time_ms(lambda w=w: torch._int_mm(xp, w)), None
-    return None, reason
+        return (_time_ms(lambda w=w: torch._int_mm(xp, w)),
+                _graph_ms(lambda w=w: torch._int_mm(xp, w)), None)
+    return None, None, reason
 
 
-def _packed_bound(m, n, pa, pw, gate_tiles=None) -> tuple[float, str]:
+def _packed_bound(m, n, pa, pw, products, gate_tiles=None) -> tuple[float, str]:
     """Bound of one packed product: A and W words read once, the int32
-    output written once; P_w folded int8 products per (m, n, k). With
-    ``gate_tiles`` (the weight's (P_w, chunks) tile occupancy) only the
-    occupied (plane, chunk) tiles are counted: that is what these data
-    need."""
-    from repro_torch.kernels.plane_mm_packed import CHUNK_WORDS
+    output written once; ``products`` int8 products per (m, n, k) (see
+    ``_split_products``). With ``gate_tiles`` (the weight's (P_w, chunks)
+    tile occupancy) only the occupied (plane, chunk) tiles' words are
+    counted: that is what these data need."""
+    from repro_torch.kernels.bytesplit import CHUNK_WORDS
 
     sides_a = 1 if pa.sign is None else 2
     sides_w = 1 if pw.sign is None else 2
     n_w, kw, _ = pw.mag.shape
     w_words = n_w * kw if gate_tiles is None else int(gate_tiles.sum()) * CHUNK_WORDS
     n_bytes = 4 * (sides_a * pa.mag.numel() + sides_w * w_words * n + m * n)
-    return _bound(n_bytes, 2.0 * m * n * 32 * w_words)
+    return _bound(n_bytes, 2.0 * m * n * pa.k * products)
 
 
 def check_packed(summary: dict, name, m, k, n, x_q, w_q, wp, wp4, x4, lib_ms) -> list:
@@ -168,28 +254,31 @@ def check_packed(summary: dict, name, m, k, n, x_q, w_q, wp, wp4, x4, lib_ms) ->
     from repro_torch.core import bitplanes as bp
     from repro_torch.core.bitserial import _wrap_weights
     from repro_torch.kernels import plane_mm_packed as pmp
+    from repro_torch.kernels.bytesplit import CHUNK_WORDS
 
     dev = x_q.device
 
     def pack_a(x, bits, variant, block):
         dec = bp.to_bitplanes(x, bits, variant)
-        return bp.pack_planes(dec.planes, axis=-1, ternary=variant == "booth", block=block), dec
+        return bp.pack_decomposition(dec, axis=-1, variant=variant, block=block), dec
 
     def pair_w(dec_a, pw_side):
         return _wrap_weights([a * b for a in dec_a.weights for b in pw_side.weights], device=dev)
 
     sb = bp.make_weight_planes(w_q, w_bits=8, variant="sbmwc", level="bitplane", block=None)
     small = bp.make_weight_planes(w_q >> 3, w_bits=8, variant="booth", level="bitplane")
-    cases = []
+    w4 = bp.shift_requantize(w_q, 8, 4, "booth")  # the values the 4-bit tier's planes hold
+    cases = []  # (name, A, W, pair weights, gate, A values, W values)
     pa8, da8 = pack_a(x_q, 8, "booth", wp.packed.block)
-    cases.append(("booth8_blocked", pa8, wp.packed, pair_w(da8, wp.packed), False))
+    cases.append(("booth8_blocked", pa8, wp.packed, pair_w(da8, wp.packed), False, x_q, w_q))
     pa4, da4 = pack_a(x4, 4, "booth", wp4.packed.block)
-    cases.append(("booth4_truncated", pa4, wp4.packed, pair_w(da4, wp4.packed), False))
+    cases.append(("booth4_truncated", pa4, wp4.packed, pair_w(da4, wp4.packed), False, x4, w4))
     pas, das = pack_a(x_q, 8, "sbmwc", None)
-    cases.append(("sbmwc8_planar", pas, sb.packed, pair_w(das, sb.packed), False))
-    cases.append(("booth8_gated", pa8, small.packed, pair_w(da8, small.packed), True))
+    cases.append(("sbmwc8_planar", pas, sb.packed, pair_w(das, sb.packed), False, x_q, w_q))
+    cases.append(("booth8_gated", pa8, small.packed, pair_w(da8, small.packed), True, x_q,
+                  w_q >> 3))
     lines = []
-    for variant, pa, pw, pairs, gate in cases:
+    for variant, pa, pw, pairs, gate, a_vals, w_vals in cases:
         got = pmp.plane_matmul_packed(pa, pw, pairs, gate=gate)
         plain = pmp.plane_matmul_packed_plain(pa, pw, pairs)
         dense = pmp.plane_matmul_packed(pa, pw, pairs) if gate else got
@@ -197,15 +286,19 @@ def check_packed(summary: dict, name, m, k, n, x_q, w_q, wp, wp4, x4, lib_ms) ->
         eq = bool(torch.equal(got, plain)) and bool(torch.equal(dense, got))
         err = float((got.double() - plain.double()).abs().max())
         k_ms = _time_ms(lambda: pmp.plane_matmul_packed(pa, pw, pairs, gate=gate))
+        d_ms = _graph_ms(lambda: pmp.plane_matmul_packed(pa, pw, pairs, gate=gate))
+        h_ms = _host_ms(lambda: pmp.plane_matmul_packed(pa, pw, pairs, gate=gate))
         p_ms = _time_ms(lambda: pmp.plane_matmul_packed_plain(pa, pw, pairs), reps=3, warmup=1)
-        tiles = bp.occupancy_per_tile(pw.occupancy, pmp.CHUNK_WORDS) if gate else None
-        b_ms, b_by = _packed_bound(m, n, pa, pw, tiles)
+        tiles = bp.occupancy_per_tile(pw.occupancy, CHUNK_WORDS) if gate else None
+        products = _split_products(a_vals, w_vals)
+        b_ms, b_by = _packed_bound(m, n, pa, pw, products, tiles)
         line = {
             "kernel": "plane_matmul_packed", "shape": name, "M": m, "K": k, "N": n,
             "variant": variant, "gate": gate, "planes": [pa.n_planes, pw.n_planes],
             "raw_int32_equal": eq, "max_abs_err": err,
-            "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by,
+            "kernel_ms": k_ms, "device_ms": d_ms, "host_ms": h_ms, "plain_ms": p_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_products": products,
         }
         if gate:
             line["dense_ms"] = _time_ms(lambda: pmp.plane_matmul_packed(pa, pw, pairs))
@@ -217,6 +310,117 @@ def check_packed(summary: dict, name, m, k, n, x_q, w_q, wp, wp4, x4, lib_ms) ->
         summary.setdefault("plane_matmul_packed", []).append(line)
         del got, plain, dense
     return lines
+
+
+def _corrupt(packed, gen: torch.Generator, n_words: int = 8):
+    """The words as faults leave them: ``n_words`` magnitude bits flipped
+    and, on ternary words, ``n_words`` sign bits set whose magnitude bits
+    are clear (plane value -2, which no valid pack holds)."""
+    def pick(hi):
+        return int(torch.randint(hi, (1,), generator=gen, device=gen.device))
+
+    mag = packed.mag.clone().reshape(-1)
+    sign = None if packed.sign is None else packed.sign.clone().reshape(-1)
+    for _ in range(n_words):
+        mag[pick(mag.numel())] ^= 1 << pick(31)
+        if sign is not None:
+            j, bit = pick(mag.numel()), 1 << pick(31)
+            mag[j] &= ~bit
+            sign[j] |= bit
+    return dataclasses.replace(
+        packed, mag=mag.reshape(packed.mag.shape),
+        sign=None if sign is None else sign.reshape(packed.sign.shape))
+
+
+def check_kernel_cases(summary: dict) -> list:
+    """The redesigned kernels against their plain versions beyond the main
+    path's shapes: corrupted words, unsigned activations, a_bits 1/3/5,
+    ragged M and N, packed K = 1000 — all bit-equal (raw int32; the fused
+    kernel's bf16 epilogue too)."""
+    from repro_torch.core import bitplanes as bp
+    from repro_torch.core.bitserial import _wrap_weights
+    from repro_torch.kernels import plane_mm_fused as pmf
+    from repro_torch.kernels import plane_mm_packed as pmp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+
+    def ints(bits, variant, shape):
+        lo, hi = (0, (1 << bits) - 1) if variant == "unsigned" else bp.signed_range(bits)
+        return torch.randint(lo, hi + 1, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    def report(kernel, case, eq, err, d_ms, **extra):
+        line = {"kernel": kernel, "case": case, **extra, "raw_int32_equal": eq,
+                "max_abs_err": err, "device_ms": d_ms}
+        print(json.dumps(line), flush=True)
+        if not eq:
+            _die(f"{kernel} case {case} differs from its plain version")
+        summary.setdefault(kernel, []).append(line)
+        return line
+
+    lines = []
+    for variant, a_bits, m, corrupt in FUSED_CASES:
+        k, n = FUSED_CASE_K, CASE_N
+        x = ints(a_bits, variant, (m, k)).to(torch.int8)  # an unsigned byte as its int8 bits
+        wp = bp.make_weight_planes(ints(8, variant, (k, n)), w_bits=8, variant=variant,
+                                   level="bitplane")
+        pk = _corrupt(wp.packed, gen) if corrupt else wp.packed
+        pw = _wrap_weights([a * b for a in bp.plane_weights(a_bits, variant)
+                            for b in pk.weights], device=dev)
+        kw = dict(a_bits=a_bits, variant=variant)
+        ep = dict(a_scale=torch.rand((m, 1), generator=gen, device=dev) * 1e-2,
+                  w_scale=torch.rand((1, n), generator=gen, device=dev) * 1e-3,
+                  activation="silu")
+        raw_k, raw_p = pmf.fused_plane_linear(x, pk, pw, **kw), pmf.fused_plane_linear_plain(x, pk, pw, **kw)
+        out_k = pmf.fused_plane_linear(x, pk, pw, **kw, **ep)
+        out_p = pmf.fused_plane_linear_plain(x, pk, pw, **kw, **ep)
+        torch.cuda.synchronize()
+        eq = bool(torch.equal(raw_k, raw_p)) and bool(torch.equal(out_k, out_p))
+        err = float((raw_k.double() - raw_p.double()).abs().max())
+        d_ms = _graph_ms(lambda: pmf.fused_plane_linear(x, pk, pw, **kw, **ep))
+        lines.append(report("fused_plane_linear", f"{variant}{a_bits}" + ("_corrupt" if corrupt else ""),
+                            eq, err, d_ms, variant=variant, a_bits=a_bits, M=m, K=k, N=n,
+                            corrupt=corrupt))
+    for variant, bits, m, block, corrupt in PACKED_CASES:
+        k, n = PACKED_CASE_K, CASE_N
+        pa = bp.pack_decomposition(bp.to_bitplanes(ints(bits, variant, (m, k)), bits, variant),
+                                   axis=-1, variant=variant, block=block)
+        pk = bp.pack_decomposition(bp.to_bitplanes(ints(bits, variant, (k, n)), bits, variant),
+                                   axis=-2, variant=variant, block=block)
+        if corrupt:
+            pa, pk = _corrupt(pa, gen), _corrupt(pk, gen)
+        pw = _wrap_weights([a * b for a in pa.weights for b in pk.weights], device=dev)
+        got, plain = pmp.plane_matmul_packed(pa, pk, pw), pmp.plane_matmul_packed_plain(pa, pk, pw)
+        torch.cuda.synchronize()
+        eq = bool(torch.equal(got, plain))
+        err = float((got.double() - plain.double()).abs().max())
+        d_ms = _graph_ms(lambda: pmp.plane_matmul_packed(pa, pk, pw))
+        layout = "blocked" if block else "planar"
+        lines.append(report("plane_matmul_packed",
+                            f"{variant}{bits}_{layout}" + ("_corrupt" if corrupt else ""),
+                            eq, err, d_ms, variant=variant, bits=bits, M=m, K=k, N=n,
+                            corrupt=corrupt))
+    return lines
+
+
+def check_sass() -> dict:
+    """Tensor-core instructions in each kernel library's SASS (``cuobjdump
+    -sass``): IMMA (mma.sync) and IGMMA (wgmma). The redesigned libraries
+    must hold some."""
+    from repro_torch.kernels import _build
+
+    tool = _build.cuda_tool("cuobjdump")
+    counts = {}
+    for name in _build.SOURCES:
+        sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))], capture_output=True,
+                              text=True, check=True).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("IMMA", "IGMMA")}
+    print(json.dumps({"sass_tensor_core_instructions": counts}), flush=True)
+    for name in TENSOR_CORE_LIBS:
+        if not sum(counts[name].values()):
+            _die(f"lib{name}: no tensor-core instruction in its SASS")
+    return counts
 
 
 def check_kernels(summary: dict) -> list:
@@ -258,23 +462,25 @@ def check_kernels(summary: dict) -> list:
             tr_err = float((tr_k.float() - tr_p.float()).abs().max())
             ep_eq = bool(torch.equal(out_k, out_p)) and bool(torch.equal(tr_k, tr_p))
             k_ms = _time_ms(lambda: plane_mm_fused.fused_plane_linear(x_q, wp.packed, pw8, **kw, **ep))
+            d_ms = _graph_ms(lambda: plane_mm_fused.fused_plane_linear(x_q, wp.packed, pw8, **kw, **ep))
+            h_ms = _host_ms(lambda: plane_mm_fused.fused_plane_linear(x_q, wp.packed, pw8, **kw, **ep))
             p_ms = _time_ms(lambda: plane_mm_fused.fused_plane_linear_plain(x_q, wp.packed, pw8, **kw, **ep), reps=3, warmup=1)
-            lib_ms, lib_why = _library_ms(x_q, w_q)
+            lib_ms, lib_dev_ms, lib_why = _library_ms(x_q, w_q)
             n_w, kwords, _ = wp.packed.mag.shape
             n_bytes = (m * k + 2 * n_w * kwords * n * 4 + 4 * pw8.numel()
                        + 4 * m + 4 * n + m * n * 2)
             if bias is not None:
                 n_bytes += 4 * n
-            # the activation side folds into one operand per weight plane,
-            # u_j = sum_i pw[i, j] * a_i, so the function needs P_w products
-            b_ms, b_by = _bound(n_bytes, 2.0 * m * n * k * n_w)
+            products = _split_products(x_q, w_q)
+            b_ms, b_by = _bound(n_bytes, 2.0 * m * n * k * products)
             line = {
                 "kernel": "fused_plane_linear", "shape": name, "M": m, "K": k, "N": n,
                 "activation": act, "bias": bias is not None,
                 "raw_int32_equal": raw_eq, "bf16_epilogue_equal": ep_eq,
                 "epilogue_max_abs_err": ep_err, "trunc4_max_abs_err": tr_err,
-                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-                "bound_ms": b_ms, "bound_by": b_by,
+                "kernel_ms": k_ms, "device_ms": d_ms, "host_ms": h_ms, "plain_ms": p_ms,
+                "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "bound_products": products,
             }
             if lib_why:
                 line["library_note"] = lib_why
@@ -305,6 +511,7 @@ def check_kernels(summary: dict) -> list:
             exact = bool(torch.equal(dp.double(), x_q.double() @ w_q.double()))
             d_err = float(max((dk - dp).abs().max(), (tk - tp).abs().max()))
             k_ms = _time_ms(lambda: plane_mm.plane_matmul(a_pl, w_pl, pwd))
+            d_ms = _graph_ms(lambda: plane_mm.plane_matmul(a_pl, w_pl, pwd))
             p_ms = _time_ms(lambda: plane_mm.plane_matmul_plain(a_pl, w_pl, pwd), reps=3, warmup=1)
             p_a, p_w = a_pl.shape[0], w_pl.shape[0]
             n_bytes = p_a * m * k + p_w * k * n + 4 * p_a * p_w + 4 * m * n
@@ -314,7 +521,7 @@ def check_kernels(summary: dict) -> list:
                 "kernel": "plane_matmul", "shape": name, "M": m, "K": k, "N": n,
                 "planes": [p_a, p_w], "raw_int32_equal": d_eq, "trunc4_bitplane_equal": t_eq,
                 "equals_int_matmul": exact, "max_abs_err": d_err,
-                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                "kernel_ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "library_ms": lib_ms,
                 "bound_ms": b_ms, "bound_by": b_by,
             }
             print(json.dumps(line), flush=True)
@@ -1145,8 +1352,10 @@ def main() -> None:
     build_s = _build.build_all()
     print(f"[chip_smoke] build: {build_s:.1f} s (sources {', '.join(_build.SOURCES)})", flush=True)
 
+    check_sass()
     summary: dict = {}
     check_kernels(summary)
+    check_kernel_cases(summary)
     print(f"[chip_smoke] kernel checks done at {time.perf_counter() - t0:.1f} s", flush=True)
     dense_launches = count_dense_entry_point(*check_attention(summary))
     print(f"[chip_smoke] attention kernel checks done at {time.perf_counter() - t0:.1f} s",
@@ -1186,8 +1395,9 @@ def main() -> None:
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max(errs),
-            "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            "ms": rep["kernel_ms"], "device_ms": rep["device_ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": rep["library_ms"],
             "shape": f"{rep['shape']} M={rep['M']} K={rep['K']} N={rep['N']}",
         }
 

@@ -365,9 +365,8 @@ def _exec_cached_packed(plan, x, w, wp, ep):
     wp_eff = _trunc(plan, wp)
     dec_a = bp.to_bitplanes(x2, key.a_bits, key.variant)
     pw = ops._pair_weights(dec_a.weights, wp_eff.weights, x.device)
-    pa = bp.pack_planes(
-        dec_a.planes, axis=-1, ternary=key.variant == "booth",
-        block=wp_eff.packed.block,
+    pa = bp.pack_decomposition(
+        dec_a, axis=-1, variant=key.variant, block=wp_eff.packed.block,
     )
     out2 = ops.plane_matmul_packed(
         pa, wp_eff.packed, pw, backend=key.backend, bm=plan.bm, gate=plan.gate
@@ -426,9 +425,8 @@ def _exec_staged(plan, x, w, wp, ep):
         dec_w = bp.to_digits(w, key.w_bits, key.variant)
     pw = ops._pair_weights(dec_a.weights, dec_w.weights, x.device)
     if plan.kernel == "staged_packed":
-        ternary = key.variant == "booth"
-        pa = bp.pack_planes(dec_a.planes, axis=-1, ternary=ternary)
-        pwk = bp.pack_planes(dec_w.planes, axis=-2, ternary=ternary)
+        pa = bp.pack_decomposition(dec_a, axis=-1, variant=key.variant)
+        pwk = bp.pack_decomposition(dec_w, axis=-2, variant=key.variant)
         out2 = ops.plane_matmul_packed(
             pa, pwk, pw, backend=key.backend, bm=plan.bm, gate=plan.gate
         )

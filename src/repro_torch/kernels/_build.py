@@ -39,20 +39,22 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
+    found = shutil.which(name)
     if found:
         return found
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME:
-        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        cand = Path(CUDA_HOME) / "bin" / name
         if cand.exists():
             return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+    raise RuntimeError(f"{name} not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """The shared library of ``csrc/<name>.cu`` for the current sources."""
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))  # shared headers
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -62,12 +64,12 @@ def _lib_path(name: str) -> Path:
 def _start(name: str):
     """Start ``nvcc`` for one source; returns (proc, tmp, dst) or None when
     the library is already built."""
-    dst = _lib_path(name)
+    dst = lib_path(name)
     if dst.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = dst.with_name(f"{dst.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     return proc, tmp, dst
 
@@ -102,6 +104,6 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             _finish(name, _start(name))
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(lib_path(name)))
             _libs[name] = lib
         return lib

@@ -1,48 +1,47 @@
-// Fused bit-serial linear layer for Hopper (sm_90a).
+// Fused bit-serial linear layer for Hopper (sm_90a), on int8 tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/plane_mm_fused.py::fused_plane_linear
 // (Pallas body _fused_kernel). Same function, computed bit for bit:
 //
 //   out[m, n] = epilogue( sum_{i,j} pw[i*P_w + j] * sum_k a_i[m, k] * w_j[k, n] )
 //
-// where a_i are the bit planes sliced on chip from the raw int8 activation
-// (shift/mask as slice_activation_planes; Booth planes b[i-1] - b[i]) and
-// w_j the weight planes unpacked from blocked packed words (mag - 2*sign;
-// in a pack block of bkw words, bit t of word w holds k = t*bkw + w). The
-// sum is taken modulo 2^32 in uint32 (signed overflow is undefined in C++,
-// the reference's int32 arithmetic wraps). The epilogue is
+// where a_i are the bit planes of the raw int8 activation (shift/mask as
+// slice_activation_planes; Booth planes b[i-1] - b[i]) and w_j the weight
+// planes in blocked packed words (mag - 2*sign; in a pack block of bkw words,
+// bit t of word w holds k = t*bkw + w). The sum is taken modulo 2^32 (the
+// reference's int32 arithmetic wraps). The epilogue is
 // ((float(acc) * a_scale[m]) * w_scale[n]) [+ bias[n]] -> silu | gelu(tanh)
-// -> bf16, with every float operation rounded separately (__fmul_rn /
-// __fadd_rn, and the build passes -fmad=false) so the result is bit-equal
-// to the plain PyTorch version; raw mode stores the int32 accumulator.
+// -> bf16, every float operation rounded on its own (__fmul_rn / __fadd_rn,
+// and the build passes -fmad=false), so the result is bit-equal to the plain
+// PyTorch version; raw mode stores the int32 accumulator.
 //
-// What bounds it on the H100: at decode (M <= 16) the packed weight words,
-// 2 bytes per weight at 8 Booth planes, read once — memory. At prefill the
-// P_w folded products (below) are compute: this kernel runs them on the
-// CUDA cores (no tensor cores), so it stays far above the int8 tensor-core
-// bound; mma/wgmma, TMA and pipelining are later work.
+// The arithmetic (plane_mm_common.cuh): with pw = wa (x) ww, the planes of x
+// sum to one byte per value — x's low a_bits bits, sign-extended for booth
+// and sbmwc, unsigned for unsigned (.u8) — and the weight planes to the
+// byte digits of their magnitude and sign words, so at 8 Booth weight
+// planes the function is two exact int8 tensor-core products per
+// (m, n, k), not a_bits * P_w plane pairs. pw stays an argument: the staging
+// kernel traps on any pw[i*P_w + j] != wrap32(wa_i * ww_j).
 //
-// What the design does about it:
-// * The TPU's sequential K grid dimension is a loop over the K pack blocks
-//   inside one CUDA block; the VMEM accumulator is registers.
-// * The activation side is folded first: for each weight plane j and each
-//   (m, k), u_j[m, k] = sum_i pw[i*P_w + j] * a_i[m, k] (mod 2^32) is
-//   computed once per block into shared memory, so the inner loop does P_w
-//   multiply-adds per (m, n, k) instead of a_bits * P_w. The regrouping is
-//   exact in modular arithmetic for any pair weights (truncated tiers and
-//   compacted caches pass their own).
-// * Each weight word is read from device memory once per block, by the
-//   thread that owns its output column (32 columns per block, lanes on
-//   neighbouring columns: coalesced); the four warps split the words of a
-//   pack block and reduce through shared memory at the end. This weight
-//   side and the reduction are plane_mm_common.cuh, shared with the packed
-//   kernel.
-// * Decode shapes give few blocks, so K is split across blocks (ksplit)
-//   when that fills the card: partial sums go by integer atomics (exact in
-//   any order) into an int32 workspace and a second small kernel applies
-//   the epilogue. ksplit == 1 keeps the accumulator out of device memory.
-// * gate (occupancy-predicated pairs) computes the same sum; the kernel
-//   takes every pair, which is the same result.
+// What bounds it on the H100: at decode the packed weight words, 2 bytes per
+// weight at 8 Booth planes, read once — memory (0.031 ms for granite's gate
+// projection); the bit transposes (60 integer operations per 32 values and
+// digit) run beside the loads. At prefill the two products per (m, n, k)
+// (operations bound below the byte bound up to M ~ 500 at gate) and the
+// weight words read once per 32-row tile.
+//
+// Launches, one stream:
+// 1. stage: x into activation bytes in the words' order — row (m, w) holds
+//    the 32 values of word w (k = kb*bk + t*bkw + w % bkw for t = 0..31) at
+//    bit_pos(t), zero beyond K — checks pw, zeroes the split-K workspace;
+// 2. the main loop (plane_mm_common.cuh run_tiles) over (row tile, 128
+//    columns, K split); at decode K is split across blocks so the card fills,
+//    partial sums meet by uint32 atomics (exact in any order) in an int32
+//    workspace, and
+// 3. a small epilogue kernel applies the dequant epilogue; ksplit == 1 keeps
+//    the accumulator in registers and stores the epilogue directly.
+// gate (occupancy-predicated pairs) computes the same sum: the kernel takes
+// every tile, so words the occupancy does not describe still count.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -52,10 +51,10 @@
 
 namespace {
 
-using plane_mm::kBN;
+using plane_mm::DigitPlan;
+using plane_mm::kBlockCols;
+using plane_mm::kChunkWords;
 using plane_mm::kThreads;
-constexpr int kMaxBlock = 512;   // K values per pack block staged in shared memory
-constexpr int kMaxPairs = 64;    // a_bits * P_w <= 8 * 8
 
 __device__ __forceinline__ float activation(float v, int act) {
   if (act == 1) {  // silu: x * sigmoid(x), sigmoid(x) = 1 / (1 + exp(-x))
@@ -87,83 +86,61 @@ __device__ __forceinline__ void store_out(uint32_t acc, int mg, int ng, int N,
   static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
 }
 
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-fused_plane_linear_kernel(const int8_t* __restrict__ x, int M, int K,
-                          const int32_t* __restrict__ wmag,
-                          const int32_t* __restrict__ wsign,
-                          int n_w, int kw, int N, int bkw,
-                          const int32_t* __restrict__ pair_w, int a_bits, int booth,
-                          const float* __restrict__ a_scale,
-                          const float* __restrict__ w_scale,
-                          const float* __restrict__ bias, int act,
-                          void* __restrict__ out, int raw,
-                          int32_t* __restrict__ ws, int kb_per_split) {
-  __shared__ int8_t xs[BM][kMaxBlock];
-  __shared__ __align__(16) uint32_t us[kMaxBlock][BM];
-  __shared__ uint32_t pws[kMaxPairs];
-
-  const int tid = threadIdx.x;
-  const int n = blockIdx.x * kBN + (tid & 31);
-  const int m0 = blockIdx.y * BM;
+// One thread per 4 staged bytes: word q of row (m, w) holds bits q, q+8,
+// q+16, q+24 (bit_pos). Also checks pw and zeroes ws.
+__global__ void plane_mm_fused_stage(const int8_t* __restrict__ x, int M, int K, int KW, int KWp,
+                             int bkw, int a_bits, int au8, uint32_t* __restrict__ adig,
+                             const int32_t* __restrict__ pw, const __grid_constant__ DigitPlan dp,
+                             uint32_t* __restrict__ ws, size_t n_ws) {
+  const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  plane_mm::check_pair_weight(pw, dp, tid);
   const int bk = bkw * 32;
-  const int nk = kw / bkw;
-  const int kb0 = blockIdx.z * kb_per_split;
-  const int kb1 = min(nk, kb0 + kb_per_split);
-  const int amask = (1 << a_bits) - 1;
-
-  if (tid < a_bits * n_w) pws[tid] = (uint32_t)pair_w[tid];
-
-  uint32_t acc[BM];
+  const int sh = 32 - a_bits;
+  const size_t total = (size_t)M * KWp * 8;
+  for (size_t o = tid; o < total; o += stride) {
+    const int q = (int)(o & 7);
+    const size_t mw = o >> 3;
+    const int w = (int)(mw % KWp);
+    const int m = (int)(mw / KWp);
+    uint32_t word = 0u;
+    if (w < KW) {
+      const int kb = w / bkw, wl = w - kb * bkw;
 #pragma unroll
-  for (int m = 0; m < BM; ++m) acc[m] = 0u;
-
-  for (int kb = kb0; kb < kb1; ++kb) {
-    __syncthreads();  // the previous block's readers of xs/us are done
-    for (int idx = tid; idx < BM * bk; idx += kThreads) {
-      const int m = idx / bk, kk = idx - m * bk;
-      const int mg = m0 + m, k = kb * bk + kk;
-      xs[m][kk] = (mg < M && k < K) ? x[(size_t)mg * K + k] : (int8_t)0;
-    }
-    for (int j = 0; j < n_w; ++j) {
-      __syncthreads();  // xs staged / the previous plane's readers of us are done
-      for (int idx = tid; idx < BM * bk; idx += kThreads) {
-        const int kk = idx / BM, m = idx - kk * BM;
-        const int v = (int)xs[m][kk] & amask;  // two's-complement low a_bits bits
-        uint32_t u = 0u;
-        int prev = 0;
-        for (int i = 0; i < a_bits; ++i) {
-          const int cur = (v >> i) & 1;
-          const int plane = booth ? (prev - cur) : cur;
-          prev = cur;
-          u += (uint32_t)plane * pws[i * n_w + j];
+      for (int i = 0; i < 4; ++i) {
+        const int k = kb * bk + (8 * i + q) * bkw + wl;
+        if (k < K) {
+          const uint32_t u = (uint32_t)(int)x[(size_t)m * K + k] << sh;
+          const int v = au8 ? (int)(u >> sh) : ((int)u >> sh);
+          word |= (uint32_t)(v & 0xFF) << (8 * i);
         }
-        us[kk][m] = u;
-      }
-      __syncthreads();
-      if (n < N) {
-        const size_t off = ((size_t)j * kw + (size_t)kb * bkw) * N + n;
-        plane_mm::accumulate_column<BM>(
-            acc, reinterpret_cast<const uint32_t*>(wmag) + off,
-            wsign != nullptr ? reinterpret_cast<const uint32_t*>(wsign) + off : nullptr,
-            N, bkw, us, bkw, /*skip_zero=*/true);
       }
     }
+    adig[o] = word;
   }
-
-  plane_mm::reduce_warps<BM>(acc, &us[0][0], [&](uint32_t s, int m, int c) {
-    const int mg = m0 + m, ng = blockIdx.x * kBN + c;
-    if (mg < M && ng < N) {
-      if (ws != nullptr) {
-        atomicAdd(reinterpret_cast<unsigned int*>(ws) + (size_t)mg * N + ng, s);
-      } else {
-        store_out(s, mg, ng, N, a_scale, w_scale, bias, act, out, raw);
-      }
-    }
-  });
+  for (size_t o = tid; o < n_ws; o += stride) ws[o] = 0u;
 }
 
-__global__ void epilogue_kernel(const int32_t* __restrict__ ws, int M, int N,
+template <int NT, bool kVec4>
+__global__ void __launch_bounds__(kThreads)
+plane_mm_fused_main(const uint8_t* __restrict__ adig, int M, int KW, int KWp,
+            const uint32_t* __restrict__ wmag, const uint32_t* __restrict__ wsign, int N,
+            int chunks_per_split, int au8, const __grid_constant__ DigitPlan dp,
+            const float* __restrict__ a_scale, const float* __restrict__ w_scale,
+            const float* __restrict__ bias, int act, void* __restrict__ out, int raw,
+            uint32_t* __restrict__ ws) {
+  plane_mm::run_tiles<NT, kVec4>(
+      adig, M, KW, KWp, wmag, wsign, N, nullptr, chunks_per_split, au8 != 0, dp,
+      [&](uint32_t s, int m, int n) {
+        if (ws != nullptr) {
+          atomicAdd(ws + (size_t)m * N + n, s);
+        } else {
+          store_out(s, m, n, N, a_scale, w_scale, bias, act, out, raw);
+        }
+      });
+}
+
+__global__ void plane_mm_fused_epilogue(const uint32_t* __restrict__ ws, int M, int N,
                                 const float* __restrict__ a_scale,
                                 const float* __restrict__ w_scale,
                                 const float* __restrict__ bias, int act,
@@ -172,64 +149,77 @@ __global__ void epilogue_kernel(const int32_t* __restrict__ ws, int M, int N,
   for (size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x; o < total;
        o += (size_t)gridDim.x * blockDim.x) {
     const int mg = (int)(o / N), ng = (int)(o - (size_t)mg * N);
-    store_out((uint32_t)ws[o], mg, ng, N, a_scale, w_scale, bias, act, out, raw);
+    store_out(ws[o], mg, ng, N, a_scale, w_scale, bias, act, out, raw);
   }
 }
 
-template <int BM>
-void launch(dim3 grid, cudaStream_t stream, const int8_t* x, int M, int K,
-            const int32_t* wmag, const int32_t* wsign, int n_w, int kw, int N, int bkw,
-            const int32_t* pw, int a_bits, int booth, const float* a_scale,
-            const float* w_scale, const float* bias, int act, void* out, int raw,
-            int32_t* ws, int kb_per_split) {
-  fused_plane_linear_kernel<BM><<<grid, kThreads, 0, stream>>>(
-      x, M, K, wmag, wsign, n_w, kw, N, bkw, pw, a_bits, booth, a_scale, w_scale, bias,
-      act, out, raw, ws, kb_per_split);
+template <int NT, bool kVec4>
+void launch_main(dim3 grid, cudaStream_t s, const uint8_t* adig, int M, int KW, int KWp,
+                 const uint32_t* wm, const uint32_t* wsg, int N, int cps, int au8,
+                 const DigitPlan& dp, const float* as, const float* wsc, const float* b,
+                 int act, void* out, int raw, uint32_t* ws) {
+  const size_t smem = (size_t)dp.n_ad * kChunkWords * 8 * NT * 32;
+  plane_mm_fused_main<NT, kVec4><<<grid, kThreads, smem, s>>>(adig, M, KW, KWp, wm, wsg, N, cps, au8,
+                                                      dp, as, wsc, b, act, out, raw, ws);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launches (0 = success; 1 =
-// cudaErrorInvalidValue for arguments the kernel does not take).
+// cudaErrorInvalidValue for arguments the kernel does not take). plan is a
+// host DigitPlan (one activation digit); adig a device scratch of
+// M * KWp * 32 bytes (KWp = KW rounded up to 16 words); ws an M * N int32
+// scratch, used when ksplit > 1.
 extern "C" int fused_plane_linear_launch(
-    const void* x, int M, int K, const void* wmag, const void* wsign, int n_w, int kw,
-    int N, int bkw, const void* pair_w, int a_bits, int booth, const void* a_scale,
-    const void* w_scale, const void* bias, int act, void* out, int raw, void* ws,
-    int ksplit, int bm, void* stream) {
+    const void* x, int M, int K, const void* wmag, const void* wsign, int kw, int N, int bkw,
+    const void* pair_w, const void* plan, int a_bits, int au8, const void* a_scale,
+    const void* w_scale, const void* bias, int act, void* out, int raw, void* ws, void* adig,
+    int ksplit, int bm, int vec4, void* stream) {
   cudaGetLastError();  // clear any earlier sticky-free error
-  if (bkw < 1 || bkw * 32 > kMaxBlock || kw % bkw != 0 || a_bits < 1 || a_bits > 8 ||
-      n_w < 1 || a_bits * n_w > kMaxPairs || ksplit < 1 || M < 1 || N < 1) {
+  const DigitPlan& dp = *static_cast<const DigitPlan*>(plan);
+  if (bkw < 1 || kw % bkw != 0 || a_bits < 1 || a_bits > 8 || ksplit < 1 || M < 1 || N < 1 ||
+      dp.n_ad != 1 || dp.n_wd < 1 || dp.n_wd > plane_mm::kMaxWDigits || dp.n_w < 1 ||
+      dp.n_w > plane_mm::kMaxPlanes || dp.n_a != a_bits) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nk = kw / bkw;
-  const int kb_per_split = (nk + ksplit - 1) / ksplit;
-  const int splits = (nk + kb_per_split - 1) / kb_per_split;
-  int32_t* wsp = nullptr;
-  if (splits > 1) {
-    wsp = static_cast<int32_t*>(ws);
-    cudaMemsetAsync(wsp, 0, sizeof(int32_t) * (size_t)M * N, s);
-  }
-  dim3 grid((N + kBN - 1) / kBN, (M + bm - 1) / bm, splits);
-  const int8_t* xp = static_cast<const int8_t*>(x);
-  const int32_t* mp = static_cast<const int32_t*>(wmag);
-  const int32_t* sp = static_cast<const int32_t*>(wsign);
-  const int32_t* pp = static_cast<const int32_t*>(pair_w);
+  const int n_chunks = (kw + kChunkWords - 1) / kChunkWords;
+  const int KWp = n_chunks * kChunkWords;
+  const int cps = (n_chunks + ksplit - 1) / ksplit;
+  const int splits = (n_chunks + cps - 1) / cps;
+  uint32_t* wsp = splits > 1 ? static_cast<uint32_t*>(ws) : nullptr;
+  const size_t n_ws = wsp != nullptr ? (size_t)M * N : 0;
+  const size_t stage_items = (size_t)M * KWp * 8;
+  size_t items = stage_items > n_ws ? stage_items : n_ws;
+  if (items < (size_t)dp.n_a * dp.n_w) items = (size_t)dp.n_a * dp.n_w;
+  const int stage_blocks = (int)((items + 255) / 256 < 2048 ? (items + 255) / 256 : 2048);
+  uint8_t* ad = static_cast<uint8_t*>(adig);
+  plane_mm_fused_stage<<<stage_blocks, 256, 0, s>>>(
+      static_cast<const int8_t*>(x), M, K, kw, KWp, bkw, a_bits, au8,
+      reinterpret_cast<uint32_t*>(ad), static_cast<const int32_t*>(pair_w), dp, wsp, n_ws);
+
+  const dim3 grid((M + bm - 1) / bm, (N + kBlockCols - 1) / kBlockCols, splits);
+  const uint32_t* wm = static_cast<const uint32_t*>(wmag);
+  const uint32_t* wsg = static_cast<const uint32_t*>(wsign);
   const float* as = static_cast<const float*>(a_scale);
   const float* wsc = static_cast<const float*>(w_scale);
   const float* b = static_cast<const float*>(bias);
-  switch (bm) {
-    case 1: launch<1>(grid, s, xp, M, K, mp, sp, n_w, kw, N, bkw, pp, a_bits, booth, as, wsc, b, act, out, raw, wsp, kb_per_split); break;
-    case 2: launch<2>(grid, s, xp, M, K, mp, sp, n_w, kw, N, bkw, pp, a_bits, booth, as, wsc, b, act, out, raw, wsp, kb_per_split); break;
-    case 4: launch<4>(grid, s, xp, M, K, mp, sp, n_w, kw, N, bkw, pp, a_bits, booth, as, wsc, b, act, out, raw, wsp, kb_per_split); break;
-    case 8: launch<8>(grid, s, xp, M, K, mp, sp, n_w, kw, N, bkw, pp, a_bits, booth, as, wsc, b, act, out, raw, wsp, kb_per_split); break;
-    case 16: launch<16>(grid, s, xp, M, K, mp, sp, n_w, kw, N, bkw, pp, a_bits, booth, as, wsc, b, act, out, raw, wsp, kb_per_split); break;
+#define FUSED_LAUNCH(NT, V) \
+  launch_main<NT, V>(grid, s, ad, M, kw, KWp, wm, wsg, N, cps, au8, dp, as, wsc, b, act, out, raw, wsp)
+  switch (bm * 2 + (vec4 ? 1 : 0)) {
+    case 16: FUSED_LAUNCH(1, false); break;
+    case 17: FUSED_LAUNCH(1, true); break;
+    case 32: FUSED_LAUNCH(2, false); break;
+    case 33: FUSED_LAUNCH(2, true); break;
+    case 64: FUSED_LAUNCH(4, false); break;
+    case 65: FUSED_LAUNCH(4, true); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  if (splits > 1) {
+#undef FUSED_LAUNCH
+  if (wsp != nullptr) {
     const size_t total = (size_t)M * N;
     const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-    epilogue_kernel<<<blocks, 256, 0, s>>>(wsp, M, N, as, wsc, b, act, out, raw);
+    plane_mm_fused_epilogue<<<blocks, 256, 0, s>>>(wsp, M, N, as, wsc, b, act, out, raw);
   }
   return (int)cudaGetLastError();
 }

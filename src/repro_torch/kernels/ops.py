@@ -18,7 +18,7 @@ import torch
 from repro_torch.core import bitplanes as bp
 from repro_torch.core import bitserial as bs
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import plane_mm, plane_mm_fused, plane_mm_packed
+from repro_torch.kernels import bytesplit, plane_mm, plane_mm_fused, plane_mm_packed
 from repro_torch.kernels.plane_mm_fused import ACTIVATIONS, epilogue_plain
 from repro_torch.kernels.ref import attention_ref, plane_matmul_ref
 
@@ -65,23 +65,25 @@ def hopper_tiles(
     bk: Optional[int] = None,
     pack_block: Optional[int] = None,
 ) -> tuple[int, int, int]:
-    """Tiles of the Hopper kernels: ``bm`` the row tile (smallest of 1, 2,
-    4, 8, 16 covering M), ``bn`` the output columns per CUDA block, ``bk``
-    the K extent one block iteration consumes (the pack block on the fused
-    routes, one chunk of packed words on the packed ones). Explicit values
+    """Tiles of the Hopper kernels: ``bm`` the row tile (the tensor-core
+    kernels: 8, 16 or 32 token rows; ``plane_matmul``: 1 to 16), ``bn``
+    the output columns per CUDA block, ``bk`` the K extent one block
+    iteration consumes (one chunk of packed words on the packed route,
+    ``plane_matmul``'s K tile) or, on the fused routes, the weight's pack
+    block (the kernel stages any block in 16-word chunks). Explicit values
     pass through and the kernels check them."""
     fused = kernel in ("fused_cached", "fused_repack")
     packed = kernel in ("cached_packed", "staged_packed")
-    mod = plane_mm_fused if fused else plane_mm_packed if packed else plane_mm
+    tensor_core = fused or packed
     if bm is None:
-        bm = mod.row_tile(m)
+        bm = bytesplit.row_tile(m) if tensor_core else plane_mm.row_tile(m)
     if bn is None:
-        bn = mod.COLS_PER_BLOCK
+        bn = bytesplit.COLS_PER_BLOCK if tensor_core else plane_mm.COLS_PER_BLOCK
     if bk is None:
         if fused:
             bk = pack_block or min(bp.DEFAULT_BLOCK, max(128, -(-k // 128) * 128))
         elif packed:
-            bk = plane_mm_packed.CHUNK_WORDS * bp.WORD_BITS
+            bk = bytesplit.CHUNK_WORDS * bp.WORD_BITS
         else:
             bk = plane_mm.K_TILE
     return bm, bn, bk

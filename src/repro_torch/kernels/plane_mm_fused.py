@@ -2,11 +2,13 @@
 plain PyTorch version.
 
 Port of ``src/repro/kernels/plane_mm_fused.py::fused_plane_linear``. One
-launch slices the raw int8 activation into bit planes on chip, unpacks
-the blocked packed weight plane words, accumulates the ``a_bits x P_w``
-plane-pair products in int32 and applies the dequant/bias/activation
-epilogue, writing bf16 (or the raw int32 accumulator with no scales).
-The kernel source, with its design note, is ``csrc/plane_mm_fused.cu``.
+call stages the raw int8 activation as bytes, unpacks the blocked packed
+weight plane words into byte digits, multiplies them on the int8 tensor
+cores (two exact products per (m, n, k) at 8 Booth planes, the plane-pair
+sum regrouped by its outer-product pair weights, ``kernels/bytesplit.py``)
+and applies the dequant/bias/activation epilogue, writing bf16 (or the raw
+int32 accumulator with no scales). The kernel source, with its design
+note, is ``csrc/plane_mm_fused.cu``.
 
 :func:`fused_plane_linear` launches the kernel for CUDA tensors and runs
 :func:`fused_plane_linear_plain` for CPU tensors — the device of the
@@ -20,16 +22,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import bitplanes as bp
 from repro_torch.core.bitplanes import WORD_BITS, PackedPlanes, unpack_planes
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, bytesplit
+from repro_torch.kernels.bytesplit import row_tile
 from repro_torch.kernels.ref import plane_matmul_ref
-
-#: K values per pack block the kernel stages in shared memory
-MAX_BLOCK = 512
-#: row tiles the kernel is instantiated for
-ROW_TILES = (1, 2, 4, 8, 16)
-#: output columns per CUDA block
-COLS_PER_BLOCK = 32
 _ACT_CODES = {"none": 0, "silu": 1, "gelu": 2}
 
 
@@ -135,16 +132,9 @@ def fused_plane_linear_plain(
 def _vec(t: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
     if t is None:
         return None
+    if t.dtype == torch.float32 and t.numel() == n and t.is_contiguous():
+        return t  # already n dense floats: the kernel reads it as such
     return torch.broadcast_to(t.reshape(-1).to(torch.float32), (n,)).contiguous()
-
-
-def row_tile(m: int, bm: Optional[int] = None) -> int:
-    """Kernel row tile: the smallest instantiated tile covering M (<= 16)."""
-    if bm is not None:
-        if bm not in ROW_TILES:
-            raise ValueError(f"bm must be one of {ROW_TILES}, got {bm}")
-        return bm
-    return next((t for t in ROW_TILES if t >= m), ROW_TILES[-1])
 
 
 def _lib():
@@ -154,10 +144,11 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [
             p, i, i,  # x, M, K
-            p, p, i, i, i, i,  # wmag, wsign, n_w, kw, N, bkw
-            p, i, i,  # pair_w, a_bits, booth
+            p, p, i, i, i,  # wmag, wsign, kw, N, bkw
+            p, p, i, i,  # pair_w, plan, a_bits, au8
             p, p, p, i,  # a_scale, w_scale, bias, act
-            p, i, p, i, i,  # out, raw, ws, ksplit, bm
+            p, i, p, p,  # out, raw, ws, adig
+            i, i, i,  # ksplit, bm, vec4
             p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -187,10 +178,13 @@ def fused_plane_linear(
 
     ``x_q`` (M, K) int8 in natural K order; ``packed_w`` blocked-layout
     words (P_w, KW, N) packed on axis 1; ``pair_weights`` (a_bits*P_w,)
-    int32. With ``a_scale``/``w_scale`` the epilogue runs and the result
-    is bf16; without, the raw int32 accumulator comes back. ``gate``
-    (occupancy-gated pairs) gives the same result; the kernel takes every
-    pair. CPU tensors run the plain version; CUDA tensors launch the
+    int32, the outer product of the activation planes' weights
+    (``plane_weights(a_bits, variant)``) and ``packed_w.weights`` — the
+    kernel checks it against them and fails the launch on a mismatch. With
+    ``a_scale``/``w_scale`` the epilogue runs and the result is bf16;
+    without, the raw int32 accumulator comes back. ``gate``
+    (occupancy-gated pairs) gives the same result; the kernel reads every
+    word. CPU tensors run the plain version; CUDA tensors launch the
     kernel, and arguments it does not take raise.
     """
     if not x_q.is_cuda:
@@ -204,10 +198,9 @@ def fused_plane_linear(
         raise ValueError(f"unknown activation {activation!r}")
     if a_scale is not None and out_dtype != torch.bfloat16:
         raise ValueError(f"the kernel's epilogue writes bfloat16, got {out_dtype}")
-    if not 1 <= a_bits <= 8 or a_bits * packed_w.mag.shape[0] > 64:
-        raise ValueError("the kernel takes a_bits <= 8 and P_w <= 8")
-    if packed_w.block > MAX_BLOCK:
-        raise ValueError(f"pack block {packed_w.block} exceeds the kernel's {MAX_BLOCK}")
+    if not 1 <= a_bits <= 8:
+        raise ValueError(f"the kernel takes a_bits in [1, 8], got {a_bits}")
+    bytesplit.check_plane_weights("packed_w", packed_w.weights, packed_w.mag.shape[0])
     dev = x_q.device
     tensors = [x_q, packed_w.mag, pair_weights]
     if packed_w.sign is not None:
@@ -226,11 +219,9 @@ def fused_plane_linear(
     if pair_weights.dtype != torch.int32:
         raise ValueError(f"pair_weights must be int32, got {pair_weights.dtype}")
     m, k = x_q.shape
-    n_w, kw, n = packed_w.mag.shape
+    _, kw, n = packed_w.mag.shape
     if packed_w.sign is not None and packed_w.sign.shape != packed_w.mag.shape:
         raise ValueError("sign words must match the magnitude words' shape")
-    bkw = packed_w.block // WORD_BITS
-    nk = kw // bkw
     raw = a_scale is None
     asc = None if raw else _vec(a_scale, m)
     wsc = None if raw else _vec(w_scale, n)
@@ -238,19 +229,22 @@ def fused_plane_linear(
     for t in (asc, wsc, bia):
         if t is not None and t.device != dev:
             raise ValueError("scales and bias must be on the operands' device")
+    # the pair weights' factors, from metadata: the kernel checks pw against them
+    plan = bytesplit.digit_plan(bp.plane_weights(a_bits, variant), tuple(packed_w.weights),
+                                packed_w.sign is not None, 1)
     tile = row_tile(m, bm)
-    blocks = -(-n // COLS_PER_BLOCK) * -(-m // tile)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    ksplit = max(1, min(nk, -(-2 * sms // blocks)))
+    ksplit = bytesplit.k_split(m, n, kw, tile, dev)
     out = torch.empty((m, n), dtype=torch.int32 if raw else torch.bfloat16, device=dev)
     ws = torch.empty((m, n), dtype=torch.int32, device=dev) if ksplit > 1 else None
+    adig = torch.empty((m, bytesplit.padded_words(kw) * WORD_BITS), dtype=torch.uint8, device=dev)
     fused_plane_linear.launches += 1
     err = _lib()(
         _ptr(x_q), m, k,
-        _ptr(packed_w.mag), _ptr(packed_w.sign), n_w, kw, n, bkw,
-        _ptr(pair_weights), a_bits, int(variant == "booth"),
+        _ptr(packed_w.mag), _ptr(packed_w.sign), kw, n, packed_w.block // WORD_BITS,
+        _ptr(pair_weights), ctypes.addressof(plan), a_bits, int(variant == "unsigned"),
         _ptr(asc), _ptr(wsc), _ptr(bia), _ACT_CODES[activation],
-        _ptr(out), int(raw), _ptr(ws), ksplit, tile,
+        _ptr(out), int(raw), _ptr(ws), _ptr(adig),
+        ksplit, tile, int(bytesplit.vec4_ok(n, packed_w.mag, packed_w.sign)),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

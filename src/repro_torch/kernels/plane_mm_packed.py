@@ -8,7 +8,10 @@ of the same shapes), and the result is
 ``sum_{i,j} pw[i*P_w+j] * (A_i @ W_j)`` exactly in int32. Both operands
 must share one word layout (global planar or blocked); the contraction
 runs over (word, bit) pairs, so neither side is un-permuted. The kernel
-source, with its design note, is ``csrc/plane_mm_packed.cu``.
+regroups the plane pairs by their outer-product pair weights into byte
+digits of A and W and multiplies those on the int8 tensor cores
+(``kernels/bytesplit.py``); its source, with its design note, is
+``csrc/plane_mm_packed.cu``.
 
 :func:`plane_matmul_packed` launches the kernel for CUDA tensors and runs
 :func:`plane_matmul_packed_plain` for CPU tensors — the operands' device
@@ -22,18 +25,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.bitplanes import PackedPlanes, occupancy_per_tile, unpack_planes
-from repro_torch.kernels import _build
+from repro_torch.core.bitplanes import WORD_BITS, PackedPlanes, occupancy_per_tile, unpack_planes
+from repro_torch.kernels import _build, bytesplit
+from repro_torch.kernels.bytesplit import CHUNK_WORDS, row_tile
 from repro_torch.kernels.ref import plane_matmul_ref
-
-#: row tiles the kernel is instantiated for
-ROW_TILES = (1, 2, 4, 8, 16)
-#: output columns per CUDA block
-COLS_PER_BLOCK = 32
-#: packed words per K chunk (one block iteration; the gate's tile)
-CHUNK_WORDS = 16
-#: planes per operand the kernel takes
-MAX_PLANES = 32
 
 
 def validate_packed_operands(
@@ -73,24 +68,15 @@ def plane_matmul_packed_plain(
     return plane_matmul_ref(unpack_planes(packed_a), unpack_planes(packed_w), pair_weights)
 
 
-def row_tile(m: int, bm: Optional[int] = None) -> int:
-    """Kernel row tile: the smallest instantiated tile covering M (<= 16)."""
-    if bm is not None:
-        if bm not in ROW_TILES:
-            raise ValueError(f"bm must be one of {ROW_TILES}, got {bm}")
-        return bm
-    return next((t for t in ROW_TILES if t >= m), ROW_TILES[-1])
-
-
 def _lib():
     fn = _build.load("plane_mm_packed").plane_matmul_packed_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [
             p, p, i, i,  # amag, asign, n_a, M
-            p, p, i, i, i,  # wmag, wsign, n_w, kw, N
-            p, p, i,  # pair_w, wocc, gate
-            p, i, i,  # out, ksplit, bm
+            p, p, i, i,  # wmag, wsign, kw, N
+            p, p, p, i,  # pair_w, plan, wocc, gate
+            p, p, i, i, i,  # out, adig, ksplit, bm, vec4
             p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -110,10 +96,13 @@ def plane_matmul_packed(
     gate: bool = False,
 ) -> torch.Tensor:
     """sum_{i,j} pair_weights[i*P_w+j] * (A_i @ W_j) as (M, N) int32 from
-    packed planes. ``gate`` skips weight tiles and words that are zero
-    (from the weight's pack-time occupancy) with a bit-identical result.
-    CPU tensors run the plain version; CUDA tensors launch the kernel,
-    and arguments it does not take raise."""
+    packed planes. The kernel needs each operand's plane weights
+    (``weights``, as ``pack_decomposition`` records them): ``pair_weights``
+    must be their outer product, which the kernel checks, failing the
+    launch on a mismatch. ``gate`` skips weight tiles the pack-time
+    occupancy marks zero, with a bit-identical result. CPU tensors run the
+    plain version; CUDA tensors launch the kernel, and arguments it does
+    not take raise."""
     if gate and packed_w.occupancy is None:
         raise ValueError(
             "gate=True needs weight occupancy metadata; re-pack the weight "
@@ -125,8 +114,8 @@ def plane_matmul_packed(
     dev = packed_a.mag.device
     n_a, m, kw = packed_a.mag.shape
     n_w, _, n = packed_w.mag.shape
-    if n_a > MAX_PLANES or n_w > MAX_PLANES:
-        raise ValueError(f"the kernel takes at most {MAX_PLANES} planes per operand")
+    bytesplit.check_plane_weights("packed_a", packed_a.weights, n_a)
+    bytesplit.check_plane_weights("packed_w", packed_w.weights, n_w)
     for side in (packed_a, packed_w):
         if side.sign is not None and side.sign.shape != side.mag.shape:
             raise ValueError("sign words must match the magnitude words' shape")
@@ -146,17 +135,21 @@ def plane_matmul_packed(
         if packed_w.occupancy.device != dev:
             raise ValueError(f"weight occupancy is on {packed_w.occupancy.device}, expected {dev}")
         occ = occupancy_per_tile(packed_w.occupancy, CHUNK_WORDS).contiguous()
+    # the pair weights' factors, from metadata: the kernel checks pw against them
+    n_ad = bytesplit.signed_byte_count(tuple(packed_a.weights), asg is not None)
+    plan = bytesplit.digit_plan(tuple(packed_a.weights), tuple(packed_w.weights),
+                                wsg is not None, n_ad)
     tile = row_tile(m, bm)
-    blocks = -(-n // COLS_PER_BLOCK) * -(-m // tile)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    ksplit = max(1, min(-(-kw // CHUNK_WORDS), -(-2 * sms // blocks)))
+    ksplit = bytesplit.k_split(m, n, kw, tile, dev)
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    adig = torch.empty((n_ad, m, bytesplit.padded_words(kw) * WORD_BITS), dtype=torch.uint8,
+                       device=dev)
     plane_matmul_packed.launches += 1
     err = _lib()(
         _ptr(am), _ptr(asg), n_a, m,
-        _ptr(wm), _ptr(wsg), n_w, kw, n,
-        _ptr(pw), _ptr(occ), int(gate),
-        _ptr(out), ksplit, tile,
+        _ptr(wm), _ptr(wsg), kw, n,
+        _ptr(pw), ctypes.addressof(plan), _ptr(occ), int(gate),
+        _ptr(out), _ptr(adig), ksplit, tile, int(bytesplit.vec4_ok(n, wm, wsg)),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

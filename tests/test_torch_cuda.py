@@ -7,12 +7,19 @@ PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
 from repro_torch.core import bitplanes as tbp
 from repro_torch.core.bitserial import _wrap_weights
 from repro_torch.kernels import plane_mm, plane_mm_fused, plane_mm_packed
+
+from _torch_words import corrupt_words
 
 
 @pytest.fixture
@@ -81,15 +88,143 @@ def test_packed_kernel_equals_plain_on_card(cuda_device, variant, a_bits, w_bits
     x = torch.randint(alo, ahi + 1, (m, k), generator=g, device=cuda_device, dtype=torch.int32)
     w = torch.randint(wlo, whi + 1, (k, n), generator=g, device=cuda_device, dtype=torch.int32)
     w[: k // 2] >>= 3  # the top planes of the first half of K are zero: gated tiles
-    ternary = variant == "booth"
     da, dw = tbp.to_bitplanes(x, a_bits, variant), tbp.to_bitplanes(w, w_bits, variant)
-    pa = tbp.pack_planes(da.planes, axis=-1, ternary=ternary, block=block)
-    pk = tbp.pack_planes(dw.planes, axis=-2, ternary=ternary, block=block)
+    pa = tbp.pack_decomposition(da, axis=-1, variant=variant, block=block)
+    pk = tbp.pack_decomposition(dw, axis=-2, variant=variant, block=block)
     pw = _wrap_weights([a * b for a in da.weights for b in dw.weights], device=cuda_device)
     got = plane_mm_packed.plane_matmul_packed(pa, pk, pw)
     assert torch.equal(got, plane_mm_packed.plane_matmul_packed_plain(pa, pk, pw))
     assert torch.equal(got, plane_mm_packed.plane_matmul_packed(pa, pk, pw, gate=True))
     assert torch.equal(got.double(), x.double() @ w.double())
+
+
+def _ints(g, bits, variant, shape, dev):
+    lo, hi = (0, (1 << bits) - 1) if variant == "unsigned" else tbp.signed_range(bits)
+    return torch.randint(lo, hi + 1, shape, generator=g, device=dev, dtype=torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,a_bits,m,k,n,corrupt", [
+    ("booth", 8, 5, 700, 90, True),
+    ("booth", 8, 256, 1024, 130, True),
+    ("unsigned", 8, 17, 300, 64, False),
+    ("unsigned", 8, 4, 96, 33, True),
+    ("booth", 1, 1, 64, 16, False),
+    ("booth", 3, 100, 256, 257, True),
+    ("sbmwc", 5, 17, 520, 129, False),
+])
+def test_fused_kernel_corrupt_unsigned_ragged_on_card(cuda_device, variant, a_bits, m, k, n,
+                                                      corrupt):
+    """Bit-equal to the plain version for any words (a flipped bit, a sign
+    bit without its magnitude bit), unsigned activations, a_bits 1-8,
+    ragged M and N, and M = 256 (eight 32-row tiles)."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(m * 31 + k + n)
+    x = _ints(g, a_bits, variant, (m, k), cuda_device).to(torch.int8)
+    w = _ints(g, 8, variant, (k, n), cuda_device)
+    pk = tbp.pack_decomposition(tbp.to_bitplanes(w, 8, variant), axis=-2, variant=variant,
+                                block=512)
+    if corrupt:
+        pk = corrupt_words(pk, g)
+    pw = _wrap_weights([a * b for a in tbp.plane_weights(a_bits, variant)
+                        for b in pk.weights], device=cuda_device)
+    kw = dict(a_bits=a_bits, variant=variant)
+    assert torch.equal(plane_mm_fused.fused_plane_linear(x, pk, pw, **kw),
+                       plane_mm_fused.fused_plane_linear_plain(x, pk, pw, **kw))
+    ep = dict(a_scale=torch.rand((m, 1), generator=g, device=cuda_device) * 0.01,
+              w_scale=torch.rand((1, n), generator=g, device=cuda_device) * 0.01,
+              activation="silu")
+    assert torch.equal(plane_mm_fused.fused_plane_linear(x, pk, pw, **kw, **ep),
+                       plane_mm_fused.fused_plane_linear_plain(x, pk, pw, **kw, **ep))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,tier", [("booth", None), ("booth", 4), ("sbmwc", 6)])
+def test_fused_kernel_compacted_and_truncated_cache_on_card(cuda_device, variant, tier):
+    """A compacted cache (plane 0 dropped: its weights start at 2) and
+    truncated tiers of it: the byte digits follow the plane weights."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(97)
+    x = _ints(g, 8, variant, (6, 1000), cuda_device)
+    w = _ints(g, 8, variant, (1000, 72), cuda_device) & ~1  # even: plane 0 is all zero
+    wp = tbp.compact_weight_planes(tbp.make_weight_planes(w, w_bits=8, variant=variant,
+                                                          level="bitplane"))
+    assert len(wp.weights) == 7
+    if tier is not None:
+        wp = tbp.truncate_weight_planes(wp, tier)
+        x = tbp.shift_requantize(x, 8, tier, variant).clamp(*tbp.signed_range(tier))
+    a_bits = tier or 8
+    pw = _wrap_weights([a * b for a in tbp.plane_weights(a_bits, variant)
+                        for b in wp.packed.weights], device=cuda_device)
+    kw = dict(a_bits=a_bits, variant=variant)
+    xq = x.to(torch.int8)
+    assert torch.equal(plane_mm_fused.fused_plane_linear(xq, wp.packed, pw, **kw),
+                       plane_mm_fused.fused_plane_linear_plain(xq, wp.packed, pw, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,a_bits,w_bits,m,k,n,block,corrupt", [
+    ("booth", 8, 8, 5, 1000, 90, None, True),
+    ("booth", 8, 8, 256, 1000, 130, 512, True),
+    ("unsigned", 8, 8, 17, 1000, 64, None, False),
+    ("booth", 16, 8, 3, 200, 33, None, True),
+    ("booth", 28, 8, 40, 300, 64, None, False),  # four activation digits: 64 KB staged
+    ("sbmwc", 3, 8, 100, 520, 257, 128, True),
+])
+def test_packed_kernel_corrupt_unsigned_ragged_on_card(cuda_device, variant, a_bits, w_bits, m,
+                                                       k, n, block, corrupt):
+    """Bit-equal to the plain version for corrupted words on both sides,
+    unsigned, 16- and 28-bit activations (two to four activation digits),
+    packed K = 1000, ragged M and N, M = 256."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(m * 17 + k + n)
+    pa = tbp.pack_decomposition(tbp.to_bitplanes(_ints(g, a_bits, variant, (m, k), cuda_device),
+                                                 a_bits, variant),
+                                axis=-1, variant=variant, block=block)
+    pk = tbp.pack_decomposition(tbp.to_bitplanes(_ints(g, w_bits, variant, (k, n), cuda_device),
+                                                 w_bits, variant),
+                                axis=-2, variant=variant, block=block)
+    if corrupt:
+        pa, pk = corrupt_words(pa, g), corrupt_words(pk, g)
+    pw = _wrap_weights([a * b for a in pa.weights for b in pk.weights], device=cuda_device)
+    assert torch.equal(plane_mm_packed.plane_matmul_packed(pa, pk, pw),
+                       plane_mm_packed.plane_matmul_packed_plain(pa, pk, pw))
+
+
+_MISMATCH = """
+import torch
+from repro_torch.core import bitplanes as tbp
+from repro_torch.core.bitserial import _wrap_weights
+from repro_torch.kernels import plane_mm_fused, plane_mm_packed
+dev = torch.device("cuda")
+w = torch.randint(-128, 128, (256, 64), device=dev, dtype=torch.int32)
+x = torch.randint(-128, 128, (4, 256), device=dev, dtype=torch.int32)
+pk = tbp.pack_decomposition(tbp.to_bitplanes(w, 8, "booth"), axis=-2, variant="booth", block=512)
+pa = tbp.pack_decomposition(tbp.to_bitplanes(x, 8, "booth"), axis=-1, variant="booth", block=512)
+pw = _wrap_weights([a * b for a in pa.weights for b in pk.weights], device=dev)
+pw[9] += 1  # not the outer product of the plane weights
+if "{kernel}" == "fused":
+    out = plane_mm_fused.fused_plane_linear(x.to(torch.int8), pk, pw, a_bits=8, variant="booth")
+else:
+    out = plane_mm_packed.plane_matmul_packed(pa, pk, pw)
+torch.cuda.synchronize()
+print("RESULT", int(out.sum()))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused", "packed"])
+def test_mismatched_pair_weights_fail_loudly_on_card(cuda_device, kernel):
+    """A pw the plane weights do not produce traps in the kernel: the run
+    fails at the next synchronisation and no result comes back. (In a
+    child process: a trap leaves the CUDA context unusable.)"""
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run([sys.executable, "-c", _MISMATCH.replace("{kernel}", kernel)],
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert run.returncode != 0, run.stdout
+    assert "RESULT" not in run.stdout
+    assert "CUDA" in run.stderr or "cuda" in run.stderr, run.stderr[-2000:]
 
 
 def _paged_case(dev, g, b, hq, hkv, d, ps, lens):
