@@ -6,12 +6,15 @@ Phases, each failing the run on any error:
 
 1. build — compile every CUDA kernel of the path from ``src/repro_torch/
    kernels/csrc`` (one nvcc per source, in parallel) into build/repro_torch/,
-   and count the tensor-core instructions (IMMA, IGMMA) in each library's
-   SASS (``cuobjdump -sass``): the fused and packed libraries must hold some;
+   and count the tensor-core instructions (IMMA, IGMMA, HMMA) in each
+   library's SASS (``cuobjdump -sass``): the three plane libraries must hold
+   IMMA, the attention library HMMA;
 2. kernel checks — each kernel against its plain PyTorch version on the
    card at the main path's shapes (granite-3-8b gate / down / lm_head at
    decode M=4 and prefill M=256): raw int32 bit-equal, the bf16 epilogue
-   bit-equal, one truncated (4-bit) tier bit-equal; the packed kernel also
+   bit-equal, one truncated (4-bit) tier bit-equal; plane_matmul at the
+   digit level, the 4-bit bit-plane tier and with pair weights near +-2^31
+   that are no outer product; the packed kernel also
    on the blocked 8x8 Booth cache, SBMwC in the global planar layout, and
    gated against dense on a weight whose top planes are zero; plus timings
    (CUDA events: the median of single eager calls, and the device time of
@@ -21,12 +24,16 @@ Phases, each failing the run on any error:
    packed kernels beyond those shapes: corrupted words (flipped bits, sign
    bits without their magnitude bits), unsigned activations, a_bits 1/3/5,
    ragged M (1, 5, 17, 100) and N (4099), packed K = 1000 — bit-equal;
+   then both given pair weights with one entry perturbed and operands
+   packed without plane weights: the all-pairs path, bit-equal to the plain
+   version in this process (no child process), launching plane_matmul;
 3. engine at --level bitplane — continuous batching over full-width
    granite-3-8b (depth cut to 4 layers), 8-bit Booth plane cache, 4 slots,
    prompts 32/64/128/256 arriving 2 steps apart, 16 new tokens, int8 KV,
    an 8 -> 4 bit switch at decode step 8; every projection must launch the
-   fused kernel, and the greedy tokens must equal a run with every
-   projection on the plain version (which must launch no kernel); two more
+   fused kernel (with no pair weights read back), and the greedy tokens
+   must equal a run with every projection on the plain version (which must
+   launch no kernel); two more
    timed runs give the spread of the host times, and one run under
    ``torch.profiler`` the device time in all and inside the engine's
    prefill and decode-step ranges;
@@ -53,7 +60,9 @@ Phases, each failing the run on any error:
    plain version and, bit for bit, against the dense kernel on the gathered
    pools; at load (B=64, lengths 512-4096 from a seed); the dense kernel at
    Sq=Sk=256 and 4096, causal, bf16, against its plain version (and at 256
-   against attention_ref); each timed beside its bound, its plain version
+   against attention_ref), and at B=4, Sq=Sk=512 on an int8 K/V with
+   scales and lengths 512/301/64/0, causal and not (A5; A3-A5 run the
+   tensor-core body); each timed beside its bound, its plain version
    and scaled_dot_product_attention on dequantized, expanded K/V (a
    yardstick the port never calls); then one counted call of the
    ops.flash_attention entry point;
@@ -76,6 +85,7 @@ line, the card's name and power limit, and last ``{"ok": true, ...}``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -119,8 +129,10 @@ PACKED_CASES = (
     ("booth", 8, 1, None, False),
 )
 PACKED_CASE_K = 1000
-# the libraries whose main loops run on the int8 tensor cores
-TENSOR_CORE_LIBS = ("plane_mm_fused", "plane_mm_packed")
+# each library's main loop runs on the tensor cores: the SASS instruction
+# that must show it (IMMA: int8 mma.sync, HMMA: bf16 mma.sync)
+TENSOR_CORE_LIBS = {"plane_mm_fused": "IMMA", "plane_mm_packed": "IMMA", "plane_mm": "IMMA",
+                    "flash_attn": "HMMA"}
 
 # the engine workload: full-width granite-3-8b, depth cut to LAYERS
 LAYERS = 4
@@ -252,7 +264,7 @@ def check_packed(summary: dict, name, m, k, n, x_q, w_q, wp, wp4, x4, lib_ms) ->
     planar layout (staged_packed), and gate=True against gate=False on a
     weight whose top Booth planes are zero — all bit-equal (int32)."""
     from repro_torch.core import bitplanes as bp
-    from repro_torch.core.bitserial import _wrap_weights
+    from repro_torch.kernels import ops
     from repro_torch.kernels import plane_mm_packed as pmp
     from repro_torch.kernels.bytesplit import CHUNK_WORDS
 
@@ -262,8 +274,8 @@ def check_packed(summary: dict, name, m, k, n, x_q, w_q, wp, wp4, x4, lib_ms) ->
         dec = bp.to_bitplanes(x, bits, variant)
         return bp.pack_decomposition(dec, axis=-1, variant=variant, block=block), dec
 
-    def pair_w(dec_a, pw_side):
-        return _wrap_weights([a * b for a in dec_a.weights for b in pw_side.weights], device=dev)
+    def pair_w(dec_a, pw_side):  # as the plan executors build them: no read-back
+        return ops._pair_weights(dec_a.weights, pw_side.weights, dev)
 
     sb = bp.make_weight_planes(w_q, w_bits=8, variant="sbmwc", level="bitplane", block=None)
     small = bp.make_weight_planes(w_q >> 3, w_bits=8, variant="booth", level="bitplane")
@@ -338,7 +350,7 @@ def check_kernel_cases(summary: dict) -> list:
     ragged M and N, packed K = 1000 — all bit-equal (raw int32; the fused
     kernel's bf16 epilogue too)."""
     from repro_torch.core import bitplanes as bp
-    from repro_torch.core.bitserial import _wrap_weights
+    from repro_torch.kernels import ops
     from repro_torch.kernels import plane_mm_fused as pmf
     from repro_torch.kernels import plane_mm_packed as pmp
 
@@ -366,8 +378,7 @@ def check_kernel_cases(summary: dict) -> list:
         wp = bp.make_weight_planes(ints(8, variant, (k, n)), w_bits=8, variant=variant,
                                    level="bitplane")
         pk = _corrupt(wp.packed, gen) if corrupt else wp.packed
-        pw = _wrap_weights([a * b for a in bp.plane_weights(a_bits, variant)
-                            for b in pk.weights], device=dev)
+        pw = ops._pair_weights(bp.plane_weights(a_bits, variant), pk.weights, dev)
         kw = dict(a_bits=a_bits, variant=variant)
         ep = dict(a_scale=torch.rand((m, 1), generator=gen, device=dev) * 1e-2,
                   w_scale=torch.rand((1, n), generator=gen, device=dev) * 1e-3,
@@ -390,7 +401,7 @@ def check_kernel_cases(summary: dict) -> list:
                                    axis=-2, variant=variant, block=block)
         if corrupt:
             pa, pk = _corrupt(pa, gen), _corrupt(pk, gen)
-        pw = _wrap_weights([a * b for a in pa.weights for b in pk.weights], device=dev)
+        pw = ops._pair_weights(pa.weights, pk.weights, dev)
         got, plain = pmp.plane_matmul_packed(pa, pk, pw), pmp.plane_matmul_packed_plain(pa, pk, pw)
         torch.cuda.synchronize()
         eq = bool(torch.equal(got, plain))
@@ -406,8 +417,8 @@ def check_kernel_cases(summary: dict) -> list:
 
 def check_sass() -> dict:
     """Tensor-core instructions in each kernel library's SASS (``cuobjdump
-    -sass``): IMMA (mma.sync) and IGMMA (wgmma). The redesigned libraries
-    must hold some."""
+    -sass``): IMMA (int8 mma.sync), IGMMA (int8 wgmma) and HMMA (bf16
+    mma.sync). Each library must hold its TENSOR_CORE_LIBS instruction."""
     from repro_torch.kernels import _build
 
     tool = _build.cuda_tool("cuobjdump")
@@ -415,18 +426,149 @@ def check_sass() -> dict:
     for name in _build.SOURCES:
         sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))], capture_output=True,
                               text=True, check=True).stdout
-        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("IMMA", "IGMMA")}
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass))
+                        for op in ("IMMA", "IGMMA", "HMMA")}
     print(json.dumps({"sass_tensor_core_instructions": counts}), flush=True)
-    for name in TENSOR_CORE_LIBS:
-        if not sum(counts[name].values()):
-            _die(f"lib{name}: no tensor-core instruction in its SASS")
+    for name, op in TENSOR_CORE_LIBS.items():
+        if not counts[name][op]:
+            _die(f"lib{name}: no {op} instruction in its SASS")
     return counts
+
+
+def check_plane_matmul(summary: dict, gen, name, m, k, n, x_q, w_q, w_dig, x4, wp4, pw4,
+                       lib) -> list:
+    """plane_matmul against its plain version at one main-path shape, three
+    ways, each bit-equal (raw int32) and timed: the Booth radix-256 digits
+    (the digit cell's call; also equal to the plain int8 product), the
+    4-bit bit-plane tier (4 x 4 pairs), and the digits with pair weights
+    that are no outer product, near +-2^31 (every product wraps)."""
+    from repro_torch.core import bitplanes as bp
+    from repro_torch.kernels import ops, plane_mm
+
+    dev = x_q.device
+    a_dig = bp.to_digits(x_q, 8, "booth")
+    a_pl, w_pl = a_dig.planes.to(torch.int8).contiguous(), w_dig.planes.to(torch.int8).contiguous()
+    pwd = ops._pair_weights(a_dig.weights, w_dig.weights, dev)
+    off = torch.randint(0, 64, pwd.shape, generator=gen, device=dev, dtype=torch.int64)
+    sign = torch.randint(0, 2, pwd.shape, generator=gen, device=dev, dtype=torch.int64)
+    pw_wrap = torch.where(sign == 1, 2**31 - 1 - off, -(2**31) + off).to(torch.int32)
+    a_b4 = bp.to_bitplanes(x4, 4, "booth").planes.to(torch.int8).contiguous()
+    w_b4 = bp.unpack_planes(wp4.packed).contiguous()
+    cases = (("digit", a_pl, w_pl, pwd), ("bitplane4", a_b4, w_b4, pw4),
+             ("digit_pw_near_2_31", a_pl, w_pl, pw_wrap))
+    lines = []
+    for variant, ap, wpl, pw in cases:
+        got = plane_mm.plane_matmul(ap, wpl, pw)
+        plain = plane_mm.plane_matmul_plain(ap, wpl, pw)
+        torch.cuda.synchronize()
+        eq = bool(torch.equal(got, plain))
+        if variant == "digit":  # the digit contraction is the plain int8 product
+            eq = eq and bool(torch.equal(plain.double(), x_q.double() @ w_q.double()))
+        err = float((got.double() - plain.double()).abs().max())
+        p_a, p_w = ap.shape[0], wpl.shape[0]
+        n_bytes = p_a * m * k + p_w * k * n + 4 * p_a * p_w + 4 * m * n
+        # folding the side with fewer planes leaves min(P_a, P_w) products
+        b_ms, b_by = _bound(n_bytes, 2.0 * m * n * k * min(p_a, p_w))
+        line = {
+            "kernel": "plane_matmul", "shape": name, "variant": variant, "M": m, "K": k, "N": n,
+            "planes": [p_a, p_w], "raw_int32_equal": eq, "max_abs_err": err,
+            "kernel_ms": _time_ms(lambda: plane_mm.plane_matmul(ap, wpl, pw)),
+            "device_ms": _graph_ms(lambda: plane_mm.plane_matmul(ap, wpl, pw)),
+            "host_ms": _host_ms(lambda: plane_mm.plane_matmul(ap, wpl, pw)),
+            "plain_ms": _time_ms(lambda: plane_mm.plane_matmul_plain(ap, wpl, pw), reps=3,
+                                 warmup=1),
+            "library_ms": lib[0], "library_device_ms": lib[1],
+            "bound_ms": b_ms, "bound_by": b_by, "bound_products": min(p_a, p_w),
+        }
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        if not eq:
+            _die(f"plane_matmul {variant} differs from its plain version at {name} M={m}")
+        summary.setdefault("plane_matmul", []).append(line)
+        del got, plain
+    return lines
+
+
+def check_any_pair_weights(summary: dict) -> list:
+    """Fault A: the fused and the packed kernel given pair weights that are
+    no outer product of the operands' plane weights (one entry perturbed),
+    and operands packed without plane weights. Each call takes the
+    all-pairs path (decided on the host, before any launch), must equal its
+    plain version (raw int32 and bf16), must launch plane_matmul and not
+    the byte-split kernel, and the process carries on."""
+    from repro_torch.core import bitplanes as bp
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import plane_mm_fused as pmf
+    from repro_torch.kernels import plane_mm_packed as pmp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    m, k, n = 5, FUSED_CASE_K, CASE_N
+    x = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int32)
+    w = torch.randint(-128, 128, (k, n), generator=gen, device=dev, dtype=torch.int32)
+    pa = bp.pack_decomposition(bp.to_bitplanes(x, 8, "booth"), axis=-1, variant="booth", block=512)
+    pk = bp.pack_decomposition(bp.to_bitplanes(w, 8, "booth"), axis=-2, variant="booth", block=512)
+    bare_a, bare_w = dataclasses.replace(pa, weights=()), dataclasses.replace(pk, weights=())
+    pw_packed = ops._pair_weights(pa.weights, pk.weights, dev)
+    pw_fused = ops._pair_weights(bp.plane_weights(8, "booth"), pk.weights, dev)
+    ep = dict(a_scale=torch.rand((m, 1), generator=gen, device=dev) * 1e-2,
+              w_scale=torch.rand((1, n), generator=gen, device=dev) * 1e-3, activation="silu")
+    xq = x.to(torch.int8)
+
+    def perturbed(pw):
+        bad = pw.clone()
+        bad[int(torch.randint(pw.numel(), (1,), generator=gen, device=dev))] += 12345
+        return bad
+
+    lines = []
+    for kernel in ("fused_plane_linear", "plane_matmul_packed"):
+        for case in ("perturbed_pw", "no_weights"):
+            ak, wk = (bare_a, bare_w) if case == "no_weights" else (pa, pk)
+            if kernel == "fused_plane_linear":
+                pw = perturbed(pw_fused) if case == "perturbed_pw" else pw_fused
+                kw = dict(a_bits=8, variant="booth")
+                calls = [(functools.partial(pmf.fused_plane_linear, xq, wk, pw, **kw, **e),
+                          functools.partial(pmf.fused_plane_linear_plain, xq, wk, pw, **kw, **e))
+                         for e in ({}, ep)]
+            else:
+                pw = perturbed(pw_packed) if case == "perturbed_pw" else pw_packed
+                calls = [(functools.partial(pmp.plane_matmul_packed, ak, wk, pw),
+                          functools.partial(pmp.plane_matmul_packed_plain, ak, wk, pw))]
+            lines.append(_all_pairs_line(summary, kernel, case, calls, (m, k, n)))
+    return lines
+
+
+def _all_pairs_line(summary: dict, kernel: str, case: str, calls, mkn) -> dict:
+    """Run ``calls`` (kernel, plain) pairs of one all-pairs case: bit-equal,
+    launching plane_matmul once per call and not the byte-split kernel."""
+    m, k, n = mkn
+    _reset_counts()
+    got = [kern() for kern, _ in calls]
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    want = [plain() for _, plain in calls]
+    eq = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, want))
+    line = {"kernel": kernel, "case": f"all_pairs_{case}", "M": m, "K": k, "N": n,
+            "raw_int32_equal": eq, "outputs": [str(t.dtype) for t in got],
+            "max_abs_err": err, "launches": counts,
+            # events around one eager call: a foreign pw is read back on every
+            # call, which a CUDA graph cannot capture
+            "ms": _time_ms(calls[-1][0])}
+    print(json.dumps(line), flush=True)
+    if not eq:
+        _die(f"{kernel} {case} differs from its plain version")
+    if counts["plane_matmul"] != len(calls) or counts["plane_matmul_packed"]:
+        _die(f"{kernel} {case} did not take the all-pairs path: {counts}")
+    summary.setdefault(kernel, []).append(line)
+    return line
 
 
 def check_kernels(summary: dict) -> list:
     from repro_torch.core import bitplanes as bp
-    from repro_torch.core.bitserial import _wrap_weights
-    from repro_torch.kernels import plane_mm, plane_mm_fused
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import plane_mm_fused
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -445,8 +587,9 @@ def check_kernels(summary: dict) -> list:
             x_q = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
             a_scale = torch.rand((m, 1), generator=gen, device=dev) * 1e-2 + 1e-3
             # ---- fused_plane_linear ------------------------------------------------
-            pw8 = _wrap_weights([a * b for a in bp.plane_weights(8, "booth") for b in wp.weights], device=dev)
-            pw4 = _wrap_weights([a * b for a in bp.plane_weights(4, "booth") for b in wp4.weights], device=dev)
+            # the pair weights as the plan executors build them (no read-back)
+            pw8 = ops._pair_weights(bp.plane_weights(8, "booth"), wp.weights, dev)
+            pw4 = ops._pair_weights(bp.plane_weights(4, "booth"), wp4.weights, dev)
             x4 = torch.clamp_max(bp.shift_requantize(x_q, 8, 4, "booth"), 7).to(torch.int8)
             kw = dict(a_bits=8, variant="booth")
             raw_k = plane_mm_fused.fused_plane_linear(x_q, wp.packed, pw8, **kw)
@@ -494,42 +637,9 @@ def check_kernels(summary: dict) -> list:
                     f"{name} M={m} (max abs err {max(ep_err, tr_err)})"
                 )
             summary.setdefault("fused_plane_linear", []).append(line)
-            # ---- plane_matmul (Booth radix-256 digits; a truncated bit-plane tier) ---
-            a_dig = bp.to_digits(x_q, 8, "booth")
-            pwd = _wrap_weights([a * b for a in a_dig.weights for b in w_dig.weights], device=dev)
-            a_pl, w_pl = a_dig.planes.contiguous(), w_dig.planes.contiguous()
-            dk = plane_mm.plane_matmul(a_pl, w_pl, pwd)
-            dp = plane_mm.plane_matmul_plain(a_pl, w_pl, pwd)
-            a_b4 = bp.to_bitplanes(x4, 4, "booth").planes.contiguous()
-            w_b4 = bp.unpack_planes(wp4.packed).contiguous()
-            tk = plane_mm.plane_matmul(a_b4, w_b4, pw4)
-            tp = plane_mm.plane_matmul_plain(a_b4, w_b4, pw4)
-            torch.cuda.synchronize()
-            d_eq = bool(torch.equal(dk, dp))
-            t_eq = bool(torch.equal(tk, tp))
-            # the digit contraction is the plain int8 product (float64 is exact here)
-            exact = bool(torch.equal(dp.double(), x_q.double() @ w_q.double()))
-            d_err = float(max((dk - dp).abs().max(), (tk - tp).abs().max()))
-            k_ms = _time_ms(lambda: plane_mm.plane_matmul(a_pl, w_pl, pwd))
-            d_ms = _graph_ms(lambda: plane_mm.plane_matmul(a_pl, w_pl, pwd))
-            p_ms = _time_ms(lambda: plane_mm.plane_matmul_plain(a_pl, w_pl, pwd), reps=3, warmup=1)
-            p_a, p_w = a_pl.shape[0], w_pl.shape[0]
-            n_bytes = p_a * m * k + p_w * k * n + 4 * p_a * p_w + 4 * m * n
-            # folding the side with fewer planes leaves min(P_a, P_w) products
-            b_ms, b_by = _bound(n_bytes, 2.0 * m * n * k * min(p_a, p_w))
-            line = {
-                "kernel": "plane_matmul", "shape": name, "M": m, "K": k, "N": n,
-                "planes": [p_a, p_w], "raw_int32_equal": d_eq, "trunc4_bitplane_equal": t_eq,
-                "equals_int_matmul": exact, "max_abs_err": d_err,
-                "kernel_ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-                "bound_ms": b_ms, "bound_by": b_by,
-            }
-            print(json.dumps(line), flush=True)
-            lines.append(line)
-            if not (d_eq and t_eq and exact):
-                _die(f"plane_matmul differs from its plain version at {name} M={m}")
-            summary.setdefault("plane_matmul", []).append(line)
-            del raw_k, raw_p, out_k, out_p, tr_k, tr_p, dk, dp, tk, tp, a_b4, w_b4
+            del raw_k, raw_p, out_k, out_p, tr_k, tr_p
+            lines += check_plane_matmul(summary, gen, name, m, k, n, x_q, w_q, w_dig, x4, wp4,
+                                        pw4, (lib_ms, lib_dev_ms))
             lines += check_packed(summary, name, m, k, n, x_q, w_q, wp, wp4, x4, lib_ms)
         del wp, wp4, w_dig, w_q
         torch.cuda.empty_cache()
@@ -544,6 +654,9 @@ PAGE = 16
 # max|plain| (the two sum q.k over d and p.v over positions in other
 # orders); bf16 outputs within one bf16 step of the element on top of it
 ATTN_RTOL = 1e-4
+# A5: the dense kernel's int8 path at prefill, per-lane lengths (one free lane)
+DENSE_INT8_S = 512
+DENSE_INT8_LENS = [512, 301, 64, 0]
 
 
 def _attn_err(got: torch.Tensor, plain: torch.Tensor) -> tuple[float, bool]:
@@ -631,6 +744,7 @@ def check_paged(name: str, gen, lens) -> dict:
             equal.append(bool(torch.equal(paged, dense)))
         line["equals_dense_kernel_on_gathered_pools"] = all(equal)
     line["kernel_ms"] = _time_ms(lambda: fa.paged_flash_attention(*args))
+    line["device_ms"] = _graph_ms(lambda: fa.paged_flash_attention(*args))
     line["plain_ms"] = _time_ms(lambda: fa.paged_flash_attention_plain(*args), reps=3, warmup=1)
     # yardstick inputs: dequantized to bf16, expanded to the query heads
     kx = (kd.float() * ksd[..., None]).to(torch.bfloat16).repeat_interleave(HQ // HKV, dim=1)
@@ -680,6 +794,7 @@ def check_dense(name: str, gen, s: int, versus_oracle: bool) -> tuple[dict, tupl
         del plain
     line = {"kernel": "flash_attention", "check": name, "B": 1, "Sq": s, "Sk": s,
             "causal": True, "heads": [HQ, HKV], "head_dim": HEAD_DIM, "blocks": [128, 128],
+            "body": fa.dense_body(q.dtype, k.dtype, 128, HEAD_DIM, True),
             "f32_max_abs_err": errs[0], "bf16_max_abs_err": errs[1],
             "within_tolerance": all(oks), "max_abs_err": errs[0]}
     if versus_oracle:
@@ -688,6 +803,7 @@ def check_dense(name: str, gen, s: int, versus_oracle: bool) -> tuple[dict, tupl
         line.update(oracle_max_abs_err=err, oracle_within_tolerance=ok)
         oks.append(ok)
     line["kernel_ms"] = _time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+    line["device_ms"] = _graph_ms(lambda: fa.flash_attention(q, k, v, **kw))
     line["plain_ms"] = _time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), reps=3, warmup=1)
     kx = k.repeat_interleave(HQ // HKV, dim=1)
     vx = v.repeat_interleave(HQ // HKV, dim=1)
@@ -704,8 +820,68 @@ def check_dense(name: str, gen, s: int, versus_oracle: bool) -> tuple[dict, tupl
     return line, (q, k, v)
 
 
+def check_dense_int8(name: str, gen, lens) -> dict:
+    """A5: the dense kernel's tensor-core body on an int8 K/V with scales,
+    B = len(lens), Sq = Sk = DENSE_INT8_S, per-lane kv_lens (one of 0),
+    causal and not, float32 and bf16 outputs, each within the tolerance of
+    its plain version; timed (causal) beside its bound, its plain version
+    and scaled_dot_product_attention on dequantized, expanded K/V."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    b, s = len(lens), DENSE_INT8_S
+    q = torch.randn((b, HQ, s, HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randint(-127, 128, (b, HKV, s, HEAD_DIM), generator=gen, device=dev,
+                      dtype=torch.int8)
+    v = torch.randint(-127, 128, k.shape, generator=gen, device=dev, dtype=torch.int8)
+    ks = torch.rand((b, HKV, s), generator=gen, device=dev) * 0.02 + 1e-3
+    vs = torch.rand((b, HKV, s), generator=gen, device=dev) * 0.02 + 1e-3
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = dict(block_q=128, block_k=128, kv_lens=kv_lens, k_scale=ks, v_scale=vs)
+    errs, oks = {}, []
+    for causal in (True, False):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = fa.flash_attention(q, k, v, causal=causal, out_dtype=out_dtype, **kw)
+            plain = fa.flash_attention_plain(q, k, v, causal=causal, out_dtype=out_dtype, **kw)
+            torch.cuda.synchronize()
+            err, ok = _attn_err(got, plain)
+            errs[f"{'causal' if causal else 'full'}_{str(out_dtype)[6:]}_max_abs_err"] = err
+            oks.append(ok and bool(torch.isfinite(got).all()))
+    line = {"kernel": "flash_attention", "check": name, "B": b, "Sq": s, "Sk": s, "lens": lens,
+            "kv": "int8 with scales", "heads": [HQ, HKV], "head_dim": HEAD_DIM,
+            "blocks": [128, 128], "body": fa.dense_body(q.dtype, k.dtype, 128, HEAD_DIM, True),
+            **errs, "within_tolerance": all(oks), "max_abs_err": max(errs.values())}
+    line["kernel_ms"] = _time_ms(lambda: fa.flash_attention(q, k, v, causal=True, **kw))
+    line["device_ms"] = _graph_ms(lambda: fa.flash_attention(q, k, v, causal=True, **kw))
+    line["full_kernel_ms"] = _time_ms(lambda: fa.flash_attention(q, k, v, causal=False, **kw))
+    line["plain_ms"] = _time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True, **kw),
+                                reps=3, warmup=1)
+    kx = (k.float() * ks[..., None]).to(torch.bfloat16).repeat_interleave(HQ // HKV, dim=1)
+    vx = (v.float() * vs[..., None]).to(torch.bfloat16).repeat_interleave(HQ // HKV, dim=1)
+    pos = torch.arange(s, device=dev)
+    mask = ((pos[None, :] <= pos[:, None])[None] & (pos[None, None, :] < kv_lens[:, None, None]))
+    line["library_ms"] = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, kx, vx, attn_mask=mask[:, None]))
+    del kx, vx
+    # causal with lengths: query i reads keys 0..min(i, len - 1); each live
+    # position's K/V (one byte a value) and scales once, q and the output
+    # once (the timed call writes q's dtype)
+    out_size = fa.flash_attention(q, k, v, causal=True, **kw).element_size()
+    pairs = sum(min(i + 1, n) for n in lens for i in range(s))
+    n_bytes = (2 * q.numel() + sum(lens) * HKV * (2 * HEAD_DIM + 2 * 4) + 4 * b
+               + out_size * q.numel())
+    line["bound_ms"], line["bound_by"] = _bound(n_bytes, 4.0 * HQ * pairs * HEAD_DIM,
+                                                PEAK_BF16_OPS_PER_S)
+    print(json.dumps(line), flush=True)
+    if not all(oks):
+        _die(f"flash_attention {name} is outside its tolerance: {line}")
+    return line
+
+
 def check_attention(summary: dict) -> tuple:
-    """A1-A4: the attention kernels at granite-3-8b's heads. Returns A4's
+    """A1-A5: the attention kernels at granite-3-8b's heads. Returns A4's
     inputs."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4321)
@@ -716,7 +892,8 @@ def check_attention(summary: dict) -> tuple:
     torch.cuda.empty_cache()
     a3, _ = check_dense("A3 dense prefill", gen, 256, True)
     a4, inputs = check_dense("A4 dense long", gen, 4096, False)
-    summary["flash_attention"] = [a3, a4]
+    a5 = check_dense_int8("A5 dense int8 prefill", gen, DENSE_INT8_LENS)
+    summary["flash_attention"] = [a3, a4, a5]
     torch.cuda.empty_cache()
     return inputs
 
@@ -834,15 +1011,41 @@ def _engine(cfg, params, policy, **kw):
     )
 
 
+class _ReadBacks:
+    """Counts the pair-weight read-backs of the kernel wrappers' route
+    decision (``bytesplit.is_outer_product``): the plan executors' pair
+    weights carry their factors, so a served run makes none."""
+
+    def __enter__(self):
+        from repro_torch.kernels import bytesplit
+
+        self.mod, self.orig, self.calls = bytesplit, bytesplit.is_outer_product, 0
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self.orig(*a, **k)
+
+        bytesplit.is_outer_product = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.is_outer_product = self.orig
+
+
 def _counted_run(name, cfg, engine, schedule, kernel, route) -> tuple:
     """One warm-up, then the counted run: launch counts are set to 0 just
     before it and read just after; ``kernel`` must have launched once per
-    ``route`` projection call and no other kernel at all."""
+    ``route`` projection call and no other kernel at all, and no pair
+    weights may have been read back."""
     engine.run(_requests(cfg)[:1], precision_schedule=None)  # allocator, library handles
     engine.set_precision(None)
-    _reset_counts()
-    results, stats = engine.run(_requests(cfg), precision_schedule=schedule)
-    counts = _read_counts()
+    with _ReadBacks() as reads:
+        _reset_counts()
+        results, stats = engine.run(_requests(cfg), precision_schedule=schedule)
+        counts = _read_counts()
+    stats["pair_weight_read_backs"] = reads.calls
+    if reads.calls:
+        _die(f"{name}: {reads.calls} pair-weight read-backs in a served run")
     _check_finished(name, cfg, results, stats)
     calls = stats["route_calls"].get(route, 0)
     others = {k: v for k, v in counts.items() if k != kernel and v}
@@ -858,6 +1061,7 @@ def _summary(name, cfg, results, stats, counts, kernel, runs, profile) -> dict:
         "tok_per_s": stats["tok_per_s"], "wall_s": stats["wall_s"],
         "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
         "decode_steps": stats["decode_steps"], "launches": counts[kernel], "all_launches": counts,
+        "pair_weight_read_backs": stats.get("pair_weight_read_backs"),
         "route_calls": stats["route_calls"], "precision_switches": stats["precision_switches"],
         "runs": [{k: s[k] for k in ("wall_s", "prefill_s", "decode_s", "tok_per_s")} for s in runs],
         "profile": profile,
@@ -1356,6 +1560,7 @@ def main() -> None:
     summary: dict = {}
     check_kernels(summary)
     check_kernel_cases(summary)
+    check_any_pair_weights(summary)
     print(f"[chip_smoke] kernel checks done at {time.perf_counter() - t0:.1f} s", flush=True)
     dense_launches = count_dense_entry_point(*check_attention(summary))
     print(f"[chip_smoke] attention kernel checks done at {time.perf_counter() - t0:.1f} s",
@@ -1418,14 +1623,14 @@ def main() -> None:
             "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(l["max_abs_err"] for l in lines),
-            "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
-            "shape": rep["check"], "path": path,
+            "ms": rep["kernel_ms"], "device_ms": rep["device_ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": rep["library_ms"], "shape": rep["check"], "path": path,
         }
 
     paged_lines, dense_lines = summary["paged_flash_attention"], summary["flash_attention"]
     kernels += [
-        attn_entry("flash_attention", "src/repro/kernels/flash_attention.py:126", dense_lines[-1],
+        attn_entry("flash_attention", "src/repro/kernels/flash_attention.py:126", dense_lines[1],
                    dense_lines, dense_launches, "ops.flash_attention (not on the serving path)"),
         attn_entry("paged_flash_attention", "src/repro/kernels/flash_attention.py:328",
                    paged_lines[0], paged_lines, eng_pag["launches"], "bitplane-paged decode"),

@@ -1,8 +1,8 @@
 """The byte split behind the tensor-core plane kernels: the host side of
 ``csrc/plane_mm_common.cuh``.
 
-Every pair-weight vector of the plane kernels is a wrapped outer product,
-``pw[i*P_w + j] = wrap32(wa[i] * ww[j])``, so modulo 2^32
+Every pair-weight vector the plan executors build is a wrapped outer
+product, ``pw[i*P_w + j] = wrap32(wa[i] * ww[j])``, so modulo 2^32
 
     sum_ij pw_ij (a_i @ w_j)  ==  A @ W,   A = sum_i wa_i a_i,  W = sum_j ww_j w_j,
 
@@ -16,10 +16,13 @@ and both sides go to int8 tensor cores as bytes:
   (:func:`signed_byte_count`, :func:`split_signed_bytes`): one for a raw
   int8 activation, two for 8 packed Booth planes.
 
-:func:`digit_plan` builds the ``DigitPlan`` struct a kernel takes by value;
-:func:`bytesplit_matmul` is the plain model of what the kernels compute,
-digit by digit, which the CPU tests hold against ``plane_matmul_ref`` and
-the JAX functions.
+:func:`pair_route` decides on the host, before a launch, whether a call's
+pair weights are that outer product of its operands' plane weights (the
+byte-split kernels) or not (the all-pairs path: unpack to int8 planes and
+``plane_matmul``, exact for any pw). :func:`digit_plan` builds the
+``DigitPlan`` struct a kernel takes by value; :func:`bytesplit_matmul` is
+the plain model of what the kernels compute, digit by digit, which the CPU
+tests hold against ``plane_matmul_ref`` and the JAX functions.
 """
 
 from __future__ import annotations
@@ -183,28 +186,61 @@ class DigitPlan(ctypes.Structure):
         ("n_a", ctypes.c_int),
         ("n_w", ctypes.c_int),
         ("wa", ctypes.c_int32 * MAX_PLANES),
-        ("ww", ctypes.c_int32 * MAX_PLANES),
     ]
 
 
-def check_plane_weights(name: str, weights: Sequence[int], n_planes: int) -> None:
-    if len(weights) != n_planes:
-        raise ValueError(
-            f"the kernel factors pair_weights from the plane weights: {name} has "
-            f"{n_planes} planes but {len(weights)} weights (pack with weights=..., "
-            f"as pack_decomposition does)"
-        )
-    if not 1 <= n_planes <= MAX_PLANES:
-        raise ValueError(f"the kernel takes 1 to {MAX_PLANES} planes per operand, got {n_planes}")
+#: the two routes of a plane-pair call (:func:`pair_route`)
+BYTESPLIT, ALL_PAIRS = "bytesplit", "all_pairs"
+
+
+def is_outer_product(pw: torch.Tensor, wa: Sequence[int], ww: Sequence[int]) -> bool:
+    """Whether ``pw[i*P_w + j] == wrap32(wa[i] * ww[j])`` for every pair
+    (reads ``pw`` back to the host)."""
+    want = [wrap32(a * b) for a in wa for b in ww]
+    return tuple(pw.shape) == (len(want),) and pw.tolist() == want
+
+
+def tag_pair_weights(pw: torch.Tensor, wa: Sequence[int], ww: Sequence[int]) -> torch.Tensor:
+    """Record on ``pw``, the wrapped outer product of ``wa`` and ``ww`` that
+    ``ops._pair_weights`` builds, its factors and its version counter:
+    :func:`pair_route` then trusts it without a read-back until it is
+    written."""
+    pw._pair_factors = (tuple(int(x) for x in wa), tuple(int(x) for x in ww), pw._version)
+    return pw
+
+
+def pair_route(pw: torch.Tensor, wa: Sequence[int], ww: Sequence[int], n_a: int,
+               n_w: int) -> str:
+    """The route of a call whose operands have ``n_a`` and ``n_w`` planes
+    with plane weights ``wa`` and ``ww`` (empty for operands packed without
+    weights): :data:`BYTESPLIT` when ``pw`` is their wrapped outer product
+    and both plane counts fit the byte-split kernels, else
+    :data:`ALL_PAIRS`. A ``pw`` that ``ops._pair_weights`` built (as every
+    plan executor's is) carries its factors and decides without a
+    read-back while its version counter is unchanged; any other ``pw`` is
+    read back (at most 1024 int32 values) on every call.
+
+    The trust in a carried tag holds only while ``pw`` is written through
+    ops that bump its version counter: a write through ``pw.data``, a
+    DLPack alias or a raw pointer leaves the tag standing over values that
+    are no longer the outer product. ``ops._pair_weights``' tensors are
+    never written."""
+    if (len(wa) != n_a or len(ww) != n_w
+            or not (1 <= n_a <= MAX_PLANES and 1 <= n_w <= MAX_PLANES)):
+        return ALL_PAIRS
+    tag = getattr(pw, "_pair_factors", None)
+    if tag is not None and tag == (tuple(wa), tuple(ww), pw._version):
+        return BYTESPLIT
+    return BYTESPLIT if is_outer_product(pw, wa, ww) else ALL_PAIRS
 
 
 @functools.lru_cache(maxsize=256)
 def digit_plan(wa: tuple[int, ...], ww: tuple[int, ...], w_ternary: bool,
                n_a_digits: int) -> DigitPlan:
-    """The kernel's byte plan for activation plane weights ``wa`` (the pw
-    check's factors), weight plane weights ``ww``, and ``n_a_digits``
-    signed activation bytes; built once per key (the serving loop asks for
-    the same few)."""
+    """The kernel's byte plan for activation plane weights ``wa`` (the
+    packed kernel sums A's planes with them), weight plane weights ``ww``,
+    and ``n_a_digits`` signed activation bytes; built once per key (the
+    serving loop asks for the same few)."""
     digits = weight_digits(ww, w_ternary)
     plan = DigitPlan()
     plan.n_wd, plan.n_ad = len(digits), n_a_digits
@@ -216,8 +252,6 @@ def digit_plan(wa: tuple[int, ...], ww: tuple[int, ...], w_ternary: bool,
         plan.wsign[d], plan.ws8[d] = int(dig.sign), int(dig.s8)
     for i, v in enumerate(wa):
         plan.wa[i] = wrap32(v)
-    for j, v in enumerate(ww):
-        plan.ww[j] = wrap32(v)
     return plan
 
 
@@ -248,14 +282,6 @@ def weight_digit_bytes(packed_w: PackedPlanes, digits: Sequence[WeightDigit]) ->
             byte = byte - ((byte >> 7 & 1) << 8)
         out.append(byte)
     return torch.stack(out)
-
-
-def check_pair_weights(pw: torch.Tensor, wa: Sequence[int], ww: Sequence[int]) -> None:
-    """Raise unless ``pw[i*P_w + j] == wrap32(wa[i] * ww[j])`` — the
-    kernels' staging check (which traps on the card), on the host."""
-    want = torch.tensor([wrap32(a * b) for a in wa for b in ww], dtype=torch.int64)
-    if tuple(pw.shape) != tuple(want.shape) or not torch.equal(pw.to(torch.int64).cpu(), want):
-        raise ValueError("pair_weights is not the outer product of the operands' plane weights")
 
 
 def bytesplit_matmul(

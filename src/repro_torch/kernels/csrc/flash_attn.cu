@@ -19,10 +19,19 @@
 // (one byte a value) and its scales, read once: B = 64 lanes of 512-4096
 // positions at granite's 8 KV heads and D = 128 are ~0.3 GB, ~0.09 ms at
 // 3.35 TB/s. Prefill is bound by operations, 4 B Hq Sq Sk D (halved when
-// causal) at 989 TFLOP/s bf16; this version runs them on the CUDA cores in
-// float32, far above that bound. wgmma/TMA are later work.
+// causal) at 989 TFLOP/s bf16.
 //
-// Design (simple and right first):
+// Two bodies for the dense kernel, chosen by the call's arguments (the
+// wrapper's flash_attention.dense_body), never as a fallback on failure:
+// * the tensor-core body (attn_mma.cuh, mma.sync bf16): bf16 q, bf16 or int8
+//   K/V, block_q a multiple of 16, head_dim 64 or 128, 16-byte-aligned
+//   operands — prefill;
+// * the CUDA-core body (attn_common.cuh, float32 throughout): everything
+//   else — float32 q or K/V, where the tensor cores would round, and
+//   block_q < 16, the decode call (the paged kernel's per-block body, so the
+//   paged kernel equals this one on gathered pools bit for bit).
+//
+// Design of the CUDA-core body and the paged kernel (simple and right first):
 // * The TPU's sequential KV grid axis with VMEM scratch becomes a loop over
 //   KV blocks inside one CUDA block; (m, l, acc) live in shared memory.
 // * Paged decode: one CUDA block per (lane, KV head) holds that head's group
@@ -43,6 +52,7 @@
 #include <cuda_runtime.h>
 
 #include "attn_common.cuh"
+#include "attn_mma.cuh"
 
 namespace {
 
@@ -225,20 +235,80 @@ int launch_paged(dim3 grid, size_t smem, cudaStream_t s, const void* q, const in
   return (int)cudaGetLastError();
 }
 
+template <int D, typename KVT, typename OT>
+int launch_mma(int B, int Hq, int Hkv, int Sq, int Sk, const void* q, const void* k,
+               const void* v, const float* ks, const float* vs, const int32_t* lens, void* out,
+               int bq, int bk, int causal, int kv_len, float sm_scale, cudaStream_t s) {
+  auto kernel = attn_mma::dense_mma_kernel<D, KVT, OT>;
+  constexpr size_t smem = attn_mma::smem_bytes<D, KVT>();
+  const int err = prepare(kernel, smem);
+  if (err) return err;
+  const dim3 grid((Sq + attn_mma::kRows - 1) / attn_mma::kRows, Hq, B);
+  kernel<<<grid, attn_mma::kThreads, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KVT*>(k),
+      static_cast<const KVT*>(v), ks, vs, lens, static_cast<OT*>(out), Hq, Hkv, Sq, Sk, bq, bk,
+      causal, kv_len, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D, typename KVT>
+int mma_by_out(int out_dtype, int B, int Hq, int Hkv, int Sq, int Sk, const void* q,
+               const void* k, const void* v, const float* ks, const float* vs,
+               const int32_t* lens, void* out, int bq, int bk, int causal, int kv_len,
+               float sm_scale, cudaStream_t s) {
+  if (out_dtype == kF32)
+    return launch_mma<D, KVT, float>(B, Hq, Hkv, Sq, Sk, q, k, v, ks, vs, lens, out, bq, bk,
+                                     causal, kv_len, sm_scale, s);
+  if (out_dtype == kBF16)
+    return launch_mma<D, KVT, __nv_bfloat16>(B, Hq, Hkv, Sq, Sk, q, k, v, ks, vs, lens, out, bq,
+                                             bk, causal, kv_len, sm_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int mma_by_kv(int kv_dtype, int out_dtype, int B, int Hq, int Hkv, int Sq, int Sk,
+              const void* q, const void* k, const void* v, const float* ks, const float* vs,
+              const int32_t* lens, void* out, int bq, int bk, int causal, int kv_len,
+              float sm_scale, cudaStream_t s) {
+  if (kv_dtype == kBF16)
+    return mma_by_out<D, __nv_bfloat16>(out_dtype, B, Hq, Hkv, Sq, Sk, q, k, v, ks, vs, lens,
+                                        out, bq, bk, causal, kv_len, sm_scale, s);
+  if (kv_dtype == kI8)
+    return mma_by_out<D, int8_t>(out_dtype, B, Hq, Hkv, Sq, Sk, q, k, v, ks, vs, lens, out, bq,
+                                 bk, causal, kv_len, sm_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Dense flash attention. q (B, Hq, Sq, D), k / v (B, Hkv, Sk, D), k_scale /
 // v_scale (B, Hkv, Sk) or null, kv_lens (B,) or null (then kv_len masks),
-// out (B, Hq, Sq, D); all contiguous. Returns a cudaError_t code.
+// out (B, Hq, Sq, D); all contiguous. body: 1 the tensor-core body (bf16 q,
+// bf16 or int8 K/V, block_q % 16 == 0, D 64 or 128, 16-byte-aligned q, k,
+// v), 0 the CUDA-core body. Returns a cudaError_t code.
 extern "C" int flash_attention_launch(const void* q, int q_dtype, const void* k, const void* v,
                                       int kv_dtype, const void* k_scale, const void* v_scale,
                                       const void* kv_lens, void* out, int out_dtype, int B,
                                       int Hq, int Hkv, int Sq, int Sk, int D, int block_q,
                                       int block_k, int causal, int kv_len, float sm_scale,
-                                      int vec, void* stream) {
+                                      int vec, int body, void* stream) {
   cudaGetLastError();  // clear any earlier sticky-free error
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || Sq < 1 || Sk < 1 || D < 1 || block_q < 1 ||
       block_k < 1 || Sq % block_q || Sk % block_k) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (body == 1) {
+    if (q_dtype != kBF16 || block_q % 16 || !vec) return (int)cudaErrorInvalidValue;
+    const float* ks = static_cast<const float*>(k_scale);
+    const float* vs = static_cast<const float*>(v_scale);
+    const int32_t* lens = static_cast<const int32_t*>(kv_lens);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (D == 64)
+      return mma_by_kv<64>(kv_dtype, out_dtype, B, Hq, Hkv, Sq, Sk, q, k, v, ks, vs, lens, out,
+                           block_q, block_k, causal, kv_len, sm_scale, s);
+    if (D == 128)
+      return mma_by_kv<128>(kv_dtype, out_dtype, B, Hq, Hkv, Sq, Sk, q, k, v, ks, vs, lens, out,
+                            block_q, block_k, causal, kv_len, sm_scale, s);
     return (int)cudaErrorInvalidValue;
   }
   const int rows = block_q < kRowTile ? block_q : kRowTile;

@@ -42,11 +42,13 @@
 // uint32 accumulator right after, times 256^b c_d, modulo 2^32. The mma
 // accumulator never wraps.
 //
-// The pair weights stay an argument: the staging kernel compares every
-// pw[i*P_w + j] with wrap32(wa_i * ww_j) from the plan and executes __trap()
-// on a mismatch, so a pw the factors do not produce fails the launch (loud at
-// the next synchronisation) and never gives a silent result. Nothing is read
-// back to the host.
+// The pair weights are not an argument: the plan carries their factors.
+// The wrappers decide on the host, before the launch, that a call's pw is
+// that outer product (kernels/bytesplit.pair_route: by the factors that
+// ops._pair_weights records on every pw it builds, else by reading pw back
+// on every call); any other pw, and operands packed without plane weights, take the
+// all-pairs path (unpack to int8 planes, plane_mm.cu), so no launch here
+// ever sees a pw it cannot compute.
 //
 // Layout. The contraction runs over (word, bit) pairs in the words' own
 // order and never un-permutes K: the activation staging writes each word's
@@ -94,18 +96,8 @@ struct DigitPlan {
   uint8_t wsign[kMaxWDigits];     // 1: digit d reads sign words, 0: magnitude words
   uint8_t ws8[kMaxWDigits];       // 1: digit d's byte is two's complement
   int n_a, n_w;                   // plane counts of the pair weights
-  int32_t wa[kMaxPlanes];         // activation plane weights
-  int32_t ww[kMaxPlanes];         // weight plane weights
+  int32_t wa[kMaxPlanes];         // activation plane weights (pw = wa (x) ww)
 };
-
-// Traps unless pw[idx] == wrap32(wa_i * ww_j) for the pair idx = i*n_w + j.
-__device__ __forceinline__ void check_pair_weight(const int32_t* __restrict__ pw,
-                                                  const DigitPlan& dp, size_t idx) {
-  if (idx < (size_t)dp.n_a * dp.n_w) {
-    const int i = (int)idx / dp.n_w, j = (int)idx - i * dp.n_w;
-    if ((uint32_t)pw[idx] != (uint32_t)dp.wa[i] * (uint32_t)dp.ww[j]) __trap();
-  }
-}
 
 // Position, in a staged 32-byte activation row, of contraction bit t of a
 // word: the transposed weight register p holds bits p + 8c (c = 0..3), and

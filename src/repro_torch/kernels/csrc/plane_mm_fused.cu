@@ -20,8 +20,10 @@
 // and sbmwc, unsigned for unsigned (.u8) — and the weight planes to the
 // byte digits of their magnitude and sign words, so at 8 Booth weight
 // planes the function is two exact int8 tensor-core products per
-// (m, n, k), not a_bits * P_w plane pairs. pw stays an argument: the staging
-// kernel traps on any pw[i*P_w + j] != wrap32(wa_i * ww_j).
+// (m, n, k), not a_bits * P_w plane pairs. The wrapper launches this only for
+// such a pw (kernels/bytesplit.pair_route); any other pw goes through
+// plane_mm.cu and then this library's epilogue kernel alone
+// (fused_epilogue_launch).
 //
 // What bounds it on the H100: at decode the packed weight words, 2 bytes per
 // weight at 8 Booth planes, read once — memory (0.031 ms for granite's gate
@@ -33,7 +35,7 @@
 // Launches, one stream:
 // 1. stage: x into activation bytes in the words' order — row (m, w) holds
 //    the 32 values of word w (k = kb*bk + t*bkw + w % bkw for t = 0..31) at
-//    bit_pos(t), zero beyond K — checks pw, zeroes the split-K workspace;
+//    bit_pos(t), zero beyond K — and zeroes the split-K workspace;
 // 2. the main loop (plane_mm_common.cuh run_tiles) over (row tile, 128
 //    columns, K split); at decode K is split across blocks so the card fills,
 //    partial sums meet by uint32 atomics (exact in any order) in an int32
@@ -87,14 +89,12 @@ __device__ __forceinline__ void store_out(uint32_t acc, int mg, int ng, int N,
 }
 
 // One thread per 4 staged bytes: word q of row (m, w) holds bits q, q+8,
-// q+16, q+24 (bit_pos). Also checks pw and zeroes ws.
+// q+16, q+24 (bit_pos). Also zeroes ws.
 __global__ void plane_mm_fused_stage(const int8_t* __restrict__ x, int M, int K, int KW, int KWp,
                              int bkw, int a_bits, int au8, uint32_t* __restrict__ adig,
-                             const int32_t* __restrict__ pw, const __grid_constant__ DigitPlan dp,
                              uint32_t* __restrict__ ws, size_t n_ws) {
   const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t stride = (size_t)gridDim.x * blockDim.x;
-  plane_mm::check_pair_weight(pw, dp, tid);
   const int bk = bkw * 32;
   const int sh = 32 - a_bits;
   const size_t total = (size_t)M * KWp * 8;
@@ -172,7 +172,7 @@ void launch_main(dim3 grid, cudaStream_t s, const uint8_t* adig, int M, int KW, 
 // scratch, used when ksplit > 1.
 extern "C" int fused_plane_linear_launch(
     const void* x, int M, int K, const void* wmag, const void* wsign, int kw, int N, int bkw,
-    const void* pair_w, const void* plan, int a_bits, int au8, const void* a_scale,
+    const void* plan, int a_bits, int au8, const void* a_scale,
     const void* w_scale, const void* bias, int act, void* out, int raw, void* ws, void* adig,
     int ksplit, int bm, int vec4, void* stream) {
   cudaGetLastError();  // clear any earlier sticky-free error
@@ -190,13 +190,12 @@ extern "C" int fused_plane_linear_launch(
   uint32_t* wsp = splits > 1 ? static_cast<uint32_t*>(ws) : nullptr;
   const size_t n_ws = wsp != nullptr ? (size_t)M * N : 0;
   const size_t stage_items = (size_t)M * KWp * 8;
-  size_t items = stage_items > n_ws ? stage_items : n_ws;
-  if (items < (size_t)dp.n_a * dp.n_w) items = (size_t)dp.n_a * dp.n_w;
+  const size_t items = stage_items > n_ws ? stage_items : n_ws;
   const int stage_blocks = (int)((items + 255) / 256 < 2048 ? (items + 255) / 256 : 2048);
   uint8_t* ad = static_cast<uint8_t*>(adig);
   plane_mm_fused_stage<<<stage_blocks, 256, 0, s>>>(
       static_cast<const int8_t*>(x), M, K, kw, KWp, bkw, a_bits, au8,
-      reinterpret_cast<uint32_t*>(ad), static_cast<const int32_t*>(pair_w), dp, wsp, n_ws);
+      reinterpret_cast<uint32_t*>(ad), wsp, n_ws);
 
   const dim3 grid((M + bm - 1) / bm, (N + kBlockCols - 1) / kBlockCols, splits);
   const uint32_t* wm = static_cast<const uint32_t*>(wmag);
@@ -221,5 +220,23 @@ extern "C" int fused_plane_linear_launch(
     const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
     plane_mm_fused_epilogue<<<blocks, 256, 0, s>>>(wsp, M, N, as, wsc, b, act, out, raw);
   }
+  return (int)cudaGetLastError();
+}
+
+// The dequant epilogue alone on an int32 accumulator acc (M, N) — the
+// all-pairs path's (plane_mm.cu computed acc) — into bf16 out, bit-equal to
+// the main kernel's own epilogue. Returns cudaGetLastError().
+extern "C" int fused_epilogue_launch(const void* acc, int M, int N, const void* a_scale,
+                                     const void* w_scale, const void* bias, int act, void* out,
+                                     void* stream) {
+  cudaGetLastError();
+  if (M < 1 || N < 1 || a_scale == nullptr || w_scale == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t total = (size_t)M * N;
+  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
+  plane_mm_fused_epilogue<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(acc), M, N, static_cast<const float*>(a_scale),
+      static_cast<const float*>(w_scale), static_cast<const float*>(bias), act, out, 0);
   return (int)cudaGetLastError();
 }

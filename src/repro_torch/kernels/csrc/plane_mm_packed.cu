@@ -21,8 +21,9 @@
 // SBMwC); the weight words become the byte digits of their magnitude and
 // sign planes. At 8x8 Booth that is four int8 tensor-core products per
 // (m, n, k), two where a chunk's high activation digit is all zero, which
-// is every chunk of a valid int8 activation. pw stays an argument: the
-// staging kernel traps on any pw[i*P_w + j] != wrap32(wa_i * ww_j).
+// is every chunk of a valid int8 activation. The wrapper launches this only
+// for such a pw (kernels/bytesplit.pair_route); any other pw, and operands
+// packed without plane weights, go through plane_mm.cu.
 //
 // What bounds it on the H100: the packed weight words, 2 bytes per weight at
 // 8 Booth planes (mag + sign), read once — memory at decode; at prefill the
@@ -31,8 +32,7 @@
 //
 // Launches, one stream:
 // 1. stage: A's words into signed digit bytes, row (digit, m, w) holding word
-//    w's 32 values at bit_pos(t), zero beyond KW; checks pw; zeroes out when
-//    K is split;
+//    w's 32 values at bit_pos(t), zero beyond KW; zeroes out when K is split;
 // 2. the main loop (plane_mm_common.cuh run_tiles) over (row tile, 128
 //    columns, K split); at decode K chunks are split across blocks so the
 //    card fills, and partial sums meet by integer atomicAdd into the zeroed
@@ -58,11 +58,10 @@ using plane_mm::kThreads;
 // signed bytes each; digit b's row goes to adig[b][m][w] in bit_pos order.
 __global__ void plane_mm_packed_stage(const uint32_t* __restrict__ amag, const uint32_t* __restrict__ asign,
                              int n_a, int M, int KW, int KWp, uint32_t* __restrict__ adig,
-                             const int32_t* __restrict__ pw, const __grid_constant__ DigitPlan dp,
+                             const __grid_constant__ DigitPlan dp,
                              uint32_t* __restrict__ zero, size_t n_zero) {
   const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t stride = (size_t)gridDim.x * blockDim.x;
-  plane_mm::check_pair_weight(pw, dp, tid);
   const size_t total = (size_t)M * KWp;
   const size_t digit_words = total * 8;
   for (size_t o = tid; o < total; o += stride) {
@@ -142,7 +141,7 @@ void launch_main(dim3 grid, cudaStream_t s, const uint8_t* adig, int M, int KW, 
 // KW rounded up to 16 words).
 extern "C" int plane_matmul_packed_launch(const void* amag, const void* asign, int n_a, int M,
                                           const void* wmag, const void* wsign, int kw, int N,
-                                          const void* pw, const void* plan, const void* wocc,
+                                          const void* plan, const void* wocc,
                                           int gate, void* out, void* adig, int ksplit, int bm,
                                           int vec4, void* stream) {
   cudaGetLastError();  // clear any earlier sticky-free error
@@ -162,13 +161,12 @@ extern "C" int plane_matmul_packed_launch(const void* amag, const void* asign, i
   const int atomic = splits > 1;
   const size_t n_zero = atomic ? (size_t)M * N : 0;
   const size_t stage_items = (size_t)M * KWp;
-  size_t items = stage_items > n_zero ? stage_items : n_zero;
-  if (items < (size_t)dp.n_a * dp.n_w) items = (size_t)dp.n_a * dp.n_w;
+  const size_t items = stage_items > n_zero ? stage_items : n_zero;
   const int stage_blocks = (int)((items + 255) / 256 < 2048 ? (items + 255) / 256 : 2048);
   uint8_t* ad = static_cast<uint8_t*>(adig);
   plane_mm_packed_stage<<<stage_blocks, 256, 0, s>>>(
       static_cast<const uint32_t*>(amag), static_cast<const uint32_t*>(asign), n_a, M, kw, KWp,
-      reinterpret_cast<uint32_t*>(ad), static_cast<const int32_t*>(pw), dp, o, n_zero);
+      reinterpret_cast<uint32_t*>(ad), dp, o, n_zero);
 
   const dim3 grid((M + bm - 1) / bm, (N + kBlockCols - 1) / kBlockCols, splits);
   const uint32_t* wm = static_cast<const uint32_t*>(wmag);

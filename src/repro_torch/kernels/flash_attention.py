@@ -23,10 +23,16 @@ Both compute, per KV block (one page for the paged kernel), in float32::
 and return ``acc / max(l, 1e-30)``. This is the kernels' function, not
 the serving path's ``_decode_gqa`` (which rounds the probabilities to
 bf16 before the value product). The kernel source, with its design note,
-is ``csrc/flash_attn.cu``; the per-block update is shared between the two
-kernels in ``csrc/attn_common.cuh``, so on gathered pools the paged kernel
-equals the dense kernel with ``block_k == page_size`` bit for bit, as
-the plain versions here do.
+is ``csrc/flash_attn.cu``. The dense kernel has two bodies, chosen by the
+call's arguments (:func:`dense_body`): bf16 q with bf16 or int8 K/V,
+``block_q`` a multiple of 16, head_dim 64 or 128 and 16-byte-aligned
+operands run the tensor-core body (``csrc/attn_mma.cuh``: q.k on bf16
+tensor cores, the probabilities as a bf16 high and low part against bf16
+V; :func:`mma_body_model` is the plain model of that rounding); every
+other call runs the float32 CUDA-core body, ``csrc/attn_common.cuh``,
+which the paged kernel shares, so on gathered pools the paged kernel
+equals the dense kernel with ``block_q=1, block_k == page_size`` bit for
+bit, as the plain versions here do.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors — the query's device decides, nothing falls back.
@@ -45,6 +51,24 @@ from repro_torch.kernels.ref import _exact_matmul
 NEG_INF = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+#: head dims the tensor-core body is instantiated for
+MMA_HEAD_DIMS = (64, 128)
+#: K/V positions the tensor-core body stages per tile
+MMA_KEYS = 64
+
+
+def dense_body(q_dtype: torch.dtype, kv_dtype: torch.dtype, block_q: int, head_dim: int,
+               aligned: bool) -> str:
+    """The dense kernel's body for a call: ``"tensor_core"`` for bf16 q,
+    bf16 or int8 K/V, ``block_q`` a multiple of 16, a head dim in
+    :data:`MMA_HEAD_DIMS` and 16-byte-aligned q/K/V (prefill), else
+    ``"cuda_core"`` — float32 q or K/V, where the tensor cores would round,
+    and ``block_q < 16`` (decode, and the paged kernel's twin)."""
+    if (q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8)
+            and block_q % 16 == 0 and head_dim in MMA_HEAD_DIMS and aligned):
+        return "tensor_core"
+    return "cuda_core"
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +219,72 @@ def flash_attention_plain(
     return out.reshape(b, hq, sq, d).to(q.dtype if out_dtype is None else out_dtype)
 
 
+def mma_body_model(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    sm_scale: Optional[float] = None,
+    block_q: int = 128,
+    block_k: int = 128,
+    kv_len: Optional[int] = None,
+    kv_lens: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain model of the tensor-core body's rounding (float32 output):
+    bf16 q and K (int8 K exact in bf16) with the products summed exactly
+    and rounded to float32; tiles of :data:`MMA_KEYS` positions over the
+    KV blocks each query block runs, masked to NEG_INF inside them and to
+    -inf past them; the scales in the kernel's order; the probabilities
+    split into a bf16 high and low part, each times bf16 V, summed exactly
+    and rounded to float32."""
+    static_kv_len = _check_dense(q, k, v, block_q=block_q, block_k=block_k, kv_len=kv_len,
+                                 kv_lens=kv_lens, k_scale=k_scale, v_scale=v_scale)
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    group = hq // hkv
+    sm_scale = d**-0.5 if sm_scale is None else sm_scale
+    f64 = torch.float64
+    qf = q.to(torch.bfloat16).to(f64)
+    kf = k.to(torch.bfloat16).to(f64).repeat_interleave(group, dim=1)
+    vf = v.to(torch.bfloat16).to(f64).repeat_interleave(group, dim=1)
+    ks = None if k_scale is None else k_scale.float().repeat_interleave(group, dim=1)
+    vs = None if v_scale is None else v_scale.float().repeat_interleave(group, dim=1)
+    limit = (torch.full((b,), static_kv_len) if kv_lens is None else kv_lens.to(torch.int64))
+    rows = torch.arange(sq)
+    steps = sk // block_k
+    # the positions each row's query block runs
+    end = (torch.clamp_max((rows // block_q * block_q + block_q - 1) // block_k + 1, steps)
+           * block_k if causal else torch.full((sq,), steps * block_k))
+    m = torch.full((b, hq, sq, 1), NEG_INF)
+    l = torch.zeros((b, hq, sq, 1))
+    o = torch.zeros((b, hq, sq, d))
+    for t0 in range(0, int(end.max()), MMA_KEYS):
+        keys = torch.arange(t0, min(t0 + MMA_KEYS, sk))
+        s = (qf @ kf[:, :, keys].transpose(-1, -2)).to(torch.float32) * sm_scale
+        if ks is not None:
+            s = s * ks[:, :, None, keys]
+        keep = (keys[None, :] < limit[:, None])[:, None, None, :]
+        if causal:
+            keep = keep & (rows[:, None] >= keys[None, :])
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+        s = torch.where(keys[None, :] < end[:, None], s, torch.full_like(s, float("-inf")))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        if vs is not None:
+            p = p * vs[:, :, None, keys]
+        p_hi = p.to(torch.bfloat16)
+        p_lo = (p - p_hi.float()).to(torch.bfloat16)
+        pv = p_hi.to(f64) @ vf[:, :, keys] + p_lo.to(f64) @ vf[:, :, keys]
+        o = o * alpha + pv.to(torch.float32)
+        m = m_new
+    return o / torch.clamp_min(l, 1e-30)
+
+
 def paged_flash_attention_plain(
     q: torch.Tensor,
     k_pool: torch.Tensor,
@@ -256,7 +346,7 @@ def _lib():
             p, p, p,  # k_scale, v_scale, kv_lens
             p, i,  # out, out dtype
             i, i, i, i, i, i,  # B, Hq, Hkv, Sq, Sk, D
-            i, i, i, i, f, i,  # block_q, block_k, causal, kv_len, sm_scale, vec
+            i, i, i, i, f, i, i,  # block_q, block_k, causal, kv_len, sm_scale, vec, body
             p,  # stream
         ]
         dense.restype = ctypes.c_int
@@ -315,7 +405,11 @@ def flash_attention(
     length 0 give finite values, never NaN). ``k_scale``/``v_scale``: (B,
     Hkv, Sk) float32 scales of an int8 K/V. ``out_dtype`` defaults to q's.
     Returns (B, Hq, Sq, D). CPU tensors run :func:`flash_attention_plain`;
-    CUDA tensors launch the kernel, and arguments it does not take raise."""
+    CUDA tensors launch the kernel, and arguments it does not take raise.
+    The kernel's body follows the arguments (:func:`dense_body`): the
+    tensor-core body for bf16 q with bf16 or int8 K/V at ``block_q`` a
+    multiple of 16 (prefill), the float32 CUDA-core body otherwise (float32
+    operands, and ``block_q < 16``: decode)."""
     kw = dict(causal=causal, sm_scale=sm_scale, block_q=block_q, block_k=block_k,
               kv_len=kv_len, kv_lens=kv_lens, k_scale=k_scale, v_scale=v_scale,
               out_dtype=out_dtype)
@@ -339,12 +433,14 @@ def flash_attention(
     if out_dtype not in _FLOATS:
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     out = torch.empty(q.shape, dtype=out_dtype, device=dev)
+    vec = _vec(d, kc.element_size(), kc, vc)
+    body = dense_body(qc.dtype, kc.dtype, block_q, d, bool(vec) and qc.data_ptr() % 16 == 0)
     flash_attention.launches += 1
     err = _lib()[0](
         _ptr(qc), _DTYPE_CODES[qc.dtype], _ptr(kc), _ptr(vc), _DTYPE_CODES[kc.dtype],
         _ptr(ksc), _ptr(vsc), _ptr(lens), _ptr(out), _DTYPE_CODES[out_dtype],
         b, hq, hkv, sq, sk, d, block_q, block_k, int(causal), static_kv_len,
-        float(d**-0.5 if sm_scale is None else sm_scale), _vec(d, kc.element_size(), kc, vc),
+        float(d**-0.5 if sm_scale is None else sm_scale), vec, int(body == "tensor_core"),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

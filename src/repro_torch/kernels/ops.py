@@ -65,20 +65,18 @@ def hopper_tiles(
     bk: Optional[int] = None,
     pack_block: Optional[int] = None,
 ) -> tuple[int, int, int]:
-    """Tiles of the Hopper kernels: ``bm`` the row tile (the tensor-core
-    kernels: 8, 16 or 32 token rows; ``plane_matmul``: 1 to 16), ``bn``
-    the output columns per CUDA block, ``bk`` the K extent one block
+    """Tiles of the Hopper kernels: ``bm`` the row tile (8, 16 or 32 token
+    rows), ``bn`` the output columns per CUDA block, ``bk`` the K extent one block
     iteration consumes (one chunk of packed words on the packed route,
     ``plane_matmul``'s K tile) or, on the fused routes, the weight's pack
     block (the kernel stages any block in 16-word chunks). Explicit values
     pass through and the kernels check them."""
     fused = kernel in ("fused_cached", "fused_repack")
     packed = kernel in ("cached_packed", "staged_packed")
-    tensor_core = fused or packed
     if bm is None:
-        bm = bytesplit.row_tile(m) if tensor_core else plane_mm.row_tile(m)
+        bm = bytesplit.row_tile(m)
     if bn is None:
-        bn = bytesplit.COLS_PER_BLOCK if tensor_core else plane_mm.COLS_PER_BLOCK
+        bn = bytesplit.COLS_PER_BLOCK
     if bk is None:
         if fused:
             bk = pack_block or min(bp.DEFAULT_BLOCK, max(128, -(-k // 128) * 128))
@@ -124,12 +122,15 @@ _PAIR_WEIGHTS: dict = {}
 
 def _pair_weights(wa: tuple, ww: tuple, device) -> torch.Tensor:
     """int32-wrapped pair weights ``wa[i] * ww[j]``, built once per
-    (plane weights, device): the serving loop asks for the same few."""
+    (plane weights, device): the serving loop asks for the same few. Each
+    carries its factors (:func:`bytesplit.tag_pair_weights`), so the
+    tensor-core kernels take it without reading it back."""
     key = (tuple(wa), tuple(ww), str(device))
     pw = _PAIR_WEIGHTS.get(key)
     if pw is None:
-        pw = bs._wrap_weights([x * y for x in wa for y in ww], device=device)
-        _PAIR_WEIGHTS[key] = pw
+        with torch.inference_mode(False):  # a version counter keeps the tag honest
+            pw = bs._wrap_weights([x * y for x in wa for y in ww], device=device)
+        _PAIR_WEIGHTS[key] = bytesplit.tag_pair_weights(pw, wa, ww)
     return pw
 
 

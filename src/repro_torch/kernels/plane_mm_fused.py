@@ -8,9 +8,15 @@ cores (two exact products per (m, n, k) at 8 Booth planes, the plane-pair
 sum regrouped by its outer-product pair weights, ``kernels/bytesplit.py``)
 and applies the dequant/bias/activation epilogue, writing bf16 (or the raw
 int32 accumulator with no scales). The kernel source, with its design
-note, is ``csrc/plane_mm_fused.cu``.
+note, is ``csrc/plane_mm_fused.cu``. Pair weights that are not the outer
+product of the activation's and the weight's plane weights, and weights
+packed without plane weights, take the all-pairs path: x sliced into
+planes and the words unpacked on the card, ``plane_matmul``'s kernel, then
+this library's epilogue kernel alone. The route is decided on the host
+before any launch (:func:`bytesplit.pair_route`); no serving call reaches
+the all-pairs path.
 
-:func:`fused_plane_linear` launches the kernel for CUDA tensors and runs
+:func:`fused_plane_linear` launches a kernel for CUDA tensors and runs
 :func:`fused_plane_linear_plain` for CPU tensors — the device of the
 operands decides, nothing falls back.
 """
@@ -24,7 +30,7 @@ import torch
 
 from repro_torch.core import bitplanes as bp
 from repro_torch.core.bitplanes import WORD_BITS, PackedPlanes, unpack_planes
-from repro_torch.kernels import _build, bytesplit
+from repro_torch.kernels import _build, bytesplit, plane_mm
 from repro_torch.kernels.bytesplit import row_tile
 from repro_torch.kernels.ref import plane_matmul_ref
 _ACT_CODES = {"none": 0, "silu": 1, "gelu": 2}
@@ -145,14 +151,17 @@ def _lib():
         fn.argtypes = [
             p, i, i,  # x, M, K
             p, p, i, i, i,  # wmag, wsign, kw, N, bkw
-            p, p, i, i,  # pair_w, plan, a_bits, au8
+            p, i, i,  # plan, a_bits, au8
             p, p, p, i,  # a_scale, w_scale, bias, act
             p, i, p, p,  # out, raw, ws, adig
             i, i, i,  # ksplit, bm, vec4
             p,  # stream
         ]
         fn.restype = ctypes.c_int
-    return fn
+        ep = lib.fused_epilogue_launch
+        ep.argtypes = [p, i, i, p, p, p, i, p, p]  # acc, M, N, scales, bias, act, out, stream
+        ep.restype = ctypes.c_int
+    return fn, lib.fused_epilogue_launch
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -178,14 +187,23 @@ def fused_plane_linear(
 
     ``x_q`` (M, K) int8 in natural K order; ``packed_w`` blocked-layout
     words (P_w, KW, N) packed on axis 1; ``pair_weights`` (a_bits*P_w,)
-    int32, the outer product of the activation planes' weights
-    (``plane_weights(a_bits, variant)``) and ``packed_w.weights`` — the
-    kernel checks it against them and fails the launch on a mismatch. With
-    ``a_scale``/``w_scale`` the epilogue runs and the result is bf16;
-    without, the raw int32 accumulator comes back. ``gate``
-    (occupancy-gated pairs) gives the same result; the kernel reads every
-    word. CPU tensors run the plain version; CUDA tensors launch the
-    kernel, and arguments it does not take raise.
+    int32, any values. When it is the wrapped outer product of the
+    activation planes' weights (``plane_weights(a_bits, variant)``) and
+    ``packed_w.weights`` the fused kernel runs; otherwise, and for weights
+    packed without plane weights, the all-pairs path runs (slice, unpack,
+    ``plane_mm.plane_matmul``, then the fused library's epilogue kernel) —
+    outside the serving path, which always passes the outer product. The
+    route is decided on the host before any launch
+    (:func:`bytesplit.pair_route`: no read-back for a pw that
+    ``ops._pair_weights`` built, which must not be written; any other pw
+    is read back on every call); ``launches`` counts the calls that
+    launch this library's kernels (the all-pairs path's plane product is
+    counted by ``plane_matmul``). With ``a_scale``/``w_scale`` the
+    epilogue runs and the result is bf16; without, the raw int32
+    accumulator comes back. ``gate`` (occupancy-gated pairs) gives the same
+    result; the kernel reads every word. CPU tensors run the plain
+    version; CUDA tensors launch a kernel, and arguments it does not take
+    raise.
     """
     if not x_q.is_cuda:
         return fused_plane_linear_plain(
@@ -200,7 +218,6 @@ def fused_plane_linear(
         raise ValueError(f"the kernel's epilogue writes bfloat16, got {out_dtype}")
     if not 1 <= a_bits <= 8:
         raise ValueError(f"the kernel takes a_bits in [1, 8], got {a_bits}")
-    bytesplit.check_plane_weights("packed_w", packed_w.weights, packed_w.mag.shape[0])
     dev = x_q.device
     tensors = [x_q, packed_w.mag, pair_weights]
     if packed_w.sign is not None:
@@ -229,19 +246,33 @@ def fused_plane_linear(
     for t in (asc, wsc, bia):
         if t is not None and t.device != dev:
             raise ValueError("scales and bias must be on the operands' device")
-    # the pair weights' factors, from metadata: the kernel checks pw against them
-    plan = bytesplit.digit_plan(bp.plane_weights(a_bits, variant), tuple(packed_w.weights),
-                                packed_w.sign is not None, 1)
+    main, epilogue = _lib()
+    wa = bp.plane_weights(a_bits, variant)
+    if bytesplit.pair_route(pair_weights, wa, packed_w.weights, a_bits,
+                            packed_w.mag.shape[0]) == bytesplit.ALL_PAIRS:
+        acc = plane_mm.plane_matmul(torch.stack(slice_activation_planes(x_q, a_bits, variant)),
+                                    unpack_planes(packed_w).contiguous(), pair_weights, bm=bm)
+        if raw:
+            return acc
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+        fused_plane_linear.launches += 1
+        err = epilogue(_ptr(acc), m, n, _ptr(asc), _ptr(wsc), _ptr(bia), _ACT_CODES[activation],
+                       _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"fused_plane_linear epilogue launch failed: CUDA error {err}")
+        return out
+    # the pair weights' factors, from the plane weights
+    plan = bytesplit.digit_plan(wa, tuple(packed_w.weights), packed_w.sign is not None, 1)
     tile = row_tile(m, bm)
     ksplit = bytesplit.k_split(m, n, kw, tile, dev)
     out = torch.empty((m, n), dtype=torch.int32 if raw else torch.bfloat16, device=dev)
     ws = torch.empty((m, n), dtype=torch.int32, device=dev) if ksplit > 1 else None
     adig = torch.empty((m, bytesplit.padded_words(kw) * WORD_BITS), dtype=torch.uint8, device=dev)
     fused_plane_linear.launches += 1
-    err = _lib()(
+    err = main(
         _ptr(x_q), m, k,
         _ptr(packed_w.mag), _ptr(packed_w.sign), kw, n, packed_w.block // WORD_BITS,
-        _ptr(pair_weights), ctypes.addressof(plan), a_bits, int(variant == "unsigned"),
+        ctypes.addressof(plan), a_bits, int(variant == "unsigned"),
         _ptr(asc), _ptr(wsc), _ptr(bia), _ACT_CODES[activation],
         _ptr(out), int(raw), _ptr(ws), _ptr(adig),
         ksplit, tile, int(bytesplit.vec4_ok(n, packed_w.mag, packed_w.sign)),

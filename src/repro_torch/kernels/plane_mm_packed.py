@@ -11,9 +11,14 @@ runs over (word, bit) pairs, so neither side is un-permuted. The kernel
 regroups the plane pairs by their outer-product pair weights into byte
 digits of A and W and multiplies those on the int8 tensor cores
 (``kernels/bytesplit.py``); its source, with its design note, is
-``csrc/plane_mm_packed.cu``.
+``csrc/plane_mm_packed.cu``. Pair weights that are not that outer product,
+and operands packed without plane weights, take the all-pairs path: both
+operands unpacked to int8 planes on the card, then ``plane_matmul``'s
+kernel (exact for any pw). The route is decided on the host before any
+launch (:func:`bytesplit.pair_route`); no serving call reaches the
+all-pairs path, since every plan executor passes the outer product.
 
-:func:`plane_matmul_packed` launches the kernel for CUDA tensors and runs
+:func:`plane_matmul_packed` launches a kernel for CUDA tensors and runs
 :func:`plane_matmul_packed_plain` for CPU tensors — the operands' device
 decides, nothing falls back.
 """
@@ -26,7 +31,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.bitplanes import WORD_BITS, PackedPlanes, occupancy_per_tile, unpack_planes
-from repro_torch.kernels import _build, bytesplit
+from repro_torch.kernels import _build, bytesplit, plane_mm
 from repro_torch.kernels.bytesplit import CHUNK_WORDS, row_tile
 from repro_torch.kernels.ref import plane_matmul_ref
 
@@ -75,7 +80,7 @@ def _lib():
         fn.argtypes = [
             p, p, i, i,  # amag, asign, n_a, M
             p, p, i, i,  # wmag, wsign, kw, N
-            p, p, p, i,  # pair_w, plan, wocc, gate
+            p, p, i,  # plan, wocc, gate
             p, p, i, i, i,  # out, adig, ksplit, bm, vec4
             p,  # stream
         ]
@@ -96,13 +101,19 @@ def plane_matmul_packed(
     gate: bool = False,
 ) -> torch.Tensor:
     """sum_{i,j} pair_weights[i*P_w+j] * (A_i @ W_j) as (M, N) int32 from
-    packed planes. The kernel needs each operand's plane weights
-    (``weights``, as ``pack_decomposition`` records them): ``pair_weights``
-    must be their outer product, which the kernel checks, failing the
-    launch on a mismatch. ``gate`` skips weight tiles the pack-time
+    packed planes, for any int32 pair weights. When ``pair_weights`` is the
+    wrapped outer product of the operands' plane weights (``weights``, as
+    ``pack_decomposition`` records them) the byte-split kernel runs and
+    counts a launch; otherwise, and for operands packed without weights,
+    the all-pairs path runs (unpack, ``plane_mm.plane_matmul``, which
+    counts its own launch) — outside the serving path, which always passes
+    the outer product. The route is decided on the host before any launch
+    (:func:`bytesplit.pair_route`: no read-back for a pw that
+    ``ops._pair_weights`` built, which must not be written; any other pw
+    is read back on every call). ``gate`` skips weight tiles the pack-time
     occupancy marks zero, with a bit-identical result. CPU tensors run the
-    plain version; CUDA tensors launch the kernel, and arguments it does
-    not take raise."""
+    plain version; CUDA tensors launch a kernel, and arguments it does not
+    take raise."""
     if gate and packed_w.occupancy is None:
         raise ValueError(
             "gate=True needs weight occupancy metadata; re-pack the weight "
@@ -114,8 +125,6 @@ def plane_matmul_packed(
     dev = packed_a.mag.device
     n_a, m, kw = packed_a.mag.shape
     n_w, _, n = packed_w.mag.shape
-    bytesplit.check_plane_weights("packed_a", packed_a.weights, n_a)
-    bytesplit.check_plane_weights("packed_w", packed_w.weights, n_w)
     for side in (packed_a, packed_w):
         if side.sign is not None and side.sign.shape != side.mag.shape:
             raise ValueError("sign words must match the magnitude words' shape")
@@ -129,13 +138,17 @@ def plane_matmul_packed(
     # the words of one call are packed per call (A) or sliced from the cache
     # (truncated tiers): make them dense row-major, as the kernel indexes them
     am, asg, wm, wsg = (None if t is None else t.contiguous() for t in words)
-    pw = pair_weights.contiguous()
+    if bytesplit.pair_route(pair_weights, packed_a.weights, packed_w.weights, n_a,
+                            n_w) == bytesplit.ALL_PAIRS:
+        return plane_mm.plane_matmul(unpack_planes(packed_a).contiguous(),
+                                     unpack_planes(packed_w).contiguous(),
+                                     pair_weights.contiguous(), bm=bm)
     occ = None
     if gate:
         if packed_w.occupancy.device != dev:
             raise ValueError(f"weight occupancy is on {packed_w.occupancy.device}, expected {dev}")
         occ = occupancy_per_tile(packed_w.occupancy, CHUNK_WORDS).contiguous()
-    # the pair weights' factors, from metadata: the kernel checks pw against them
+    # the pair weights' factors, from the operands' plane weights
     n_ad = bytesplit.signed_byte_count(tuple(packed_a.weights), asg is not None)
     plan = bytesplit.digit_plan(tuple(packed_a.weights), tuple(packed_w.weights),
                                 wsg is not None, n_ad)
@@ -148,7 +161,7 @@ def plane_matmul_packed(
     err = _lib()(
         _ptr(am), _ptr(asg), n_a, m,
         _ptr(wm), _ptr(wsg), kw, n,
-        _ptr(pw), ctypes.addressof(plan), _ptr(occ), int(gate),
+        ctypes.addressof(plan), _ptr(occ), int(gate),
         _ptr(out), _ptr(adig), ksplit, tile, int(bytesplit.vec4_ok(n, wm, wsg)),
         torch.cuda.current_stream(dev).cuda_stream,
     )

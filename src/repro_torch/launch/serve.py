@@ -85,7 +85,7 @@ SCRUB_NOT_PORTED = (
 PAGED_DETECT_NOT_PORTED = (
     "paged KV with integrity='detect' (per-page KV checksums, "
     "models.paging.paged_checksums) is not ported yet: see ROADMAP.md, "
-    "'Next slices' item 2 'Paged integrity'; use the dense KV cache "
+    "queue 1, item 8b 'Paged integrity'; use the dense KV cache "
     "(page_size=0) with detect"
 )
 

@@ -205,16 +205,18 @@ def test_valid_int8_activation_has_zero_high_digit(rng):
 
 
 def test_foreign_pair_weights_are_refused(rng):
+    """The byte split refuses pair weights that are not the outer product
+    of the plane weights: they take the all-pairs path instead."""
     wa = tbp.plane_weights(8, "booth")
     ww = tbp.plane_weights(8, "booth")
     pw = _wrap_weights([a * b for a in wa for b in ww])
-    bs.check_pair_weights(pw, wa, ww)
+    assert bs.is_outer_product(pw, wa, ww)
+    assert bs.pair_route(pw, wa, ww, 8, 8) == bs.BYTESPLIT
     bad = pw.clone()
     bad[int(rng.integers(bad.numel()))] += 1
-    with pytest.raises(ValueError, match="outer product"):
-        bs.check_pair_weights(bad, wa, ww)
-    with pytest.raises(ValueError, match="outer product"):
-        bs.check_pair_weights(pw[:-1], wa, ww)
+    assert not bs.is_outer_product(bad, wa, ww)
+    assert bs.pair_route(bad, wa, ww, 8, 8) == bs.ALL_PAIRS
+    assert not bs.is_outer_product(pw[:-1], wa, ww)
 
 
 def test_digit_plan_struct():
@@ -222,7 +224,8 @@ def test_digit_plan_struct():
     plan = bs.digit_plan(wa, ww, False, 1)
     assert (plan.n_wd, plan.n_ad, plan.n_a, plan.n_w) == (1, 1, 8, 8)
     assert list(plan.wplane[0]) == list(range(8)) and plan.ws8[0] == 1
-    assert list(plan.ww)[:8] == [1, 2, 4, 8, 16, 32, 64, -128]
+    assert list(plan.wa)[:8] == [1 << i for i in range(8)]
+    assert plan.wcoef[0] == 1  # SBMwC's planes share one two's-complement byte
     assert bs.digit_plan(wa, ww, False, 1) is plan  # built once per key
     assert bs.row_tile(4) == 8 and bs.row_tile(100) == bs.ROW_TILES[-1]
     with pytest.raises(ValueError, match="bm must be one of"):

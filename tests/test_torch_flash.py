@@ -233,3 +233,64 @@ def test_wrappers_raise_the_reference_errors():
         jflash(jnp.zeros((2, 4, 8, 16)), jnp.zeros((2, 2, 16, 16)),
                             jnp.zeros((2, 2, 16, 16)), block_q=8, block_k=8, kv_len=4,
                             kv_lens=jnp.ones((2,), jnp.int32), interpret=True)
+
+
+# The dense kernel's tensor-core body (csrc/attn_mma.cuh) rounds where the
+# plain version does not: bf16 q.k products summed in float32, and the
+# probabilities as a bf16 high and low part against bf16 V.
+# ``mma_body_model`` is the plain model of that rounding; it must lie within
+# the tolerance the chip smoke holds the kernel to, MMA_RTOL of max|plain|,
+# of the plain version and of the reference's Pallas kernel.
+MMA_RTOL = 1e-4
+
+MMA_CASES = {
+    # name: (K/V dtype, causal, kv_lens, block_q, block_k)
+    "int8_causal_lens": ("int8", True, [128, 0], 64, 64),
+    "int8_lens": ("int8", False, [77, 128], 64, 64),
+    "bf16_causal": ("bf16", True, None, 64, 32),
+    "bf16_lens": ("bf16", False, [100, 0], 32, 64),
+}
+
+
+@pytest.mark.parametrize("case", list(MMA_CASES))
+def test_mma_body_model_within_the_smoke_tolerance(case):
+    dt, causal, lens, bq, bk = MMA_CASES[case]
+    b, hq, hkv, s, d = 2, 4, 2, 128, 64
+    rng = np.random.default_rng(len(case))
+    q = rng.standard_normal((b, hq, s, d)).astype(np.float32)
+    k, v = _arr(rng, (b, hkv, s, d), dt), _arr(rng, (b, hkv, s, d), dt)
+    jkw, tkw = {}, {}
+    if lens is not None:
+        arr = np.asarray(lens, np.int32)
+        jkw["kv_lens"], tkw["kv_lens"] = jnp.asarray(arr), torch.from_numpy(arr)
+    if dt == "int8":
+        for name in ("k_scale", "v_scale"):
+            sc = rng.uniform(0.001, 0.02, (b, hkv, s)).astype(np.float32)
+            jkw[name], tkw[name] = jnp.asarray(sc), torch.from_numpy(sc)
+    qt, kt, vt = _to_t(q, "bf16"), _to_t(k, dt), _to_t(v, dt)
+    kw = dict(causal=causal, block_q=bq, block_k=bk)
+    assert tfa.dense_body(qt.dtype, kt.dtype, bq, d, True) == "tensor_core"
+    model = tfa.mma_body_model(qt, kt, vt, **kw, **tkw)
+    plain = tfa.flash_attention_plain(qt, kt, vt, out_dtype=torch.float32, **kw, **tkw)
+    want = np.asarray(jflash(_to_j(q, "bf16"), _to_j(k, dt), _to_j(v, dt), interpret=True,
+                             out_dtype=jnp.float32, **kw, **jkw))
+    for ref, what in ((t2n(plain), "plain"), (want, "reference kernel")):
+        err = float(np.abs(t2n(model) - ref).max())
+        print(f"{case}: model vs {what}: {err / float(np.abs(ref).max()):.3g} of max|ref|")
+        assert err <= MMA_RTOL * float(np.abs(ref).max()), (what, err)
+    # the model rounds differently from the plain version (it is a model)
+    assert not torch.equal(model, plain)
+
+
+def test_dense_body_follows_the_arguments():
+    bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
+    assert tfa.dense_body(bf, bf, 128, 128, True) == "tensor_core"
+    assert tfa.dense_body(bf, i8, 16, 64, True) == "tensor_core"
+    for args in [(f32, bf, 128, 128, True),  # float32 q: the tensor cores would round
+                 (bf, f32, 128, 128, True),
+                 (bf, i8, 1, 128, True),  # decode (and the paged kernel's twin)
+                 (bf, bf, 8, 128, True),
+                 (bf, bf, 24, 128, True),
+                 (bf, bf, 128, 16, True),  # a head dim the body is not built for
+                 (bf, bf, 128, 128, False)]:  # unaligned operands
+        assert tfa.dense_body(*args) == "cuda_core", args
