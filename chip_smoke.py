@@ -7,8 +7,10 @@ Phases, each failing the run on any error:
 1. build — compile every CUDA kernel of the path from ``src/repro_torch/
    kernels/csrc`` (one nvcc per source, in parallel) into build/repro_torch/,
    and count the tensor-core instructions (IMMA, IGMMA, HMMA) in each
-   library's SASS (``cuobjdump -sass``): the three plane libraries must hold
-   IMMA, the attention library HMMA;
+   library's SASS (``cuobjdump -sass``), in all and per kernel function: the
+   three plane libraries must hold IMMA, the attention library HMMA, and
+   HMMA must show in each of its tensor-core functions (the dense prefill
+   body and both decode split functions, paged and dense);
 2. kernel checks — each kernel against its plain PyTorch version on the
    card at the main path's shapes (granite-3-8b gate / down / lm_head at
    decode M=4 and prefill M=256): raw int32 bit-equal, the bf16 epilogue
@@ -55,10 +57,14 @@ Phases, each failing the run on any error:
    two checks per forward (the stack and lm_head) and no alarm, and the
    flipped bit again raises both alarms;
 7. attention kernel checks at granite-3-8b's heads (32 / 8, head_dim 128):
-   the paged decode kernel at B=4, pages of 16, lengths 1/16/37/272 (pool
-   pages in a permuted order, the null page holding garbage) against its
-   plain version and, bit for bit, against the dense kernel on the gathered
-   pools; at load (B=64, lengths 512-4096 from a seed); the dense kernel at
+   the paged decode kernel (the split-KV body on the tensor cores) at B=4,
+   pages of 16, lengths 1/16/37/272 (pool pages in a permuted order, the
+   null page holding garbage) against its plain version and, bit for bit,
+   against the dense kernel's decode call on the gathered pools (its twin:
+   the same body); at load (B=64, lengths 512-4096 from a seed); each line
+   names the body, the split length, the blocks launched and live, and the
+   workspace's bytes, and the device time of its split and combine
+   launches apart; the dense kernel at
    Sq=Sk=256 and 4096, causal, bf16, against its plain version (and at 256
    against attention_ref), and at B=4, Sq=Sk=512 on an int8 K/V with
    scales and lengths 512/301/64/0, causal and not (A5; A3-A5 run the
@@ -133,6 +139,13 @@ PACKED_CASE_K = 1000
 # that must show it (IMMA: int8 mma.sync, HMMA: bf16 mma.sync)
 TENSOR_CORE_LIBS = {"plane_mm_fused": "IMMA", "plane_mm_packed": "IMMA", "plane_mm": "IMMA",
                     "flash_attn": "HMMA"}
+# the kernel functions of a library that must each show that instruction
+# (every template instance of the name counted together)
+TENSOR_CORE_FUNCTIONS = {"flash_attn": ("attn_mma::dense_mma_kernel",
+                                        "attn_decode::decode_split_paged_kernel",
+                                        "attn_decode::decode_split_dense_kernel")}
+# device events of the attention kernels in a profile (substrings of their names)
+ATTENTION_KERNEL_TAGS = ("paged_kernel", "dense_kernel", "decode_split", "decode_combine")
 
 # the engine workload: full-width granite-3-8b, depth cut to LAYERS
 LAYERS = 4
@@ -186,6 +199,24 @@ def _graph_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _kernel_device_ms(fn, reps: int = 5) -> dict:
+    """Device time per call of each kernel that ``fn`` launches (summed by
+    kernel name over ``reps`` calls under ``torch.profiler``, divided by
+    ``reps``)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per: dict = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.sub(r"^void |[(<].*$", "", evt.name)
+            per[name] = per.get(name, 0.0) + (evt.time_range.end - evt.time_range.start) / 1e3
+    return {name: ms / reps for name, ms in sorted(per.items())}
 
 
 def _host_ms(fn, reps: int = 50) -> float:
@@ -415,23 +446,58 @@ def check_kernel_cases(summary: dict) -> list:
     return lines
 
 
+def _kernel_name(mangled: str) -> str:
+    """A kernel function's nested names and first integer template
+    argument from its mangled name, e.g.
+    ``attn_decode::decode_split_paged_kernel<128>``."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    parts = []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        parts.append(mangled[j:j + n])
+        i = j + n
+    if not parts:
+        return mangled
+    arg = re.match(r"ILi(\d+)E", mangled[i:])
+    return "::".join(parts) + (f"<{arg.group(1)}>" if arg else "")
+
+
 def check_sass() -> dict:
     """Tensor-core instructions in each kernel library's SASS (``cuobjdump
     -sass``): IMMA (int8 mma.sync), IGMMA (int8 wgmma) and HMMA (bf16
-    mma.sync). Each library must hold its TENSOR_CORE_LIBS instruction."""
+    mma.sync), in all and per kernel function. Each library must hold its
+    TENSOR_CORE_LIBS instruction, and each TENSOR_CORE_FUNCTIONS function
+    that instruction."""
     from repro_torch.kernels import _build
 
     tool = _build.cuda_tool("cuobjdump")
-    counts = {}
+    ops = ("IMMA", "IGMMA", "HMMA")
+    counts, by_function = {}, {}
     for name in _build.SOURCES:
         sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))], capture_output=True,
                               text=True, check=True).stdout
-        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass))
-                        for op in ("IMMA", "IGMMA", "HMMA")}
-    print(json.dumps({"sass_tensor_core_instructions": counts}), flush=True)
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
+        funcs: dict = {}
+        for body in re.split(r"^\s*Function : ", sass, flags=re.M)[1:]:
+            fn = _kernel_name(body.split(None, 1)[0])
+            got = funcs.setdefault(fn, dict.fromkeys(ops, 0))
+            for op in ops:
+                got[op] += len(re.findall(rf"\b{op}\b", body))
+        by_function[name] = {fn: c for fn, c in sorted(funcs.items()) if any(c.values())}
+        for fn in TENSOR_CORE_FUNCTIONS.get(name, ()):
+            if fn not in {f.split("<")[0] for f in funcs}:
+                _die(f"lib{name}: no kernel function {fn} in its SASS: {sorted(funcs)}")
+    print(json.dumps({"sass_tensor_core_instructions": counts,
+                      "sass_by_function": by_function}), flush=True)
     for name, op in TENSOR_CORE_LIBS.items():
         if not counts[name][op]:
             _die(f"lib{name}: no {op} instruction in its SASS")
+        for fn in TENSOR_CORE_FUNCTIONS.get(name, ()):
+            if not sum(c[op] for f, c in by_function[name].items() if f.split("<")[0] == fn):
+                _die(f"lib{name}: no {op} instruction in {fn}")
     return counts
 
 
@@ -727,14 +793,24 @@ def check_paged(name: str, gen, lens) -> dict:
         err, ok = _attn_err(got, plain)
         errs.append(err)
         oks.append(ok)
+    rows = HQ // HKV
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, kq, vq))
+    shape = fa.decode_launch(len(lens), HKV, rows, HEAD_DIM, tables.shape[1] * PAGE)
+    live = sum(-(-min(n, tables.shape[1] * PAGE) // shape["split_keys"]) for n in lens) * HKV
     line = {"kernel": "paged_flash_attention", "check": name, "B": len(lens),
             "lens": lens if len(lens) <= 8 else [min(lens), max(lens)],
             "page_size": PAGE, "heads": [HQ, HKV], "head_dim": HEAD_DIM,
+            "body": fa.paged_body(q.dtype, HEAD_DIM, rows, aligned),
+            "split_keys": shape["split_keys"], "grid_blocks": shape["grid_blocks"],
+            "live_blocks": live, "combine_blocks": shape["combine_blocks"],
+            "workspace_bytes": shape["workspace_bytes"],
             "f32_max_abs_err": errs[0], "bf16_max_abs_err": errs[1],
             "within_tolerance": all(oks), "max_abs_err": errs[0]}
     kd, vd = _gather_dense(kq, tables), _gather_dense(vq, tables)
     ksd, vsd = _gather_dense(ks, tables), _gather_dense(vs, tables)
     if len(lens) <= 8:
+        line["dense_twin_body"] = fa.dense_body(q.dtype, kd.dtype, 1, HEAD_DIM, aligned,
+                                                causal=False, lens=True, rows=rows)
         equal = []
         for out_dtype in (torch.float32, torch.bfloat16):
             paged = fa.paged_flash_attention(*args, out_dtype=out_dtype)
@@ -745,6 +821,7 @@ def check_paged(name: str, gen, lens) -> dict:
         line["equals_dense_kernel_on_gathered_pools"] = all(equal)
     line["kernel_ms"] = _time_ms(lambda: fa.paged_flash_attention(*args))
     line["device_ms"] = _graph_ms(lambda: fa.paged_flash_attention(*args))
+    line["device_ms_by_kernel"] = _kernel_device_ms(lambda: fa.paged_flash_attention(*args))
     line["plain_ms"] = _time_ms(lambda: fa.paged_flash_attention_plain(*args), reps=3, warmup=1)
     # yardstick inputs: dequantized to bf16, expanded to the query heads
     kx = (kd.float() * ksd[..., None]).to(torch.bfloat16).repeat_interleave(HQ // HKV, dim=1)
@@ -760,6 +837,9 @@ def check_paged(name: str, gen, lens) -> dict:
     line["bound_ms"], line["bound_by"] = _bound(n_bytes, 4.0 * HQ * live * HEAD_DIM,
                                                 PEAK_BF16_OPS_PER_S)
     print(json.dumps(line), flush=True)
+    if line["body"] != "tensor_core_decode" or line.get("dense_twin_body", line["body"]) != \
+            line["body"]:
+        _die(f"paged_flash_attention {name} does not run the tensor-core decode body: {line}")
     if not all(oks):
         _die(f"paged_flash_attention {name} is outside the tolerance of its plain version: {errs}")
     if line.get("equals_dense_kernel_on_gathered_pools") is False:
@@ -944,7 +1024,10 @@ def _profile(engine, reqs, schedule) -> dict:
                    if any(tag in name for tag in ("plane_linear", "plane_mm", "packed_mm",
                                                   "epilogue_kernel")))
     attn_us = sum(us for name, _, us in device
-                  if any(tag in name for tag in ("paged_kernel", "dense_kernel")))
+                  if any(tag in name for tag in ATTENTION_KERNEL_TAGS))
+    if not spans["serve.decode_step"]:
+        print("[chip_smoke] the profile holds no serve.decode_step range: per-step device "
+              "times are not measured", file=sys.stderr)
     return {
         "device_events": len(device), "device_busy_s": busy_us / 1e6,
         "plane_kernels_s": plane_us / 1e6, "attention_kernels_s": attn_us / 1e6,
@@ -1525,8 +1608,9 @@ def run_paged(cfg, params) -> dict:
         decode_iter_p99_ms=stats["decode_iter_p99_ms"],
         paged_kernel_launches=counts["paged_flash_attention"],
         fused_kernel_launches=counts["fused_plane_linear"], gather_path_calls=0,
-        attention_device_ms_per_decode_step=1e3 * profile["attention_kernels_s"]
-        / max(profile["decode_ranges"], 1),
+        attention_device_ms_per_decode_step=(1e3 * profile["attention_kernels_s"]
+                                             / profile["decode_ranges"]
+                                             if profile["decode_ranges"] else None),
         plain_tok_per_s=st_plain["tok_per_s"], plain_dense_tok_per_s=st_dense["tok_per_s"],
         plain_paged_tokens_equal_plain_dense=True, chunked_vs_monolithic_prefill=chunking,
         kernel_vs_plain_equal_tokens=[equal, PAGED_REQUESTS * GEN_TOKENS],
@@ -1618,9 +1702,9 @@ def main() -> None:
               eng_nof["launches"]),
     ]
 
-    def attn_entry(name, replaces, rep, lines, launches, path):
+    def attn_entry(name, replaces, rep, lines, launches, path, source):
         return {
-            "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(l["max_abs_err"] for l in lines),
             "ms": rep["kernel_ms"], "device_ms": rep["device_ms"], "plain_ms": rep["plain_ms"],
@@ -1631,9 +1715,11 @@ def main() -> None:
     paged_lines, dense_lines = summary["paged_flash_attention"], summary["flash_attention"]
     kernels += [
         attn_entry("flash_attention", "src/repro/kernels/flash_attention.py:126", dense_lines[1],
-                   dense_lines, dense_launches, "ops.flash_attention (not on the serving path)"),
+                   dense_lines, dense_launches, "ops.flash_attention (not on the serving path)",
+                   "attn_mma.cuh"),
         attn_entry("paged_flash_attention", "src/repro/kernels/flash_attention.py:328",
-                   paged_lines[0], paged_lines, eng_pag["launches"], "bitplane-paged decode"),
+                   paged_lines[0], paged_lines, eng_pag["launches"], "bitplane-paged decode",
+                   "attn_decode.cuh"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

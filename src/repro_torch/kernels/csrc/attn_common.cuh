@@ -1,6 +1,6 @@
-// Device code shared by the dense and the paged flash-attention kernels
-// (flash_attn.cu): the online-softmax update of one KV block, in the
-// reference kernels' operation order, literally:
+// Device code shared by the CUDA-core bodies of the dense and the paged
+// flash-attention kernels (flash_attn.cu): the online-softmax update of one
+// KV block, in the reference kernels' operation order, literally:
 //
 //   s = (q . k) * sm_scale;  s *= k_scale;  s = mask ? s : NEG_INF
 //   m_new = max(m_prev, rowmax s);  p = exp(s - m_new);  alpha = exp(m_prev - m_new)
@@ -13,6 +13,12 @@
 // block and the paged kernel per page, so on gathered pools (block_k ==
 // page_size) the two give the same bits. Built with -fmad=false: every
 // product and sum rounds on its own, as the plain versions' do.
+//
+// These bodies take the calls the tensor cores do not: float32 q or K/V,
+// head dims other than 64 and 128, causal or static-length dense calls at
+// block_q < 16, and paged calls with more than 8 query rows a KV head. A bf16
+// decode call with int8 K/V (the serving path, and the dense call that is its
+// twin) runs the split-KV body of attn_decode.cuh instead.
 #pragma once
 
 #include <cstdint>

@@ -24,8 +24,8 @@
 // What bounds it on the H100: prefill attention is operations, 4 B Hq Sq Sk D
 // (halved when causal) at 989 TFLOP/s bf16; the p split adds half again
 // (three products where the bound counts two), and mma.sync reaches a part
-// of the wgmma rate. At decode (Sq = 1) the dense kernel keeps the CUDA-core
-// body (block_q < 16).
+// of the wgmma rate. At decode (block_q < 16) the dense kernel runs the
+// split-KV decode body (attn_decode.cuh) or the CUDA-core body.
 //
 // Design:
 // * A CUDA block owns kRows = 64 query rows of one (lane, query head), each

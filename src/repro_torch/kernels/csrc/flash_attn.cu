@@ -17,30 +17,35 @@
 //
 // What bounds it on the H100: at decode, bytes — every live page of K and V
 // (one byte a value) and its scales, read once: B = 64 lanes of 512-4096
-// positions at granite's 8 KV heads and D = 128 are ~0.3 GB, ~0.09 ms at
+// positions at granite's 8 KV heads and D = 128 are ~0.3 GB, ~0.1 ms at
 // 3.35 TB/s. Prefill is bound by operations, 4 B Hq Sq Sk D (halved when
 // causal) at 989 TFLOP/s bf16.
 //
-// Two bodies for the dense kernel, chosen by the call's arguments (the
-// wrapper's flash_attention.dense_body), never as a fallback on failure:
-// * the tensor-core body (attn_mma.cuh, mma.sync bf16): bf16 q, bf16 or int8
-//   K/V, block_q a multiple of 16, head_dim 64 or 128, 16-byte-aligned
-//   operands — prefill;
+// Three bodies, chosen by the call's arguments (the wrapper's
+// flash_attention.dense_body and paged_body), never as a fallback on failure:
+// * the tensor-core prefill body (attn_mma.cuh, mma.sync bf16): dense calls
+//   with bf16 q, bf16 or int8 K/V, block_q a multiple of 16, head_dim 64 or
+//   128, 16-byte-aligned operands;
+// * the split-KV decode body on the tensor cores (attn_decode.cuh): the
+//   paged kernel for bf16 q, head_dim 64 or 128, at most 8 query rows a KV
+//   head (group x Sq) and 16-byte-aligned operands, and its twin, the dense
+//   decode call: bf16 q, int8 K/V, block_q < 16, non-causal with kv_lens, the
+//   same head dims, rows and alignment. Both run one body through two
+//   addressings, so on gathered pools the two give the same bits;
 // * the CUDA-core body (attn_common.cuh, float32 throughout): everything
-//   else — float32 q or K/V, where the tensor cores would round, and
-//   block_q < 16, the decode call (the paged kernel's per-block body, so the
-//   paged kernel equals this one on gathered pools bit for bit).
+//   else — float32 q or K/V, where the tensor cores would round, other head
+//   dims, causal or static-length calls at block_q < 16, and paged calls
+//   with more query rows.
 //
-// Design of the CUDA-core body and the paged kernel (simple and right first):
+// Design of the CUDA-core body (simple and right first):
 // * The TPU's sequential KV grid axis with VMEM scratch becomes a loop over
 //   KV blocks inside one CUDA block; (m, l, acc) live in shared memory.
-// * Paged decode: one CUDA block per (lane, KV head) holds that head's group
-//   of Hq / Hkv query heads (4 at granite's 32 / 8), so each page of K and V
-//   is read from device memory once per group, with 16-byte loads. The block
-//   reads its own table entries and kv_lens[b] (the TPU's scalar prefetch)
-//   and stops after ceil(len / page_size) pages, so it never reads the null
-//   page's garbage; a lane of length 0 runs no page and writes 0 / 1e-30 = 0,
-//   never NaN.
+// * Paged: one CUDA block per (lane, KV head) holds that head's group of
+//   Hq / Hkv query heads, so each page of K and V is read from device memory
+//   once per group, with 16-byte loads. The block reads its own table entries
+//   and kv_lens[b] (the TPU's scalar prefetch) and stops after
+//   ceil(len / page_size) pages, so it never reads the null page's garbage; a
+//   lane of length 0 runs no page and writes 0 / 1e-30 = 0, never NaN.
 // * Dense: one CUDA block per (lane, query head, query block), the rows of a
 //   query block over 32 split across blocks (each row's arithmetic does not
 //   depend on the split); KV blocks wholly above the diagonal are skipped, as
@@ -52,6 +57,7 @@
 #include <cuda_runtime.h>
 
 #include "attn_common.cuh"
+#include "attn_decode.cuh"
 #include "attn_mma.cuh"
 
 namespace {
@@ -279,23 +285,87 @@ int mma_by_kv(int kv_dtype, int out_dtype, int B, int Hq, int Hkv, int Sq, int S
   return (int)cudaErrorInvalidValue;
 }
 
+// The split-KV decode body (attn_decode.cuh): split pass and combine pass.
+template <int D, typename Addr, typename Split>
+int decode_by_out(int out_dtype, Split split, const Addr& addr, int n_keys, const void* q,
+                  const void* k, const void* v, const float* ks, const float* vs,
+                  const int32_t* lens, void* out, float* ws, int B, int Hq, int Hkv, int Sq,
+                  float sm_scale, cudaStream_t s) {
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const int8_t*>(k);
+  const auto* vb = static_cast<const int8_t*>(v);
+  if (out_dtype == kF32)
+    return attn_decode::launch<D>(split, addr, n_keys, qb, kb, vb, ks, vs, lens,
+                                  static_cast<float*>(out), ws, B, Hq, Hkv, Sq, sm_scale, s);
+  if (out_dtype == kBF16)
+    return attn_decode::launch<D>(split, addr, n_keys, qb, kb, vb, ks, vs, lens,
+                                  static_cast<__nv_bfloat16*>(out), ws, B, Hq, Hkv, Sq, sm_scale,
+                                  s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int decode_dense(int D, int out_dtype, const void* q, const void* k, const void* v,
+                 const float* ks, const float* vs, const int32_t* lens, void* out, float* ws,
+                 int B, int Hq, int Hkv, int Sq, int Sk, float sm_scale, cudaStream_t s) {
+  const attn_decode::DenseAddr addr{Hkv, Sk};
+  if (D == 64)
+    return decode_by_out<64>(out_dtype, attn_decode::decode_split_dense_kernel<64>, addr, Sk, q, k,
+                             v, ks, vs, lens, out, ws, B, Hq, Hkv, Sq, sm_scale, s);
+  if (D == 128)
+    return decode_by_out<128>(out_dtype, attn_decode::decode_split_dense_kernel<128>, addr, Sk, q,
+                              k, v, ks, vs, lens, out, ws, B, Hq, Hkv, Sq, sm_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int decode_paged(int D, int out_dtype, const void* q, const void* kp, const void* vp,
+                 const float* ksp, const float* vsp, const int32_t* tables, const int32_t* lens,
+                 void* out, float* ws, int B, int Hq, int Hkv, int Sq, int ps, int P,
+                 float sm_scale, cudaStream_t s) {
+  const attn_decode::PagedAddr addr{tables, P, ps, Hkv};
+  if (D == 64)
+    return decode_by_out<64>(out_dtype, attn_decode::decode_split_paged_kernel<64>, addr, P * ps,
+                             q, kp, vp, ksp, vsp, lens, out, ws, B, Hq, Hkv, Sq, sm_scale, s);
+  if (D == 128)
+    return decode_by_out<128>(out_dtype, attn_decode::decode_split_paged_kernel<128>, addr,
+                              P * ps, q, kp, vp, ksp, vsp, lens, out, ws, B, Hq, Hkv, Sq,
+                              sm_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// Positions of one split of the decode body; the wrapper sizes its
+// workspace with it.
+extern "C" int decode_split_keys() { return attn_decode::kSplitKeys; }
 
 // Dense flash attention. q (B, Hq, Sq, D), k / v (B, Hkv, Sk, D), k_scale /
 // v_scale (B, Hkv, Sk) or null, kv_lens (B,) or null (then kv_len masks),
-// out (B, Hq, Sq, D); all contiguous. body: 1 the tensor-core body (bf16 q,
-// bf16 or int8 K/V, block_q % 16 == 0, D 64 or 128, 16-byte-aligned q, k,
-// v), 0 the CUDA-core body. Returns a cudaError_t code.
+// out (B, Hq, Sq, D); all contiguous. body: 1 the tensor-core prefill body
+// (bf16 q, bf16 or int8 K/V, block_q % 16 == 0, D 64 or 128, 16-byte-aligned
+// q, k, v), 2 the split-KV decode body (bf16 q, int8 K/V, block_q < 16,
+// non-causal with kv_lens, D 64 or 128, (Hq / Hkv) * Sq <= 8, aligned;
+// workspace: B * Hkv * ceil(Sk / 128) * ((Hq / Hkv) * Sq * D + 16) floats), 0
+// the CUDA-core body. Returns a cudaError_t code.
 extern "C" int flash_attention_launch(const void* q, int q_dtype, const void* k, const void* v,
                                       int kv_dtype, const void* k_scale, const void* v_scale,
                                       const void* kv_lens, void* out, int out_dtype, int B,
                                       int Hq, int Hkv, int Sq, int Sk, int D, int block_q,
                                       int block_k, int causal, int kv_len, float sm_scale,
-                                      int vec, int body, void* stream) {
+                                      int vec, int body, void* workspace, void* stream) {
   cudaGetLastError();  // clear any earlier sticky-free error
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || Sq < 1 || Sk < 1 || D < 1 || block_q < 1 ||
       block_k < 1 || Sq % block_q || Sk % block_k) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (body == 2) {
+    if (q_dtype != kBF16 || kv_dtype != kI8 || block_q >= 16 || causal || !kv_lens || !vec ||
+        (Hq / Hkv) * Sq > attn_decode::kCols || !workspace) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return decode_dense(D, out_dtype, q, k, v, static_cast<const float*>(k_scale),
+                        static_cast<const float*>(v_scale), static_cast<const int32_t*>(kv_lens),
+                        out, static_cast<float*>(workspace), B, Hq, Hkv, Sq, Sk, sm_scale,
+                        static_cast<cudaStream_t>(stream));
   }
   if (body == 1) {
     if (q_dtype != kBF16 || block_q % 16 || !vec) return (int)cudaErrorInvalidValue;
@@ -332,16 +402,30 @@ extern "C" int flash_attention_launch(const void* q, int q_dtype, const void* k,
 
 // Paged decode attention. q (B, Hq, Sq, D); pools (n_pages, page_size, Hkv,
 // D) int8 and (n_pages, page_size, Hkv) float32; tables (B, P) and kv_lens
-// (B,) int32; out (B, Hq, Sq, D); all contiguous.
+// (B,) int32; out (B, Hq, Sq, D); all contiguous. body: 1 the split-KV decode
+// body (bf16 q, D 64 or 128, (Hq / Hkv) * Sq <= 8, 16-byte-aligned q and
+// pools; workspace: B * Hkv * ceil(P * page_size / 128) * ((Hq / Hkv) * Sq *
+// D + 16) floats), 0 the CUDA-core body.
 extern "C" int paged_flash_attention_launch(const void* q, int q_dtype, const void* k_pool,
                                             const void* v_pool, const void* ks_pool,
                                             const void* vs_pool, const void* tables,
                                             const void* kv_lens, void* out, int out_dtype, int B,
                                             int Hq, int Hkv, int Sq, int D, int page_size, int P,
-                                            float sm_scale, int vec, void* stream) {
+                                            float sm_scale, int vec, int body, void* workspace,
+                                            void* stream) {
   cudaGetLastError();
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || Sq < 1 || D < 1 || page_size < 1 || P < 1) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (body == 1) {
+    if (q_dtype != kBF16 || !vec || (Hq / Hkv) * Sq > attn_decode::kCols || !workspace) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return decode_paged(D, out_dtype, q, k_pool, v_pool, static_cast<const float*>(ks_pool),
+                        static_cast<const float*>(vs_pool), static_cast<const int32_t*>(tables),
+                        static_cast<const int32_t*>(kv_lens), out,
+                        static_cast<float*>(workspace), B, Hq, Hkv, Sq, page_size, P, sm_scale,
+                        static_cast<cudaStream_t>(stream));
   }
   const int total_rows = (Hq / Hkv) * Sq;
   const int rows = total_rows < kRowTile ? total_rows : kRowTile;

@@ -23,16 +23,25 @@ Both compute, per KV block (one page for the paged kernel), in float32::
 and return ``acc / max(l, 1e-30)``. This is the kernels' function, not
 the serving path's ``_decode_gqa`` (which rounds the probabilities to
 bf16 before the value product). The kernel source, with its design note,
-is ``csrc/flash_attn.cu``. The dense kernel has two bodies, chosen by the
-call's arguments (:func:`dense_body`): bf16 q with bf16 or int8 K/V,
-``block_q`` a multiple of 16, head_dim 64 or 128 and 16-byte-aligned
-operands run the tensor-core body (``csrc/attn_mma.cuh``: q.k on bf16
-tensor cores, the probabilities as a bf16 high and low part against bf16
-V; :func:`mma_body_model` is the plain model of that rounding); every
-other call runs the float32 CUDA-core body, ``csrc/attn_common.cuh``,
-which the paged kernel shares, so on gathered pools the paged kernel
-equals the dense kernel with ``block_q=1, block_k == page_size`` bit for
-bit, as the plain versions here do.
+is ``csrc/flash_attn.cu``. Three bodies, each chosen by the call's
+arguments (:func:`dense_body`, :func:`paged_body`):
+
+* the tensor-core prefill body (``csrc/attn_mma.cuh``): dense calls with
+  bf16 q, bf16 or int8 K/V, ``block_q`` a multiple of 16, head_dim 64 or
+  128 and 16-byte-aligned operands; :func:`mma_body_model` is the plain
+  model of its rounding;
+* the split-KV decode body on the tensor cores (``csrc/attn_decode.cuh``):
+  the paged kernel for bf16 q at head_dim 64 or 128 with at most
+  :data:`DECODE_COLS` query rows a KV head, and the dense decode call that
+  is its twin (bf16 q, int8 K/V, ``block_q < 16``, non-causal with
+  ``kv_lens``). Each lane's positions are cut into splits of
+  :data:`DECODE_SPLIT_KEYS`, each split's partial softmax state goes to a
+  float32 workspace, and a second pass merges them;
+  :func:`paged_decode_model` and :func:`dense_decode_model` are the plain
+  models of its rounding. On gathered pools the two calls give the same
+  bits;
+* the float32 CUDA-core body, ``csrc/attn_common.cuh``, for every other
+  call, shared by the two kernels likewise.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors — the query's device decides, nothing falls back.
@@ -58,17 +67,58 @@ MMA_HEAD_DIMS = (64, 128)
 MMA_KEYS = 64
 
 
+#: positions of one split of the decode body (``csrc/attn_decode.cuh``
+#: kSplitKeys: two stages of 64, four warp tiles of 16 each)
+DECODE_SPLIT_KEYS = 128
+DECODE_STAGE_KEYS = 64
+DECODE_TILE_KEYS = 16
+DECODE_WARPS = 4
+#: query rows (group heads x Sq) a decode block holds: the mma's n8 side
+DECODE_COLS = 8
+
+
 def dense_body(q_dtype: torch.dtype, kv_dtype: torch.dtype, block_q: int, head_dim: int,
-               aligned: bool) -> str:
+               aligned: bool, *, causal: bool = True, lens: bool = False,
+               rows: int = 1) -> str:
     """The dense kernel's body for a call: ``"tensor_core"`` for bf16 q,
     bf16 or int8 K/V, ``block_q`` a multiple of 16, a head dim in
-    :data:`MMA_HEAD_DIMS` and 16-byte-aligned q/K/V (prefill), else
-    ``"cuda_core"`` — float32 q or K/V, where the tensor cores would round,
-    and ``block_q < 16`` (decode, and the paged kernel's twin)."""
-    if (q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8)
-            and block_q % 16 == 0 and head_dim in MMA_HEAD_DIMS and aligned):
+    :data:`MMA_HEAD_DIMS` and 16-byte-aligned q/K/V (prefill);
+    ``"tensor_core_decode"`` for bf16 q, int8 K/V, ``block_q < 16``, a
+    non-causal call with per-lane lengths (``lens``), a head dim in
+    :data:`MMA_HEAD_DIMS`, at most :data:`DECODE_COLS` query ``rows`` a KV
+    head (group heads x Sq) and aligned operands (decode: the paged
+    kernel's twin); else ``"cuda_core"`` — float32 q or K/V, where the
+    tensor cores would round, other head dims, and causal or static-length
+    calls at ``block_q < 16``."""
+    tc = q_dtype == torch.bfloat16 and head_dim in MMA_HEAD_DIMS and aligned
+    if tc and kv_dtype in (torch.bfloat16, torch.int8) and block_q % 16 == 0:
         return "tensor_core"
+    if (tc and kv_dtype == torch.int8 and block_q < 16 and not causal and lens
+            and rows <= DECODE_COLS):
+        return "tensor_core_decode"
     return "cuda_core"
+
+
+def paged_body(q_dtype: torch.dtype, head_dim: int, rows: int, aligned: bool) -> str:
+    """The paged kernel's body for a call: ``"tensor_core_decode"`` for bf16
+    q, a head dim in :data:`MMA_HEAD_DIMS`, at most :data:`DECODE_COLS`
+    query ``rows`` a KV head (group heads x Sq) and 16-byte-aligned q and
+    pools; else ``"cuda_core"``."""
+    if (q_dtype == torch.bfloat16 and head_dim in MMA_HEAD_DIMS and rows <= DECODE_COLS
+            and aligned):
+        return "tensor_core_decode"
+    return "cuda_core"
+
+
+def decode_launch(b: int, hkv: int, rows: int, head_dim: int, n_keys: int) -> dict:
+    """Launch shape of the decode body for ``b`` lanes of ``n_keys``
+    positions (the table's span, or Sk): splits a lane, blocks of the split
+    pass's grid (one per split, KV head and lane; those past a lane's length
+    exit at once) and of the combine pass, and the workspace's bytes."""
+    splits = -(-n_keys // DECODE_SPLIT_KEYS)
+    return {"split_keys": DECODE_SPLIT_KEYS, "splits": splits,
+            "grid_blocks": splits * hkv * b, "combine_blocks": hkv * b,
+            "workspace_bytes": 4 * b * hkv * splits * (rows * head_dim + 2 * DECODE_COLS)}
 
 
 # ---------------------------------------------------------------------------
@@ -331,6 +381,127 @@ def paged_flash_attention_plain(
     return out.reshape(b, hq, sq, d).to(torch.bfloat16 if out_dtype is None else out_dtype)
 
 
+def _split_decode_model(q, k, v, ks, vs, lens, run_end, sm_scale):
+    """The decode body's rounding on K/V laid out per lane, (B, Hkv, S, D)
+    int8 with (B, Hkv, S) scales or None: lane b runs positions [0,
+    run_end[b]), masked to NEG_INF from lens[b] on."""
+    b, hq, sq, d = q.shape
+    hkv, n_keys = k.shape[1], k.shape[2]
+    rows = hq // hkv * sq
+    f64 = torch.float64
+    qf = q.to(torch.bfloat16).to(f64).reshape(b, hkv, rows, d)
+    kf, vf = k.to(f64), v.to(f64)  # int8 is exact in bf16
+    ks = torch.ones(k.shape[:3]) if ks is None else ks.float()
+    vs = torch.ones(k.shape[:3]) if vs is None else vs.float()
+    inf = float("inf")
+
+    def merge(states):  # in order: factors exp(m_i - max m), each sum in turn
+        mm = states[0][0]
+        for m, _, _ in states[1:]:
+            mm = torch.maximum(mm, m)
+        l_sum, o_sum = torch.zeros_like(states[0][1]), torch.zeros_like(states[0][2])
+        for m, l, o in states:
+            f = torch.exp(m - mm)
+            o_sum = o_sum + f * o
+            l_sum = l_sum + f * l
+        return mm, l_sum, o_sum
+
+    out = torch.zeros((b, hkv, rows, d))
+    for lane in range(b):
+        end, n = int(run_end[lane]), int(lens[lane])
+        parts = []
+        for key0 in range(0, end, DECODE_SPLIT_KEYS):
+            warps = []
+            for w in range(DECODE_WARPS):
+                m = torch.full((hkv, rows, 1), -inf)
+                l = torch.zeros((hkv, rows, 1))
+                o = torch.zeros((hkv, rows, d))
+                for t0 in range(key0 + w * DECODE_TILE_KEYS, key0 + DECODE_SPLIT_KEYS,
+                                DECODE_STAGE_KEYS):
+                    if t0 >= end:
+                        continue
+                    keys = torch.arange(t0, t0 + DECODE_TILE_KEYS)
+                    at = keys.clamp_max(n_keys - 1)
+                    s = (qf[lane] @ kf[lane][:, at].transpose(-1, -2)).to(torch.float32)
+                    s = s * sm_scale * ks[lane][:, None, at]
+                    s = torch.where(keys < n, s, torch.full_like(s, NEG_INF))
+                    s = torch.where(keys < end, s, torch.full_like(s, -inf))
+                    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                    p = torch.exp(s - m_new)
+                    alpha = torch.exp(m - m_new)
+                    l = alpha * l + p.sum(dim=-1, keepdim=True)
+                    p = p * vs[lane][:, None, at]
+                    p_hi = p.to(torch.bfloat16)
+                    p_lo = (p - p_hi.float()).to(torch.bfloat16)
+                    pv = p_hi.to(f64) @ vf[lane][:, at] + p_lo.to(f64) @ vf[lane][:, at]
+                    o = o * alpha + pv.to(torch.float32)
+                    m = m_new
+                warps.append((m, l, o))
+            parts.append(merge(warps))
+        if parts:
+            _, l, o = merge(parts)
+            out[lane] = o / torch.clamp_min(l, 1e-30)
+    return out.reshape(b, hq, sq, d)
+
+
+def paged_decode_model(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    k_scale_pool: torch.Tensor,
+    v_scale_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    kv_lens: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain model of the split-KV decode body's rounding for a paged call
+    (float32 output, CPU): bf16 q times int8 K (exact in bf16), the products
+    summed exactly and rounded to float32; each lane's positions up to its
+    length cut into splits of :data:`DECODE_SPLIT_KEYS`, each split into
+    two stages of four warp tiles of :data:`DECODE_TILE_KEYS`, warp w taking
+    tile w of each stage with its own online softmax (positions past the
+    length -inf); the scales in the kernel's order; p split into a bf16 high
+    and low part, each times int8 V, summed exactly and rounded to float32;
+    the warps' states merged in warp order, then the splits' in split
+    order; a lane of length 0 gives 0."""
+    _check_paged(q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables, kv_lens,
+                 block_q=1)
+    b, p = block_tables.shape
+    ps = k_pool.shape[1]
+    flat = block_tables.to(torch.int64).reshape(-1)
+
+    def lanes(pool):  # (n_pages, ps, Hkv[, D]) -> (B, Hkv, P * ps[, D])
+        x = pool[flat].reshape(b, p * ps, *pool.shape[2:])
+        return x.transpose(1, 2)
+
+    lens = kv_lens.to(torch.int64)
+    return _split_decode_model(
+        q, lanes(k_pool), lanes(v_pool), lanes(k_scale_pool), lanes(v_scale_pool), lens,
+        lens.clamp(0, p * ps), q.shape[-1] ** -0.5 if sm_scale is None else sm_scale)
+
+
+def dense_decode_model(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    kv_lens: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain model of the same body for the dense decode call, the paged
+    kernel's twin (non-causal, per-lane ``kv_lens``, int8 K/V): the same
+    positions and rounding, except that a lane of length 0 runs all its Sk
+    positions, each masked, as the dense plain version does."""
+    sk = k.shape[2]
+    lens = kv_lens.to(torch.int64)
+    run_end = torch.where(lens > 0, lens.clamp_max(sk), torch.full_like(lens, sk))
+    return _split_decode_model(q, k, v, k_scale, v_scale, lens, run_end,
+                               q.shape[-1] ** -0.5 if sm_scale is None else sm_scale)
+
+
 # ---------------------------------------------------------------------------
 # Kernels
 # ---------------------------------------------------------------------------
@@ -347,7 +518,7 @@ def _lib():
             p, i,  # out, out dtype
             i, i, i, i, i, i,  # B, Hq, Hkv, Sq, Sk, D
             i, i, i, i, f, i, i,  # block_q, block_k, causal, kv_len, sm_scale, vec, body
-            p,  # stream
+            p, p,  # workspace, stream
         ]
         dense.restype = ctypes.c_int
         paged.argtypes = [
@@ -355,10 +526,13 @@ def _lib():
             p, p,  # tables, kv_lens
             p, i,  # out, out dtype
             i, i, i, i, i, i, i,  # B, Hq, Hkv, Sq, D, page_size, P
-            f, i,  # sm_scale, vec
-            p,  # stream
+            f, i, i,  # sm_scale, vec, body
+            p, p,  # workspace, stream
         ]
         paged.restype = ctypes.c_int
+        if lib.decode_split_keys() != DECODE_SPLIT_KEYS:
+            raise RuntimeError(f"the decode body splits by {lib.decode_split_keys()} positions, "
+                               f"the wrapper sizes its workspace by {DECODE_SPLIT_KEYS}")
     return dense, paged
 
 
@@ -380,6 +554,15 @@ def _vec(d: int, elem: int, *tensors) -> int:
 
 
 _FLOATS = (torch.float32, torch.bfloat16)
+# the C entry points' body codes (flash_attn.cu)
+_BODY_CODES = {"cuda_core": 0, "tensor_core": 1, "tensor_core_decode": 2}
+_PAGED_BODY_CODES = {"cuda_core": 0, "tensor_core_decode": 1}
+
+
+def _workspace(shape: dict, dev) -> torch.Tensor:
+    """The decode body's float32 workspace of split partials (every
+    element written before it is read)."""
+    return torch.empty(shape["workspace_bytes"] // 4, dtype=torch.float32, device=dev)
 
 
 def flash_attention(
@@ -408,8 +591,9 @@ def flash_attention(
     CUDA tensors launch the kernel, and arguments it does not take raise.
     The kernel's body follows the arguments (:func:`dense_body`): the
     tensor-core body for bf16 q with bf16 or int8 K/V at ``block_q`` a
-    multiple of 16 (prefill), the float32 CUDA-core body otherwise (float32
-    operands, and ``block_q < 16``: decode)."""
+    multiple of 16 (prefill), the split-KV decode body for bf16 q with int8
+    K/V at ``block_q < 16``, non-causal with ``kv_lens`` (the paged
+    kernel's twin), the float32 CUDA-core body otherwise."""
     kw = dict(causal=causal, sm_scale=sm_scale, block_q=block_q, block_k=block_k,
               kv_len=kv_len, kv_lens=kv_lens, k_scale=k_scale, v_scale=v_scale,
               out_dtype=out_dtype)
@@ -434,13 +618,17 @@ def flash_attention(
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     out = torch.empty(q.shape, dtype=out_dtype, device=dev)
     vec = _vec(d, kc.element_size(), kc, vc)
-    body = dense_body(qc.dtype, kc.dtype, block_q, d, bool(vec) and qc.data_ptr() % 16 == 0)
+    rows = hq // hkv * sq
+    body = dense_body(qc.dtype, kc.dtype, block_q, d, bool(vec) and qc.data_ptr() % 16 == 0,
+                      causal=causal, lens=lens is not None, rows=rows)
+    ws = (_workspace(decode_launch(b, hkv, rows, d, sk), dev)
+          if body == "tensor_core_decode" else None)
     flash_attention.launches += 1
     err = _lib()[0](
         _ptr(qc), _DTYPE_CODES[qc.dtype], _ptr(kc), _ptr(vc), _DTYPE_CODES[kc.dtype],
         _ptr(ksc), _ptr(vsc), _ptr(lens), _ptr(out), _DTYPE_CODES[out_dtype],
         b, hq, hkv, sq, sk, d, block_q, block_k, int(causal), static_kv_len,
-        float(d**-0.5 if sm_scale is None else sm_scale), vec, int(body == "tensor_core"),
+        float(d**-0.5 if sm_scale is None else sm_scale), vec, _BODY_CODES[body], _ptr(ws),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
@@ -474,7 +662,11 @@ def paged_flash_attention(
     read. The length mask is the only mask (a decode query sits at
     ``len - 1``). Returns (B, Hq, Sq, D) in ``out_dtype`` (bf16 by
     default). CPU tensors run :func:`paged_flash_attention_plain`; CUDA
-    tensors launch the kernel, and arguments it does not take raise."""
+    tensors launch the kernel, and arguments it does not take raise. The
+    kernel's body follows the arguments (:func:`paged_body`): the split-KV
+    decode body on the tensor cores for bf16 q (two launches: the splits,
+    then their combine; nothing is read back on the host), the float32
+    CUDA-core body otherwise."""
     if not q.is_cuda:
         return paged_flash_attention_plain(
             q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables, kv_lens,
@@ -496,13 +688,19 @@ def paged_flash_attention(
     if out_dtype not in _FLOATS:
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     out = torch.empty(q.shape, dtype=out_dtype, device=dev)
+    vec = _vec(d, 1, kp, vp)
+    rows = hq // hkv * sq
+    n_keys = tables.shape[1] * page_size
+    body = paged_body(qc.dtype, d, rows, bool(vec) and qc.data_ptr() % 16 == 0)
+    ws = (_workspace(decode_launch(b, hkv, rows, d, n_keys), dev)
+          if body == "tensor_core_decode" else None)
     paged_flash_attention.launches += 1
     err = _lib()[1](
         _ptr(qc), _DTYPE_CODES[qc.dtype], _ptr(kp), _ptr(vp), _ptr(ksp), _ptr(vsp),
         _ptr(tables), _ptr(lens), _ptr(out), _DTYPE_CODES[out_dtype],
         b, hq, hkv, sq, d, page_size, tables.shape[1],
-        float(d**-0.5 if sm_scale is None else sm_scale), _vec(d, 1, kp, vp),
-        torch.cuda.current_stream(dev).cuda_stream,
+        float(d**-0.5 if sm_scale is None else sm_scale), vec, _PAGED_BODY_CODES[body],
+        _ptr(ws), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"paged_flash_attention launch failed: CUDA error {err}")

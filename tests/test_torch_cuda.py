@@ -307,6 +307,66 @@ def test_paged_attention_kernel_equals_plain_and_dense_kernel_on_card(cuda_devic
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,d,ps,lens", [
+    (32, 8, 128, 16, (1, 16, 37, 272)),  # the engine's shape
+    (32, 8, 128, 16, (4096, 3001, 129, 128, 1, 0, 2049, 640)),  # many splits, a lane of 0
+    (8, 2, 64, 8, (5, 128, 129, 0)),  # head dim 64, on and past a split boundary
+    (16, 2, 128, 32, (300, 0, 77)),  # 8 query heads a KV head: the whole n8 side
+])
+def test_paged_decode_body_equals_plain_and_dense_twin_on_card(cuda_device, hq, hkv, d, ps,
+                                                               lens):
+    """The split-KV decode body on the tensor cores (csrc/attn_decode.cuh):
+    the paged kernel within the summation-order tolerance of its plain
+    version (the null page holding garbage), bit-equal to the dense decode
+    call on the gathered pools on every lane of length >= 1; a lane of
+    length 0 gives 0."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(sum(lens) + d)
+    args, (kd, vd, ksd, vsd) = _paged_case(cuda_device, g, len(lens), hq, hkv, d, ps, lens)
+    rows = hq // hkv
+    assert fa.paged_body(torch.bfloat16, d, rows, True) == "tensor_core_decode"
+    assert fa.dense_body(torch.bfloat16, torch.int8, 1, d, True, causal=False, lens=True,
+                         rows=rows) == "tensor_core_decode"
+    live = torch.tensor([n > 0 for n in lens], device=cuda_device)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = fa.paged_flash_attention(*args, out_dtype=out_dtype)
+        assert _within(got, fa.paged_flash_attention_plain(*args, out_dtype=out_dtype))
+        dense = fa.flash_attention(args[0], kd, vd, causal=False, kv_lens=args[6], k_scale=ksd,
+                                   v_scale=vsd, block_q=1, block_k=ps, out_dtype=out_dtype)
+        assert torch.equal(got[live], dense[live])
+        assert not bool(got[~live].any())
+        assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(dense).all())
+
+
+@pytest.mark.cuda
+def test_paged_decode_replays_from_a_cuda_graph(cuda_device):
+    """The paged kernel reads nothing back on the host, so a CUDA graph of
+    the call replays it: new lengths and a new query in the captured buffers
+    give the eager call's bits."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(7)
+    args, _ = _paged_case(cuda_device, g, 4, 32, 8, 128, 16, (1, 16, 37, 272))
+    q, kq, vq, ks, vs, tables, lens = args
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa.paged_flash_attention(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa.paged_flash_attention(*args)
+    lens.copy_(torch.tensor([0, 17, 36, 200], dtype=torch.int32, device=cuda_device))
+    q.copy_(torch.randn(q.shape, generator=g, device=cuda_device).to(q.dtype))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fa.paged_flash_attention(*args))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("causal,kv,sq,sk,bq,bk", [
     (True, "bf16", 64, 64, 32, 16), (False, "int8", 1, 80, 1, 16), (True, "f32", 40, 40, 8, 8),
     (True, "bf16", 16, 48, 16, 16),

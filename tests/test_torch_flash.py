@@ -286,11 +286,204 @@ def test_dense_body_follows_the_arguments():
     bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     assert tfa.dense_body(bf, bf, 128, 128, True) == "tensor_core"
     assert tfa.dense_body(bf, i8, 16, 64, True) == "tensor_core"
+    # decode, the paged kernel's twin: non-causal with per-lane lengths
+    twin = dict(causal=False, lens=True, rows=4)
+    assert tfa.dense_body(bf, i8, 1, 128, True, **twin) == "tensor_core_decode"
+    assert tfa.dense_body(bf, i8, 8, 64, True, causal=False, lens=True, rows=8) == \
+        "tensor_core_decode"
     for args in [(f32, bf, 128, 128, True),  # float32 q: the tensor cores would round
                  (bf, f32, 128, 128, True),
-                 (bf, i8, 1, 128, True),  # decode (and the paged kernel's twin)
+                 (bf, i8, 1, 128, True),  # a causal decode call
                  (bf, bf, 8, 128, True),
                  (bf, bf, 24, 128, True),
                  (bf, bf, 128, 16, True),  # a head dim the body is not built for
                  (bf, bf, 128, 128, False)]:  # unaligned operands
         assert tfa.dense_body(*args) == "cuda_core", args
+    for args, kw in [((bf, i8, 1, 128, True), dict(twin, lens=False)),  # a static length
+                     ((bf, bf, 1, 128, True), twin),  # bf16 K/V
+                     ((f32, i8, 1, 128, True), twin),
+                     ((bf, i8, 1, 16, True), twin),
+                     ((bf, i8, 1, 128, False), twin),
+                     ((bf, i8, 1, 128, True), dict(twin, rows=9))]:  # more than n8 rows
+        assert tfa.dense_body(*args, **kw) == "cuda_core", (args, kw)
+
+
+def test_paged_body_follows_the_arguments():
+    bf, f32 = torch.bfloat16, torch.float32
+    assert tfa.paged_body(bf, 128, 4, True) == "tensor_core_decode"
+    assert tfa.paged_body(bf, 64, 8, True) == "tensor_core_decode"
+    for args in [(f32, 128, 4, True), (bf, 16, 4, True), (bf, 128, 9, True),
+                 (bf, 128, 4, False)]:
+        assert tfa.paged_body(*args) == "cuda_core", args
+
+
+def test_decode_launch_shape():
+    """Splits of DECODE_SPLIT_KEYS positions whatever the batch; a workspace
+    of one (m, l, o) partial per split, KV head and lane."""
+    shape = tfa.decode_launch(4, 8, 4, 128, 17 * 16)
+    assert shape == {"split_keys": 128, "splits": 3, "grid_blocks": 96, "combine_blocks": 32,
+                     "workspace_bytes": 4 * 96 * (4 * 128 + 16)}
+    assert tfa.decode_launch(64, 8, 4, 128, 4096)["splits"] == 32
+    assert tfa.decode_launch(1, 1, 1, 64, 128)["splits"] == 1
+    assert tfa.decode_launch(1, 1, 1, 64, 129)["splits"] == 2
+
+
+# The split-KV decode body (csrc/attn_decode.cuh) on the tensor cores: bf16
+# q.k products summed in float32, p * v_scale as a bf16 high and low part,
+# splits of DECODE_SPLIT_KEYS positions merged in order. paged_decode_model is
+# the plain model of that rounding; it must lie within DECODE_RTOL of
+# max|ref| of the plain version and of the reference's Pallas kernel, the
+# tolerance the card test holds the paged kernel to.
+DECODE_RTOL = 1e-5
+
+DECODE_CASES = {
+    # name: (head_dim, page_size, lens): mid-page, on a split boundary, one
+    # past it, a lane of length 0
+    "d128": (128, 16, (37, 128, 129, 0)),
+    "d64": (64, 8, (5, 129, 128, 0)),
+}
+
+
+def _decode_inputs(case):
+    d, ps, lens = DECODE_CASES[case]
+    rng = np.random.default_rng(d + ps)
+    q, kq, vq, ks, vs, tables, lens = _paged_inputs(rng, b=len(lens), hq=8, hkv=2, d=d, ps=ps,
+                                                   p=-(-max(lens) // ps) + 1, lens=lens)
+    return q, kq, vq, ks, vs, tables, lens
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_paged_decode_model_within_tolerance_of_plain_and_reference(case):
+    q, kq, vq, ks, vs, tables, lens = _decode_inputs(case)
+    targs = [_to_t(q, "bf16")] + [torch.from_numpy(a.copy()) for a in (kq, vq, ks, vs, tables, lens)]
+    assert tfa.paged_body(targs[0].dtype, q.shape[-1], 4, True) == "tensor_core_decode"
+    model = tfa.paged_decode_model(*targs)
+    plain = tfa.paged_flash_attention_plain(*targs, out_dtype=torch.float32)
+    want = np.asarray(jpaged(jnp.asarray(q, jnp.bfloat16),
+                             *(jnp.asarray(a) for a in (kq, vq, ks, vs, tables, lens)),
+                             out_dtype=jnp.float32, interpret=True))
+    for ref, what in ((t2n(plain), "plain"), (want, "reference kernel")):
+        err = float(np.abs(t2n(model) - ref).max())
+        print(f"{case}: model vs {what}: {err / float(np.abs(ref).max()):.3g} of max|ref|")
+        assert err <= DECODE_RTOL * float(np.abs(ref).max()), (what, err)
+    assert not torch.any(model[3]), "a lane of length 0 gives 0"
+    # the model rounds differently from the plain version (it is a model)
+    assert not torch.equal(model, plain)
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_paged_decode_model_equals_its_dense_twin_on_gathered_pools(case):
+    """The dense decode call runs the same body through a dense addressing,
+    so its model on the gathered pools gives the same bits on every lane of
+    length >= 1; a lane of length 0 is the dense plain version's equal
+    weights over every position (finite), where the paged call gives 0."""
+    q, kq, vq, ks, vs, tables, lens = _decode_inputs(case)
+    qt = _to_t(q, "bf16")
+    paged = tfa.paged_decode_model(qt, *(torch.from_numpy(a.copy())
+                                         for a in (kq, vq, ks, vs, tables, lens)))
+    g = lambda a, sc=False: torch.from_numpy(_gathered(a, tables, sc).copy())  # noqa: E731
+    kw = dict(kv_lens=torch.from_numpy(lens), k_scale=g(ks, True), v_scale=g(vs, True))
+    dense = tfa.dense_decode_model(qt, g(kq), g(vq), **kw)
+    live = torch.from_numpy(lens > 0)
+    assert torch.equal(paged[live], dense[live])
+    assert bool(torch.isfinite(dense).all()) and bool(dense[~live].abs().sum() > 0)
+    plain = tfa.flash_attention_plain(qt, g(kq), g(vq), causal=False, block_q=1,
+                                      block_k=kq.shape[1], out_dtype=torch.float32, **kw)
+    assert float((dense - plain).abs().max()) <= DECODE_RTOL * float(plain.abs().max())
+
+
+def _mma_m16n8k16(a, b):
+    """mma.sync.m16n8k16 on a warp's fragments: a[lane] four (lo, hi)
+    register pairs of A (16 x 16, row), b[lane] two of B (16 x 8, col);
+    returns each lane's four accumulators of A @ B."""
+    am, bm = np.zeros((16, 16)), np.zeros((16, 8))
+    for lane in range(32):
+        g, qd = lane >> 2, lane & 3
+        for reg, (r, c) in enumerate(((g, 2 * qd), (g + 8, 2 * qd), (g, 2 * qd + 8),
+                                      (g + 8, 2 * qd + 8))):
+            am[r, c:c + 2] = a[lane][reg]
+        bm[2 * qd:2 * qd + 2, g], bm[2 * qd + 8:2 * qd + 10, g] = b[lane]
+    cm = am @ bm
+    return [[cm[(l >> 2) + 8 * (e >> 1), 2 * (l & 3) + (e & 1)] for e in range(4)]
+            for l in range(32)]
+
+
+@pytest.mark.parametrize("d", tfa.MMA_HEAD_DIMS)
+def test_decode_fragment_maps_replayed(d):
+    """The decode body's index maps, replayed lane by lane in numpy: the
+    swizzled stage rows, the permuted head dim of the K and V fragments, the
+    Q fragments and the shuffles that turn S^T's accumulators into P^T's B
+    fragments give S^T = K . Q^T and O^T = V^T . P^T for every warp tile;
+    at D = 128 each 16-byte fragment read of a quarter warp hits 32
+    distinct banks."""
+    rng = np.random.default_rng(d)
+    stage = tfa.DECODE_STAGE_KEYS
+    k, v = (rng.integers(-128, 128, (stage, d)) for _ in range(2))
+    qm, pm = rng.standard_normal((8, d)), rng.standard_normal((16, 8))
+
+    def at(r, c):  # csrc/attn_decode.cuh chunk_at
+        return (c ^ (r & (d // 16 - 1))) << 4
+
+    sk, sv = np.zeros((stage, d)), np.zeros((stage, d))
+    for r in range(stage):
+        for c in range(d // 16):
+            sk[r, at(r, c):at(r, c) + 16] = k[r, 16 * c:16 * c + 16]
+            sv[r, at(r, c):at(r, c) + 16] = v[r, 16 * c:16 * c + 16]
+    lanes = [(lane >> 2, lane & 3) for lane in range(32)]
+    for w in range(tfa.DECODE_WARPS):
+        tr = w * tfa.DECODE_TILE_KEYS
+        reads = []  # (which read, lane, byte address)
+        kw = []
+        for lane, (g, qd) in enumerate(lanes):
+            words = []
+            for h in range(2):
+                r = tr + g + 8 * h
+                row = []
+                for j in range(d // 64):
+                    a = at(r, qd * (d // 64) + j)
+                    reads.append((("k", h, j), lane, r * d + a))
+                    row += [sk[r, a + 4 * i:a + 4 * i + 4] for i in range(4)]
+                words.append(row)
+            kw.append(words)
+        qb = [[qm[g, qd * d // 4 + 2 * i:qd * d // 4 + 2 * i + 2] for i in range(d // 8)]
+              for g, qd in lanes]
+        s = np.zeros((32, 4))
+        for kk in range(d // 16):
+            s += _mma_m16n8k16([[kw[l][0][kk][:2], kw[l][1][kk][:2], kw[l][0][kk][2:],
+                                 kw[l][1][kk][2:]] for l in range(32)],
+                               [(qb[l][2 * kk], qb[l][2 * kk + 1]) for l in range(32)])
+        for lane, (g, qd) in enumerate(lanes):
+            for e in range(4):
+                want = k[tr + g + 8 * (e >> 1)] @ qm[2 * qd + (e & 1)]
+                assert abs(s[lane][e] - want) < 1e-9
+        hl = [[pm[g + 8 * (e >> 1), 2 * qd + (e & 1)] for e in range(4)] for g, qd in lanes]
+        pb = []
+        for g, qd in lanes:
+            x0, x1 = hl[8 * qd + (g >> 1)], hl[8 * qd + (g >> 1) + 4]
+            odd = g & 1
+            pb.append((np.array([x0[odd], x1[odd]]), np.array([x0[2 + odd], x1[2 + odd]])))
+        vw = []
+        for lane, (g, qd) in enumerate(lanes):
+            rows = []
+            for h in range(4):
+                r = tr + 2 * qd + (h & 1) + 8 * (h >> 1)
+                a = at(r, g * d // 8 >> 4) + (g * d // 8 & 15)
+                reads.append((("v", h), lane, r * d + a))
+                rows.append([sv[r, a + 4 * i:a + 4 * i + 4] for i in range(d // 32)])
+            vw.append(rows)
+        for mt in range(d // 16):
+            wi, lo = mt >> 1, 2 * (mt & 1)
+            o = _mma_m16n8k16(
+                [[np.array([x[0][wi][lo], x[1][wi][lo]]), np.array([x[0][wi][lo + 1], x[1][wi][lo + 1]]),
+                  np.array([x[2][wi][lo], x[3][wi][lo]]), np.array([x[2][wi][lo + 1], x[3][wi][lo + 1]])]
+                 for x in vw], pb)
+            for lane, (g, qd) in enumerate(lanes):
+                for e in range(4):
+                    dd = g * d // 8 + 2 * mt + (e >> 1)
+                    assert abs(o[lane][e] - v[tr:tr + 16, dd] @ pm[:, 2 * qd + (e & 1)]) < 1e-9
+        if d == 128:  # every read is 16 bytes: a quarter warp covers the 32 banks once
+            for which in {r[0] for r in reads}:
+                addr = [a for key, _, a in sorted(reads, key=lambda x: x[1]) if key == which]
+                for qtr in range(4):
+                    banks = {(a // 4 + i) % 32 for a in addr[8 * qtr:8 * qtr + 8] for i in range(4)}
+                    assert len(banks) == 32, (which, qtr)
