@@ -84,14 +84,30 @@ Phases, each failing the run on any error:
    path from clones of one cache) must keep max|dlogit| within the bound
    and the greedy token wherever the plain top-2 margin exceeds twice it.
 
+Every engine cell's main run replays each decode step from the engine's
+CUDA graph of that precision (captured by the warm-up run; the counted
+run must capture nothing), and each cell also serves its workload with the
+eager step (``compile_steps=False``): tokens, launches and, in detect mode,
+every integrity count (clean and after the flipped bit) must equal the
+graph run's. Each cell prints each precision's capture seconds on a line
+of its own, its host and device ms per decode step and its busy shares,
+and one replay of its storage-width graph profiled with CPU and CUDA
+activities: the main kernels counted by name must equal the launches the
+engine tallies per replay. In the detect cell the fold kernel
+(``csrc/fold.cu``) is held bit-equal to the plain folds on the whole 3.40
+GB quantized tree and on the KV cache, must move with one flipped bit, and
+is timed beside its byte bound.
+
 Prints one JSON line per kernel check, one ``{"kernels": [...]}`` summary
-line, the card's name and power limit, and last ``{"ok": true, ...}``.
+line (the fold kernel's entry included), the card's name and power limit,
+and last ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import re
 import subprocess
@@ -1040,15 +1056,9 @@ def _profile(engine, reqs, schedule) -> dict:
 
 
 def _counters() -> dict:
-    from repro_torch.kernels import flash_attention, plane_mm, plane_mm_fused, plane_mm_packed
+    from repro_torch.launch import graphs
 
-    return {
-        "fused_plane_linear": plane_mm_fused.fused_plane_linear,
-        "plane_matmul": plane_mm.plane_matmul,
-        "plane_matmul_packed": plane_mm_packed.plane_matmul_packed,
-        "flash_attention": flash_attention.flash_attention,
-        "paged_flash_attention": flash_attention.paged_flash_attention,
-    }
+    return graphs.launch_counters()
 
 
 def _reset_counts() -> None:
@@ -1115,12 +1125,15 @@ class _ReadBacks:
         self.mod.is_outer_product = self.orig
 
 
-def _counted_run(name, cfg, engine, schedule, kernel, route) -> tuple:
-    """One warm-up, then the counted run: launch counts are set to 0 just
-    before it and read just after; ``kernel`` must have launched once per
-    ``route`` projection call and no other kernel at all, and no pair
-    weights may have been read back."""
-    engine.run(_requests(cfg)[:1], precision_schedule=None)  # allocator, library handles
+def _counted_run(name, cfg, engine, schedule, kernel, route, also=()) -> tuple:
+    """One warm-up (on a graph engine it captures each precision's decode
+    step), then the counted run: launch counts are set to 0 just before it
+    and read just after; ``kernel`` must have launched once per ``route``
+    projection call and no other kernel but those in ``also``, and no pair
+    weights may have been read back. On a graph engine every decode step
+    must have replayed a captured graph (no capture inside the run)."""
+    # allocator, library handles, and each precision's decode-step graph
+    engine.run(_requests(cfg)[:1], precision_schedule=schedule)
     engine.set_precision(None)
     with _ReadBacks() as reads:
         _reset_counts()
@@ -1131,10 +1144,76 @@ def _counted_run(name, cfg, engine, schedule, kernel, route) -> tuple:
         _die(f"{name}: {reads.calls} pair-weight read-backs in a served run")
     _check_finished(name, cfg, results, stats)
     calls = stats["route_calls"].get(route, 0)
-    others = {k: v for k, v in counts.items() if k != kernel and v}
+    others = {k: v for k, v in counts.items() if k != kernel and k not in also and v}
     if counts[kernel] == 0 or counts[kernel] != calls or others:
         _die(f"{name}: launches {counts} against {route} projection calls {calls}")
+    if engine.compile_steps and (stats["capture_s"] or not engine._compiled_graphs):
+        _die(f"{name}: the counted run captured {stats['capture_s']}, graphs "
+             f"{list(engine._compiled_graphs)}")
     return results, stats, counts
+
+
+# the main kernel of each counted wrapper, by the name it has in a device trace
+MAIN_KERNELS = {"fused_plane_linear": "plane_mm_fused_main", "plane_matmul": "plane_mm_kernel",
+                "plane_matmul_packed": "plane_mm_packed_main",
+                "paged_flash_attention": "decode_split_paged_kernel"}
+
+
+def _graph_line(name: str, engine, reps: int = 20) -> dict:
+    """The engine's captured decode steps: each precision's warm-up and
+    capture seconds on a line of its own; one replay of the storage-width
+    graph under ``torch.profiler`` (CPU and CUDA activities), whose main
+    kernels counted by name must equal the launches the engine tallies per
+    replay; and the device time of a replay (CUDA events around ``reps``
+    replays, on the finished run's state, which the next run resets)."""
+    for prec, secs in engine.capture_s.items():
+        print(json.dumps({"engine": name, "graph_precision": str(prec), "capture_s": secs}),
+              flush=True)
+    captured = engine._compiled_graphs[None]
+    captured(0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        captured(0)
+        torch.cuda.synchronize()
+    names = [evt.name for evt in prof.events()
+             if evt.device_type == torch.autograd.DeviceType.CUDA]
+    tallied = {k: v for k, v in captured.increment["launches"].items() if v}
+    found = {k: sum(MAIN_KERNELS[k] in n for n in names) for k in tallied}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        captured(i)
+    end.record()
+    end.synchronize()
+    line = {"captured_precisions": [str(p) for p in engine._compiled_graphs],
+            "capture_s": {str(p): t for p, t in engine.capture_s.items()},
+            "replay_device_events": len(names), "replay_kernel_counts": found,
+            "tallied_launches_per_replay": tallied,
+            "replay_device_ms": start.elapsed_time(end) / reps}
+    if found != tallied:
+        _die(f"{name}: a profiled replay ran {found} main kernels, the engine tallies {tallied}")
+    return line
+
+
+def _eager_twin(name, cfg, params, policy, schedule, kernel, route, results, counts,
+                also=(), **kw) -> dict:
+    """The same cell with ``compile_steps=False``: the eager step must give
+    the graph run's tokens and launch counts. Returns its host times."""
+    engine = _engine(cfg, params, policy, compile_steps=False, **kw)
+    res, stats, cnt = _counted_run(f"{name} eager", cfg, engine, schedule, kernel, route, also)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    _same_tokens(f"{name} graph", results, res, "the eager step")
+    if cnt != counts:
+        _die(f"{name}: graph launches {counts} against the eager step's {cnt}")
+    return {"tokens_equal": True, "launches_equal": True, "launches": cnt,
+            "tok_per_s": stats["tok_per_s"], "wall_s": stats["wall_s"],
+            "decode_s": stats["decode_s"],
+            "host_ms_per_decode_step": 1e3 * stats["decode_s"] / stats["decode_steps"],
+            "integrity": stats.get("integrity")}
 
 
 def _summary(name, cfg, results, stats, counts, kernel, runs, profile) -> dict:
@@ -1153,6 +1232,9 @@ def _summary(name, cfg, results, stats, counts, kernel, runs, profile) -> dict:
         "busy_share": [profile["device_busy_s"] / s["wall_s"] for s in runs],
         "decode_busy_share": [profile["decode_device_s"] / s["decode_s"] for s in runs],
         "prefill_busy_share": [profile["prefill_device_s"] / s["prefill_s"] for s in runs],
+        "host_ms_per_decode_step": [1e3 * s["decode_s"] / s["decode_steps"] for s in runs],
+        "device_ms_per_decode_step": (1e3 * profile["decode_device_s"] / profile["decode_ranges"]
+                                      if profile["decode_ranges"] else None),
     }
 
 
@@ -1173,11 +1255,16 @@ def run_engine(level: str, cfg, params, kernel: str, route: str) -> tuple[dict, 
         reruns.append(engine.run(_requests(cfg), precision_schedule=schedule)[1])
     engine.set_precision(None)
     profile = _profile(engine, _requests(cfg), schedule)
-    plain = _engine(cfg, params, policy, backend="torch")
+    graph = _graph_line(level, engine)
+    del engine
+    gc.collect()
+    eager = _eager_twin(level, cfg, params, policy, schedule, kernel, route, results, counts)
+    plain = _engine(cfg, params, policy, backend="torch", compile_steps=False)
     _reset_counts()
     res_plain, stats_plain = plain.run(_requests(cfg), precision_schedule=schedule)
     plain_counts = _read_counts()
-    del engine, plain
+    del plain
+    gc.collect()
     torch.cuda.empty_cache()
 
     if any(plain_counts.values()) or set(stats_plain["route_calls"]) != {"cached_scan"}:
@@ -1186,7 +1273,8 @@ def run_engine(level: str, cfg, params, kernel: str, route: str) -> tuple[dict, 
     _same_tokens(level, results, res_plain, "the plain path")
     out = _summary(level, cfg, results, stats, counts, kernel, [stats] + reruns, profile)
     out.update(plain_tok_per_s=stats_plain["tok_per_s"],
-               plain_route_calls=stats_plain["route_calls"], tokens_equal_plain=True)
+               plain_route_calls=stats_plain["route_calls"], tokens_equal_plain=True,
+               graph=graph, eager=eager)
     print(json.dumps(out), flush=True)
     return out, results, res_plain
 
@@ -1205,12 +1293,16 @@ def run_nofused(cfg, params, fused_results: dict, plain_results: dict) -> tuple[
         name, cfg, engine, schedule, "plane_matmul_packed", "cached_packed")
     engine.set_precision(None)
     profile = _profile(engine, _requests(cfg), schedule)
+    graph = _graph_line(name, engine)
     del engine
+    gc.collect()
     torch.cuda.empty_cache()
+    eager = _eager_twin(name, cfg, params, policy, schedule, "plane_matmul_packed",
+                        "cached_packed", results, counts)
     _same_tokens(name, results, plain_results, "the plain path")
     _same_tokens(name, results, fused_results, "the fused bitplane engine")
     out = _summary(name, cfg, results, stats, counts, "plane_matmul_packed", [stats], profile)
-    out.update(tokens_equal_plain=True, tokens_equal_fused=True)
+    out.update(tokens_equal_plain=True, tokens_equal_fused=True, graph=graph, eager=eager)
     print(json.dumps(out), flush=True)
     return out, results
 
@@ -1221,7 +1313,8 @@ def _flip_weight_bit(engine) -> None:
     mag[0, 0, 0] ^= 1 << 5
 
 
-def _detect_pass(name, cfg, params, schedule, nofused_results, checks_of) -> tuple:
+def _detect_pass(name, cfg, params, schedule, nofused_results, checks_of,
+                 compile_steps=True) -> tuple:
     """Serve the workload with detect-mode integrity and an audit every
     iteration: the clean run must raise no alarm, count ``checks_of(stats)``
     ABFT checks and give bitplane-nofused's tokens; then one weight bit is
@@ -1232,9 +1325,9 @@ def _detect_pass(name, cfg, params, schedule, nofused_results, checks_of) -> tup
 
     policy = PrecisionPolicy.uniform(8, 8, variant="booth", level="bitplane",
                                      integrity="detect")
-    engine = _engine(cfg, params, policy, audit_interval=1)
+    engine = _engine(cfg, params, policy, audit_interval=1, compile_steps=compile_steps)
     results, stats, counts = _counted_run(
-        name, cfg, engine, schedule, "plane_matmul_packed", "cached_packed")
+        name, cfg, engine, schedule, "plane_matmul_packed", "cached_packed", also=("fold",))
     clean = stats["integrity"]
     if (clean["abft_alarms"], clean["audit_alarms"], clean["kv_alarms"]) != (0, 0, 0):
         _die(f"{name}: alarms on a clean run: {clean}")
@@ -1257,7 +1350,76 @@ def _flipped_pass(name, cfg, engine, schedule) -> dict:
     return flipped
 
 
-def run_detect(cfg, params, nofused: dict, nofused_results: dict) -> dict:
+def _detect_eager(name, cfg, params, schedule, nofused_results, checks_of, results, counts,
+                  clean, flipped) -> dict:
+    """The detect pass with ``compile_steps=False``: tokens, launches and
+    the integrity counts, clean and after the flipped bit, must equal the
+    graph engine's."""
+    engine, res, stats, cnt = _detect_pass(f"{name} eager", cfg, params, schedule,
+                                           nofused_results, checks_of, compile_steps=False)
+    eflipped = _flipped_pass(f"{name} eager", cfg, engine, schedule)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    _same_tokens(f"{name} graph", results, res, "the eager step")
+    if cnt != counts or stats["integrity"] != clean or eflipped != flipped:
+        _die(f"{name}: graph {counts} {clean} {flipped} against eager {cnt} "
+             f"{stats['integrity']} {eflipped}")
+    return {"tokens_equal": True, "launches_equal": True, "integrity_equal": True,
+            "tok_per_s": stats["tok_per_s"], "wall_s": stats["wall_s"],
+            "decode_s": stats["decode_s"],
+            "host_ms_per_decode_step": 1e3 * stats["decode_s"] / stats["decode_steps"]}
+
+
+def check_fold(summary: dict, engine) -> dict:
+    """The fold kernel on the detect engine's whole quantized tree (full
+    width, 4 layers) and on its KV cache after a run: bit-equal to the
+    plain folds (``integrity.tree_checksum``, ``cache_slot_checksums``);
+    one flipped weight bit moves the tree's fold and one flipped KV bit
+    only its slot's (both flipped back); timed beside its byte bound."""
+    from repro_torch.core import integrity
+    from repro_torch.kernels import fold
+    from repro_torch.models.cache import cache_slot_checksums
+
+    tree, cache = engine.q_params, engine._cache
+    got, plain = fold.tree_fold(tree), integrity.tree_checksum(tree)
+    slots, slots_plain = fold.slot_folds(cache), cache_slot_checksums(cache)
+    torch.cuda.synchronize()
+    mag = tree["layers"][1]["attn"]["o_proj"]["w_planes"].packed.mag
+    mag[3, 5, 7] ^= 1 << 30
+    moved = int(fold.tree_fold(tree)) != int(got)
+    mag[3, 5, 7] ^= 1 << 30
+    kq = cache["layers"][2]["k_q"]
+    kq[1, 3, 0, 9] ^= 4
+    slot_moved = (fold.slot_folds(cache) != slots).tolist()
+    kq[1, 3, 0, 9] ^= 4
+    tree_bytes = sum(t.numel() * t.element_size() for t in integrity._leaves(tree))
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in [cache["step"]] + [v for b in cache["layers"] for v in b.values()])
+    line = {"kernel": "fold", "shape": "quantized tree", "tree_bytes": tree_bytes,
+            "kv_bytes": kv_bytes, "n_slots": int(cache["step"].shape[0]),
+            "tree_equal": int(got) == int(plain), "kv_equal": bool(torch.equal(slots, slots_plain)),
+            "flip_moves_tree": moved, "flip_moves_slot": slot_moved,
+            "max_abs_err": float(abs(int(got) - int(plain))),
+            "kernel_ms": _time_ms(lambda: fold.tree_fold(tree)),
+            "device_ms": _graph_ms(lambda: fold.tree_fold(tree)),
+            "plain_ms": _time_ms(lambda: integrity.tree_checksum(tree), reps=3, warmup=1),
+            "kv_device_ms": _graph_ms(lambda: fold.slot_folds(cache)),
+            "kv_plain_ms": _time_ms(lambda: cache_slot_checksums(cache), reps=3, warmup=1),
+            # no one PyTorch call folds a tree of tensors
+            "library_ms": None}
+    # one read of every byte; a byte sum is no tensor-core work
+    line["bound_ms"], line["bound_by"] = tree_bytes / PEAK_BYTES_PER_S * 1e3, "bytes"
+    line["kv_bound_ms"] = kv_bytes / PEAK_BYTES_PER_S * 1e3
+    print(json.dumps(line), flush=True)
+    if not (line["tree_equal"] and line["kv_equal"] and moved
+            and slot_moved == [s == 1 for s in range(line["n_slots"])]):
+        _die(f"fold: the kernel differs from the plain folds or misses a flipped bit: {line}")
+    summary["fold"] = [line]
+    return line
+
+
+def run_detect(cfg, params, nofused: dict, nofused_results: dict, summary: dict) -> dict:
     """The nofused workload with ABFT checks, at-rest audits every
     iteration and per-slot KV checksums, twice: with the layers unrolled
     (``scan_layers=False``: names only, the arithmetic is the same), so
@@ -1266,22 +1428,30 @@ def run_detect(cfg, params, nofused: dict, nofused_results: dict) -> dict:
     for lm_head per forward, as the reference's lax.scan does."""
     name, schedule = "bitplane-detect", {8: 4}
     unrolled = dataclasses.replace(cfg, scan_layers=False)
+    unrolled_checks = lambda st: st["route_calls"].get("cached_packed", 0)  # noqa: E731
     engine, results, stats, counts = _detect_pass(
-        name, unrolled, params, schedule, nofused_results,
-        lambda st: st["route_calls"].get("cached_packed", 0))
+        name, unrolled, params, schedule, nofused_results, unrolled_checks)
     engine.set_precision(None)
     profile = _profile(engine, _requests(cfg), schedule)
+    graph = _graph_line(name, engine)
+    check_fold(summary, engine)
     flipped = _flipped_pass(name, unrolled, engine, schedule)
     del engine
+    gc.collect()
     torch.cuda.empty_cache()
+    eager = _detect_eager(name, unrolled, params, schedule, nofused_results, unrolled_checks,
+                          results, counts, stats["integrity"], flipped)
 
     scan_name = "bitplane-detect-scan"
-    engine, _, scan_stats, _ = _detect_pass(
-        scan_name, cfg, params, schedule, nofused_results,
-        lambda st: 2 * (st["admitted"] + st["decode_steps"]))
+    scan_checks = lambda st: 2 * (st["admitted"] + st["decode_steps"])  # noqa: E731
+    engine, scan_results, scan_stats, scan_counts = _detect_pass(
+        scan_name, cfg, params, schedule, nofused_results, scan_checks)
     scan_flipped = _flipped_pass(scan_name, cfg, engine, schedule)
     del engine
+    gc.collect()
     torch.cuda.empty_cache()
+    scan_eager = _detect_eager(scan_name, cfg, params, schedule, nofused_results, scan_checks,
+                               scan_results, scan_counts, scan_stats["integrity"], scan_flipped)
 
     steps = stats["decode_steps"]
     out = _summary(name, unrolled, results, stats, counts, "plane_matmul_packed", [stats],
@@ -1291,6 +1461,7 @@ def run_detect(cfg, params, nofused: dict, nofused_results: dict) -> dict:
         tokens_equal_nofused=True,
         scan_integrity_clean=scan_stats["integrity"], scan_integrity_flipped=scan_flipped,
         scan_tokens_equal_nofused=True, scan_wall_s=scan_stats["wall_s"],
+        graph=graph, eager=eager, scan_eager=scan_eager, fold_launches=counts["fold"],
         # what detection adds over the same workload without it
         overhead_wall_s=stats["wall_s"] - nofused["wall_s"],
         overhead_wall_ratio=stats["wall_s"] / nofused["wall_s"],
@@ -1568,8 +1739,22 @@ def run_paged(cfg, params) -> dict:
         _die(f"{name}: peak pages {pg['peak_used_pages']} not below the dense reservation "
              f"{N_SLOTS * pg['pages_per_slot']}")
     profile = _profile(engine, _paged_requests(cfg), None)
+    graph = _graph_line(name, engine)
+    eager_engine = _paged_engine(cfg, params, policy, compile_steps=False)
+    eager_engine.run(_paged_requests(cfg)[:2])
+    _reset_counts()
+    res_eager, st_eager = eager_engine.run(_paged_requests(cfg))
+    eager_counts = _read_counts()
+    del eager_engine
+    gc.collect()
+    _same_tokens(f"{name} graph", results, res_eager, "the eager step")
+    if eager_counts != counts:
+        _die(f"{name}: graph launches {counts} against the eager step's {eager_counts}")
+    eager = {"tokens_equal": True, "launches_equal": True, "tok_per_s": st_eager["tok_per_s"],
+             "wall_s": st_eager["wall_s"], "decode_s": st_eager["decode_s"],
+             "host_ms_per_decode_step": 1e3 * st_eager["decode_s"] / st_eager["decode_steps"]}
 
-    plain = _paged_engine(cfg, params, policy, backend="torch")
+    plain = _paged_engine(cfg, params, policy, backend="torch", compile_steps=False)
     with _GatherCount() as plain_gathers:
         _reset_counts()
         res_plain, st_plain = plain.run(_paged_requests(cfg))
@@ -1584,7 +1769,7 @@ def run_paged(cfg, params) -> dict:
     # prefill's float32 reductions depend on a chunk's row count, so a
     # monolithic prefill is not bit-equal to a chunked one (measured below)
     dense = _paged_engine(cfg, params, policy, paged=False, backend="torch",
-                          prefill_chunk=PAGED_CHUNK)
+                          prefill_chunk=PAGED_CHUNK, compile_steps=False)
     res_dense, st_dense = dense.run(_paged_requests(cfg))
     chunking = _chunked_vs_monolithic(cfg, dense)
     del dense
@@ -1614,7 +1799,8 @@ def run_paged(cfg, params) -> dict:
         plain_tok_per_s=st_plain["tok_per_s"], plain_dense_tok_per_s=st_dense["tok_per_s"],
         plain_paged_tokens_equal_plain_dense=True, chunked_vs_monolithic_prefill=chunking,
         kernel_vs_plain_equal_tokens=[equal, PAGED_REQUESTS * GEN_TOKENS],
-        kernel_vs_plain_first_divergence=diverged[:1], replay=replay,
+        kernel_vs_plain_first_divergence=diverged[:1], replay=replay, graph=graph,
+        eager=eager,
     )
     print(json.dumps(out), flush=True)
     return out
@@ -1666,7 +1852,7 @@ def main() -> None:
     eng_nof, res_nof = run_nofused(cfg, params, res_bit, res_plain)
     print(f"[chip_smoke] engine bitplane-nofused done at {time.perf_counter() - t0:.1f} s",
           flush=True)
-    eng_det = run_detect(cfg, params, eng_nof, res_nof)
+    eng_det = run_detect(cfg, params, eng_nof, res_nof, summary)
     print(f"[chip_smoke] engine bitplane-detect done at {time.perf_counter() - t0:.1f} s "
           f"(detect adds {eng_det['overhead_wall_s']:.3f} s wall, "
           f"{eng_det['overhead_decode_step_ms']:.2f} ms per decode step)", flush=True)
@@ -1721,6 +1907,17 @@ def main() -> None:
                    paged_lines[0], paged_lines, eng_pag["launches"], "bitplane-paged decode",
                    "attn_decode.cuh"),
     ]
+    fl = summary["fold"][0]
+    kernels.append({
+        # no Pallas kernel: it replaces the reference's compiled fold
+        # (jax.jit(integrity.tree_checksum); jax.jit(cache_slot_checksums) at :667)
+        "name": "fold", "route": "cuda", "source": "src/repro_torch/kernels/csrc/fold.cu",
+        "replaces": "src/repro/launch/serve.py:181", "launches": eng_det["fold_launches"],
+        "max_abs_err": fl["max_abs_err"], "ms": fl["kernel_ms"], "device_ms": fl["device_ms"],
+        "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
+        "library_ms": fl["library_ms"], "shape": f"quantized tree, {fl['tree_bytes']} bytes",
+        "path": "bitplane-detect audits and KV checks",
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

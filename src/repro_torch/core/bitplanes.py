@@ -49,7 +49,7 @@ class PlaneDecomposition:
         return len(self.weights)
 
     def reconstruct(self, dtype=torch.int32) -> torch.Tensor:
-        w = torch.tensor(self.weights, dtype=dtype, device=self.planes.device)
+        w = _const(self.weights, dtype, self.planes.device)
         w = w.reshape((self.n_planes,) + (1,) * (self.planes.dim() - 1))
         return torch.sum(self.planes.to(dtype) * w, dim=0).to(dtype)
 
@@ -349,10 +349,25 @@ def pack_decomposition(
     )
 
 
+def _const(values, dtype, device) -> torch.Tensor:
+    """``torch.tensor(values)`` on ``device``, built once per (values, dtype,
+    device): the serving step asks for the same few on every call, and a
+    tensor built from host data inside it would be a host-to-device copy
+    per call, which a CUDA graph cannot capture. Never written."""
+    key = (tuple(values), dtype, str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
+
+
+_CONSTS: dict = {}
+
+
 def _take_planes(arr: Optional[torch.Tensor], idx: list[int], axis: int):
     if arr is None:
         return None
-    return arr.index_select(axis, torch.tensor(idx, dtype=torch.long, device=arr.device))
+    return arr.index_select(axis, _const(idx, torch.long, arr.device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -611,7 +626,7 @@ def checksum_vector(packed: PackedPlanes, dtype=torch.int32) -> torch.Tensor:
         raise ValueError(
             "checksum_vector needs a checksummed pack (pack_planes(..., checksum=True))"
         )
-    ww = torch.tensor(packed.weights, dtype=dtype, device=packed.checksum.device)
+    ww = _const(packed.weights, dtype, packed.checksum.device)
     return torch.sum(packed.checksum.to(dtype) * ww.reshape(-1, 1), dim=-2, dtype=dtype)
 
 

@@ -12,12 +12,14 @@
   column checksums of the packed cache, so a flipped plane word is caught
   at the matmul that consumed it.
 
-Steps run eagerly, so alarm flags are device tensors, not traced values.
-Under an active :class:`Collector` :func:`report` appends the flag (no
-host sync); the step stacks the flags into one alarm vector and the
-engine reads it once per step with the tokens, then
-:meth:`Collector.harvest` tallies it per plan key. Without a collector a
-flag is read and tallied at once.
+Alarm flags are device tensors. Under an active :class:`Collector`
+:func:`report` appends the flag (no host sync); the step stacks the flags
+into one alarm vector and the engine reads it once per step with the
+tokens, then :meth:`Collector.harvest` tallies it per plan key. A decode
+step captured as a CUDA graph reports its flags once, while it is
+captured: the collector's keys are then the graph's, and every replay
+rewrites the same alarm vector, which the engine harvests against those
+keys. Without a collector a flag is read and tallied at once.
 """
 
 from __future__ import annotations
@@ -150,11 +152,12 @@ class Collector:
         return torch.stack([f.reshape(()).to(dev) for f in self.flags])
 
     def any_alarm(self) -> torch.Tensor:
-        """OR of every flag reported so far (a False scalar if none)."""
-        out = torch.zeros((), dtype=torch.bool)
+        """OR of every flag reported so far (a False host scalar if none),
+        on the flags' device: nothing is copied from the host."""
+        out = None
         for f in self.flags:
-            out = f.reshape(()) | out.to(f.device)
-        return out
+            out = f.reshape(()) if out is None else f.reshape(()) | out
+        return torch.zeros((), dtype=torch.bool) if out is None else out
 
     def harvest(self, alarms, keys: Optional[list] = None) -> list:
         """Tally read-back alarm values against the keys of this step's

@@ -15,6 +15,7 @@ the reference runs eagerly).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -33,6 +34,14 @@ def _qmax(bits: int) -> int:
     return max(hi, 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _recip(qmax: int) -> torch.Tensor:
+    """float32(1 / qmax) as a 0-dim host tensor (a scalar operand on any
+    device), built once: a tensor built from host data per call is a copy
+    a CUDA graph cannot capture. Never written."""
+    return torch.tensor(1.0 / qmax, dtype=torch.float32)
+
+
 def quantize(x: torch.Tensor, bits: int, axis=None, *, reciprocal_scale: bool = False) -> Quantized:
     """Symmetric quantization of ``x`` to ``bits``-bit integers.
 
@@ -47,7 +56,7 @@ def quantize(x: torch.Tensor, bits: int, axis=None, *, reciprocal_scale: bool = 
         amax = x.abs().amax(dim=axis, keepdim=True)
     amax = torch.clamp_min(amax, 1e-8).to(torch.float32)
     if reciprocal_scale:
-        scale = amax * torch.tensor(1.0 / qmax, dtype=torch.float32)
+        scale = amax * _recip(qmax)
     else:
         scale = amax / qmax
     q = torch.clamp(torch.round(x / scale), -qmax - 1 if bits > 1 else 0, qmax)

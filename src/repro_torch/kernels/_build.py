@@ -33,7 +33,7 @@ NVCC_FLAGS = (
     "-fmad=false",
 )
 
-SOURCES = ("plane_mm_fused", "plane_mm", "plane_mm_packed", "flash_attn")
+SOURCES = ("plane_mm_fused", "plane_mm", "plane_mm_packed", "flash_attn", "fold")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

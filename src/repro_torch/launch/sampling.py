@@ -32,10 +32,11 @@ def sample_tokens(
     logits: torch.Tensor, temps: torch.Tensor, gen: Optional[torch.Generator]
 ) -> torch.Tensor:
     """Per-row temperature sampling via the Gumbel-max trick; rows with
-    ``temp == 0`` are exactly greedy (no noise enters them)."""
+    ``temp == 0`` are exactly greedy (no noise enters them). The greedy and
+    the sampled token are both computed and selected per row, as the
+    reference's traced step does: no branch on ``temps``' values, so the
+    step reads nothing back and replays from a CUDA graph."""
     greedy_tok = greedy(logits)
-    if not bool((temps > 0).any()):
-        return greedy_tok
     lf = logits.to(torch.float32)
     u = torch.rand(lf.shape, generator=gen, dtype=torch.float32, device=lf.device)
     tiny = torch.finfo(torch.float32).tiny

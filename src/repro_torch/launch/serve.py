@@ -17,11 +17,25 @@ truncation); ``run(precision_schedule={step: bits})`` automates it.
 
 With ``policy.integrity == "detect"`` the engine layers three detectors
 and counts their alarms in ``stats()["integrity"]``: the per-matmul ABFT
-row-sum check of every projection (alarm vectors read back once per step,
-with the tokens), an at-rest fingerprint of the whole quantized weight
-tree audited every ``audit_interval`` iterations against the load-time
-one, and per-slot KV checksums compared with their post-step baselines.
-Detection only: scrub-and-retry recovery is not ported yet.
+row-sum check of every projection, an at-rest fingerprint of the whole
+quantized weight tree audited every ``audit_interval`` iterations against
+the load-time one, and per-slot KV checksums compared with their
+post-step baselines. On the card both folds are one launch each of the
+fold kernel (``kernels/fold.py``), and the alarm vector, the audits'
+fingerprints and the KV comparisons are read back once per decode step,
+with the tokens. Detection only: scrub-and-retry recovery is not ported
+yet.
+
+On the card every decode step replays from a CUDA graph
+(``launch/graphs.py``), one per precision, captured at its first step on
+the engine's decode state, which the engine allocates once and resets in
+place at the start of each :meth:`~ContinuousBatchingEngine.run`: the
+slot cache (or the page pools), the resident tokens and the
+temperatures. A step copies the temperatures in when they change, seeds
+the graph's generator, replays, and reads the tokens back (with the
+alarms in detect mode) in one copy. ``compile_steps=False`` runs the same
+step eagerly, the counterpart of ``jax.disable_jit``; prefill stays eager
+on every device, and on the host every step does.
 
 Every prefill is staged: each admission runs against a raw scratch
 cache, in ``prefill_chunk``-token chunks (one per engine iteration) or at
@@ -58,7 +72,8 @@ from repro_torch.configs import ARCH_NAMES, get_config, get_reduced
 from repro_torch.core import integrity
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.precision import PrecisionPolicy
-from repro_torch.launch import sampling
+from repro_torch.kernels import fold
+from repro_torch.launch import graphs, sampling
 from repro_torch.launch.steps import (
     make_cb_decode_step,
     make_prefill_step,
@@ -66,7 +81,6 @@ from repro_torch.launch.steps import (
 from repro_torch.models import paging
 from repro_torch.models.cache import (
     cache_kv_bytes,
-    cache_slot_checksums,
     init_cache,
     insert_slot,
     quantize_scratch,
@@ -124,12 +138,34 @@ def _norm_precision(precision) -> Tuple[int, int]:
     return (int(a), int(w))
 
 
+def _seed_of(seed: int, stream: int, n: int) -> int:
+    """The seed of one sampling event: ``stream`` 0 is first-token sampling
+    (``n`` = request id), 1 is decode (``n`` = engine step)."""
+    return (seed * 1_000_003 + stream * 7_919 + n) % (2**63)
+
+
 def _seeded(seed: int, stream: int, n: int, device) -> torch.Generator:
-    """A generator for one sampling event: ``stream`` 0 is first-token
-    sampling (``n`` = request id), 1 is decode (``n`` = engine step)."""
+    """A generator seeded for one sampling event (:func:`_seed_of`)."""
     gen = torch.Generator(device=device)
-    gen.manual_seed((seed * 1_000_003 + stream * 7_919 + n) % (2**63))
+    gen.manual_seed(_seed_of(seed, stream, n))
     return gen
+
+
+def _decode_body(step, params, check: bool):
+    """The engine's decode step on its state tree ``{"cache", "tokens",
+    "temps"}``: ``step`` (:func:`make_cb_decode_step`), its next tokens
+    written into the state's token buffer, and the read-back vector — the
+    next tokens, then the alarm flags in detect mode — as int64."""
+
+    def body(state, gen):
+        out = step(params, state["cache"], state["tokens"], state["temps"], gen)
+        state["tokens"].copy_(out[0])
+        parts = [out[0][:, 0].to(torch.int64)]
+        if check:
+            parts.append(out[2].to(torch.int64))
+        return torch.cat(parts)
+
+    return body
 
 
 @dataclasses.dataclass
@@ -183,6 +219,12 @@ class ContinuousBatchingEngine:
     ``share_prefixes`` (paged) maps the
     pages of a request's declared shared prefix read-only from an earlier
     request's and resumes prefill from its snapshot.
+
+    ``compile_steps`` (default): on CUDA each precision's decode step is
+    captured as a CUDA graph and replayed; a capture or replay error
+    raises. ``False`` runs the step eagerly, as on the host (where it is
+    the only mode); the plain versions (``backend="torch"``) read values
+    back and need it on CUDA.
     """
 
     def __init__(
@@ -202,6 +244,7 @@ class ContinuousBatchingEngine:
         kv_pages: Optional[int] = None,
         prefill_chunk: int = 0,
         share_prefixes: bool = False,
+        compile_steps: bool = True,
     ):
         if not cfg.is_decoder:
             raise ValueError(f"{cfg.name} is encoder-only: no decode path")
@@ -254,6 +297,13 @@ class ContinuousBatchingEngine:
             raise ValueError("kv_pages needs page_size > 0 (paged KV)")
         self.audit_interval = audit_interval
         self.device = resolve_device(device)
+        self.compile_steps = bool(compile_steps)
+        if self.compile_steps and self.device.type == "cuda" and backend == "torch":
+            raise ValueError(
+                "backend='torch' runs the plain versions, which read values back "
+                "to the host: a CUDA graph cannot capture them; pass "
+                "compile_steps=False"
+            )
         self.cfg = cfg
         self.policy = policy
         self.n_slots = n_slots
@@ -272,8 +322,27 @@ class ContinuousBatchingEngine:
         )
         # the load-time fingerprint the at-rest audits compare against
         self._params_ref = (
-            int(integrity.tree_checksum(self.q_params)) if self.integrity != "off" else None
+            int(fold.tree_fold(self.q_params)) if self.integrity != "off" else None
         )
+        # the decode state: allocated once (a captured graph holds its
+        # addresses), reset in place by every run
+        if self.paged:
+            self._cache = paging.paged_init_cache(
+                cfg, n_slots, max_len, self.page_size, self._kv_pages, device=self.device)
+        else:
+            self._cache = init_cache(cfg, n_slots, max_len, cfg.dtype, kv_quant=kv_quant,
+                                     device=self.device)
+        self._tokens = torch.zeros((n_slots, 1), dtype=torch.int32, device=self.device)
+        self._temps = torch.zeros((n_slots,), dtype=torch.float32, device=self.device)
+        self._temps_host = torch.zeros((n_slots,), dtype=torch.float32,
+                                       pin_memory=self.device.type == "cuda")
+        self._temps_set: Optional[tuple] = None
+        #: the CUDA-graph runner (tests substitute one); None: eager steps
+        self._runner = (graphs.CudaGraphRunner
+                        if self.compile_steps and self.device.type == "cuda" else None)
+        #: host seconds of each precision's warm-up and capture
+        self.capture_s: dict = {}
+        self._compiled_graphs: dict = {}
         self._precision: Optional[Tuple[int, int]] = None
         self._compiled: dict = {}
         self._last_stats: dict = {}
@@ -285,16 +354,16 @@ class ContinuousBatchingEngine:
         check = self.integrity != "off"
         pcol = integrity.Collector() if check else None
         scol = integrity.Collector() if check else None
+        step = make_cb_decode_step(
+            self.cfg, self.policy, precision=precision, backend=self.backend, collector=scol,
+        )
         return (
             # staged: every prefill chunk is given the job's raw scratch
             make_prefill_step(
                 self.cfg, self.policy, precision=precision, backend=self.backend,
                 collector=pcol,
             ),
-            make_cb_decode_step(
-                self.cfg, self.policy, precision=precision, backend=self.backend,
-                collector=scol,
-            ),
+            _decode_body(step, self.q_params, check),
             pcol,
             scol,
         )
@@ -306,6 +375,42 @@ class ContinuousBatchingEngine:
 
     def _bind_steps(self, steps) -> None:
         self._prefill, self._step, self._prefill_col, self._step_col = steps
+
+    def _decode(self, step_i: int):
+        """One decode step over the slot array: returns the read-back
+        vector on the device (the next tokens, then the alarm flags) and,
+        in detect mode, the plan keys of the flags. On CUDA the step
+        replays this precision's graph, captured at its first step."""
+        state = {"cache": self._cache, "tokens": self._tokens, "temps": self._temps}
+        if self._runner is None:
+            out = self._step(state, _seeded(self.seed, 1, step_i, self.device))
+            return out, None if self._step_col is None else list(self._step_col.keys)
+        captured = self._compiled_graphs.get(self._precision)
+        if captured is None:
+            captured = graphs.CapturedStep(self._step, state, plan_mod.DEFAULT_REGISTRY,
+                                           self._runner(self.device), self._step_col)
+            self._compiled_graphs[self._precision] = captured
+            self.capture_s[self._precision] = captured.capture_s
+        return captured(_seed_of(self.seed, 1, step_i)), captured.keys
+
+    def _set_temperatures(self, temps) -> None:
+        """Copy the slots' temperatures into the static buffer when they
+        changed (through pinned memory on the card: no host sync)."""
+        key = tuple(float(t) for t in temps)
+        if key == self._temps_set:
+            return
+        self._temps_host.copy_(torch.as_tensor(temps, dtype=torch.float32))
+        self._temps.copy_(self._temps_host, non_blocking=True)
+        self._temps_set = key
+
+    def _reset_state(self) -> None:
+        """Zero the decode state in place: the state a fresh allocation
+        gives, at the addresses the captured graphs hold."""
+        self._cache["step"].zero_()
+        for blk in self._cache["layers"]:
+            for leaf in blk.values():
+                leaf.zero_()
+        self._tokens.zero_()
 
     def set_precision(self, precision) -> None:
         """Dial subsequent prefills/decodes to ``precision`` (an int or an
@@ -346,15 +451,24 @@ class ContinuousBatchingEngine:
 
     # -- integrity (detect) -------------------------------------------------
 
-    def _audit_params(self) -> bool:
-        """True if the at-rest parameter fingerprint drifted from the
-        reference; the reference is then re-baselined, so one upset alarms
-        once, not at every audit."""
-        fp = int(integrity.tree_checksum(self.q_params))
+    def _audit_params(self, fp: int) -> bool:
+        """True if the at-rest parameter fingerprint ``fp`` (read back)
+        drifted from the reference; the reference is then re-baselined, so
+        one upset alarms once, not at every audit."""
         if fp == self._params_ref:
             return False
         self._params_ref = fp
         return True
+
+    def _tally_folds(self, pending: list, vals, integ: dict) -> None:
+        """Tally read-back at-rest results in the order they were taken:
+        ("audit", fingerprint) and ("kv", slots whose fold moved)."""
+        for (kind, _), v in zip(pending, vals.tolist()):
+            if kind == "audit":
+                integ["audit_alarms"] += int(self._audit_params(int(v)))
+            else:
+                integ["kv_alarms"] += int(v)
+        pending.clear()
 
     @staticmethod
     def _harvest(col, alarms, integ: dict, keys=None) -> None:
@@ -499,11 +613,10 @@ class ContinuousBatchingEngine:
         prefill_chunks = 0
         shared_hits = 0
         capacity = None
+        self._reset_state()
+        cache, tokens = self._cache, self._tokens
+        capture0 = dict(self.capture_s)
         if self.paged:
-            cache = paging.paged_init_cache(
-                self.cfg, self.n_slots, self.max_len, self.page_size, self._kv_pages,
-                device=self.device,
-            )
             allocator = paging.PageAllocator(self._kv_pages, self.page_size)
             pager = paging.SlotPager(allocator, self.n_slots, self._pages_per_slot)
             if self.share_prefixes:
@@ -529,15 +642,12 @@ class ContinuousBatchingEngine:
                        and registry.evict_oldest(protect)):
                     pass
                 return allocator.free_pages >= need
-        else:
-            cache = init_cache(
-                self.cfg, self.n_slots, self.max_len, self.cfg.dtype,
-                kv_quant=self.kv_quant, device=self.device,
-            )
-        tokens = torch.zeros((self.n_slots, 1), dtype=torch.int32, device=self.device)
         kv_bytes = cache_kv_bytes(cache)
         check = self.integrity != "off"
-        kv_ref = cache_slot_checksums(cache).cpu() if check else None
+        # the KV folds' baseline stays on the device; at-rest results wait
+        # in ``pending`` for the next read-back
+        kv_ref = fold.slot_folds(cache) if check else None
+        pending: list = []
         integ = {
             "audits": 0, "audit_alarms": 0,
             "abft_checks": 0, "abft_alarms": 0,
@@ -568,14 +678,9 @@ class ContinuousBatchingEngine:
                 # the parameter fingerprint and the per-slot KV checksums
                 if step_i % self.audit_interval == 0:
                     integ["audits"] += 1
-                    if self._audit_params():
-                        integ["audit_alarms"] += 1
-                sums = cache_slot_checksums(cache).cpu()
+                    pending.append(("audit", fold.tree_fold(self.q_params)))
                 integ["kv_checks"] += 1
-                n_bad = int((sums != kv_ref).sum())
-                if n_bad:
-                    integ["kv_alarms"] += n_bad
-                    kv_ref = sums
+                pending.append(("kv", (fold.slot_folds(cache) != kv_ref).sum()))
             due = [s for s in schedule if s <= decode_steps]
             for s in sorted(due):
                 self.set_precision(schedule.pop(s))
@@ -622,20 +727,16 @@ class ContinuousBatchingEngine:
                 td = time.perf_counter()
                 active = sched.active_slots
                 with record_function("serve.decode_step"):
-                    gen = _seeded(self.seed, 1, step_i, self.device)
-                    temps = torch.as_tensor(sched.temperatures(), device=self.device)
+                    self._set_temperatures(sched.temperatures())
+                    out, keys = self._decode(step_i)
+                    # one read-back: tokens, alarm flags, pending at-rest results
+                    vals = torch.cat([out] + [v.reshape(1) for _, v in pending]).cpu()
+                    toks_np = vals[: self.n_slots].numpy()
                     if check:
-                        tokens, cache, alarms = self._step(
-                            self.q_params, cache, tokens, temps, gen
-                        )
-                        vals = torch.cat(
-                            [tokens[:, 0].to(torch.int64), alarms.to(torch.int64)]
-                        ).cpu()
-                        toks_np = vals[: self.n_slots].numpy()
-                        self._harvest(self._step_col, vals[self.n_slots:], integ)
-                    else:
-                        tokens, cache = self._step(self.q_params, cache, tokens, temps, gen)
-                        toks_np = tokens[:, 0].cpu().numpy()
+                        n_flags = out.numel() - self.n_slots
+                        self._harvest(self._step_col, vals[self.n_slots:self.n_slots + n_flags],
+                                      integ, keys)
+                        self._tally_folds(pending, vals[self.n_slots + n_flags:], integ)
                 for slot in active:
                     evicted = sched.record(slot, int(toks_np[slot]))
                     decoded_tokens += 1
@@ -659,7 +760,10 @@ class ContinuousBatchingEngine:
                 else:
                     step_i = step_i + 1 if nxt is None else max(nxt, step_i + 1)
             if check and self.audit_interval:
-                kv_ref = cache_slot_checksums(cache).cpu()
+                kv_ref = fold.slot_folds(cache)
+        if pending:
+            self._tally_folds(pending, torch.stack([v.reshape(()) for _, v in pending]).cpu(),
+                              integ)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = max(time.perf_counter() - t0, 1e-9)
@@ -686,6 +790,8 @@ class ContinuousBatchingEngine:
             "failed": dict(sched.failed),
             "route_calls": dict(calls),
             "device": str(self.device),
+            # warm-up and capture host seconds of the graphs this run captured
+            "capture_s": {str(p): t for p, t in self.capture_s.items() if p not in capture0},
         }
         stats["prefill_chunks"] = prefill_chunks
         if self.paged:

@@ -6,7 +6,9 @@ dial: the policy is re-stamped with
 :meth:`PrecisionPolicy.with_runtime_bits`, so every projection resolves
 its plan at the dialed width (weight planes by MSB-prefix truncation of
 the stored decomposition, activations quantized at the lower width).
-Steps run eagerly.
+On the card the engine captures the decode step as one CUDA graph per
+precision (:mod:`repro_torch.launch.graphs`), the counterpart of the
+reference's ``jax.jit`` of it; prefill runs eagerly.
 
 With a ``collector`` (:class:`~repro_torch.core.integrity.Collector`) a
 step runs its forward under ABFT alarm collection and returns one more
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch.core.integrity import Collector
 from repro_torch.launch import sampling
+from repro_torch.launch.graphs import clone_tree
 from repro_torch.models.cache import init_cache, quantize_scratch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import forward
@@ -76,6 +79,10 @@ def make_prefill_step(
             scratch = init_cache(
                 cfg, bsz, max_len or s, cfg.dtype, kv_quant=False, device=tokens.device
             )
+        elif tokens.shape[1] == 1:
+            # a one-token chunk takes the forward's decode branch, which
+            # writes its cache in place: keep the given scratch as it was
+            scratch = clone_tree(scratch)
 
         def body():
             with torch.no_grad():
@@ -104,7 +111,10 @@ def make_cb_decode_step(
     """One continuous-batching iteration over the whole slot array:
     cb_step(params, cache, tokens (B, 1), temps (B,), gen) ->
     (next_tokens (B, 1), cache[, alarms]). Every slot decodes one token at
-    its own length; free slots compute too (their lanes are never read)."""
+    its own length; free slots compute too (their lanes are never read).
+    The step updates ``cache`` in place and returns it; it reads nothing
+    back to the host and builds no tensor from host data, so the engine
+    captures it as one CUDA graph per precision on the card."""
     policy = _dial(policy, precision)
 
     def cb_step(params, cache, tokens, temps, gen=None):

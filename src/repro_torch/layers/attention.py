@@ -149,7 +149,10 @@ def attention_apply(
     (raw bf16) with k/v (B, S_max, Hkv, D), or a paged block
     ``{'k_q','k_scale','v_q','v_scale','block_table','len'}`` with pools
     (n_pages, page_size, Hkv, D); one token per slot decodes, several
-    prefill (into a raw cache only)."""
+    prefill (into a raw cache only). Decode updates ``cache`` in place
+    (the new row and ``len``) and returns it, so a step leaves its results
+    in the buffers it reads; prefill leaves its input cache as it was and
+    returns a new one."""
     b, s, _ = x.shape
     la = projection(policy=policy, backend=backend)
     q = la(params["q_proj"], x, name=f"{name}/q_proj").reshape(b, s, n_heads, head_dim)
@@ -165,19 +168,24 @@ def attention_apply(
     if cache is not None and s == 1 and "block_table" in cache:  # paged decode
         # the append, in place: one (position, head) vector into each slot's
         # current page; free lanes (table cleared to the null page 0) write
-        # there, never into a page since reallocated to another tenant — also
-        # once a lane has been free for longer than its table spans (its
-        # length keeps counting), hence the clamp to the last table entry
+        # there, never into a page since reallocated to another tenant. A
+        # lane at or past its table's span (a free lane's length keeps
+        # counting) writes nothing, as the reference's scatter drops an
+        # out-of-range page: its index is clamped to the last table entry
+        # and that row is written back as it was
         bt = cache["block_table"]  # (B, P) int32
         ps = cache["k_q"].shape[1]
         pos = cache["len"].to(torch.int64)
+        inside = pos // ps < bt.shape[1]
         page = torch.clamp(pos // ps, max=bt.shape[1] - 1)
         phys = torch.gather(bt.to(torch.int64), 1, page[:, None])[:, 0]
         row = pos % ps
         k_new, ks_new = quantize_kv(k)
         v_new, vs_new = quantize_kv(v)
         for key, val in (("k_q", k_new), ("k_scale", ks_new), ("v_q", v_new), ("v_scale", vs_new)):
-            cache[key][phys, row] = val[:, 0]
+            pool = cache[key]
+            keep = inside.reshape((b,) + (1,) * (val.dim() - 2))
+            pool[phys, row] = torch.where(keep, val[:, 0], pool[phys, row])
         kv_len = cache["len"] + 1
         pools = (cache["k_q"], cache["v_q"], cache["k_scale"], cache["v_scale"])
         if resolve_backend(backend, x.device) == "cuda":
@@ -190,34 +198,38 @@ def attention_apply(
             kd, vd, ksd, vsd = (pool[flat].reshape(b_, s_max, *pool.shape[2:]) for pool in pools)
             valid = torch.arange(s_max, device=x.device)[None, :] < kv_len[:, None]
             out = _decode_gqa(q, kd, vd, valid, ksd, vsd)
-        new_cache = dict(cache, len=kv_len)
+        cache["len"].copy_(kv_len)
     elif cache is not None and s == 1:  # decode step
+        # the append, in place: each slot's new (position, head) vector into
+        # its row ``len``; a slot at or past the extent writes nothing (its
+        # last row is written back as it was)
         quantized = "k_q" in cache
         pos = cache["len"]  # (B,) tokens already in each slot
         s_max = (cache["k_q"] if quantized else cache["k"]).shape[1]
-        # per-slot write positions differ: a masked select over the
-        # position axis (a slot at or past the extent writes nothing)
         rows = torch.arange(s_max, device=x.device)[None, :]
-        write_row = rows == pos[:, None]
         kv_len = pos + 1
         valid = rows < kv_len[:, None]
+        lane = torch.arange(b, device=x.device)
+        at = torch.clamp(pos, max=s_max - 1).to(torch.int64)
+        inside = pos < s_max
+
+        def append(leaf, val):
+            keep = inside.reshape((b,) + (1,) * (val.dim() - 2))
+            leaf[lane, at] = torch.where(keep, val[:, 0].to(leaf.dtype), leaf[lane, at])
+
         if quantized:
             k_new, ks_new = quantize_kv(k)
             v_new, vs_new = quantize_kv(v)
-            k_cache = torch.where(write_row[:, :, None, None], k_new, cache["k_q"])
-            v_cache = torch.where(write_row[:, :, None, None], v_new, cache["v_q"])
-            k_scale = torch.where(write_row[:, :, None], ks_new, cache["k_scale"])
-            v_scale = torch.where(write_row[:, :, None], vs_new, cache["v_scale"])
-            out = _decode_gqa(q, k_cache, v_cache, valid, k_scale, v_scale)
-            new_cache = {
-                "k_q": k_cache, "k_scale": k_scale,
-                "v_q": v_cache, "v_scale": v_scale, "len": kv_len,
-            }
+            for key, val in (("k_q", k_new), ("k_scale", ks_new), ("v_q", v_new),
+                             ("v_scale", vs_new)):
+                append(cache[key], val)
+            out = _decode_gqa(q, cache["k_q"], cache["v_q"], valid, cache["k_scale"],
+                              cache["v_scale"])
         else:
-            k_cache = torch.where(write_row[:, :, None, None], k.to(cache["k"].dtype), cache["k"])
-            v_cache = torch.where(write_row[:, :, None, None], v.to(cache["v"].dtype), cache["v"])
-            out = _decode_gqa(q, k_cache, v_cache, valid)
-            new_cache = {"k": k_cache, "v": v_cache, "len": kv_len}
+            append(cache["k"], k)
+            append(cache["v"], v)
+            out = _decode_gqa(q, cache["k"], cache["v"], valid)
+        cache["len"].copy_(kv_len)
     elif cache is None:
         out = _chunked_gqa(q, k, v, causal=causal, chunk=chunk, q_offset=0)
     else:

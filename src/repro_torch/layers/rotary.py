@@ -4,10 +4,21 @@ from __future__ import annotations
 
 import torch
 
+_FREQS: dict = {}
+
 
 def rope_freqs(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
-    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exponent)
+    """The (head_dim / 2,) inverse frequencies, built once per (head_dim,
+    theta, device): the decode step calls this every layer, and building
+    them there would copy ``theta`` from the host each time (a copy a CUDA
+    graph cannot capture). Never written."""
+    key = (head_dim, float(theta), str(torch.device(device or "cpu")))
+    freqs = _FREQS.get(key)
+    if freqs is None:
+        exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+        base = torch.tensor(theta, dtype=torch.float32, device=device)
+        freqs = _FREQS[key] = 1.0 / torch.pow(base, exponent)
+    return freqs
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:

@@ -22,6 +22,9 @@ from repro_torch.models.config import ModelConfig
 
 KV_SCALE_EPS = 1e-8
 KV_QMAX = 127.0
+# float32(1/127), a 0-dim host tensor (a scalar operand on any device),
+# built once: never written
+_KV_RECIP = torch.tensor(1.0 / KV_QMAX, dtype=torch.float32)
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -32,9 +35,7 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     that multiply."""
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1)
-    scale = torch.clamp_min(amax, KV_SCALE_EPS) * torch.tensor(
-        1.0 / KV_QMAX, dtype=torch.float32
-    )
+    scale = torch.clamp_min(amax, KV_SCALE_EPS) * _KV_RECIP
     q = torch.clamp(torch.round(xf / scale[..., None]), -KV_QMAX, KV_QMAX)
     return q.to(torch.int8), scale
 

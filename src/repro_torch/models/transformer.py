@@ -7,7 +7,7 @@ leading axis instead, and :func:`params_from_numpy` unstacks them. Layer
 names are the reference's: ``layers/dense/...`` for a scanned stack (every
 layer), ``layers/<i>/dense/...`` when ``cfg.scan_layers`` is False, and
 ``lm_head`` — so a :class:`PrecisionPolicy` regex matches the same layers
-in both packages. The stack runs as a Python loop, eagerly.
+in both packages. The stack runs as a Python loop.
 """
 
 from __future__ import annotations
@@ -129,8 +129,9 @@ def forward(
     backend: str = "auto",
 ):
     """Returns (logits, aux_loss, new_cache). ``batch = {"tokens": (B, S)}``;
-    with a cache, S == 1 decodes at each slot's own position and S > 1
-    prefills from the running per-slot offset. The cache's layer blocks
+    with a cache, S == 1 decodes at each slot's own position, updating the
+    cache in place and returning it, and S > 1 prefills from the running
+    per-slot offset into a new cache. The cache's layer blocks
     are dense (``models.cache``) or paged (``models.paging``: page pools,
     block table, length; decode only), passed to each layer's attention. ``last_only`` computes the
     LM head for the final position only. ``backend`` picks the matmul
@@ -163,7 +164,10 @@ def forward(
             )
             new_layers.append(nc)
     new_cache = None
-    if cache is not None:
+    if cache is not None and s == 1:  # decode: the layers updated ``cache`` in place
+        cache["step"].add_(1)
+        new_cache = cache
+    elif cache is not None:
         new_cache = {"step": cache["step"] + s, "layers": new_layers}
 
     if last_only:

@@ -437,3 +437,180 @@ def test_flash_attention_tensor_core_body_on_card(cuda_device, kv, causal, lens,
         assert _within(got, fa.flash_attention_plain(q, k, v, out_dtype=out_dtype, **kw),
                        rtol=1e-4)
         assert bool(torch.isfinite(got).all())
+
+
+# ---------------------------------------------------------------------------
+# Compiled serving steps: the decode step replayed from a CUDA graph
+# ---------------------------------------------------------------------------
+
+GRAPH_CELLS = {  # cell: (policy kwargs, engine kwargs, scan_layers, precision schedule)
+    "fused": (dict(level="bitplane"), {}, True, {2: 4}),
+    "digit": (dict(level="digit"), {}, True, None),
+    "packed": (dict(level="bitplane", fuse_epilogue=False), {}, True, {2: 4}),
+    "detect": (dict(level="bitplane", integrity="detect"), dict(audit_interval=1), False,
+               {2: 4}),
+    "detect_scan": (dict(level="bitplane", integrity="detect"), dict(audit_interval=1), True,
+                    {2: 4}),
+    "paged": (dict(level="bitplane"), dict(page_size=8, prefill_chunk=8), True, {2: 4}),
+}
+
+
+def _graph_engines(cell, dev, temps=(0.0, 0.0, 0.0)):
+    """A graph engine and an eager one on the same weights (granite-3-8b
+    reduced to 2 layers), and a workload of three requests."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.launch.serve import ContinuousBatchingEngine
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime.scheduler import Request
+
+    pol_kw, eng_kw, scan, schedule = GRAPH_CELLS[cell]
+    cfg = dataclasses.replace(get_reduced("granite-3-8b"), scan_layers=scan)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = init_params(cfg, g, device=dev)
+    policy = PrecisionPolicy.uniform(8, 8, **pol_kw)
+    engines = [ContinuousBatchingEngine(cfg, params, policy, n_slots=2, max_len=32, device=dev,
+                                        compile_steps=c, **eng_kw) for c in (True, False)]
+
+    def requests():
+        return [Request(rid=i, tokens=np.random.default_rng(i).integers(0, cfg.vocab_size, (s,)),
+                        max_new_tokens=6, arrival_step=2 * i, temperature=t)
+                for i, (s, t) in enumerate(zip((5, 11, 9), temps))]
+
+    return engines, requests, schedule
+
+
+def _serve_counted(engine, requests, schedule):
+    from repro_torch.launch import graphs
+
+    for fn in graphs.launch_counters().values():
+        fn.launches = 0
+    engine.set_precision(None)
+    results, stats = engine.run(requests(), precision_schedule=schedule)
+    return results, stats, {k: fn.launches for k, fn in graphs.launch_counters().items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", list(GRAPH_CELLS))
+def test_graph_replay_equals_eager_step_on_card(cuda_device, cell):
+    """Every decode step replays from a graph (one per precision): tokens,
+    the decode state's bytes, route calls, kernel launches and integrity
+    counts equal the eager step's; in detect mode also after one flipped
+    weight bit (alarms included)."""
+    (graph, eager), requests, schedule = _graph_engines(cell, cuda_device)
+    runs = [_serve_counted(e, requests, schedule) for e in (graph, eager)]
+    expect = {None, (4, 4)} if schedule else {None}
+    assert set(graph._compiled_graphs) == expect and not eager._compiled_graphs
+    flips = [False, True] if "detect" in cell else [False]
+    for flip in flips:
+        if flip:
+            for e in (graph, eager):
+                # the top plane: every precision consumes it
+                e.q_params["layers"][0]["mlp"]["gate_proj"]["w_planes"].packed.mag[-1, 0, 0] ^= 1
+            runs = [_serve_counted(e, requests, schedule) for e in (graph, eager)]
+        (rg, sg, lg), (re_, se, le) = runs
+        assert sorted(rg) == sorted(re_) == [0, 1, 2]
+        for rid in rg:
+            assert (rg[rid] == re_[rid]).all(), (cell, flip, rid)
+        assert sg["route_calls"] == se["route_calls"] and lg == le
+        assert sg["decode_steps"] == se["decode_steps"]
+        if "detect" in cell:
+            assert sg["integrity"] == se["integrity"]
+            if flip:
+                assert sg["integrity"]["abft_alarms"] >= 1
+                assert sg["integrity"]["audit_alarms"] >= 1
+        for a, b in zip(graph._cache["layers"], eager._cache["layers"]):
+            for key in a:
+                assert torch.equal(a[key], b[key]), (cell, key)
+    assert set(graph.capture_s) == expect
+
+
+@pytest.mark.cuda
+def test_graph_sampled_tokens_equal_eager_on_card(cuda_device):
+    """At temperature > 0 the graph's registered generator, seeded per
+    replay by the engine's formula, draws what the eager step's does."""
+    (graph, eager), requests, schedule = _graph_engines("fused", cuda_device,
+                                                        temps=(0.9, 0.0, 0.7))
+    rg, _, _ = _serve_counted(graph, requests, schedule)
+    re_, _, _ = _serve_counted(eager, requests, schedule)
+    for rid in rg:
+        assert (rg[rid] == re_[rid]).all(), rid
+
+
+@pytest.mark.cuda
+def test_fold_kernel_equals_plain_folds_on_card(cuda_device):
+    """Ragged leaves of every dtype, one misaligned view, one leaf of
+    several chunks; the per-slot folds of a cache with odd slot strides:
+    bit-equal to the plain versions and to the kernel's chunked model, and
+    a flipped bit moves its own total."""
+    from repro_torch.core import integrity
+    from repro_torch.kernels import fold
+    from repro_torch.models.cache import cache_slot_checksums
+
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(11)
+    big = torch.randint(0, 256, (3 * fold.CHUNK_BYTES + 1001,), generator=g,
+                        device=cuda_device, dtype=torch.uint8)
+    tree = {
+        "i8": torch.randint(-128, 128, (3, 7), generator=g, device=cuda_device,
+                            dtype=torch.int8),
+        "i32": torch.randint(-(2**31), 2**31 - 1, (5, 13), generator=g, device=cuda_device,
+                             dtype=torch.int32),
+        "f32": torch.randn((4, 3), generator=g, device=cuda_device),
+        "bf16": torch.randn((6, 5), generator=g, device=cuda_device).to(torch.bfloat16),
+        "misaligned": big[3:],
+        "empty": torch.zeros((0,), device=cuda_device),
+    }
+    want = integrity.tree_checksum(tree)
+    got = fold.tree_fold(tree)
+    assert int(got) == int(want)
+    leaves = list(integrity._leaves(tree))
+    assert int(fold.chunked_fold([t.cpu() for t in leaves], 1)[0]) == int(got)
+    big[fold.CHUNK_BYTES + 77] ^= 8
+    assert int(fold.tree_fold(tree)) != int(got)
+    assert int(fold.tree_fold(tree)) == int(integrity.tree_checksum(tree))
+
+    cache = {"step": torch.randint(0, 99, (3,), generator=g, device=cuda_device,
+                                   dtype=torch.int32),
+             "layers": [{"k_q": torch.randint(-128, 128, (3, 7, 5), generator=g,
+                                              device=cuda_device, dtype=torch.int8),
+                         "k_scale": torch.rand((3, 7), generator=g, device=cuda_device),
+                         "len": torch.zeros((3,), dtype=torch.int32, device=cuda_device)}
+                        for _ in range(2)]}
+    sums = fold.slot_folds(cache)
+    assert torch.equal(sums, cache_slot_checksums(cache))
+    cache["layers"][1]["k_q"][1, 6, 4] ^= 1
+    moved = (fold.slot_folds(cache) != sums).tolist()
+    assert moved == [False, True, False]
+    assert torch.equal(fold.slot_folds(cache), cache_slot_checksums(cache))
+
+
+@pytest.mark.cuda
+def test_capture_error_raises_and_runs_nothing_eagerly(cuda_device, monkeypatch):
+    """A step that reads a value back cannot be captured: the engine raises
+    and never runs the step eagerly in its place."""
+    from repro_torch.launch import sampling
+
+    (graph, _), requests, schedule = _graph_engines("fused", cuda_device)
+    calls = []
+    real = sampling.greedy
+
+    def reads_back(logits, gen=None):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        int(logits.argmax())  # a read-back: refused under capture
+        return real(logits, gen)
+
+    monkeypatch.setattr(sampling, "greedy", reads_back)
+    graph.set_precision(None)
+    with pytest.raises(RuntimeError):
+        graph.run(requests()[:1])
+    # the prefill's first token and the warm-up ran it eagerly; the capture
+    # raised inside it, and nothing called it after
+    assert calls[-1] is True and calls.count(True) == 1
+    assert not graph._compiled_graphs
+    torch.cuda.synchronize()
