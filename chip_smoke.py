@@ -82,7 +82,31 @@ Phases, each failing the run on any error:
    plain dense engine's with the same prefill chunks; an attention replay (16 decode steps of four
    prefilled requests, each forward run with the kernel and with the plain
    path from clones of one cache) must keep max|dlogit| within the bound
-   and the greedy token wherever the plain top-2 margin exceeds twice it.
+   and the greedy token wherever the plain top-2 margin exceeds twice it;
+9. engines bitplane-scrub and bitplane-scrub-retry — the packed route with
+   scrub-mode integrity, layers unrolled, 8 bits throughout (no switch: a
+   flip in a plane the 4-bit tier drops reaches no ABFT check). A clean run
+   has no alarm, one ABFT check per projection call and the tokens of
+   bitplane-nofused at 8 bits; then the reference's seven-site spec
+   (planes, sign, occupancy, checksum, scale, kv, kv_scale on iterations
+   2-8, seed 11) with an audit every iteration: 7/7 detected, at least one
+   scrub, tokens bit-identical, every leaf of the quantized tree at its
+   address. Then, audits off, ``planes@2,sign@9;seed=11`` (a prefill, then
+   a decode step): at least 2 step retries and 2 scrubs, tokens
+   bit-identical, no precision captured twice, and the eager step
+   (``compile_steps=False``) gives the same tokens, integrity counts and
+   events. Each line prints the scrubs' seconds, the retained source and
+   the per-step backup bytes, and the clean runs' host ms per decode step
+   and decode busy share beside bitplane-detect's;
+10. engines bitplane-paged-detect and bitplane-paged-scrub — the
+   bitplane-paged workload with per-page KV checksums (the packed route).
+   Detect: no alarm and bitplane-paged's tokens on a clean run; one bit
+   flipped on the card in a page a live slot maps must raise a KV alarm and
+   move that page's fold alone. Scrub: a seeded kv / kv_scale spec plus one
+   flip in a page of the shared 64-token prefix while two or more slots
+   map it: every flip outside the null page detected (flips on the null
+   page are listed apart), the holders requeued, a registry entry dropped,
+   tokens bit-identical to the clean run.
 
 Every engine cell's main run replays each decode step from the engine's
 CUDA graph of that precision (captured by the warm-up run; the counted
@@ -98,9 +122,10 @@ engine tallies per replay. In the detect cell the fold kernel
 GB quantized tree and on the KV cache, must move with one flipped bit, and
 is timed beside its byte bound.
 
-Prints one JSON line per kernel check, one ``{"kernels": [...]}`` summary
-line (the fold kernel's entry included), the card's name and power limit,
-and last ``{"ok": true, ...}``.
+Prints one JSON line per kernel check and per engine cell (the scrub and
+paged-integrity cells' lines carry the card's name and power limit), one
+``{"kernels": [...]}`` summary line (the fold kernel's entry included), the
+card's name and power limit, and last ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -1279,10 +1304,12 @@ def run_engine(level: str, cfg, params, kernel: str, route: str) -> tuple[dict, 
     return out, results, res_plain
 
 
-def run_nofused(cfg, params, fused_results: dict, plain_results: dict) -> tuple[dict, dict]:
+def run_nofused(cfg, params, fused_results: dict, plain_results: dict) -> tuple:
     """The bitplane workload with the fused kernel off: every projection
     through the packed kernel (route cached_packed), tokens equal to the
-    plain path's and to the fused engine's."""
+    plain path's and to the fused engine's. Returns the summary, the
+    tokens, and the tokens of one more run at 8 bits throughout (no switch:
+    the scrub cells' yardstick)."""
     from repro_torch.core.precision import PrecisionPolicy
 
     name, schedule = "bitplane-nofused", {8: 4}
@@ -1294,6 +1321,9 @@ def run_nofused(cfg, params, fused_results: dict, plain_results: dict) -> tuple[
     engine.set_precision(None)
     profile = _profile(engine, _requests(cfg), schedule)
     graph = _graph_line(name, engine)
+    engine.set_precision(None)
+    results8, stats8 = engine.run(_requests(cfg))
+    _check_finished(f"{name} at 8 bits", cfg, results8, stats8)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -1304,7 +1334,7 @@ def run_nofused(cfg, params, fused_results: dict, plain_results: dict) -> tuple[
     out = _summary(name, cfg, results, stats, counts, "plane_matmul_packed", [stats], profile)
     out.update(tokens_equal_plain=True, tokens_equal_fused=True, graph=graph, eager=eager)
     print(json.dumps(out), flush=True)
-    return out, results
+    return out, results, results8
 
 
 def _flip_weight_bit(engine) -> None:
@@ -1803,7 +1833,297 @@ def run_paged(cfg, params) -> dict:
         eager=eager,
     )
     print(json.dumps(out), flush=True)
-    return out
+    return out, results
+
+
+# the scrub cells: recovery under the seeded injector, 8 bits throughout (a
+# flip in a plane the 4-bit tier drops would reach no ABFT check)
+SEVEN_SITES = "planes@2,sign@3,occupancy@4,checksum@5,scale@6,kv@7,kv_scale@8;seed=11"
+# iteration 2 admits a request (the planes flip hits its prefill), 9 comes
+# after the last arrival (the sign flip hits a decode step)
+RETRY_SPEC = "planes@2,sign@9;seed=11"
+PAGED_KV_SPEC = "kv@10,kv_scale@20,kv@30;seed=7"
+CARD = ""  # the card's name and power limit as nvidia-smi gives them (set by main)
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.core import integrity
+
+    return sum(t.numel() * t.element_size() for t in integrity._leaves(tree))
+
+
+def _leaf_ptrs(tree) -> list:
+    from repro_torch.core import integrity
+
+    return [t.data_ptr() for t in integrity._leaves(tree)]
+
+
+def _events(injector) -> list:
+    return [dataclasses.asdict(e) for e in injector.events]
+
+
+def _faulted(name, cfg, engine, injector, clean: dict, requests) -> dict:
+    """Serve with ``injector``: no request may fail, the tokens must equal
+    the clean run's, every leaf of the quantized tree must keep its address
+    and nothing may be captured. Returns the stats."""
+    ptrs = _leaf_ptrs(engine.q_params)
+    results, stats = engine.run(requests(cfg), injector=injector)
+    if stats["failed"] or sorted(results) != sorted(clean):
+        _die(f"{name}: requests failed under faults: {stats['failed']}")
+    _same_tokens(name, results, clean, "the clean run")
+    if _leaf_ptrs(engine.q_params) != ptrs:
+        _die(f"{name}: a scrub moved a leaf of the quantized tree")
+    if stats["capture_s"] or list(engine._compiled_graphs) != [None]:
+        _die(f"{name}: the faulted run captured {stats['capture_s']}, graphs "
+             f"{list(engine._compiled_graphs)}")
+    return stats
+
+
+def _clean_gate(name, stats, checks=None) -> None:
+    ig = stats["integrity"]
+    alarms = {k: ig[k] for k in ("abft_alarms", "audit_alarms", "kv_alarms", "scrubs",
+                                 "step_retries", "requeued")}
+    if any(alarms.values()) or (checks is not None and ig["abft_checks"] != checks):
+        _die(f"{name}: a clean run raised {alarms}, {ig['abft_checks']} ABFT checks "
+             f"against {checks} expected")
+
+
+def _host_and_busy(summary: dict) -> dict:
+    return {k: summary[k] for k in ("host_ms_per_decode_step", "decode_busy_share",
+                                    "device_ms_per_decode_step", "tok_per_s", "wall_s")}
+
+
+def run_scrub(cfg, params, nofused8: dict, detect: dict) -> tuple[dict, dict]:
+    """bitplane-scrub and bitplane-scrub-retry: the packed route with
+    scrub-mode integrity, layers unrolled, 8 bits throughout. Clean, then
+    the seven-site spec with an audit every iteration (every flip found at
+    the top of its iteration, scrubbed before the step); then, audits off,
+    the retry spec, whose flips only the ABFT checks see (a prefill chunk
+    and a decode step, each put back, scrubbed and re-run), against the
+    same with the eager step."""
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.runtime.faults import FaultInjector
+
+    name = "bitplane-scrub"
+    unrolled = dataclasses.replace(cfg, scan_layers=False)
+    policy = PrecisionPolicy.uniform(8, 8, variant="booth", level="bitplane", integrity="scrub")
+    t0 = time.perf_counter()
+    engine = _engine(unrolled, params, policy, audit_interval=1)
+    load_s = time.perf_counter() - t0
+    results, stats, counts = _counted_run(name, unrolled, engine, None, "plane_matmul_packed",
+                                          "cached_packed", also=("fold",))
+    _clean_gate(name, stats, stats["route_calls"].get("cached_packed", 0))
+    _same_tokens(name, results, nofused8, "bitplane-nofused at 8 bits")
+    profile = _profile(engine, _requests(unrolled), None)
+    inj = FaultInjector(SEVEN_SITES)
+    fstats = _faulted(name, unrolled, engine, inj, results, _requests)
+    fi = fstats["integrity"]
+    if len(inj.events) != 7 or inj.undetected or fi["scrubs"] < 1:
+        _die(f"{name}: {len(inj.events) - len(inj.undetected)}/{len(inj.events)} detected, "
+             f"{fi}")
+    sizes = {"retained_source_bytes": _tree_bytes(engine._src_params),
+             "quantized_tree_bytes": _tree_bytes(engine.q_params),
+             "backup_bytes_per_decode_step": _tree_bytes(engine._backup)}
+    out = _summary(name, unrolled, results, stats, counts, "plane_matmul_packed", [stats],
+                   profile)
+    out.update(card=CARD, spec=SEVEN_SITES, load_s=load_s, integrity_clean=stats["integrity"],
+               integrity_faulted=fi, events=_events(inj),
+               detected=[len(inj.events) - len(inj.undetected), len(inj.events)],
+               scrub_s=list(engine.scrub_s), tokens_equal_nofused_8bit=True,
+               tokens_equal_clean=True, leaf_addresses_kept=True, **sizes,
+               detect_cell=_host_and_busy(detect))
+    print(json.dumps(out), flush=True)
+
+    name = "bitplane-scrub-retry"
+    engine.audit_interval = 0
+    n_scrubs = len(engine.scrub_s)
+    _reset_counts()
+    r_clean, s_clean = engine.run(_requests(unrolled))
+    r_counts = _read_counts()
+    _check_finished(name, unrolled, r_clean, s_clean)
+    _clean_gate(name, s_clean, s_clean["route_calls"].get("cached_packed", 0))
+    _same_tokens(name, r_clean, results, "bitplane-scrub")
+    r_profile = _profile(engine, _requests(unrolled), None)
+    inj = FaultInjector(RETRY_SPEC)
+    rstats = _faulted(name, unrolled, engine, inj, results, _requests)
+    ri = rstats["integrity"]
+    if ri["step_retries"] < 2 or ri["scrubs"] < 2:
+        _die(f"{name}: {ri['step_retries']} step retries, {ri['scrubs']} scrubs: {ri}")
+    scrub_s = engine.scrub_s[n_scrubs:]
+    captured = [str(p) for p in engine._compiled_graphs]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager = _engine(unrolled, params, policy, audit_interval=0, compile_steps=False)
+    inj_e = FaultInjector(RETRY_SPEC)
+    re_, se = eager.run(_requests(unrolled), injector=inj_e)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    _same_tokens(f"{name} eager", re_, results, "bitplane-scrub")
+    if se["integrity"] != ri or _events(inj_e) != _events(inj):
+        _die(f"{name}: graph {ri} {_events(inj)} against eager {se['integrity']} "
+             f"{_events(inj_e)}")
+    rout = _summary(name, unrolled, r_clean, s_clean, r_counts, "plane_matmul_packed",
+                    [s_clean], r_profile)
+    rout.update(card=CARD, spec=RETRY_SPEC, integrity_clean=s_clean["integrity"],
+                integrity_faulted=ri, events=_events(inj), scrub_s=scrub_s,
+                tokens_equal_clean=True, leaf_addresses_kept=True,
+                captured_precisions=captured,
+                eager={"tokens_equal": True, "integrity_equal": True, "events_equal": True,
+                       "integrity": se["integrity"],
+                       "host_ms_per_decode_step": 1e3 * se["decode_s"] / se["decode_steps"]},
+                **sizes, detect_cell=_host_and_busy(detect))
+    print(json.dumps(rout), flush=True)
+    return out, rout
+
+
+class _PageFlip:
+    """The paged cells' injector: a seeded :class:`FaultInjector` (``spec``)
+    plus one bit flipped on the card in a page that at least ``holders``
+    committed slots map among their first ``span`` table entries (layer 0's
+    block tables and lengths, read back at the top of each iteration from
+    ``at`` on until the flip lands). The flip is recorded as a ``kv`` event,
+    so the detection bookkeeping covers it; ``moved`` lists the pages whose
+    fold it moved (it must be its page alone)."""
+
+    def __init__(self, spec, at: int, holders: int, span: int):
+        from repro_torch.runtime.faults import FaultInjector, FaultSpec
+
+        self.base = FaultInjector(spec if spec else FaultSpec((), 0))
+        self.events = self.base.events
+        self.at, self.holders, self.span = at, holders, span
+        self.page, self.holding, self.moved = None, [], []
+
+    def apply(self, step, params, cache=None):
+        from repro_torch.kernels import fold
+        from repro_torch.runtime.faults import FaultEvent, flip_bit
+
+        self.base.apply(step, params, cache)
+        if self.page is not None or step < self.at:
+            return params, cache
+        blk = cache["layers"][0]
+        tables, lens = blk["block_table"].cpu(), blk["len"].cpu()
+        held: dict = {}
+        for slot in range(tables.shape[0]):
+            n = min(-(-int(lens[slot]) // PAGE), self.span)
+            for pid in tables[slot, :n].tolist():
+                if pid:
+                    held.setdefault(pid, []).append(slot)
+        cands = sorted(p for p, s in held.items() if len(s) >= self.holders)
+        if cands:
+            self.page, self.holding = cands[0], held[cands[0]]
+            layer = len(cache["layers"]) - 1
+            leaf = cache["layers"][layer]["v_q"]
+            page_bytes = leaf[0].numel() * leaf.element_size()
+            before = fold.page_folds(cache)[0]
+            byte = self.page * page_bytes + 4321 % page_bytes
+            flip_bit(leaf, byte, 3)
+            self.moved = (fold.page_folds(cache)[0] != before).nonzero().flatten().tolist()
+            self.events.append(FaultEvent("kv", step, f"/layers/{layer}/v_q", byte, 3, "kv"))
+        return params, cache
+
+    def mark_detected(self, category, step):
+        return self.base.mark_detected(category, step)
+
+    @property
+    def undetected(self):
+        return self.base.undetected
+
+
+def _null_page(cache, event) -> bool:
+    """Whether an event's byte lies in page 0 of its pool (the null page)."""
+    blk = cache["layers"][int(event.leaf.split("/")[2])]
+    leaf = blk[event.leaf.split("/")[3]]
+    return event.byte < leaf[0].numel() * leaf.element_size()
+
+
+class _RegistryDrops:
+    """Counts the prefix-registry entries that ``drop_page`` removes."""
+
+    def __enter__(self):
+        from repro_torch.models import paging
+
+        self.cls, self.orig, self.dropped = paging.PrefixRegistry, paging.PrefixRegistry.drop_page, 0
+
+        def counted(registry, pid):
+            n = self.orig(registry, pid)
+            self.dropped += n
+            return n
+
+        self.cls.drop_page = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.drop_page = self.orig
+
+
+def run_paged_integrity(cfg, params, paged_results: dict) -> tuple[dict, dict]:
+    """bitplane-paged-detect and bitplane-paged-scrub: the bitplane-paged
+    workload with per-page KV checksums. Detect: a clean run with no alarm
+    and bitplane-paged's tokens, then one bit flipped in a live page, which
+    must raise a KV alarm and move that page's fold alone. Scrub: a clean
+    run, then the seeded KV spec plus one flip in a page of the shared
+    prefix while two or more slots map it: every flip outside the null page
+    detected, the holders requeued, the registry entry dropped, the tokens
+    of the clean run."""
+    from repro_torch.core.precision import PrecisionPolicy
+
+    out = {}
+    for mode in ("detect", "scrub"):
+        name = f"bitplane-paged-{mode}"
+        policy = PrecisionPolicy.uniform(8, 8, variant="booth", level="bitplane", integrity=mode)
+        engine = _paged_engine(cfg, params, policy, audit_interval=1)
+        engine.run(_paged_requests(cfg)[:2])  # warm-up: a registry miss and a hit
+        _reset_counts()
+        results, stats = engine.run(_paged_requests(cfg))
+        counts = _read_counts()
+        _finished(name, cfg, results, stats, PAGED_REQUESTS)
+        steps = stats["decode_steps"]
+        if (counts["paged_flash_attention"] != LAYERS * steps
+                or counts["plane_matmul_packed"] != stats["route_calls"].get("cached_packed")
+                or not counts["fold"]):
+            _die(f"{name}: launches {counts}, routes {stats['route_calls']}, {steps} steps")
+        _clean_gate(name, stats)
+        _same_tokens(name, results, paged_results, "bitplane-paged")
+        if mode == "detect":
+            flip = _PageFlip(None, 12, 1, PAGED_MAX_LEN // PAGE)
+        else:
+            flip = _PageFlip(PAGED_KV_SPEC, 0, 2, PAGED_PREFIX // PAGE)
+        with _RegistryDrops() as drops:
+            fres, fstats = engine.run(_paged_requests(cfg), injector=flip)
+        fi = fstats["integrity"]
+        if flip.page is None or flip.moved != [flip.page]:
+            _die(f"{name}: the placed flip landed in page {flip.page}, moving {flip.moved}")
+        null = [e.byte for e in flip.events if _null_page(engine._cache, e)]
+        missed = [dataclasses.asdict(e) for e in flip.undetected
+                  if not _null_page(engine._cache, e)]
+        if missed or fi["kv_alarms"] < 1:
+            _die(f"{name}: undetected flips outside the null page {missed}, {fi}")
+        line = {"engine": name, "card": CARD, "requests": len(results),
+                "decode_steps": steps, "launches": counts, "integrity_clean": stats["integrity"],
+                "integrity_faulted": fi, "events": _events(flip), "null_page_flips": null,
+                "placed_flip": {"page": flip.page, "holders": flip.holding,
+                                "pages_moved": flip.moved},
+                "registry_entries_dropped": drops.dropped,
+                "tokens_equal_bitplane_paged": True,
+                "host_ms_per_decode_step": 1e3 * stats["decode_s"] / steps,
+                "tok_per_s": stats["tok_per_s"]}
+        if mode == "scrub":
+            if fstats["failed"]:
+                _die(f"{name}: requests failed under faults: {fstats['failed']}")
+            _same_tokens(name, fres, results, "the clean run")
+            if (fi["page_faults"] < 1 or fi["requeued"] < len(flip.holding)
+                    or drops.dropped < 1):
+                _die(f"{name}: {fi}, {drops.dropped} registry entries dropped, holders "
+                     f"{flip.holding}")
+            line["tokens_equal_clean"] = True
+        print(json.dumps(line), flush=True)
+        out[mode] = line
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out["detect"], out["scrub"]
 
 
 def main() -> None:
@@ -1818,6 +2138,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    global CARD
+    CARD = smi
     print(smi, flush=True)
     print(f"[chip_smoke] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -1849,19 +2171,28 @@ def main() -> None:
     print(f"[chip_smoke] engine bitplane done at {time.perf_counter() - t0:.1f} s", flush=True)
     eng_dig, _, _ = run_engine("digit", cfg, params, "plane_matmul", "cached_planes")
     print(f"[chip_smoke] engine digit done at {time.perf_counter() - t0:.1f} s", flush=True)
-    eng_nof, res_nof = run_nofused(cfg, params, res_bit, res_plain)
+    eng_nof, res_nof, res_nof8 = run_nofused(cfg, params, res_bit, res_plain)
     print(f"[chip_smoke] engine bitplane-nofused done at {time.perf_counter() - t0:.1f} s",
           flush=True)
     eng_det = run_detect(cfg, params, eng_nof, res_nof, summary)
     print(f"[chip_smoke] engine bitplane-detect done at {time.perf_counter() - t0:.1f} s "
           f"(detect adds {eng_det['overhead_wall_s']:.3f} s wall, "
           f"{eng_det['overhead_decode_step_ms']:.2f} ms per decode step)", flush=True)
-    eng_pag = run_paged(cfg, params)
+    eng_pag, res_pag = run_paged(cfg, params)
     rp = eng_pag["replay"]
     print(f"[chip_smoke] engine bitplane-paged done at {time.perf_counter() - t0:.1f} s "
           f"({eng_pag['tok_per_s']:.2f} tok/s; replay max|dlogit| {rp['max_abs_dlogit']:.4g}, "
           f"least margin {rp['least_plain_top2_margin']:.4g}, {rp['near_ties']} near ties)",
           flush=True)
+    eng_scr, eng_ret = run_scrub(cfg, params, res_nof8, eng_det)
+    print(f"[chip_smoke] engines bitplane-scrub and bitplane-scrub-retry done at "
+          f"{time.perf_counter() - t0:.1f} s ({eng_scr['detected'][0]}/{eng_scr['detected'][1]} "
+          f"detected, {eng_scr['integrity_faulted']['scrubs']} scrubs; "
+          f"{eng_ret['integrity_faulted']['step_retries']} step retries)", flush=True)
+    eng_pdet, eng_pscr = run_paged_integrity(cfg, params, res_pag)
+    print(f"[chip_smoke] engines bitplane-paged-detect and bitplane-paged-scrub done at "
+          f"{time.perf_counter() - t0:.1f} s ({eng_pscr['integrity_faulted']['page_faults']} "
+          f"page faults, {eng_pscr['integrity_faulted']['requeued']} requeued)", flush=True)
 
     def entry(name, source, replaces, lines, launches):
         rep = lines[0]  # decode gate projection, M=4: the most frequent main-path call

@@ -1,5 +1,6 @@
 """Integrity primitives: bit-pattern checksums and ABFT alarm collection
-(the detect half of ``src/repro/core/integrity.py``).
+(the port of ``src/repro/core/integrity.py``; the engine's scrub-and-retry
+recovery on top of them is in ``launch/serve.py``).
 
 * **Storage fingerprints** (:func:`bit_fold`, :func:`tree_checksum`): a
   uint32 fold of the raw bytes of every tensor leaf. A flip of bit ``b``

@@ -8,9 +8,10 @@ fold leaf by leaf with a uint8 -> int64 sum each; the reference compiles
 them (``jax.jit`` at ``src/repro/launch/serve.py:181`` and ``:667``). On
 the card one launch of ``csrc/fold.cu`` folds a device table of segments
 instead: :func:`tree_fold` gives the tree's one total, :func:`slot_folds`
-the cache's per-slot totals, bit-equal to the plain versions (a sum of
-bytes modulo 2^32 does not depend on its order). :func:`chunked_fold`
-models the kernel's chunks on the host.
+the cache's per-slot totals and :func:`page_folds` a paged cache's
+per-page and per-slot totals (two launches), bit-equal to the plain
+versions (a sum of bytes modulo 2^32 does not depend on its order).
+:func:`chunked_fold` models the kernel's chunks on the host.
 
 CUDA tensors launch the kernel and CPU tensors run the plain versions;
 nothing falls back. Tables are built once per set of (pointer, size)
@@ -27,6 +28,7 @@ import torch
 
 from repro_torch.core import integrity
 from repro_torch.kernels import _build
+from repro_torch.models import paging
 from repro_torch.models.cache import cache_slot_checksums
 
 #: bytes one block folds (``fold::kChunk`` of csrc/fold.cu)
@@ -141,3 +143,21 @@ def slot_folds(cache) -> torch.Tensor:
         if leaf.shape[0] != step.shape[0]:
             raise ValueError("every cache leaf must lead with the slot axis")
     return fold_leaves(leaves, step.shape[0])
+
+
+def page_folds(cache) -> tuple[torch.Tensor, torch.Tensor]:
+    """``paging.paged_checksums(cache)``: a paged cache's ``(page_sums,
+    slot_sums)``, int64 uint32 totals. On the card two launches: the pool
+    leaves, which lead with the page axis, in ``n_pages`` spans, and the
+    slot metadata in ``n_slots`` spans. A cache on the host runs the plain
+    version."""
+    if not cache["step"].is_cuda:
+        return paging.paged_checksums(cache)
+    pools, slots = paging.pool_and_slot_leaves(cache)
+    for leaves in (pools, slots):
+        for leaf in leaves:
+            if leaf.shape[0] != leaves[0].shape[0]:
+                raise ValueError("the pool leaves must lead with the page axis and the "
+                                 "metadata with the slot axis")
+    return (fold_leaves(pools, pools[0].shape[0]),
+            fold_leaves(slots, slots[0].shape[0]))

@@ -15,16 +15,31 @@ evicts each request the step it finishes. :meth:`set_precision` dials
 the steps to a lower width against the same weight tree (plane-prefix
 truncation); ``run(precision_schedule={step: bits})`` automates it.
 
-With ``policy.integrity == "detect"`` the engine layers three detectors
-and counts their alarms in ``stats()["integrity"]``: the per-matmul ABFT
+With ``policy.integrity != "off"`` the engine layers three detectors and
+counts their alarms in ``stats()["integrity"]``: the per-matmul ABFT
 row-sum check of every projection, an at-rest fingerprint of the whole
 quantized weight tree audited every ``audit_interval`` iterations against
-the load-time one, and per-slot KV checksums compared with their
-post-step baselines. On the card both folds are one launch each of the
-fold kernel (``kernels/fold.py``), and the alarm vector, the audits'
-fingerprints and the KV comparisons are read back once per decode step,
-with the tokens. Detection only: scrub-and-retry recovery is not ported
-yet.
+the load-time one, and KV checksums (per slot, or per page and per slot
+on the paged cache) compared with their post-step baselines. On the card
+every fold is one launch of the fold kernel (``kernels/fold.py``).
+
+``"detect"`` reads the alarm vector, the audit's fingerprint and the KV
+comparisons back once per decode step, with the tokens. ``"scrub"`` also
+recovers, in the reference's order: at the top of each iteration it reads
+the at-rest results back (one small sync) and acts on them before
+admission and the step — a parameter alarm rebuilds the quantized tree
+from the retained source parameters and writes it **into the serving
+leaves in place** (a captured graph and the fold table hold their
+addresses), after checking its fingerprint against the load-time one; a KV
+alarm requeues the requests whose slot (or page) it hit and quarantines a
+slot or page that faults again. An ABFT alarm in a prefill chunk or a
+decode step scrubs and re-runs it from its pre-step inputs, at most
+``max_retries`` times: a prefill chunk from its kept scratch, a decode
+step from a static backup of the state it writes (the first thing its
+graph does), replaying the same graph with the same seed. Tokens are
+bit-identical to a clean run; what cannot be recovered raises
+:class:`~repro_torch.core.integrity.IntegrityError`. ``run(...,
+injector=)`` takes the seeded SEU injector (``runtime/faults.py``).
 
 On the card every decode step replays from a CUDA graph
 (``launch/graphs.py``), one per precision, captured at its first step on
@@ -33,7 +48,7 @@ place at the start of each :meth:`~ContinuousBatchingEngine.run`: the
 slot cache (or the page pools), the resident tokens and the
 temperatures. A step copies the temperatures in when they change, seeds
 the graph's generator, replays, and reads the tokens back (with the
-alarms in detect mode) in one copy. ``compile_steps=False`` runs the same
+alarms under integrity) in one copy. ``compile_steps=False`` runs the same
 step eagerly, the counterpart of ``jax.disable_jit``; prefill stays eager
 on every device, and on the host every step does.
 
@@ -45,8 +60,7 @@ int8 page pools with a block table per slot, admission by free-page
 capacity, and with ``share_prefixes`` copy-on-write reuse of the pages of
 a declared shared prompt prefix. On the card every decode step's
 attention reads the pools straight through the block tables in the paged
-flash-attention kernel. Paged KV with integrity checks (per-page
-checksums) is not ported yet.
+flash-attention kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
         --reduced --bits 8 --level bitplane --prompt-lens 8,32,64 --gen 16 \
@@ -87,21 +101,8 @@ from repro_torch.models.cache import (
 )
 from repro_torch.models.quant import quantize_params
 from repro_torch.models.transformer import init_params
+from repro_torch.runtime.faults import FaultInjector, FaultSpec
 from repro_torch.runtime.scheduler import HISTORY_LIMIT, Request, SlotScheduler
-
-
-SCRUB_NOT_PORTED = (
-    "integrity='scrub' (scrub-and-retry recovery) is not ported yet: see "
-    "ROADMAP.md, open item 8 'Fault tolerance' (scrub half, next slice); "
-    "use integrity='detect'"
-)
-
-PAGED_DETECT_NOT_PORTED = (
-    "paged KV with integrity='detect' (per-page KV checksums, "
-    "models.paging.paged_checksums) is not ported yet: see ROADMAP.md, "
-    "queue 1, item 8b 'Paged integrity'; use the dense KV cache "
-    "(page_size=0) with detect"
-)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -151,13 +152,48 @@ def _seeded(seed: int, stream: int, n: int, device) -> torch.Generator:
     return gen
 
 
-def _decode_body(step, params, check: bool):
+def _copy_tree(dst, src, path: str = "") -> None:
+    """Copy every tensor of ``src`` into the tensor at the same place in
+    ``dst``, in place; both trees (dicts, lists, tuples, dataclasses) must
+    have the same structure, non-tensor values, shapes, dtypes and devices,
+    or :class:`~repro_torch.core.integrity.IntegrityError` is raised
+    before that leaf is written."""
+    where = path or "/"
+    if isinstance(dst, torch.Tensor):
+        if (not isinstance(src, torch.Tensor) or src.shape != dst.shape
+                or src.dtype != dst.dtype or src.device != dst.device):
+            raise integrity.IntegrityError(f"tree copy: the trees differ at {where}")
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        if not isinstance(src, dict) or list(src) != list(dst):
+            raise integrity.IntegrityError(f"tree copy: the keys differ at {where}")
+        for k in dst:
+            _copy_tree(dst[k], src[k], f"{path}/{k}")
+    elif isinstance(dst, (list, tuple)):
+        if type(src) is not type(dst) or len(src) != len(dst):
+            raise integrity.IntegrityError(f"tree copy: the sequences differ at {where}")
+        for i, (a, b) in enumerate(zip(dst, src)):
+            _copy_tree(a, b, f"{path}/{i}")
+    elif dataclasses.is_dataclass(dst) and not isinstance(dst, type):
+        if type(src) is not type(dst):
+            raise integrity.IntegrityError(f"tree copy: the node types differ at {where}")
+        for f in dataclasses.fields(dst):
+            _copy_tree(getattr(dst, f.name), getattr(src, f.name), f"{path}.{f.name}")
+    elif dst != src:
+        raise integrity.IntegrityError(f"tree copy: {dst!r} against {src!r} at {where}")
+
+
+def _decode_body(step, params, check: bool, backup=None):
     """The engine's decode step on its state tree ``{"cache", "tokens",
     "temps"}``: ``step`` (:func:`make_cb_decode_step`), its next tokens
     written into the state's token buffer, and the read-back vector — the
-    next tokens, then the alarm flags in detect mode — as int64."""
+    next tokens, then the alarm flags under integrity — as int64. With
+    ``backup`` (``{"cache", "tokens"}``, the scrub-mode retry's copy) the
+    step first copies the state it writes there."""
 
     def body(state, gen):
+        if backup is not None:
+            _copy_tree(backup, {"cache": state["cache"], "tokens": state["tokens"]})
         out = step(params, state["cache"], state["tokens"], state["temps"], gen)
         state["tokens"].copy_(out[0])
         parts = [out[0][:, 0].to(torch.int64)]
@@ -191,7 +227,8 @@ class _PrefillJob:
     prefix_tokens: object = None  # register these at commit (miss path)
     prefix_pages: tuple = ()
     from_hit: bool = False  # resumed from a registry snapshot
-    # detect: [(keys, alarm vector on the device)] per chunk, read back at once
+    # detect: [(keys, alarm vector on the device)] per chunk, read back at
+    # commit (scrub reads each chunk's alarms back before the next chunk)
     alarms: list = dataclasses.field(default_factory=list)
 
 
@@ -209,7 +246,11 @@ class ContinuousBatchingEngine:
     ``"auto"`` (the Hopper kernels on CUDA) or ``"torch"`` (the plain
     versions, on any device). ``audit_interval``: with integrity on, the
     at-rest parameter audit runs every N iterations (0 disables it and
-    the KV checks, leaving the per-matmul ABFT checks).
+    the KV checks, leaving the per-matmul ABFT checks). In scrub mode
+    ``max_retries`` bounds the scrub-and-retry attempts of one step and a
+    request's KV requeues, and a slot (or page) that faults
+    ``quarantine_after`` times is retired; the engine keeps ``params``
+    (the given tree, not a copy) as the scrub's source.
 
     ``page_size > 0`` pages the KV cache (``kv_quant`` required, ``max_len``
     a multiple of it): ``kv_pages`` physical pages (default: every slot's
@@ -245,12 +286,14 @@ class ContinuousBatchingEngine:
         prefill_chunk: int = 0,
         share_prefixes: bool = False,
         compile_steps: bool = True,
+        max_retries: int = 2,
+        quarantine_after: int = 2,
     ):
         if not cfg.is_decoder:
             raise ValueError(f"{cfg.name} is encoder-only: no decode path")
         self.integrity = integrity.check_integrity_mode(policy.integrity)
-        if self.integrity == "scrub":
-            raise NotImplementedError(SCRUB_NOT_PORTED)
+        self.max_retries = int(max_retries)
+        self.quarantine_after = int(quarantine_after)
         if audit_interval < 0:
             raise ValueError(f"audit_interval must be >= 0, got {audit_interval}")
         # paged KV + staged (chunked) prefill
@@ -291,8 +334,6 @@ class ContinuousBatchingEngine:
                     f"({self._pages_per_slot} pages) plus the null page"
                 )
             paging._check_kinds(cfg)  # fail at construction, not first run
-            if self.integrity != "off":
-                raise NotImplementedError(PAGED_DETECT_NOT_PORTED)
         elif kv_pages is not None:
             raise ValueError("kv_pages needs page_size > 0 (paged KV)")
         self.audit_interval = audit_interval
@@ -313,17 +354,18 @@ class ContinuousBatchingEngine:
         self.seed = seed
         self.backend = backend
         params = _to_device(params, self.device)
-        self.q_params = (
-            quantize_params(
-                params, policy, plane_cache=plane_cache, scan_layers=cfg.scan_layers
-            )
-            if policy.default.active
-            else params
-        )
-        # the load-time fingerprint the at-rest audits compare against
+        self.q_params = self._requantize(params) if policy.default.active else params
+        # the load-time fingerprint the at-rest audits (and a scrub's
+        # rebuild) compare against
         self._params_ref = (
             int(fold.tree_fold(self.q_params)) if self.integrity != "off" else None
         )
+        # scrub rebuilds from source: keep the dense tree (the price of
+        # recoverability; detect does without)
+        self._src_params = params if self.integrity == "scrub" else None
+        self._scrubs = 0
+        #: host seconds of each scrub (rebuild, fingerprint check, copy)
+        self.scrub_s: list = []
         # the decode state: allocated once (a captured graph holds its
         # addresses), reset in place by every run
         if self.paged:
@@ -333,6 +375,10 @@ class ContinuousBatchingEngine:
             self._cache = init_cache(cfg, n_slots, max_len, cfg.dtype, kv_quant=kv_quant,
                                      device=self.device)
         self._tokens = torch.zeros((n_slots, 1), dtype=torch.int32, device=self.device)
+        # scrub: the state a decode step writes, copied by the step itself
+        # before it writes (a static copy: the graph holds its address)
+        self._backup = (graphs.clone_tree({"cache": self._cache, "tokens": self._tokens})
+                        if self.integrity == "scrub" else None)
         self._temps = torch.zeros((n_slots,), dtype=torch.float32, device=self.device)
         self._temps_host = torch.zeros((n_slots,), dtype=torch.float32,
                                        pin_memory=self.device.type == "cuda")
@@ -363,7 +409,7 @@ class ContinuousBatchingEngine:
                 self.cfg, self.policy, precision=precision, backend=self.backend,
                 collector=pcol,
             ),
-            _decode_body(step, self.q_params, check),
+            _decode_body(step, self.q_params, check, self._backup),
             pcol,
             scol,
         )
@@ -449,35 +495,118 @@ class ContinuousBatchingEngine:
     def precision(self) -> Optional[Tuple[int, int]]:
         return self._precision
 
-    # -- integrity (detect) -------------------------------------------------
+    # -- integrity: detection and recovery -----------------------------------
+
+    def _requantize(self, params):
+        """Source -> serving tree. Load time and a scrub's rebuild share
+        this one path, so a rebuild from intact source reproduces the
+        load-time fingerprint."""
+        return quantize_params(params, self.policy, plane_cache=self.plane_cache,
+                               scan_layers=self.cfg.scan_layers)
+
+    def _scrub(self) -> None:
+        """Rebuild the quantized tree from the retained source, check its
+        fingerprint against the load-time one (a mismatch means the source
+        itself is corrupt: :class:`~repro_torch.core.integrity.IntegrityError`
+        is the only honest answer), and copy it into the serving leaves in
+        place: every leaf keeps its address, which the captured graphs and
+        the fold kernel's table hold."""
+        if self._src_params is None:
+            raise integrity.IntegrityError(
+                "scrub requested but source parameters were not retained "
+                "(integrity mode is not 'scrub')"
+            )
+        t0 = time.perf_counter()
+        fresh = self._requantize(self._src_params)
+        if int(fold.tree_fold(fresh)) != self._params_ref:
+            raise integrity.IntegrityError(
+                "scrub rebuild fingerprint mismatch: the retained source "
+                "parameters are themselves corrupt — cannot recover"
+            )
+        _copy_tree(self.q_params, fresh)
+        del fresh
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.scrub_s.append(time.perf_counter() - t0)
+        self._scrubs += 1
+
+    def _restore_state(self) -> None:
+        """Put back the decode state the last step wrote (scrub's retry)."""
+        _copy_tree({"cache": self._cache, "tokens": self._tokens}, self._backup)
 
     def _audit_params(self, fp: int) -> bool:
         """True if the at-rest parameter fingerprint ``fp`` (read back)
-        drifted from the reference; the reference is then re-baselined, so
-        one upset alarms once, not at every audit."""
+        drifted from the reference. In detect mode the reference is then
+        re-baselined, so one upset alarms once, not at every audit; scrub
+        keeps the load-time one (its rebuild restores it)."""
         if fp == self._params_ref:
             return False
-        self._params_ref = fp
+        if self.integrity == "detect":
+            self._params_ref = fp
         return True
 
-    def _tally_folds(self, pending: list, vals, integ: dict) -> None:
+    def _kv_folds(self, cache) -> tuple:
+        """The KV checksums on the device: ``(slot_sums,)`` of the dense
+        cache, ``(page_sums, slot_sums)`` of the paged one."""
+        return fold.page_folds(cache) if self.paged else (fold.slot_folds(cache),)
+
+    def _kv_moved(self, cache, ref) -> torch.Tensor:
+        """Which checksums moved since ``ref``, as one bool vector on the
+        device: the dense cache's slots, or the paged cache's pages 1.. (the
+        null page is left out: free lanes scatter there every step) then
+        its slots."""
+        moved = [a != b for a, b in zip(self._kv_folds(cache), ref)]
+        if self.paged:
+            moved[0] = moved[0][1:]
+        return torch.cat(moved)
+
+    def _tally_folds(self, pending: list, vals, integ: dict, injector) -> None:
         """Tally read-back at-rest results in the order they were taken:
-        ("audit", fingerprint) and ("kv", slots whose fold moved)."""
-        for (kind, _), v in zip(pending, vals.tolist()):
+        ("audit", step, fingerprint) and ("kv", step, checksums that moved)."""
+        for (kind, step, _), v in zip(pending, vals.tolist()):
             if kind == "audit":
-                integ["audit_alarms"] += int(self._audit_params(int(v)))
+                bad = self._audit_params(int(v))
+                integ["audit_alarms"] += int(bad)
+                category = "params"
             else:
+                bad = int(v) > 0
                 integ["kv_alarms"] += int(v)
+                category = "kv"
+            if bad and injector is not None:
+                injector.mark_detected(category, step)
         pending.clear()
 
     @staticmethod
-    def _harvest(col, alarms, integ: dict, keys=None) -> None:
+    def _harvest(col, alarms, integ: dict, keys=None) -> bool:
         """Tally one step's read-back alarm vector: every flag is a check,
-        a step with any flag set is one alarm."""
+        a step with any flag set is one alarm. Returns whether it alarmed."""
         res = col.harvest(alarms, keys)
         integ["abft_checks"] += len(res)
-        if any(bad for _, bad in res):
-            integ["abft_alarms"] += 1
+        bad = any(b for _, b in res)
+        integ["abft_alarms"] += int(bad)
+        return bad
+
+    def _contain_kv(self, sched, bad_slots, slot_faults: dict, step_i: int, integ: dict):
+        """Scrub-mode KV containment: a corrupt slot's request is requeued
+        (it re-prefills from its prompt — KV is regenerable state, unlike
+        weights it has no retained source) with exponential backoff;
+        repeatedly faulting slots are quarantined."""
+        active = set(sched.active_slots)
+        for slot in bad_slots:
+            slot_faults[slot] = slot_faults.get(slot, 0) + 1
+            if slot in active:
+                backoff = 1 << min(slot_faults[slot], 4)
+                rid = sched.requeue(slot, arrival_step=step_i + backoff)
+                integ["requeued"] += 1
+                if sched.retries(rid) > self.max_retries:
+                    sched.drop_pending(
+                        rid, f"retry budget exhausted: {sched.retries(rid)} KV faults "
+                        f"on request {rid}")
+            # a flip in a free slot's extent is harmless now, but the slot
+            # itself is suspect: it counts toward quarantine
+            if slot_faults[slot] >= self.quarantine_after and slot not in sched.quarantined_slots:
+                sched.quarantine(slot)
+                integ["quarantined"] += 1
 
     # -- serving loop -------------------------------------------------------
 
@@ -547,6 +676,8 @@ class ContinuousBatchingEngine:
         with record_function("serve.prefill"):
             if pcol is None:
                 job.logits, job.scratch = prefill(self.q_params, toks, job.scratch)
+            elif self.integrity == "scrub":
+                job.logits, job.scratch = self._chunk_scrubbed(job, toks, integ)
             else:
                 job.logits, job.scratch, alarms = prefill(self.q_params, toks, job.scratch)
                 job.alarms.append((pcol.keys, alarms))
@@ -554,6 +685,24 @@ class ContinuousBatchingEngine:
             job.snapshot = job.scratch
         job.next_i += 1
         return job.next_i >= len(job.bounds)
+
+    def _chunk_scrubbed(self, job: _PrefillJob, toks, integ):
+        """One prefill chunk with its alarms read back at once and bounded
+        scrub-and-retry: a retry re-runs the chunk on the same pre-chunk
+        scratch (the step never writes its input). Returns (logits,
+        scratch)."""
+        prefill, pcol = job.steps
+        for attempt in range(self.max_retries + 1):
+            logits, scratch, alarms = prefill(self.q_params, toks, job.scratch)
+            if not self._harvest(pcol, alarms.cpu(), integ, pcol.keys):
+                return logits, scratch
+            if attempt < self.max_retries:
+                self._scrub()
+                integ["step_retries"] += 1
+        raise integrity.IntegrityError(
+            f"chunked-prefill ABFT alarm (rid {job.req.rid}) persisted through "
+            f"{self.max_retries} scrub-and-retry attempts"
+        )
 
     def _settle(self, job: _PrefillJob, integ, tok=None) -> Optional[int]:
         """One read-back of the first token ``tok`` (a device tensor, at
@@ -595,14 +744,26 @@ class ContinuousBatchingEngine:
             cache = paging.clear_slot(cache, slot)
         return cache
 
-    def run(self, requests: list[Request], precision_schedule: Optional[dict] = None):
+    def run(self, requests: list[Request], precision_schedule: Optional[dict] = None,
+            injector: Optional[FaultInjector] = None):
         """Serve ``requests`` to completion. Returns (results, stats):
-        ``results`` maps rid -> generated int32 tokens.
+        ``results`` maps rid -> generated int32 tokens; requests that cannot
+        finish (deadline passed, retry budget exhausted, no servable slot
+        left) land in ``stats['failed']`` (rid -> reason) instead.
 
         ``precision_schedule``: optional ``{decode_step: precision}`` over
         the decode-step counter; at each threshold the engine calls
         :meth:`set_precision` before that step. Switches are recorded in
-        ``stats['precision_switches']`` as (decode_step, (a, w))."""
+        ``stats['precision_switches']`` as (decode_step, (a, w)).
+
+        ``injector``: a :class:`~repro_torch.runtime.faults.FaultInjector`
+        (or a spec string) applied at the top of each engine iteration, the
+        SEU harness. Under integrity its events are marked as the
+        detectors fire; in scrub mode every weight fault is scrubbed (and
+        an alarmed step retried) and KV faults are contained per slot or
+        page (requeue, quarantine)."""
+        if isinstance(injector, (str, FaultSpec)):
+            injector = FaultInjector(injector)
         schedule = dict(precision_schedule or {})
         sched = SlotScheduler(self.n_slots, max_extent=self.max_len)
         for r in sorted(requests, key=lambda r: r.arrival_step):
@@ -610,6 +771,8 @@ class ContinuousBatchingEngine:
         allocator = pager = registry = None
         job: Optional[_PrefillJob] = None
         clears: list[int] = []  # deferred null-page clears (flushed pre-admission)
+        page_faults: dict[int, int] = {}
+        slot_faults: dict[int, int] = {}
         prefill_chunks = 0
         shared_hits = 0
         capacity = None
@@ -644,15 +807,21 @@ class ContinuousBatchingEngine:
                 return allocator.free_pages >= need
         kv_bytes = cache_kv_bytes(cache)
         check = self.integrity != "off"
-        # the KV folds' baseline stays on the device; at-rest results wait
-        # in ``pending`` for the next read-back
-        kv_ref = fold.slot_folds(cache) if check else None
+        scrub = self.integrity == "scrub"
+        # the KV checksums' baseline stays on the device; in detect mode the
+        # at-rest results wait in ``pending`` for the next read-back
+        kv_ref = self._kv_folds(cache) if check else None
         pending: list = []
         integ = {
             "audits": 0, "audit_alarms": 0,
             "abft_checks": 0, "abft_alarms": 0,
             "kv_checks": 0, "kv_alarms": 0,
+            "step_retries": 0, "requeued": 0, "quarantined": 0,
         }
+        if self.paged:
+            integ["page_faults"] = 0
+            integ["pages_quarantined"] = 0
+        scrubs0 = self._scrubs
         calls0 = collections.Counter(plan_mod.DEFAULT_REGISTRY.calls)
         step_i = 0
         decode_steps = 0
@@ -673,14 +842,39 @@ class ContinuousBatchingEngine:
                 for s_ in pre_expire - set(sched.active_slots):
                     pager.release(s_)
                     clears.append(s_)
+            if not sched.servable:
+                for rid in sched.pending_rids:
+                    sched.drop_pending(rid, "unservable: every decode slot is quarantined")
+                continue
+            if injector is not None:
+                injector.apply(step_i, self.q_params, cache)  # in place
             if check and self.audit_interval:
                 # at-rest audits against the baselines of the last iteration:
-                # the parameter fingerprint and the per-slot KV checksums
-                if step_i % self.audit_interval == 0:
-                    integ["audits"] += 1
-                    pending.append(("audit", fold.tree_fold(self.q_params)))
+                # the parameter fingerprint and the KV checksums
+                audit = step_i % self.audit_interval == 0
+                integ["audits"] += int(audit)
                 integ["kv_checks"] += 1
-                pending.append(("kv", (fold.slot_folds(cache) != kv_ref).sum()))
+                fp = fold.tree_fold(self.q_params) if audit else None
+                moved = self._kv_moved(cache, kv_ref)
+                if not scrub:
+                    if audit:
+                        pending.append(("audit", step_i, fp))
+                    pending.append(("kv", step_i, moved.sum()))
+                else:
+                    # scrub acts before admission and the step: one read-back
+                    parts = ([fp.reshape(1)] if audit else []) + [moved.to(torch.int64)]
+                    vals = torch.cat(parts).cpu()
+                    if audit and self._audit_params(int(vals[0])):
+                        integ["audit_alarms"] += 1
+                        if injector is not None:
+                            injector.mark_detected("params", step_i)
+                        self._scrub()
+                    bad = vals[int(audit):].nonzero().flatten().tolist()
+                    if bad:
+                        job = self._contain(bad, sched, pager, registry, allocator, job,
+                                            clears, page_faults, slot_faults, step_i, integ)
+                        if injector is not None:
+                            injector.mark_detected("kv", step_i)
             due = [s for s in schedule if s <= decode_steps]
             for s in sorted(due):
                 self.set_precision(schedule.pop(s))
@@ -728,15 +922,7 @@ class ContinuousBatchingEngine:
                 active = sched.active_slots
                 with record_function("serve.decode_step"):
                     self._set_temperatures(sched.temperatures())
-                    out, keys = self._decode(step_i)
-                    # one read-back: tokens, alarm flags, pending at-rest results
-                    vals = torch.cat([out] + [v.reshape(1) for _, v in pending]).cpu()
-                    toks_np = vals[: self.n_slots].numpy()
-                    if check:
-                        n_flags = out.numel() - self.n_slots
-                        self._harvest(self._step_col, vals[self.n_slots:self.n_slots + n_flags],
-                                      integ, keys)
-                        self._tally_folds(pending, vals[self.n_slots + n_flags:], integ)
+                    toks_np = self._decode_checked(step_i, pending, integ, injector)
                 for slot in active:
                     evicted = sched.record(slot, int(toks_np[slot]))
                     decoded_tokens += 1
@@ -760,10 +946,10 @@ class ContinuousBatchingEngine:
                 else:
                     step_i = step_i + 1 if nxt is None else max(nxt, step_i + 1)
             if check and self.audit_interval:
-                kv_ref = fold.slot_folds(cache)
+                kv_ref = self._kv_folds(cache)
         if pending:
-            self._tally_folds(pending, torch.stack([v.reshape(()) for _, v in pending]).cpu(),
-                              integ)
+            self._tally_folds(pending, torch.stack([v.reshape(()) for *_, v in pending]).cpu(),
+                              integ, injector)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = max(time.perf_counter() - t0, 1e-9)
@@ -788,6 +974,8 @@ class ContinuousBatchingEngine:
             ),
             "precision_switches": switches,
             "failed": dict(sched.failed),
+            "requeued": s.requeued,
+            "quarantined_slots": sorted(sched.quarantined_slots),
             "route_calls": dict(calls),
             "device": str(self.device),
             # warm-up and capture host seconds of the graphs this run captured
@@ -807,11 +995,96 @@ class ContinuousBatchingEngine:
                 "shared_prefix_hits": shared_hits,
                 "prefix_entries": len(registry) if registry is not None else 0,
                 "prefix_evictions": registry.evictions if registry is not None else 0,
+                "quarantined_pages": allocator.quarantined_pages,
             }
         if check:
-            stats["integrity"] = dict(integ, mode=self.integrity)
+            stats["integrity"] = dict(integ, mode=self.integrity,
+                                      scrubs=self._scrubs - scrubs0)
         self._last_stats = stats
         return sched.finished, stats
+
+    def _decode_checked(self, step_i: int, pending: list, integ: dict, injector):
+        """One decode step and its one read-back (the tokens, the alarm
+        flags, detect's pending at-rest results); returns the tokens as
+        numpy. An ABFT alarm in scrub mode puts the state back, scrubs and
+        replays the same step with the same seed, at most ``max_retries``
+        times; then :class:`~repro_torch.core.integrity.IntegrityError`."""
+        for attempt in range(self.max_retries + 1):
+            out, keys = self._decode(step_i)
+            vals = torch.cat([out] + [v.reshape(1) for *_, v in pending]).cpu()
+            toks_np = vals[: self.n_slots].numpy()
+            if self.integrity == "off":
+                return toks_np
+            n_flags = out.numel() - self.n_slots
+            bad = self._harvest(self._step_col, vals[self.n_slots:self.n_slots + n_flags],
+                                integ, keys)
+            self._tally_folds(pending, vals[self.n_slots + n_flags:], integ, injector)
+            if not bad:
+                return toks_np
+            if injector is not None:
+                injector.mark_detected("params", step_i)
+            if self.integrity != "scrub":
+                return toks_np  # detect: record and go on
+            if attempt < self.max_retries:
+                # re-run from the pre-step state with scrubbed weights and
+                # the same seed: a bit-identical retry
+                self._restore_state()
+                self._scrub()
+                integ["step_retries"] += 1
+        raise integrity.IntegrityError(
+            f"decode ABFT alarm at step {step_i} persisted through "
+            f"{self.max_retries} scrub-and-retry attempts"
+        )
+
+    def _contain(self, bad: list, sched, pager, registry, allocator, job, clears: list,
+                 page_faults: dict, slot_faults: dict, step_i: int, integ: dict):
+        """Scrub-mode containment of the KV checksums that moved (``bad``:
+        indices into :meth:`_kv_moved`'s vector). Dense: the slots' requests
+        are requeued. Paged: each bad page (never the null page) counts a
+        page fault, its registry entries are dropped, its holders are
+        requeued and it is quarantined after ``quarantine_after`` faults; a
+        staged job that maps a bad shared page is aborted and resubmitted (a
+        bad page it owns is overwritten whole by its commit). Returns the
+        job still in flight."""
+        integ["kv_alarms"] += len(bad)
+        if not self.paged:
+            self._contain_kv(sched, bad, slot_faults, step_i, integ)
+            return job
+        n_pages = self._kv_pages - 1
+        bad_pages = [i + 1 for i in bad if i < n_pages]
+        affected = {i - n_pages for i in bad if i >= n_pages}
+        before = set(sched.active_slots)
+        for pid in bad_pages:
+            integ["page_faults"] += 1
+            page_faults[pid] = page_faults.get(pid, 0) + 1
+            if registry is not None:
+                registry.drop_page(pid)
+            affected.update(pager.slots_holding(pid))
+            if page_faults[pid] >= self.quarantine_after:
+                allocator.quarantine(pid)
+                integ["pages_quarantined"] += 1
+        if job is not None and job.slot in affected:
+            affected.discard(job.slot)
+            shared_held = set(pager.pages(job.slot)) - set(pager.owned_pages(job.slot))
+            if shared_held & set(bad_pages):
+                jslot = job.slot
+                slot_faults[jslot] = slot_faults.get(jslot, 0) + 1
+                backoff = 1 << min(slot_faults[jslot], 4)
+                pager.release(jslot)
+                clears.append(jslot)
+                sched.unreserve(jslot)
+                rid = sched.resubmit(job.req, step_i + backoff)
+                integ["requeued"] += 1
+                if sched.retries(rid) > self.max_retries:
+                    sched.drop_pending(
+                        rid, f"retry budget exhausted: {sched.retries(rid)} KV faults "
+                        f"on request {rid}")
+                job = None
+        self._contain_kv(sched, sorted(affected), slot_faults, step_i, integ)
+        for s_ in before - set(sched.active_slots):
+            pager.release(s_)
+            clears.append(s_)
+        return job
 
 
 # ---------------------------------------------------------------------------
@@ -845,10 +1118,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="stage the linear (separate plane kernel + epilogue) "
                     "instead of the fused kernel")
     ap.add_argument("--integrity", default="off", choices=("off", "detect", "scrub"),
-                    help="'detect' runs the ABFT row-sum check on every "
-                    "bit-serial matmul plus at-rest fingerprint audits and "
-                    "per-slot KV checksums, and counts alarms (requires "
-                    "--level bitplane); 'scrub' is not ported yet")
+                    help="fault-tolerant serving: 'detect' "
+                    "runs ABFT row-sum checks on every bit-serial matmul "
+                    "plus at-rest fingerprint audits and counts alarms; "
+                    "'scrub' additionally recovers — rebuild the weight "
+                    "planes from retained source params and retry the "
+                    "step (bit-identical tokens), requeue/quarantine on "
+                    "KV faults (requires --level bitplane)")
+    ap.add_argument("--inject-faults", default=None, metavar="SPEC",
+                    help="SEU injection harness: comma-separated "
+                    "site@step[xN] shots with optional ';seed=N', e.g. "
+                    "'planes@2,kv@5x2;seed=7'; sites: planes, sign, "
+                    "occupancy, checksum, scale, kv, kv_scale")
     ap.add_argument("--audit-interval", type=int, default=1,
                     help="integrity: run the at-rest parameter fingerprint "
                     "audit every N engine iterations (0 disables at-rest "
@@ -894,8 +1175,6 @@ def validate_args(args) -> None:
                           ("--integrity", args.integrity != "off")):
             if val:
                 die(f"{flag} needs an active quantization policy (--bits > 0)")
-    if args.integrity == "scrub":
-        die(f"--integrity scrub: {SCRUB_NOT_PORTED}")
     if args.integrity != "off" and args.level != "bitplane":
         die("--integrity needs --level bitplane: the ABFT column "
             "checksums ride in the packed bit-plane cache")
@@ -915,8 +1194,11 @@ def validate_args(args) -> None:
             "the sharing unit")
     if args.shared_prefix_len < 0:
         die("--shared-prefix-len must be >= 0")
-    if args.kv_page_size and args.integrity != "off":
-        die(f"--kv-page-size with --integrity {args.integrity}: {PAGED_DETECT_NOT_PORTED}")
+    if args.inject_faults:
+        try:
+            args.inject_faults = FaultSpec.parse(args.inject_faults)
+        except ValueError as e:
+            die(f"--inject-faults: {e}")
     if args.level == "digit" and args.variant == "sbmwc":
         die("--level digit --variant sbmwc has no kernel (SBMwC radix-256 "
             "digits exceed int8); use --variant booth or --level bitplane")
@@ -995,7 +1277,8 @@ def main(argv=None):
         if args.precision_switch
         else None
     )
-    results, stats = engine.run(requests, precision_schedule=schedule)
+    injector = FaultInjector(args.inject_faults) if args.inject_faults else None
+    results, stats = engine.run(requests, precision_schedule=schedule, injector=injector)
     run_bits = args.precision or args.bits
     print(
         f"[serve] {cfg.name} ({cfg.n_layers} layers) w{run_bits}a{run_bits} "
@@ -1014,16 +1297,27 @@ def main(argv=None):
             f"{pg['shared_prefix_hits']} shared-prefix hits, "
             f"{stats['prefill_chunks']} prefill chunks"
         )
+    for step_i, prec in stats["precision_switches"]:
+        print(f"[serve] precision switch at decode step {step_i}: -> {prec}")
     if "integrity" in stats:
         ig = stats["integrity"]
         print(
             f"[serve] integrity={ig['mode']}: {ig['abft_checks']} ABFT checks "
             f"({ig['abft_alarms']} alarms), {ig['audits']} audits "
             f"({ig['audit_alarms']} alarms), {ig['kv_checks']} KV checks "
-            f"({ig['kv_alarms']} alarms)"
+            f"({ig['kv_alarms']} alarms), {ig['scrubs']} scrubs, "
+            f"{ig['step_retries']} step retries"
         )
-    for step_i, prec in stats["precision_switches"]:
-        print(f"[serve] precision switch at decode step {step_i}: -> {prec}")
+    if injector is not None:
+        undet = injector.undetected
+        print(
+            f"[serve] injected {len(injector.events)} faults, "
+            f"{len(injector.events) - len(undet)} detected"
+        )
+        for e in undet:
+            print(f"[serve]   UNDETECTED: {e.site}@{e.step} at {e.leaf}")
+    for rid, reason in sorted(stats["failed"].items()):
+        print(f"[serve] rid {rid} FAILED: {reason}")
     for rid in sorted(results):
         print(f"[serve] rid {rid}:", results[rid])
 

@@ -23,8 +23,10 @@ The host bookkeeping (:class:`PageAllocator`, :class:`SlotPager`,
 :class:`PrefixRegistry`) is the reference's ``models/paging.py`` line for
 line; the device helpers keep the reference's values on the port's cache
 layout (a list of per-layer blocks) and update the cache in place, as
-:func:`repro_torch.models.cache.insert_slot` does. Per-page integrity
-checksums are not ported yet.
+:func:`repro_torch.models.cache.insert_slot` does. :func:`paged_checksums`
+is the integrity fold of a paged cache: per page over the pools, per slot
+over the metadata (its one-launch counterpart on the card is
+``kernels.fold.page_folds``).
 """
 
 from __future__ import annotations
@@ -441,6 +443,39 @@ def select_paged(cache_a, cache_b, take_slots, take_pages):
             for ablk, bblk in zip(cache_a["layers"], cache_b["layers"])
         ],
     }
+
+
+def pool_and_slot_leaves(cache) -> tuple[list, list]:
+    """The paged cache's leaves split by their leading axis: the pool
+    leaves (page axis) and the slot metadata (``step``, then each layer's
+    ``len`` and ``block_table``, slot axis), in the fold order."""
+    pools, slots = [], [cache["step"]]
+    for blk in cache["layers"]:
+        for key, leaf in blk.items():
+            (pools if key in _POOL_KEYS else slots).append(leaf)
+    return pools, slots
+
+
+def paged_checksums(cache):
+    """Integrity fold of a paged cache: ``(page_sums, slot_sums)``.
+
+    ``page_sums``: ``(n_pages,)`` int64 holding uint32 values, every byte
+    of every pool leaf folded to the physical-page axis: one flipped bit in
+    page ``p``'s values or scales moves ``page_sums[p]`` and only it.
+    ``slot_sums``: ``(n_slots,)`` over the ``len`` / ``step`` /
+    ``block_table`` metadata. The engine maps a dirty page back to the
+    slots and registry entries holding it; page 0 is left out of that
+    attribution (free lanes scatter garbage there every step)."""
+
+    def fold(leaves):
+        total = 0
+        for leaf in leaves:
+            b = leaf.contiguous().view(torch.uint8)
+            total = total + b.reshape(leaf.shape[0], -1).sum(dim=1, dtype=torch.int64)
+        return total & 0xFFFFFFFF
+
+    pools, slots = pool_and_slot_leaves(cache)
+    return fold(pools), fold(slots)
 
 
 def page_nbytes(cache) -> int:

@@ -71,7 +71,9 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
     """The reference's ``init_params`` tree, as numpy arrays (bf16 passed
     as ``uint16`` views), converted to the port's parameters. Scanned
     layers stacked under ``periods/b0_<kind>`` on a leading axis are
-    unstacked into the port's layer list."""
+    unstacked into the port's layer list, which takes the stack's place:
+    the keys keep the reference tree's order, so a walk over both trees
+    (the fault injector's) meets the same leaves in the same order."""
 
     def conv(node):
         if isinstance(node, dict):
@@ -80,21 +82,22 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
             return [conv(v) for v in node]
         return _to_torch(node, device)
 
-    out = {k: conv(v) for k, v in tree.items() if k not in ("periods", "tail", "layers")}
-    if "layers" in tree:  # unrolled reference stack
-        out["layers"] = conv(tree["layers"])
-        return out
-    kinds = cfg.layer_kinds()
-    if tree.get("tail"):
-        raise NotImplementedError("period tails are not ported yet")
-    stacked = conv(tree["periods"][f"b0_{kinds[0]}"])
-
     def take(node, i):
         if isinstance(node, dict):
             return {k: take(v, i) for k, v in node.items()}
         return node[i].contiguous()
 
-    out["layers"] = [take(stacked, i) for i in range(cfg.n_layers)]
+    if tree.get("tail"):
+        raise NotImplementedError("period tails are not ported yet")
+    out = {}
+    for k, v in tree.items():
+        if k == "tail":
+            continue
+        if k == "periods":
+            stacked = conv(v[f"b0_{cfg.layer_kinds()[0]}"])
+            out["layers"] = [take(stacked, i) for i in range(cfg.n_layers)]
+        else:
+            out[k] = conv(v)
     return out
 
 

@@ -1,0 +1,99 @@
+"""Recovery runtime: step retry and straggler detection (the port of
+``src/repro/runtime/recovery.py``).
+
+* ``retry_step``        — transient-failure retry with exponential backoff;
+                          after ``max_retries`` the exception escalates to
+                          the caller. Its default ``retriable`` is
+                          ``RuntimeError``, which ``torch`` and CUDA
+                          runtime errors subclass.
+* ``StragglerDetector`` — robust step-time outlier detection (median +
+                          k*MAD over a sliding window).
+* ``HealthMonitor``     — heartbeat bookkeeping for worker liveness.
+
+The reference's ``ElasticMesh`` rebuilds a device mesh; it comes with the
+port of tensor-parallel serving (ROADMAP.md, queue 1, item 11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+
+
+def retry_step(
+    fn: Callable,
+    *args,
+    max_retries: int = 3,
+    backoff_s: float = 0.5,
+    retriable: tuple = (RuntimeError,),
+    on_retry: Optional[Callable[[int, BaseException], None]] = None,
+    **kwargs,
+):
+    """Run ``fn``; retry transient runtime failures with backoff."""
+    attempt = 0
+    while True:
+        try:
+            return fn(*args, **kwargs)
+        except retriable as e:  # noqa: PERF203
+            attempt += 1
+            if attempt > max_retries:
+                raise
+            if on_retry:
+                on_retry(attempt, e)
+            time.sleep(backoff_s * (2 ** (attempt - 1)))
+
+
+@dataclasses.dataclass
+class StragglerDetector:
+    """Flags steps slower than median + k*MAD over a sliding window."""
+
+    window: int = 50
+    k: float = 6.0
+    min_samples: int = 10
+
+    def __post_init__(self):
+        self._times: list[float] = []
+        self.flagged: list[tuple[int, float]] = []
+        self._step = 0
+
+    def record(self, seconds: float) -> bool:
+        """Record a step time; returns True when it is a straggler."""
+        self._step += 1
+        hist = self._times[-self.window:]
+        is_outlier = False
+        if len(hist) >= self.min_samples:
+            med = float(np.median(hist))
+            mad = float(np.median(np.abs(np.asarray(hist) - med))) or 1e-6
+            if seconds > med + self.k * 1.4826 * mad:
+                is_outlier = True
+                self.flagged.append((self._step, seconds))
+        self._times.append(seconds)
+        return is_outlier
+
+    @property
+    def median(self) -> float:
+        return float(np.median(self._times)) if self._times else 0.0
+
+
+@dataclasses.dataclass
+class HealthMonitor:
+    """Heartbeat bookkeeping for worker liveness (a single-controller stub:
+    at scale it is fed by per-host heartbeats)."""
+
+    timeout_s: float = 60.0
+
+    def __post_init__(self):
+        self._last: dict[str, float] = {}
+
+    def beat(self, worker: str, t: Optional[float] = None):
+        self._last[worker] = time.time() if t is None else t
+
+    def dead_workers(self, now: Optional[float] = None) -> Sequence[str]:
+        now = time.time() if now is None else now
+        return [w for w, t in self._last.items() if now - t > self.timeout_s]
+
+
+__all__ = ["HealthMonitor", "StragglerDetector", "retry_step"]

@@ -56,3 +56,47 @@ def weight_planes_to_jax(wt):
         planes=None if wt.planes is None else jnp.asarray(t2n(wt.planes)),
         weights=wt.weights, level=wt.level, variant=wt.variant, w_bits=wt.w_bits,
     )
+
+
+def quantized_to_jax(tq):
+    """The port's quantized tree (an unrolled layer list) as the reference's
+    tree, key order kept: the trees are held equal by
+    test_torch_serving.py, so parity tests that need the reference's tree
+    of the same weights skip its eager quantization."""
+    if isinstance(tq, dict):
+        return {k: quantized_to_jax(v) for k, v in tq.items()}
+    if isinstance(tq, list):
+        return [quantized_to_jax(v) for v in tq]
+    if isinstance(tq, torch.Tensor):
+        return jnp.asarray(t2n(tq), dtype=jnp.bfloat16 if tq.dtype == torch.bfloat16 else None)
+    return weight_planes_to_jax(tq)
+
+
+class StubRunner:
+    """Replays like a CUDA graph on the host: capture runs the step on a
+    copy of the state (a capture runs nothing on the state) and keeps its
+    outputs; a replay reruns it on the state, rewrites those outputs and
+    puts the Python counters back, as a graph replay leaves them."""
+
+    def __init__(self, device):
+        self.generator = torch.Generator(device=device)
+        self.replays = 0
+
+    def warm_up(self, fn):
+        fn()
+
+    def capture(self, body, state):
+        from repro_torch.launch import graphs
+
+        self.body, self.state = body, state
+        self.out = body(graphs.clone_tree(state), self.generator)
+        return self.out
+
+    def replay(self):
+        from repro_torch.core import plan as plan_mod
+        from repro_torch.launch import graphs
+
+        before = graphs.snapshot(plan_mod.DEFAULT_REGISTRY)
+        self.out.copy_(self.body(self.state, self.generator))
+        graphs.restore(plan_mod.DEFAULT_REGISTRY, before)
+        self.replays += 1

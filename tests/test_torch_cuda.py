@@ -614,3 +614,103 @@ def test_capture_error_raises_and_runs_nothing_eagerly(cuda_device, monkeypatch)
     assert calls[-1] is True and calls.count(True) == 1
     assert not graph._compiled_graphs
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# Scrub-and-retry and paged integrity on the card
+# ---------------------------------------------------------------------------
+
+
+def _scrub_engines(dev, compile_steps=(True, False), **kw):
+    """Scrub engines (granite-3-8b reduced, 2 unrolled layers) on one set of
+    weights, and a workload of two requests arriving together."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.launch.serve import ContinuousBatchingEngine
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime.scheduler import Request
+
+    cfg = dataclasses.replace(get_reduced("granite-3-8b"), scan_layers=False)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = init_params(cfg, g, device=dev)
+    policy = PrecisionPolicy.uniform(8, 8, level="bitplane", integrity="scrub")
+    engines = [ContinuousBatchingEngine(cfg, params, policy, n_slots=2, max_len=24, device=dev,
+                                        compile_steps=c, **kw) for c in compile_steps]
+
+    def requests():
+        return [Request(rid=i, tokens=np.random.default_rng(i).integers(0, cfg.vocab_size, (s,)),
+                        max_new_tokens=8, arrival_step=0) for i, s in enumerate((4, 8))]
+
+    return engines, requests
+
+
+@pytest.mark.cuda
+def test_scrub_in_place_keeps_addresses_on_card(cuda_device):
+    """A scrub rebuilds the tree and copies it into the serving leaves:
+    every leaf keeps its data_ptr, and the tree's fold (the kernel's)
+    equals the load-time fingerprint again after a flipped bit."""
+    from repro_torch.core import integrity
+    from repro_torch.kernels import fold
+
+    (eng,), _ = _scrub_engines(cuda_device, compile_steps=(True,))
+    ptrs = [t.data_ptr() for t in integrity._leaves(eng.q_params)]
+    ref = int(fold.tree_fold(eng.q_params))
+    assert ref == eng._params_ref == int(integrity.tree_checksum(eng.q_params))
+    eng.q_params["layers"][1]["attn"]["o_proj"]["w_planes"].packed.mag[0, 3, 5] ^= 1 << 9
+    assert int(fold.tree_fold(eng.q_params)) != ref
+    eng._scrub()
+    assert [t.data_ptr() for t in integrity._leaves(eng.q_params)] == ptrs
+    assert int(fold.tree_fold(eng.q_params)) == ref
+    assert eng._scrubs == 1 and len(eng.scrub_s) == 1
+
+
+@pytest.mark.cuda
+def test_page_folds_equal_plain_on_card(cuda_device):
+    """The paged cache's per-page and per-slot folds (two launches) equal
+    paging.paged_checksums; a flipped bit moves its page alone."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import fold
+    from repro_torch.models import paging
+
+    cache = paging.paged_init_cache(get_reduced("granite-3-8b"), 3, 32, 8, 13, device=cuda_device)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(5)
+    for leaf in [cache["step"]] + [v for blk in cache["layers"] for v in blk.values()]:
+        leaf.view(-1).view(torch.uint8).copy_(torch.randint(
+            0, 256, (leaf.numel() * leaf.element_size(),), generator=g, device=cuda_device,
+            dtype=torch.uint8))
+    pages, slots = fold.page_folds(cache)
+    want_p, want_s = paging.paged_checksums(cache)
+    assert torch.equal(pages, want_p) and torch.equal(slots, want_s)
+    cache["layers"][1]["k_scale"][7, 2, 1] *= 2
+    moved = (fold.page_folds(cache)[0] != pages).nonzero().flatten().tolist()
+    assert moved == [7]
+
+
+@pytest.mark.cuda
+def test_restored_and_replayed_decode_step_equals_eager_on_card(cuda_device):
+    """Audits off, one weight bit flipped at iteration 3 (a decode step):
+    the graph engine's alarmed step restores its state from the backup
+    its graph wrote, scrubs and replays the same graph with the same seed;
+    tokens and integrity counts equal the eager engine's and the clean
+    run's, no precision is captured twice and every leaf keeps its
+    address."""
+    from repro_torch.core import integrity
+    from repro_torch.runtime.faults import FaultInjector
+
+    (graph, eager), requests = _scrub_engines(cuda_device, audit_interval=0)
+    clean, _ = eager.run(requests())
+    ptrs = [t.data_ptr() for t in integrity._leaves(graph.q_params)]
+    rg, sg = graph.run(requests(), injector=FaultInjector("planes@3;seed=1"))
+    re_, se = eager.run(requests(), injector=FaultInjector("planes@3;seed=1"))
+    for rid in clean:
+        assert (rg[rid] == clean[rid]).all() and (re_[rid] == clean[rid]).all(), rid
+    assert sg["integrity"] == se["integrity"]
+    assert sg["integrity"]["step_retries"] >= 1 and sg["integrity"]["scrubs"] >= 1
+    assert list(graph.capture_s) == [None]
+    assert [t.data_ptr() for t in integrity._leaves(graph.q_params)] == ptrs

@@ -41,7 +41,7 @@ from repro_torch.core import integrity as tinteg
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.precision import PrecisionPolicy as TPolicy
 from repro_torch.kernels import fold, ops, plane_mm, plane_mm_fused, plane_mm_packed
-from repro_torch.launch import graphs, sampling, serve
+from repro_torch.launch import sampling, serve
 from repro_torch.launch.steps import make_cb_decode_step
 from repro_torch.layers import attention
 from repro_torch.models import paging as tpaging
@@ -52,7 +52,7 @@ from repro_torch.models.quant import quantize_params as tquantize_params
 from repro_torch.models.transformer import params_from_numpy
 from repro_torch.runtime.scheduler import Request as TRequest
 
-from _torch_parity import t2n, to_numpy_tree, weight_planes_to_jax
+from _torch_parity import StubRunner, t2n, to_numpy_tree, weight_planes_to_jax
 
 N_SLOTS = 2
 MAX_LEN = 8
@@ -347,31 +347,6 @@ def test_fold_model_equals_both_packages_fingerprints(rng):
 # ---------------------------------------------------------------------------
 
 
-class _StubRunner:
-    """Replays like a CUDA graph on the host: capture runs the step on a
-    copy of the state (a capture runs nothing on the state) and keeps its
-    outputs; a replay reruns it on the state, rewrites those outputs and
-    puts the Python counters back, as a graph replay leaves them."""
-
-    def __init__(self, device):
-        self.generator = torch.Generator(device=device)
-        self.replays = 0
-
-    def warm_up(self, fn):
-        fn()
-
-    def capture(self, body, state):
-        self.body, self.state = body, state
-        self.out = body(graphs.clone_tree(state), self.generator)
-        return self.out
-
-    def replay(self):
-        before = graphs.snapshot(plan_mod.DEFAULT_REGISTRY)
-        self.out.copy_(self.body(self.state, self.generator))
-        graphs.restore(plan_mod.DEFAULT_REGISTRY, before)
-        self.replays += 1
-
-
 @pytest.mark.parametrize("scan", [False, True], ids=["unrolled", "scanned"])
 def test_replay_tally_gives_the_eager_counts(scan):
     """Detect mode through 2 slots with an 8 -> 4 switch: the stub-runner
@@ -393,7 +368,7 @@ def test_replay_tally_gives_the_eager_counts(scan):
         return eng, eng.run(reqs, precision_schedule={2: 4})
 
     _, (r_eager, s_eager) = serve_with(None)
-    eng, (r_graph, s_graph) = serve_with(_StubRunner)
+    eng, (r_graph, s_graph) = serve_with(StubRunner)
     assert set(eng.capture_s) == {None, (4, 4)}
     assert set(s_graph["capture_s"]) == {"None", "(4, 4)"}
     replays = sum(g.runner.replays for g in eng._compiled_graphs.values())
@@ -403,7 +378,7 @@ def test_replay_tally_gives_the_eager_counts(scan):
     assert s_graph["integrity"]["abft_checks"] > 0
     for rid in r_eager:
         np.testing.assert_array_equal(r_eager[rid], r_graph[rid])
-    _, (r_again, s_again) = serve_with(_StubRunner)  # a second engine: its own graphs
+    _, (r_again, s_again) = serve_with(StubRunner)  # a second engine: its own graphs
     assert s_again["route_calls"] == s_eager["route_calls"]
 
 

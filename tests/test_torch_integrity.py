@@ -250,14 +250,21 @@ def test_detect_engine_tokens_and_counts_equal_reference():
     assert flipped["kv_alarms"] == 0
 
 
-def test_scrub_is_refused_naming_the_roadmap_item():
+def test_scrub_is_accepted_and_other_flags_still_validated(capsys):
+    """The engine and the CLI accept integrity='scrub' (scrub-and-retry
+    recovery); the CLI still refuses what the reference refuses."""
     tc = tget("granite-3-8b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(tc, {}, TPolicy.uniform(8, 8, level="bitplane", integrity="scrub"),
-                device="cpu")
-    for argv, match in ((["--integrity", "scrub", "--level", "bitplane"], "ROADMAP"),
-                        (["--integrity", "detect", "--level", "digit"], "--level bitplane"),
+    eng = TEngine(tc, {}, TPolicy.uniform(8, 8, level="bitplane", integrity="scrub"),
+                  device="cpu")
+    assert eng.integrity == "scrub" and eng.max_retries == 2 and eng.quarantine_after == 2
+    serve.main(["--reduced", "--device", "cpu", "--integrity", "scrub", "--level", "bitplane",
+                "--n-slots", "2", "--prompt-lens", "4,8", "--gen", "3",
+                "--inject-faults", "scale@1;seed=3"])
+    out = capsys.readouterr().out
+    assert "integrity=scrub" in out and "1 scrubs" in out and "1 detected" in out
+    for argv, match in ((["--integrity", "detect", "--level", "digit"], "--level bitplane"),
                         (["--integrity", "detect", "--bits", "0"], "--bits > 0"),
-                        (["--audit-interval", "-1"], "audit-interval")):
+                        (["--audit-interval", "-1"], "audit-interval"),
+                        (["--inject-faults", "warp@2"], "unknown fault site")):
         with pytest.raises(SystemExit, match=match):
             serve.main(["--reduced", "--device", "cpu", *argv])

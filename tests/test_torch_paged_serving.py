@@ -10,8 +10,8 @@ paged engine still gives the reference's tokens; against the dense engine
 it is held with monolithic prefill, as the reference holds it (a chunked
 prefill admits later, so the switch lands at another point of a
 request's life). Sharing must lower the peak of resident pages. The
-constructor and the CLI refuse what the reference refuses, and paged KV
-together with detect-mode integrity (per-page checksums, not ported yet).
+constructor and the CLI refuse what the reference refuses, and accept
+paged KV together with detect-mode integrity (per-page checksums).
 """
 
 import jax
@@ -130,9 +130,12 @@ def test_constructor_and_cli_refuse_what_the_reference_refuses():
     with pytest.raises(ValueError, match="prefill_chunk"):
         _tengine(prefill_chunk=-1)
     detect = TPolicy.uniform(8, 8, level="bitplane", integrity="detect")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*Paged integrity"):
-        TEngine(tget(ARCH), _setup()["params"][1], detect, n_slots=2, max_len=32,
-                page_size=8, device="cpu")
+    paged_detect = TEngine(tget(ARCH), _setup()["params"][1], detect, n_slots=2, max_len=32,
+                           page_size=8, device="cpu")
+    assert paged_detect.paged and paged_detect.integrity == "detect"
+    serve.main(["--reduced", "--level", "bitplane", "--device", "cpu", "--n-slots", "2",
+                "--prompt-lens", "9,12", "--gen", "2", "--kv-page-size", "8",
+                "--integrity", "detect"])
     base = ["--reduced", "--level", "bitplane", "--device", "cpu"]
     for flags, words in (
         (["--kv-page-size", "-1"], "--kv-page-size must be >= 0"),
@@ -141,7 +144,6 @@ def test_constructor_and_cli_refuse_what_the_reference_refuses():
         (["--kv-page-size", "8", "--kv-pages", "1"], "--kv-pages must be >= 2"),
         (["--share-prefixes"], "--share-prefixes needs --kv-page-size"),
         (["--shared-prefix-len", "-1"], "--shared-prefix-len must be >= 0"),
-        (["--kv-page-size", "8", "--integrity", "detect"], "Paged integrity"),
         (["--shared-prefix-len", "9", "--prompt-lens", "9,12"], "shorter than every prompt"),
     ):
         with pytest.raises(SystemExit, match=words):
