@@ -107,6 +107,30 @@ Phases, each failing the run on any error:
    map it: every flip outside the null page detected (flips on the null
    page are listed apart), the holders requeued, a registry entry dropped,
    tokens bit-identical to the clean run.
+11. engines bitplane-autopilot and bitplane-paged-autopilot — the SLA
+   autopilot (queue SLA 6 steps, patience 2 down / 4 up, cooldown 2, shadow
+   probes on half the decode steps) over 16 requests with prompts of
+   32/64/96/128 tokens in turn, 4 arriving per decode step from step 0, 16
+   new tokens, int8 KV, prefill in chunks of 64; the paged cell adds pages
+   of 16 and a declared 32-token shared prefix. A step whose slots hold
+   several tiers replays each tier's graph and merges in place. Gates: two
+   or more tiers admitted and counted; every finished request equal to a
+   static run of its admission tier; requests shed, all at the lowest tier;
+   the autopilot's p99 queue wait within the SLA where the static 8-bit
+   run's exceeds it; shadow probes with a finite KL; the eager control
+   equal in tokens, switches and shed set. Printed: host and device ms per
+   decode step for single-tier and mixed-tier steps apart, the decode busy
+   share, capture seconds per graph;
+12. digit-w16 — --bits 16 --level digit through the float32-accumulated
+   oracle route: at each main-path shape, M = 4 and 256, the oracle within
+   1e-5 of max|exact| of the float64 product; the engine's graph run equal
+   to its eager control; the 16-bit prefill logits closer to the
+   unquantized model's than the 8-bit digit model's. The line prints the
+   TF32 setting (no matmul precision switch is set);
+13. lockstep — Engine.generate on 4 prompts of 64 tokens, 16 new tokens,
+   from graphs: equal to its eager control and to continuous batching with
+   bf16 KV at the same batch; under detect one flipped weight bit raises
+   its alarm count.
 
 Every engine cell's main run replays each decode step from the engine's
 CUDA graph of that precision (captured by the warm-up run; the counted
@@ -2126,6 +2150,369 @@ def run_paged_integrity(cfg, params, paged_results: dict) -> tuple[dict, dict]:
     return out["detect"], out["scrub"]
 
 
+# the autopilot cells: the reference test's ratio (requests arrive as fast
+# as slots exist), at full width
+AP_PROMPTS = (32, 64, 96, 128)
+AP_REQUESTS = 16
+AP_SLA = 6
+AP_PREFIX = 32  # the paged cell's declared shared prefix
+AP_MAX_LEN = max(AP_PROMPTS) + GEN_TOKENS  # 144: nine pages of 16
+AP_POLICY = dict(sla_queue_steps=AP_SLA, degrade_patience=2, upgrade_patience=4,
+                 cooldown_steps=2, shadow_frac=0.5)
+W16_GEN = 8
+W16_REL_BOUND = 1e-5  # of max|exact|: the float32 oracle against the float64 product
+LOCK_PROMPT, LOCK_BATCH = 64, 4
+
+
+def _ap_requests(cfg, shared: bool) -> list:
+    """16 requests, prompts of 32/64/96/128 tokens in turn, 4 arriving per
+    decode step from step 0, 16 new tokens; ``shared``: every prompt opens
+    with one 32-token prefix, declared."""
+    from repro_torch.runtime.scheduler import Request
+
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab_size, (AP_PREFIX,))
+    out = []
+    for i in range(AP_REQUESTS):
+        s = AP_PROMPTS[i % len(AP_PROMPTS)]
+        body = rng.integers(0, cfg.vocab_size, (s,))
+        toks = np.concatenate([prefix, body[AP_PREFIX:]]) if shared else body
+        out.append(Request(rid=i, tokens=toks, max_new_tokens=GEN_TOKENS,
+                           arrival_step=i // N_SLOTS,
+                           shared_prefix_len=AP_PREFIX if shared else 0))
+    return out
+
+
+def _decode_range_device_ms(engine, run) -> tuple[dict, list, dict]:
+    """``run()`` under ``torch.profiler``: its stats, the device ms of each
+    ``serve.decode_step`` range in order, and the device seconds in all and
+    inside the decode ranges."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        stats = run()
+        torch.cuda.synchronize()
+    ranges, device = [], []
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CPU:
+            if evt.name == "serve.decode_step":
+                ranges.append((evt.time_range.start, evt.time_range.end))
+        elif evt.name not in ("serve.decode_step", "serve.prefill"):
+            device.append((evt.time_range.start, evt.time_range.end - evt.time_range.start))
+    ranges.sort()
+    per = [sum(us for start, us in device if lo <= start < hi) / 1e3 for lo, hi in ranges]
+    return stats, per, {"device_busy_s": sum(us for _, us in device) / 1e6,
+                        "decode_device_s": sum(per) / 1e3}
+
+
+def _split_steps(values, passes) -> dict:
+    """Mean of ``values`` over single-tier and over mixed-tier decode steps."""
+    out = {}
+    for kind, keep in (("single_tier", lambda n: n == 1), ("mixed_tier", lambda n: n > 1)):
+        vals = [v for v, n in zip(values, passes) if keep(n)]
+        out[kind] = {"steps": len(vals), "mean": (sum(vals) / len(vals)) if vals else None}
+    return out
+
+
+def run_autopilot(cfg, params, paged: bool) -> dict:
+    """bitplane-autopilot / bitplane-paged-autopilot: the SLA autopilot
+    (queue SLA 6 steps, patience 2 down / 4 up, cooldown 2, shadow probes on
+    half the decode steps) over an overload ramp, its decode steps replayed
+    from one graph per tier (a mixed-tier step: one replay per tier present,
+    merged in place). Gates: at least two tiers admitted and two in the
+    per-tier token counts; every finished request equal to a static run of
+    its admission tier; requests shed, all at the lowest tier; the
+    autopilot's p99 queue wait within the SLA where the static 8-bit run's
+    exceeds it; shadow probes with a finite KL; the eager control
+    (``compile_steps=False``) equal in tokens, switches and shed set."""
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.runtime.autopilot import AutopilotPolicy
+
+    name = "bitplane-paged-autopilot" if paged else "bitplane-autopilot"
+    policy = PrecisionPolicy.uniform(8, 8, variant="booth", level="bitplane")
+    # prefill in chunks of 64, one chunk per iteration, in both cells: with
+    # whole-prompt admission the four slots fill at step 0 and free at step
+    # 16, while the shedding ladder (a 16-step service estimate against the
+    # 6-step SLA) empties the queue at step 5, so one tier alone would ever
+    # be admitted
+    kw = dict(prefill_chunk=PAGED_CHUNK)
+    if paged:
+        kw.update(page_size=PAGE, share_prefixes=True)
+
+    def requests():
+        return _ap_requests(cfg, shared=paged)
+
+    def build(**extra):
+        from repro_torch.launch.serve import ContinuousBatchingEngine
+
+        return ContinuousBatchingEngine(cfg, params, policy, n_slots=N_SLOTS,
+                                        max_len=AP_MAX_LEN, device="cuda", **kw, **extra)
+
+    engine = build(autopilot=AutopilotPolicy(**AP_POLICY))
+    engine.run(requests())  # captures each tier's decode graph and the probe's
+    _reset_counts()
+    results, stats = engine.run(requests())
+    counts = _read_counts()
+    apst = stats["autopilot"]
+    if stats["capture_s"]:
+        _die(f"{name}: the counted run captured {stats['capture_s']}")
+    calls = stats["route_calls"].get("fused_cached", 0)
+    if not calls or counts["fused_plane_linear"] != calls or (
+            paged and not counts["paged_flash_attention"]):
+        _die(f"{name}: launches {counts} against {calls} fused_cached calls")
+    prof_stats, per_step_ms, prof = _decode_range_device_ms(
+        engine, lambda: engine.run(requests())[1])
+    capture_s = {str(k): v for k, v in engine.capture_s.items()}
+    for prec, secs in capture_s.items():
+        print(json.dumps({"engine": name, "graph": prec, "capture_s": secs}), flush=True)
+    state_bytes = {k: _tree_bytes(getattr(engine, k)) for k in ("_backup", "_merge")}
+    del engine
+    gc.collect()
+    eager = build(autopilot=AutopilotPolicy(**AP_POLICY), compile_steps=False)
+    res_e, st_e = eager.run(requests())
+    del eager
+    gc.collect()
+    if sorted(results) != sorted(res_e) or apst["switches"] != st_e["autopilot"]["switches"] \
+            or stats["failed"] != st_e["failed"]:
+        _die(f"{name}: graph and eager runs differ in requests, switches or shed set")
+    _same_tokens(f"{name} graph", results, res_e, "the eager control")
+
+    tiers = apst["request_tiers"]
+    if len(set(tiers.values())) < 2 or len(apst["tier_tokens"]) < 2:
+        _die(f"{name}: fewer than two tiers admitted: {tiers}, {apst['tier_tokens']}")
+    static = build()
+    static_p99 = {}
+    for tier in sorted(set(tiers.values())):
+        w = int(tier.split("a")[0][1:])
+        static.set_precision(None if w == 8 else w)
+        ref, st = static.run(requests())
+        static_p99[tier] = st["p99_queue_steps"]
+        mine = {rid: results[rid] for rid, t in tiers.items() if t == tier and rid in results}
+        _same_tokens(f"{name} tier {tier}", mine, ref, f"the static run at {tier}")
+    if "w8a8" not in static_p99:
+        static.set_precision(None)
+        static_p99["w8a8"] = static.run(requests())[1]["p99_queue_steps"]
+    del static
+    gc.collect()
+    torch.cuda.empty_cache()
+    lowest = min(w for _, w in apst["tiers"])
+    shed = [r for r in stats["failed"].values() if r.startswith("overload:")]
+    if not apst["shed"] or len(shed) != apst["shed"] or not all(
+            f"tier w{lowest}" in r for r in shed):
+        _die(f"{name}: shedding {apst['shed']} with reasons {shed}")
+    if not (apst["p99_queue_steps"] <= AP_SLA < static_p99["w8a8"]):
+        _die(f"{name}: p99 queue steps {apst['p99_queue_steps']} against the static 8-bit "
+             f"run's {static_p99['w8a8']} (SLA {AP_SLA})")
+    kl = apst["shadow_kl_ewma"]
+    if not apst["shadow_probes"] or kl is None or not np.isfinite(kl):
+        _die(f"{name}: shadow probes {apst['shadow_probes']}, KL {kl}")
+    passes = prof_stats["autopilot"]["step_passes"]
+    if len(per_step_ms) != len(passes):
+        _die(f"{name}: {len(per_step_ms)} decode ranges against {len(passes)} decode steps")
+    out = {
+        "engine": name, "card": CARD, "layers": cfg.n_layers, "requests": AP_REQUESTS,
+        "finished": len(results), "shed": apst["shed"], "tiers": apst["tiers"],
+        "switches": apst["switches"], "request_tiers": tiers, "tier_tokens": apst["tier_tokens"],
+        "mixed_steps": apst["mixed_steps"], "decode_steps": stats["decode_steps"],
+        "p99_queue_steps": apst["p99_queue_steps"], "static_p99_queue_steps": static_p99,
+        "shadow_probes": apst["shadow_probes"], "shadow_kl_ewma": kl,
+        "tok_per_s": stats["tok_per_s"], "wall_s": stats["wall_s"],
+        "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+        "launches": counts, "route_calls": stats["route_calls"],
+        "host_ms_per_decode_step": _split_steps(apst["step_host_ms"], apst["step_passes"]),
+        "device_ms_per_decode_step": _split_steps(per_step_ms, passes),
+        "decode_busy_share": prof["decode_device_s"] / prof_stats["decode_s"],
+        "capture_s": capture_s, "state_bytes": state_bytes,
+        "tokens_equal_static_tier": True, "eager_equal": True,
+    }
+    if paged:
+        out["paging"] = stats["paging"]
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def check_oracle16(summary: dict) -> list:
+    """The 16-bit digit-level oracle (float32 accumulation, the reference's
+    route beyond 8 bits) at each main-path shape, M = 4 and 256, against
+    the float64 product of the same int32 operands: within
+    ``W16_REL_BOUND`` of max|exact|. Times one call (CUDA events) beside the
+    float64 product's."""
+    from repro_torch.core import bitserial
+
+    lines = []
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    for name, k, n, _ in GRANITE_SHAPES:
+        w = torch.randint(-(1 << 15), 1 << 15, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        for m in ROWS:
+            a = torch.randint(-(1 << 15), 1 << 15, (m, k), generator=gen, device="cuda",
+                              dtype=torch.int32)
+
+            def oracle():
+                return bitserial.bitserial_matmul(a, w, a_bits=16, w_bits=16, level="digit",
+                                                  accum_dtype=torch.float32)
+
+            got = oracle()
+            exact = a.double() @ w.double()
+            rel = float((got.double() - exact).abs().max() / exact.abs().max())
+            line = {"check": "oracle16", "shape": name, "M": m, "K": k, "N": n,
+                    "rel_err_of_max": rel, "bound": W16_REL_BOUND,
+                    "ms": _time_ms(oracle, reps=3, warmup=1),
+                    "float64_ms": _time_ms(lambda: a.double() @ w.double(), reps=3, warmup=1)}
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            if not rel <= W16_REL_BOUND:
+                _die(f"oracle16 {name} M={m}: {rel:.3g} of max|exact| against {W16_REL_BOUND}")
+            del got, exact
+        del w
+        torch.cuda.empty_cache()
+    summary["oracle16"] = lines
+    return lines
+
+
+def _prefill_logits(cfg, tree, policy, prompts) -> list:
+    from repro_torch.launch.steps import make_prefill_step
+
+    step = make_prefill_step(cfg, policy)
+    return [step(tree, torch.as_tensor(p, device="cuda")[None])[0].float() for p in prompts]
+
+
+def run_digit16(cfg, params, summary: dict) -> dict:
+    """digit-w16: --bits 16 --level digit, the paper's widest setting,
+    through the float32-accumulated oracle route (the weight decomposed on
+    every call). Gates: the oracle within its bound at every main-path
+    shape; the graph run's tokens equal the eager control's; the 16-bit
+    prefill logits closer to the unquantized model's (max|dlogit| over the
+    four prompts) than the 8-bit digit model's."""
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.models.quant import quantize_params
+    from repro_torch.runtime.scheduler import Request
+
+    name = "digit-w16"
+    check_oracle16(summary)
+    policy = PrecisionPolicy.uniform(16, 16, variant="booth", level="digit")
+
+    def requests():
+        rng = np.random.default_rng(0)
+        return [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size, (s,)),
+                        max_new_tokens=W16_GEN, arrival_step=STAGGER * i)
+                for i, s in enumerate(PROMPT_LENS)]
+
+    engine = _engine(cfg, params, policy)
+    engine.run(requests())
+    _reset_counts()
+    results, stats = engine.run(requests())
+    counts = _read_counts()
+    if stats["capture_s"] or set(stats["route_calls"]) != {"oracle"}:
+        _die(f"{name}: captured {stats['capture_s']} or took routes {stats['route_calls']}")
+    if any(stats["failed"]) or sorted(results) != list(range(len(PROMPT_LENS))):
+        _die(f"{name}: not every request finished: {stats['failed']}")
+    profile = _profile(engine, requests(), None)
+    prompts = [r.tokens for r in requests()]
+    logits16 = _prefill_logits(cfg, engine.q_params, policy, prompts)
+    capture_s = {str(k): v for k, v in engine.capture_s.items()}
+    q_bytes = _tree_bytes(engine.q_params)
+    del engine
+    gc.collect()
+    eager = _engine(cfg, params, policy, compile_steps=False)
+    res_e, _ = eager.run(requests())
+    del eager
+    gc.collect()
+    _same_tokens(name, results, res_e, "the eager control")
+    dense = _prefill_logits(cfg, params, PrecisionPolicy.off(), prompts)
+    pol8 = PrecisionPolicy.uniform(8, 8, variant="booth", level="digit")
+    q8 = quantize_params(params, pol8, plane_cache=True, scan_layers=cfg.scan_layers)
+    logits8 = _prefill_logits(cfg, q8, pol8, prompts)
+    del q8
+    gc.collect()
+    torch.cuda.empty_cache()
+    d16 = max(float((a - b).abs().max()) for a, b in zip(logits16, dense))
+    d8 = max(float((a - b).abs().max()) for a, b in zip(logits8, dense))
+    if not d16 < d8:
+        _die(f"{name}: 16-bit max|dlogit| {d16} not below the 8-bit run's {d8}")
+    out = {
+        "engine": name, "card": CARD, "layers": cfg.n_layers, "requests": len(results),
+        "tokens": stats["decoded_tokens"] + stats["admitted"], "tok_per_s": stats["tok_per_s"],
+        "wall_s": stats["wall_s"], "prefill_s": stats["prefill_s"],
+        "decode_s": stats["decode_s"], "decode_steps": stats["decode_steps"],
+        "route_calls": stats["route_calls"], "launches": counts,
+        "host_ms_per_decode_step": 1e3 * stats["decode_s"] / stats["decode_steps"],
+        "device_ms_per_decode_step": (1e3 * profile["decode_device_s"] / profile["decode_ranges"]
+                                      if profile["decode_ranges"] else None),
+        "decode_busy_share": profile["decode_device_s"] / stats["decode_s"],
+        "prefill_busy_share": profile["prefill_device_s"] / stats["prefill_s"],
+        "max_abs_dlogit_vs_unquantized": {"w16": d16, "w8": d8},
+        "capture_s": capture_s, "quantized_tree_bytes": q_bytes, "eager_equal": True,
+        "tf32": {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                 "float32_matmul_precision": torch.get_float32_matmul_precision()},
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def run_lockstep(cfg, params) -> dict:
+    """lockstep: ``Engine.generate`` on 4 prompts of 64 tokens, 16 new
+    tokens, 8 bits at bitplane level, its decode steps replayed from graphs.
+    Gates: the eager control's tokens; with bf16 KV the continuous-batching
+    engine's tokens for the same 4 requests arriving at step 0 (the same
+    batch); under detect, one flipped weight bit raises ``last_alarms``."""
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.launch.serve import ContinuousBatchingEngine, Engine
+    from repro_torch.runtime.scheduler import Request
+
+    name = "lockstep"
+    policy = PrecisionPolicy.uniform(8, 8, variant="booth", level="bitplane")
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (LOCK_BATCH, LOCK_PROMPT))
+    max_len = LOCK_PROMPT + GEN_TOKENS
+    graph = Engine(cfg, params, policy, max_len=max_len, device="cuda")
+    graph.generate(prompts, GEN_TOKENS)  # captures the decode graph
+    _reset_counts()
+    toks, tps = graph.generate(prompts, GEN_TOKENS)
+    counts = _read_counts()
+    runs = [tps] + [graph.generate(prompts, GEN_TOKENS)[1] for _ in range(2)]
+    capture_s = {str(k): v for k, v in graph.capture_s.items()}
+    del graph
+    gc.collect()
+    eager = Engine(cfg, params, policy, max_len=max_len, device="cuda", compile_steps=False)
+    toks_e, tps_e = eager.generate(prompts, GEN_TOKENS)
+    del eager
+    gc.collect()
+    if not torch.equal(toks, toks_e):
+        _die(f"{name}: graph tokens differ from the eager control's")
+    cb = ContinuousBatchingEngine(cfg, params, policy, n_slots=LOCK_BATCH, max_len=max_len,
+                                  kv_quant=False, device="cuda")
+    res, _ = cb.run([Request(rid=i, tokens=p, max_new_tokens=GEN_TOKENS)
+                     for i, p in enumerate(prompts)])
+    del cb
+    gc.collect()
+    _same_tokens(name, {i: toks[i].cpu().numpy() for i in range(LOCK_BATCH)}, res,
+                 "continuous batching with bf16 KV")
+    det = Engine(cfg, params, PrecisionPolicy.uniform(8, 8, variant="booth", level="bitplane",
+                                                      integrity="detect"),
+                 max_len=max_len, device="cuda")
+    det.generate(prompts, GEN_TOKENS)
+    clean_alarms = det.last_alarms
+    _flip_weight_bit(det)
+    det.generate(prompts, GEN_TOKENS)
+    flipped_alarms = det.last_alarms
+    del det
+    gc.collect()
+    torch.cuda.empty_cache()
+    if clean_alarms or flipped_alarms < 1:
+        _die(f"{name}: detect alarms {clean_alarms} clean, {flipped_alarms} flipped")
+    out = {
+        "engine": name, "card": CARD, "layers": cfg.n_layers, "batch": LOCK_BATCH,
+        "prompt_len": LOCK_PROMPT, "new_tokens": GEN_TOKENS,
+        "decode_tok_per_s": runs, "eager_decode_tok_per_s": tps_e,
+        "host_ms_per_decode_step": [1e3 * LOCK_BATCH / t for t in runs],
+        "eager_host_ms_per_decode_step": 1e3 * LOCK_BATCH / tps_e,
+        "launches": counts, "capture_s": capture_s, "eager_equal": True,
+        "cb_bf16_equal": True, "detect_alarms": {"clean": clean_alarms, "flipped": flipped_alarms},
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _die("no CUDA device: this smoke run needs one GPU")
@@ -2193,6 +2580,18 @@ def main() -> None:
     print(f"[chip_smoke] engines bitplane-paged-detect and bitplane-paged-scrub done at "
           f"{time.perf_counter() - t0:.1f} s ({eng_pscr['integrity_faulted']['page_faults']} "
           f"page faults, {eng_pscr['integrity_faulted']['requeued']} requeued)", flush=True)
+    for paged in (False, True):
+        eng_ap = run_autopilot(cfg, params, paged)
+        print(f"[chip_smoke] engine {eng_ap['engine']} done at {time.perf_counter() - t0:.1f} s "
+              f"({eng_ap['finished']} finished, {eng_ap['shed']} shed, tiers "
+              f"{sorted(set(eng_ap['request_tiers'].values()))}, {eng_ap['mixed_steps']} "
+              f"mixed-tier steps)", flush=True)
+    eng_w16 = run_digit16(cfg, params, summary)
+    print(f"[chip_smoke] engine digit-w16 done at {time.perf_counter() - t0:.1f} s "
+          f"({eng_w16['host_ms_per_decode_step']:.2f} host ms per decode step)", flush=True)
+    eng_lock = run_lockstep(cfg, params)
+    print(f"[chip_smoke] engine lockstep done at {time.perf_counter() - t0:.1f} s "
+          f"({eng_lock['decode_tok_per_s'][0]:.1f} decode tok/s)", flush=True)
 
     def entry(name, source, replaces, lines, launches):
         rep = lines[0]  # decode gate projection, M=4: the most frequent main-path call

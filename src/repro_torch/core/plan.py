@@ -43,6 +43,7 @@ __all__ = [
     "make_plan",
     "plan_for_operands",
     "plan_cacheable",
+    "truncation_audit",
 ]
 
 
@@ -143,6 +144,26 @@ class PlanRegistry:
 
 #: Process-wide default registry.
 DEFAULT_REGISTRY = PlanRegistry()
+
+
+def truncation_audit(registry: Optional[PlanRegistry] = None) -> dict:
+    """Audit the no-requantization invariant over every *dialed* plan in
+    ``registry`` (default: the process registry): a plan resolved with
+    ``w_shift > 0`` — executing below its stored width — must consume the
+    stored decomposition by MSB-prefix truncation (``trunc_cache``), never
+    re-decompose the weight (``requant_w``).
+
+    Returns ``{"dialed_plans", "routes", "truncated_ok"}``; ``truncated_ok``
+    is False when no dialed plan exists (a vacuous audit must not pass) or
+    any dialed plan requantizes."""
+    reg = DEFAULT_REGISTRY if registry is None else registry
+    dialed = [p for p in reg.plans() if p.w_shift > 0]
+    return {
+        "dialed_plans": len(dialed),
+        "routes": sorted({p.kernel for p in dialed}),
+        "truncated_ok": bool(dialed)
+        and all(p.trunc_cache and not p.requant_w for p in dialed),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -444,14 +465,13 @@ def _exec_staged(plan, x, w, wp, ep):
 
 
 def _exec_oracle(plan, x, w, wp, ep):
+    """The plain bit-serial product: int32 up to 8 bits, float32 beyond
+    (the weight is decomposed on every call: the plane cache holds only
+    int32-exact widths)."""
     key = plan.key
-    if key.accum != "int32":
-        raise NotImplementedError(
-            "float32-accumulated (> 8-bit) execution is not ported yet"
-        )
     acc = bs.bitserial_matmul(
         x, w, a_bits=key.a_bits, w_bits=key.w_bits, variant=key.variant,
-        level=key.level, mode=key.mode,
+        level=key.level, mode=key.mode, accum_dtype=getattr(torch, key.accum),
     )
     if plan.check:
         _abft_check(
@@ -546,6 +566,49 @@ class MatmulPlan:
         if (a, w) == (self.key.a_bits, self.key.w_bits):
             return self
         return self.registry.get(dataclasses.replace(self.key, a_bits=a, w_bits=w))
+
+    def sparsity_stats(self, w_planes: Optional[bp.WeightPlanes] = None) -> dict:
+        """Plane-pair passes skipped against executed under this plan.
+
+        Static, weight-side accounting from the cache's occupancy bitmap
+        (read back to the host): ``pair_passes_dense`` is what
+        sparsity="off" issues at the executed width,
+        ``pair_passes_after_compaction`` what survives the cache's plane
+        compaction, ``pair_passes_executed`` what the weight-occupancy gate
+        leaves. Without a packed bit-plane cache only the mode and route
+        fields are reported."""
+        key = self.key
+        out = {
+            "mode": key.sparsity,
+            "kernel": self.kernel,
+            "gated": self.gate,
+            "planes_dense": key.w_bits,
+            "a_planes": key.a_bits,
+        }
+        if w_planes is None or w_planes.packed is None or w_planes.packed.occupancy is None:
+            return out
+        packed = _trunc(self, w_planes).packed
+        wpt = (packed.block or self.bk) // bp.WORD_BITS
+        occ = packed.occupancy.cpu()
+        if occ.dim() > 2:  # stacked caches: a K tile is live if any is
+            occ = occ.reshape((-1,) + tuple(occ.shape[-2:])).any(dim=0)
+        n_kept = occ.shape[0]
+        # the tile reduction the gated kernels consume
+        tiles = bp.occupancy_per_tile(occ.to(torch.int32), wpt)
+        nk = tiles.shape[1]
+        occupied = int(tiles.sum())
+        dense = key.a_bits * key.w_bits * nk
+        executed = key.a_bits * occupied
+        out.update(
+            planes_kept=n_kept,
+            k_tiles=nk,
+            pair_passes_dense=dense,
+            pair_passes_after_compaction=key.a_bits * n_kept * nk,
+            pair_passes_executed=executed,
+            pair_passes_skipped=dense - executed,
+            skipped_fraction=round(1.0 - executed / max(dense, 1), 4),
+        )
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -62,3 +62,16 @@ def quantize(x: torch.Tensor, bits: int, axis=None, *, reciprocal_scale: bool = 
     q = torch.clamp(torch.round(x / scale), -qmax - 1 if bits > 1 else 0, qmax)
     store_dtype = torch.int8 if bits <= 8 else torch.int32
     return Quantized(q.to(store_dtype), scale, bits)
+
+
+def dequantize(q: Quantized) -> torch.Tensor:
+    """``values * scale`` in float32."""
+    return q.values.to(torch.float32) * q.scale
+
+
+def quantization_error(x: torch.Tensor, bits: int, axis=None) -> torch.Tensor:
+    """RMS relative error of the symmetric quantizer at ``bits``: the
+    accuracy-against-bits trade-off the precision dial moves along."""
+    q = quantize(x, bits, axis=axis)
+    err = dequantize(q) - x
+    return torch.sqrt(torch.mean(err**2)) / (torch.sqrt(torch.mean(x**2)) + 1e-12)

@@ -44,3 +44,17 @@ def sample_tokens(
     t = torch.clamp_min(temps[:, None].to(torch.float32), 1e-6)
     sampled = torch.argmax(lf / t + g, dim=-1).to(torch.int32)
     return torch.where(temps > 0, sampled, greedy_tok)
+
+
+def make_sample_fn(temperature: float = 0.0):
+    """A uniform-temperature ``sample_fn(logits, gen)`` for the lockstep
+    engine's hook: greedy at temperature 0."""
+    if temperature <= 0.0:
+        return greedy
+
+    def sample(logits, gen=None):
+        temps = torch.full((logits.shape[0],), temperature, dtype=torch.float32,
+                           device=logits.device)
+        return sample_tokens(logits, temps, gen)
+
+    return sample

@@ -1,11 +1,14 @@
-"""Serving driver: quantized weights + the continuous-batching engine.
+"""Serving driver: quantized weights, the continuous-batching engine and
+the lockstep engine.
 
 Weights live in memory at their configured bit-width with a
 decompose-once plane cache (:func:`~repro_torch.models.quant.quantize_params`),
 activations are quantized per token, every projection runs through the
 bit-serial matmul at the policy's level/variant — on CUDA the fused
 Hopper kernel at ``--level bitplane`` and the plane-pair kernel at
-``--level digit`` — and the KV cache is int8 (quantize-on-append).
+``--level digit`` — and the KV cache is int8 (quantize-on-append). Beyond
+8 bits (up to the paper's 16) the plans take the float32-accumulated plain
+route, as the reference's do: the weight is decomposed on every call.
 
 :class:`ContinuousBatchingEngine` admits requests with different prompt
 lengths and arrival steps into free decode slots mid-flight (a
@@ -14,6 +17,28 @@ decoding), runs one decode pass over the whole slot array per step, and
 evicts each request the step it finishes. :meth:`set_precision` dials
 the steps to a lower width against the same weight tree (plane-prefix
 truncation); ``run(precision_schedule={step: bits})`` automates it.
+:class:`Engine` is the lockstep baseline: one fixed batch prefills and
+decodes in unison (the parity yardstick of continuous batching).
+
+With ``autopilot`` (an :class:`~repro_torch.runtime.autopilot.AutopilotPolicy`)
+the continuous-batching engine closes the loop on that dial: a controller
+watches queue depth, per-token decode latency, the scrub count and a
+shadow-KL quality probe, moves the *admission* tier along the precision
+ladder, and sheds the queue tail past the lowest tier. A request keeps the
+tier it was admitted at, so a step whose active slots hold several tiers
+runs one decode pass per tier (**mixed-tier decode**), every pass from the
+same pre-step state: the first pass copies the state it writes into a
+static backup, each pass but the last leaves its slots' rows (paged: the
+pages its slots own) in a static merge buffer and the next pass restores
+the state first, and after the last pass the earlier passes' rows are put
+back. The masks of those merges are built on the host and copied in
+through pinned memory; on the card every pass is one replay of its tier's
+graph, the merges are in-place selects, and the step still reads back only
+its token vector (under scrub, each pass reads its alarms back before the
+next, as a retry must replay from its own pass's pre-step state). The
+shadow probe runs two logits-returning decode steps (the storage width
+and the admission tier) on a copy of the backup, computes the KL on the
+device and is read back with the tokens.
 
 With ``policy.integrity != "off"`` the engine layers three detectors and
 counts their alarms in ``stats()["integrity"]``: the per-matmul ABFT
@@ -76,6 +101,7 @@ import argparse
 import collections
 import dataclasses
 import time
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -91,6 +117,7 @@ from repro_torch.launch import graphs, sampling
 from repro_torch.launch.steps import (
     make_cb_decode_step,
     make_prefill_step,
+    make_serve_step,
 )
 from repro_torch.models import paging
 from repro_torch.models.cache import (
@@ -98,9 +125,11 @@ from repro_torch.models.cache import (
     init_cache,
     insert_slot,
     quantize_scratch,
+    select_slots,
 )
 from repro_torch.models.quant import quantize_params
 from repro_torch.models.transformer import init_params
+from repro_torch.runtime.autopilot import Autopilot, AutopilotPolicy
 from repro_torch.runtime.faults import FaultInjector, FaultSpec
 from repro_torch.runtime.scheduler import HISTORY_LIMIT, Request, SlotScheduler
 
@@ -183,18 +212,21 @@ def _copy_tree(dst, src, path: str = "") -> None:
         raise integrity.IntegrityError(f"tree copy: {dst!r} against {src!r} at {where}")
 
 
-def _decode_body(step, params, check: bool, backup=None):
-    """The engine's decode step on its state tree ``{"cache", "tokens",
-    "temps"}``: ``step`` (:func:`make_cb_decode_step`), its next tokens
-    written into the state's token buffer, and the read-back vector — the
-    next tokens, then the alarm flags under integrity — as int64. With
-    ``backup`` (``{"cache", "tokens"}``, the scrub-mode retry's copy) the
-    step first copies the state it writes there."""
+def _decode_body(step, params, check: bool):
+    """An engine's decode step on its state tree ``{"cache", "tokens"[,
+    "temps"][, "backup"]}``: ``step`` (:func:`make_cb_decode_step`, given
+    the temperatures; or the lockstep :func:`make_serve_step`), its next
+    tokens written into the state's token buffer, and the read-back vector
+    — the next tokens, then the alarm flags under integrity — as int64.
+    With a ``backup`` (``{"cache", "tokens"}``) the step first copies the
+    state it writes there: the pre-step state of a scrub retry and of the
+    passes of a mixed-tier step."""
 
     def body(state, gen):
-        if backup is not None:
-            _copy_tree(backup, {"cache": state["cache"], "tokens": state["tokens"]})
-        out = step(params, state["cache"], state["tokens"], state["temps"], gen)
+        if "backup" in state:
+            _copy_tree(state["backup"], {"cache": state["cache"], "tokens": state["tokens"]})
+        temps = (state["temps"],) if "temps" in state else ()
+        out = step(params, state["cache"], state["tokens"], *temps, gen)
         state["tokens"].copy_(out[0])
         parts = [out[0][:, 0].to(torch.int64)]
         if check:
@@ -202,6 +234,399 @@ def _decode_body(step, params, check: bool, backup=None):
         return torch.cat(parts)
 
     return body
+
+
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the order the reference's compiled
+    reduction takes on the host (XLA's CPU tree-reduction rewrite): windows
+    of 32 summed left to right (the last one zero-padded), the window sums
+    likewise until at most 32 remain, then those left to right. The float32
+    result then rounds as the reference's does, which holds the probe's KL
+    to it within a few ulps where a library sum (another order) differs by
+    ~1e-6 relative."""
+    while x.shape[-1] > 32:
+        pad = -x.shape[-1] % 32
+        if pad:
+            x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
+        x = x.reshape(x.shape[:-1] + (-1, 32))
+        acc = x[..., 0]
+        for k in range(1, 32):
+            acc = acc + x[..., k]
+        x = acc
+    acc = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        acc = acc + x[..., k]
+    return acc
+
+
+def _log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """``log_softmax`` over the last axis with :func:`_row_sum`."""
+    shifted = x - x.amax(dim=-1, keepdim=True)
+    return shifted - torch.log(_row_sum(torch.exp(shifted)))[..., None]
+
+
+def _shadow_body(ref_step, deg_step, params, vocab_size: int):
+    """The autopilot's shadow quality probe on ``{"scratch", "backup",
+    "temps", "active"}``: two logits-returning decode steps from the
+    pre-step state in ``backup`` — the storage width and the admission
+    tier — each on a copy of it in ``scratch`` (nothing the engine serves
+    from is written), then the mean over the active slots of
+    KL(storage || tier) of their next-token distributions, the vocab
+    sliced before ``log_softmax`` (the padded tail would otherwise count).
+    Returns the float32 KL's bits as a (1,) int64, to be read back with the
+    tokens."""
+
+    def body(state, gen):
+        z, b = state["scratch"], state["backup"]
+        logps = []
+        for step in (ref_step, deg_step):
+            _copy_tree(z, b)
+            logits = step(params, z["cache"], z["tokens"], state["temps"], gen)[-1]
+            logps.append(_log_softmax(logits[..., :vocab_size].to(torch.float32)))
+        lp_ref, lp_deg = logps
+        kl = _row_sum(torch.exp(lp_ref) * (lp_ref - lp_deg))
+        act = state["active"]
+        mean = torch.where(act, kl, torch.zeros_like(kl)).sum() / act.sum().to(torch.float32)
+        return mean.reshape(1).view(torch.int32).to(torch.int64)
+
+    return body
+
+
+def _f32_of_bits(v) -> float:
+    """The float32 whose bits an int64 read-back holds (:func:`_shadow_body`)."""
+    return float(np.array([int(v)], dtype=np.int64).astype(np.int32).view(np.float32)[0])
+
+
+class _PrecisionDial:
+    """Shared ``set_precision`` plumbing: one set of steps per precision
+    tier — the engines provide ``_make_steps(precision)``, returning
+    ``(prefill, decode_body, prefill_collector, step_collector)`` — with
+    the dial validated against the policy's storage width."""
+
+    def _init_dial(self) -> None:
+        self._precision: Optional[Tuple[int, int]] = None
+        self._compiled: dict = {}
+        self._bind_steps(self._steps_for(None))
+
+    def _steps_for(self, precision):
+        if precision not in self._compiled:
+            self._compiled[precision] = self._make_steps(precision)
+        return self._compiled[precision]
+
+    def _bind_steps(self, steps) -> None:
+        self._prefill, self._step, self._prefill_col, self._step_col = steps
+
+    def set_precision(self, precision) -> None:
+        """Dial subsequent prefills/decodes to ``precision`` (an int or an
+        ``(a_bits, w_bits)`` pair; ``None`` restores the storage width).
+        The weight tree is untouched — plans truncate the stored plane
+        decomposition — and in-flight slots keep their KV state."""
+        if precision is None:
+            self._precision = None
+        else:
+            p = _norm_precision(precision)
+            self._dial_check(p)
+            self._precision = p
+        self._bind_steps(self._steps_for(self._precision))
+
+    def _dial_check(self, precision: Tuple[int, int]) -> None:
+        pol = self.policy
+        stored = pol.storage_width()
+        if stored is None:
+            raise ValueError("set_precision needs an active quantization policy")
+        a, w = precision
+        if min(a, w) < 1:
+            raise ValueError(f"runtime precision must be >= 1 bit, got {precision}")
+        if w > stored:
+            raise ValueError(
+                f"runtime weight precision {w} exceeds the stored width "
+                f"{stored} — the dial can only truncate, never extend"
+            )
+        if pol.level != "bitplane":
+            raise ValueError(
+                "runtime precision reconfiguration needs level='bitplane' "
+                f"(got {pol.level!r}): radix-256 digit caches are not "
+                "prefix-truncatable"
+            )
+
+    @property
+    def precision(self) -> Optional[Tuple[int, int]]:
+        return self._precision
+
+
+class _StepRunner:
+    """Runs a decode-step body eagerly (on the host, or with
+    ``compile_steps=False``) or, on the card, as a replay of its CUDA graph,
+    captured at its first call and kept under a key (a precision)."""
+
+    def _run_step(self, graphs_of: dict, key, body, state, step_i: int, col=None):
+        """``body`` on ``state`` for decode step ``step_i`` (its seed):
+        returns its outputs and, with ``col``, the plan keys of its alarm
+        flags."""
+        if self._runner is None:
+            out = body(state, _seeded(self.seed, 1, step_i, self.device))
+            return out, None if col is None else list(col.keys)
+        captured = graphs_of.get(key)
+        if captured is None:
+            captured = graphs.CapturedStep(body, state, plan_mod.DEFAULT_REGISTRY,
+                                           self._runner(self.device), col)
+            graphs_of[key] = captured
+            self.capture_s[key] = captured.capture_s
+        return captured(_seed_of(self.seed, 1, step_i)), captured.keys
+
+
+class _IntegrityRuntime:
+    """Shared fault detection and recovery: the load-time fingerprint the
+    at-rest audits compare against, the retained source (scrub mode) and
+    the in-place scrub."""
+
+    def _init_integrity(self, params) -> None:
+        # the load-time fingerprint the at-rest audits (and a scrub's
+        # rebuild) compare against
+        self._params_ref = (
+            int(fold.tree_fold(self.q_params)) if self.integrity != "off" else None
+        )
+        # scrub rebuilds from source: keep the dense tree (the price of
+        # recoverability; detect does without)
+        self._src_params = params if self.integrity == "scrub" else None
+        self._scrubs = 0
+        #: host seconds of each scrub (rebuild, fingerprint check, copy)
+        self.scrub_s: list = []
+
+    def _requantize(self, params):
+        """Source -> serving tree. Load time and a scrub's rebuild share
+        this one path, so a rebuild from intact source reproduces the
+        load-time fingerprint."""
+        return quantize_params(params, self.policy, plane_cache=self.plane_cache,
+                               scan_layers=self.cfg.scan_layers)
+
+    def _scrub(self) -> None:
+        """Rebuild the quantized tree from the retained source, check its
+        fingerprint against the load-time one (a mismatch means the source
+        itself is corrupt: :class:`~repro_torch.core.integrity.IntegrityError`
+        is the only honest answer), and copy it into the serving leaves in
+        place: every leaf keeps its address, which the captured graphs and
+        the fold kernel's table hold."""
+        if self._src_params is None:
+            raise integrity.IntegrityError(
+                "scrub requested but source parameters were not retained "
+                "(integrity mode is not 'scrub')"
+            )
+        t0 = time.perf_counter()
+        fresh = self._requantize(self._src_params)
+        if int(fold.tree_fold(fresh)) != self._params_ref:
+            raise integrity.IntegrityError(
+                "scrub rebuild fingerprint mismatch: the retained source "
+                "parameters are themselves corrupt — cannot recover"
+            )
+        _copy_tree(self.q_params, fresh)
+        del fresh
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.scrub_s.append(time.perf_counter() - t0)
+        self._scrubs += 1
+
+    def _audit_params(self, fp: int) -> bool:
+        """True if the at-rest parameter fingerprint ``fp`` (read back)
+        drifted from the reference. In detect mode the reference is then
+        re-baselined, so one upset alarms once, not at every audit; scrub
+        keeps the load-time one (its rebuild restores it)."""
+        if fp == self._params_ref:
+            return False
+        if self.integrity == "detect":
+            self._params_ref = fp
+        return True
+
+
+def _check_backend(device, compile_steps: bool, backend: str) -> None:
+    if compile_steps and device.type == "cuda" and backend == "torch":
+        raise ValueError(
+            "backend='torch' runs the plain versions, which read values back "
+            "to the host: a CUDA graph cannot capture them; pass "
+            "compile_steps=False"
+        )
+
+
+class Engine(_PrecisionDial, _StepRunner, _IntegrityRuntime):
+    """The lockstep batched generation engine: one fixed batch prefills
+    together and decodes in unison (the reference's ``Engine``).
+
+    ``sample_fn(logits, gen) -> (B,) int32`` picks each next token from
+    the vocab-masked logits (default greedy). On CUDA each precision's
+    decode step is captured as a CUDA graph on a static state of the
+    batch's shape and replayed (``compile_steps=False`` runs it eagerly,
+    as on the host); a new batch size allocates a new state and captures
+    again. With integrity on, prefill and every decode step are checked
+    (ABFT), the weight fingerprint is audited every ``audit_interval``
+    steps, and scrub mode retries an alarmed step from its pre-step state
+    after scrubbing, at most ``max_retries`` times; :attr:`last_alarms`
+    counts the alarms of the last :meth:`generate`."""
+
+    def __init__(
+        self,
+        cfg,
+        params,
+        policy,
+        max_len: int = 256,
+        plane_cache: bool = True,
+        sample_fn=None,
+        seed: int = 0,
+        audit_interval: int = 1,
+        max_retries: int = 2,
+        device=None,
+        backend: str = "auto",
+        compile_steps: bool = True,
+    ):
+        if not cfg.is_decoder:
+            raise ValueError(f"{cfg.name} is encoder-only: no decode path")
+        if audit_interval < 0:
+            raise ValueError(f"audit_interval must be >= 0, got {audit_interval}")
+        self.integrity = integrity.check_integrity_mode(policy.integrity)
+        self.device = resolve_device(device)
+        self.compile_steps = bool(compile_steps)
+        _check_backend(self.device, self.compile_steps, backend)
+        self.cfg = cfg
+        self.policy = policy
+        self.plane_cache = plane_cache
+        self.max_len = max_len
+        self.seed = seed
+        self.backend = backend
+        self.audit_interval = audit_interval
+        self.max_retries = int(max_retries)
+        self.sample_fn = sample_fn or sampling.greedy
+        params = _to_device(params, self.device)
+        self.q_params = self._requantize(params) if policy.default.active else params
+        self._init_integrity(params)
+        self._state = None  # the static decode state of the last batch shape
+        self._runner = (graphs.CudaGraphRunner
+                        if self.compile_steps and self.device.type == "cuda" else None)
+        #: host seconds of each precision's warm-up and capture
+        self.capture_s: dict = {}
+        self._compiled_graphs: dict = {}
+        self.last_alarms = 0
+        self._init_dial()
+
+    def _make_steps(self, precision):
+        check = self.integrity != "off"
+        pcol = integrity.Collector() if check else None
+        scol = integrity.Collector() if check else None
+        step = make_serve_step(self.cfg, self.policy, sample_fn=self.sample_fn,
+                               precision=precision, backend=self.backend, collector=scol)
+        return (
+            make_prefill_step(self.cfg, self.policy, max_len=self.max_len,
+                              precision=precision, backend=self.backend, collector=pcol),
+            _decode_body(step, self.q_params, check),
+            pcol,
+            scol,
+        )
+
+    def _load_state(self, cache, tok) -> None:
+        """Copy the prefill's cache and first tokens into the static decode
+        state (allocated, and the graphs dropped, when the batch shape
+        changes)."""
+        st = self._state
+        if st is None or st["tokens"].shape != tok.shape:
+            st = {"cache": graphs.clone_tree(cache), "tokens": tok.clone()}
+            if self.integrity == "scrub":
+                st["backup"] = graphs.clone_tree({"cache": cache, "tokens": tok})
+            self._state = st
+            self._compiled_graphs.clear()
+        else:
+            _copy_tree(st["cache"], cache)
+            st["tokens"].copy_(tok)
+
+    def _decode(self, i: int):
+        """Decode step ``i`` on the static state: the read-back vector on
+        the device and the alarm flags' keys (a graph replay on CUDA)."""
+        return self._run_step(self._compiled_graphs, self._precision, self._step, self._state, i,
+                              self._step_col)
+
+    def _checked_step(self, i: int) -> bool:
+        """One decode step with its ABFT alarms read back and bounded
+        scrub-and-retry; returns whether it alarmed (detect keeps going)."""
+        b = self._state["tokens"].shape[0]
+        for attempt in range(self.max_retries + 1):
+            out, keys = self._decode(i)
+            res = self._step_col.harvest(out[b:].cpu(), keys)
+            if not any(bad for _, bad in res):
+                return False
+            if self.integrity != "scrub":
+                return True  # detect: record and keep serving
+            if attempt < self.max_retries:
+                _copy_tree({"cache": self._state["cache"], "tokens": self._state["tokens"]},
+                           self._state["backup"])
+                self._scrub()
+        raise integrity.IntegrityError(
+            f"ABFT alarm persisted through {self.max_retries} scrub-and-retry "
+            "attempts — corruption is not in the scrubbable weight planes"
+        )
+
+    def _checked_prefill(self, prompts):
+        prefill, pcol = self._prefill, self._prefill_col
+        with record_function("serve.prefill"):
+            if pcol is None:
+                logits, cache = prefill(self.q_params, prompts)
+                return logits, cache, 0
+            logits, cache, alarms = prefill(self.q_params, prompts)
+            if not any(bad for _, bad in pcol.harvest(alarms.cpu())):
+                return logits, cache, 0
+            if self.integrity == "scrub":
+                self._scrub()
+                logits, cache, alarms = prefill(self.q_params, prompts)
+                if any(bad for _, bad in pcol.harvest(alarms.cpu())):
+                    raise integrity.IntegrityError("prefill ABFT alarm persisted after scrub")
+            return logits, cache, 1
+
+    def generate(self, prompts, n_tokens: int):
+        """``prompts``: (B, S) integer tokens (a tensor or host data).
+        Decodes ``n_tokens`` through ``sample_fn``; returns (tokens (B,
+        n_tokens) int32 on the engine's device, decode tok/s)."""
+        prompts = torch.as_tensor(np.asarray(prompts) if not isinstance(prompts, torch.Tensor)
+                                  else prompts).to(device=self.device, dtype=torch.int32)
+        check = self.integrity != "off"
+        last_logits, cache, alarm_count = self._checked_prefill(prompts)
+        logits = sampling.mask_vocab(last_logits, self.cfg.vocab_size)
+        tok = self.sample_fn(logits, _seeded(self.seed, 1, 0, self.device))[:, None]
+        self._load_state(cache, tok.to(torch.int32))
+        del cache
+        b = prompts.shape[0]
+        out = torch.empty((b, n_tokens), dtype=torch.int32, device=self.device)
+        out[:, 0] = self._state["tokens"][:, 0]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        for i in range(n_tokens - 1):
+            if check and self.audit_interval and i % self.audit_interval == 0:
+                if self._audit_params(int(fold.tree_fold(self.q_params))):
+                    alarm_count += 1
+                    if self.integrity == "scrub":
+                        self._scrub()
+            with record_function("serve.decode_step"):
+                if check:
+                    alarm_count += int(self._checked_step(i + 1))
+                else:
+                    self._decode(i + 1)
+                out[:, i + 1] = self._state["tokens"][:, 0]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0
+        self.last_alarms = alarm_count
+        return out, b * max(n_tokens - 1, 1) / max(dt, 1e-9)
+
+
+_DEGRADE_ALIAS_WARNED = False
+
+
+def _degrade_alias_policy(degrade_after: Optional[int], degrade_to: int) -> AutopilotPolicy:
+    """The engine's ``degrade_after``/``degrade_to`` arguments as the
+    autopilot policy they always were: a pure scrub-rate rule (no SLA, so
+    depth and latency pressure never fire) that drops to the
+    ``degrade_to`` tier once the scrub counter crosses the threshold."""
+    return AutopilotPolicy(
+        scrub_degrade_after=degrade_after,
+        scrub_degrade_to=degrade_to,
+        shed=False,
+    )
 
 
 @dataclasses.dataclass
@@ -218,6 +643,7 @@ class _PrefillJob:
     precision: object  # the admission-time dial (registry tag)
     scratch: object
     bounds: list  # [(a, b), ...] token ranges to prefill
+    tier_index: int = 0  # the autopilot rung it was admitted at
     next_i: int = 0
     logits: object = None  # last chunk's (1, V) last-token logits
     table: object = None  # paged: (pages_per_slot,) block-table row
@@ -232,7 +658,7 @@ class _PrefillJob:
     alarms: list = dataclasses.field(default_factory=list)
 
 
-class ContinuousBatchingEngine:
+class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime):
     """Slot-scheduled serving over a shared, optionally int8, KV cache.
 
     ``n_slots`` decode lanes share one slot cache of ``max_len`` positions
@@ -261,6 +687,12 @@ class ContinuousBatchingEngine:
     pages of a request's declared shared prefix read-only from an earlier
     request's and resumes prefill from its snapshot.
 
+    ``autopilot`` (an :class:`~repro_torch.runtime.autopilot.AutopilotPolicy`)
+    closes the loop on the precision dial (module docstring): the ladder is
+    clamped to the storage width, whose rung is the static engine's own
+    steps; ``degrade_after``/``degrade_to`` are the deprecated spelling of
+    a pure scrub-rate policy (they warn once per process).
+
     ``compile_steps`` (default): on CUDA each precision's decode step is
     captured as a CUDA graph and replayed; a capture or replay error
     raises. ``False`` runs the step eagerly, as on the host (where it is
@@ -288,6 +720,9 @@ class ContinuousBatchingEngine:
         compile_steps: bool = True,
         max_retries: int = 2,
         quarantine_after: int = 2,
+        autopilot: Optional[AutopilotPolicy] = None,
+        degrade_after: Optional[int] = None,
+        degrade_to: int = 4,
     ):
         if not cfg.is_decoder:
             raise ValueError(f"{cfg.name} is encoder-only: no decode path")
@@ -339,12 +774,7 @@ class ContinuousBatchingEngine:
         self.audit_interval = audit_interval
         self.device = resolve_device(device)
         self.compile_steps = bool(compile_steps)
-        if self.compile_steps and self.device.type == "cuda" and backend == "torch":
-            raise ValueError(
-                "backend='torch' runs the plain versions, which read values back "
-                "to the host: a CUDA graph cannot capture them; pass "
-                "compile_steps=False"
-            )
+        _check_backend(self.device, self.compile_steps, backend)
         self.cfg = cfg
         self.policy = policy
         self.n_slots = n_slots
@@ -353,19 +783,11 @@ class ContinuousBatchingEngine:
         self.plane_cache = plane_cache
         self.seed = seed
         self.backend = backend
+        self.autopilot_policy = self._autopilot_policy(policy, autopilot, degrade_after,
+                                                       degrade_to)
         params = _to_device(params, self.device)
         self.q_params = self._requantize(params) if policy.default.active else params
-        # the load-time fingerprint the at-rest audits (and a scrub's
-        # rebuild) compare against
-        self._params_ref = (
-            int(fold.tree_fold(self.q_params)) if self.integrity != "off" else None
-        )
-        # scrub rebuilds from source: keep the dense tree (the price of
-        # recoverability; detect does without)
-        self._src_params = params if self.integrity == "scrub" else None
-        self._scrubs = 0
-        #: host seconds of each scrub (rebuild, fingerprint check, copy)
-        self.scrub_s: list = []
+        self._init_integrity(params)
         # the decode state: allocated once (a captured graph holds its
         # addresses), reset in place by every run
         if self.paged:
@@ -375,10 +797,25 @@ class ContinuousBatchingEngine:
             self._cache = init_cache(cfg, n_slots, max_len, cfg.dtype, kv_quant=kv_quant,
                                      device=self.device)
         self._tokens = torch.zeros((n_slots, 1), dtype=torch.int32, device=self.device)
-        # scrub: the state a decode step writes, copied by the step itself
-        # before it writes (a static copy: the graph holds its address)
-        self._backup = (graphs.clone_tree({"cache": self._cache, "tokens": self._tokens})
-                        if self.integrity == "scrub" else None)
+        ap = self.autopilot_policy
+        written = {"cache": self._cache, "tokens": self._tokens}
+        # the state a decode step writes, copied by the step itself before it
+        # writes (a static copy: the graph holds its address): a scrub
+        # retry's and every mixed-tier pass's pre-step state
+        self._backup = (graphs.clone_tree(written)
+                        if self.integrity == "scrub" or ap is not None else None)
+        # mixed-tier decode: the rows earlier passes leave for the last
+        # one, and the host-built masks of each merge (rows: the slots,
+        # then the pages, each pass takes; the restore after the last pass;
+        # the active slots the shadow probe averages over)
+        self._merge = graphs.clone_tree(written) if ap is not None else None
+        self._shadow_scratch = (graphs.clone_tree(written)
+                                if ap is not None and ap.shadow_frac > 0 else None)
+        if ap is not None:
+            shape = (len(self._tiers) + 2, n_slots + self._kv_pages)
+            self._mask_host = torch.zeros(shape, dtype=torch.bool,
+                                          pin_memory=self.device.type == "cuda")
+            self._mask_dev = torch.zeros(shape, dtype=torch.bool, device=self.device)
         self._temps = torch.zeros((n_slots,), dtype=torch.float32, device=self.device)
         self._temps_host = torch.zeros((n_slots,), dtype=torch.float32,
                                        pin_memory=self.device.type == "cuda")
@@ -386,13 +823,59 @@ class ContinuousBatchingEngine:
         #: the CUDA-graph runner (tests substitute one); None: eager steps
         self._runner = (graphs.CudaGraphRunner
                         if self.compile_steps and self.device.type == "cuda" else None)
-        #: host seconds of each precision's warm-up and capture
+        #: host seconds of each precision's warm-up and capture (the shadow
+        #: probe's graphs under ("shadow", tier))
         self.capture_s: dict = {}
         self._compiled_graphs: dict = {}
-        self._precision: Optional[Tuple[int, int]] = None
-        self._compiled: dict = {}
+        self._shadow_graphs: dict = {}
+        self._shadow_bodies: dict = {}
         self._last_stats: dict = {}
-        self._bind_steps(self._steps_for(None))
+        self._init_dial()
+
+    def _autopilot_policy(self, policy, autopilot, degrade_after, degrade_to):
+        """The engine's autopilot policy, its ladder clamped to the storage
+        width (rung 0 is the storage width itself), or None; sets
+        ``_tiers``."""
+        if degrade_after is not None:
+            global _DEGRADE_ALIAS_WARNED
+            if not _DEGRADE_ALIAS_WARNED:
+                warnings.warn(
+                    "degrade_after/degrade_to are deprecated: pass "
+                    "autopilot=AutopilotPolicy(scrub_degrade_after=..., "
+                    "scrub_degrade_to=...) instead (the arguments construct "
+                    "exactly that policy)",
+                    DeprecationWarning,
+                    stacklevel=3,
+                )
+                _DEGRADE_ALIAS_WARNED = True
+            if autopilot is not None:
+                raise ValueError(
+                    "pass either autopilot= or the deprecated degrade_after/"
+                    "degrade_to aliases, not both — fold the scrub rule into "
+                    "the policy via scrub_degrade_after/scrub_degrade_to"
+                )
+            autopilot = _degrade_alias_policy(degrade_after, degrade_to)
+        self._tiers = ()
+        if autopilot is None:
+            return None
+        stored = policy.storage_width()
+        if stored is None:
+            raise ValueError(
+                "autopilot needs an active quantization policy (the tier "
+                "ladder truncates the stored decomposition)"
+            )
+        # keep the servable rungs; the widest is pinned to the storage width
+        # so tier 0 is the static engine (the same steps, the same tokens)
+        tiers = tuple(
+            (min(a, stored), min(w, stored)) for a, w in autopilot.tiers if min(a, w) <= stored
+        )
+        tiers = tuple(dict.fromkeys(tiers))  # dedupe, keep order
+        if tiers[0] != (stored, stored):
+            tiers = ((stored, stored),) + tiers
+        self._tiers = tiers
+        # the controller sees the clamped ladder: rung indices are shared
+        # between its state and the engine's dispatch
+        return dataclasses.replace(autopilot, tiers=tiers)
 
     # -- runtime precision dial ---------------------------------------------
 
@@ -409,35 +892,46 @@ class ContinuousBatchingEngine:
                 self.cfg, self.policy, precision=precision, backend=self.backend,
                 collector=pcol,
             ),
-            _decode_body(step, self.q_params, check, self._backup),
+            _decode_body(step, self.q_params, check),
             pcol,
             scol,
         )
 
-    def _steps_for(self, precision):
-        if precision not in self._compiled:
-            self._compiled[precision] = self._make_steps(precision)
-        return self._compiled[precision]
+    def _tier_precision(self, tier_index: int) -> Optional[Tuple[int, int]]:
+        """Ladder rung -> the dial it runs at. Rung 0 (the storage width)
+        maps to ``None``, so traffic that was never degraded runs the static
+        engine's own steps and graph."""
+        return None if tier_index == 0 else self._tiers[tier_index]
 
-    def _bind_steps(self, steps) -> None:
-        self._prefill, self._step, self._prefill_col, self._step_col = steps
-
-    def _decode(self, step_i: int):
-        """One decode step over the slot array: returns the read-back
-        vector on the device (the next tokens, then the alarm flags) and,
-        in detect mode, the plan keys of the flags. On CUDA the step
-        replays this precision's graph, captured at its first step."""
+    def _decode(self, step_i: int, precision=Ellipsis):
+        """One decode pass over the slot array at ``precision`` (default:
+        the dial): returns the read-back vector on the device (the next
+        tokens, then the alarm flags) and, under integrity, the plan keys of
+        the flags. On CUDA the pass replays this precision's graph, captured
+        at its first step."""
+        if precision is Ellipsis:
+            precision = self._precision
+        _, body, _, scol = self._steps_for(precision)
         state = {"cache": self._cache, "tokens": self._tokens, "temps": self._temps}
-        if self._runner is None:
-            out = self._step(state, _seeded(self.seed, 1, step_i, self.device))
-            return out, None if self._step_col is None else list(self._step_col.keys)
-        captured = self._compiled_graphs.get(self._precision)
-        if captured is None:
-            captured = graphs.CapturedStep(self._step, state, plan_mod.DEFAULT_REGISTRY,
-                                           self._runner(self.device), self._step_col)
-            self._compiled_graphs[self._precision] = captured
-            self.capture_s[self._precision] = captured.capture_s
-        return captured(_seed_of(self.seed, 1, step_i)), captured.keys
+        if self._backup is not None:
+            state["backup"] = self._backup
+        return self._run_step(self._compiled_graphs, precision, body, state, step_i, scol)
+
+    def _shadow_bits(self, step_i: int, tier_index: int) -> torch.Tensor:
+        """The shadow probe's KL(storage || tier ``tier_index``) from the
+        pre-step state in the backup, as (1,) int64 bits (a graph replay per
+        tier on CUDA)."""
+        body = self._shadow_bodies.get(tier_index)
+        if body is None:
+            steps = [make_cb_decode_step(self.cfg, self.policy, precision=p,
+                                         backend=self.backend, with_logits=True)
+                     for p in (None, self._tier_precision(tier_index))]
+            body = self._shadow_bodies[tier_index] = _shadow_body(
+                *steps, self.q_params, self.cfg.vocab_size)
+        state = {"scratch": self._shadow_scratch, "backup": self._backup,
+                 "temps": self._temps, "active": self._mask_dev[-1, :self.n_slots]}
+        return self._run_step(self._shadow_graphs, ("shadow", tier_index), body, state,
+                              step_i)[0]
 
     def _set_temperatures(self, temps) -> None:
         """Copy the slots' temperatures into the static buffer when they
@@ -449,6 +943,40 @@ class ContinuousBatchingEngine:
         self._temps.copy_(self._temps_host, non_blocking=True)
         self._temps_set = key
 
+    def _set_masks(self, pass_of: np.ndarray, n_passes: int, active, pager) -> None:
+        """Build a mixed-tier step's merge masks on the host and copy them
+        in through pinned memory (no host sync; the step's read-back orders
+        the next step's write after this copy). ``pass_of[s]``: the pass
+        whose result slot ``s`` keeps."""
+        n, last = self.n_slots, n_passes - 1
+        rows = np.zeros(tuple(self._mask_host.shape), bool)
+        page_pass = np.zeros((self._kv_pages,), np.int64)
+        if self.paged:
+            # pool leaves merge per physical page: a page takes the pass of
+            # the slot that owns it (decode writes only owned pages)
+            for s in active:
+                for pid in pager.owned_pages(s):
+                    page_pass[pid] = pass_of[s]
+        for p in range(last):
+            rows[p, :n] = pass_of == p
+            rows[p, n:] = page_pass == p
+        rows[-2, :n] = pass_of != last  # after the last pass: put back the rest
+        rows[-2, n:] = page_pass != last
+        rows[-1, list(active)] = True
+        self._mask_host.copy_(torch.from_numpy(rows))
+        self._mask_dev.copy_(self._mask_host, non_blocking=True)
+
+    def _merge_rows(self, dst: dict, src: dict, row: int) -> None:
+        """``dst = where(mask row, src, dst)`` over the decode state, in place."""
+        m = self._mask_dev[row]
+        slots = m[:self.n_slots]
+        if self.paged:
+            paging.select_paged(dst["cache"], src["cache"], slots, m[self.n_slots:],
+                                out=dst["cache"])
+        else:
+            select_slots(dst["cache"], src["cache"], slots, out=dst["cache"])
+        torch.where(slots[:, None], src["tokens"], dst["tokens"], out=dst["tokens"])
+
     def _reset_state(self) -> None:
         """Zero the decode state in place: the state a fresh allocation
         gives, at the addresses the captured graphs hold."""
@@ -458,92 +986,12 @@ class ContinuousBatchingEngine:
                 leaf.zero_()
         self._tokens.zero_()
 
-    def set_precision(self, precision) -> None:
-        """Dial subsequent prefills/decodes to ``precision`` (an int or an
-        ``(a_bits, w_bits)`` pair; ``None`` restores the storage width).
-        The weight tree is untouched — plans truncate the stored plane
-        decomposition — and in-flight slots keep their KV state."""
-        if precision is None:
-            self._precision = None
-        else:
-            p = _norm_precision(precision)
-            self._dial_check(p)
-            self._precision = p
-        self._bind_steps(self._steps_for(self._precision))
-
-    def _dial_check(self, precision: Tuple[int, int]) -> None:
-        pol = self.policy
-        stored = pol.storage_width()
-        if stored is None:
-            raise ValueError("set_precision needs an active quantization policy")
-        a, w = precision
-        if min(a, w) < 1:
-            raise ValueError(f"runtime precision must be >= 1 bit, got {precision}")
-        if w > stored:
-            raise ValueError(
-                f"runtime weight precision {w} exceeds the stored width "
-                f"{stored} — the dial can only truncate, never extend"
-            )
-        if pol.level != "bitplane":
-            raise ValueError(
-                "runtime precision reconfiguration needs level='bitplane' "
-                f"(got {pol.level!r}): radix-256 digit caches are not "
-                "prefix-truncatable"
-            )
-
-    @property
-    def precision(self) -> Optional[Tuple[int, int]]:
-        return self._precision
-
     # -- integrity: detection and recovery -----------------------------------
 
-    def _requantize(self, params):
-        """Source -> serving tree. Load time and a scrub's rebuild share
-        this one path, so a rebuild from intact source reproduces the
-        load-time fingerprint."""
-        return quantize_params(params, self.policy, plane_cache=self.plane_cache,
-                               scan_layers=self.cfg.scan_layers)
-
-    def _scrub(self) -> None:
-        """Rebuild the quantized tree from the retained source, check its
-        fingerprint against the load-time one (a mismatch means the source
-        itself is corrupt: :class:`~repro_torch.core.integrity.IntegrityError`
-        is the only honest answer), and copy it into the serving leaves in
-        place: every leaf keeps its address, which the captured graphs and
-        the fold kernel's table hold."""
-        if self._src_params is None:
-            raise integrity.IntegrityError(
-                "scrub requested but source parameters were not retained "
-                "(integrity mode is not 'scrub')"
-            )
-        t0 = time.perf_counter()
-        fresh = self._requantize(self._src_params)
-        if int(fold.tree_fold(fresh)) != self._params_ref:
-            raise integrity.IntegrityError(
-                "scrub rebuild fingerprint mismatch: the retained source "
-                "parameters are themselves corrupt — cannot recover"
-            )
-        _copy_tree(self.q_params, fresh)
-        del fresh
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.scrub_s.append(time.perf_counter() - t0)
-        self._scrubs += 1
-
     def _restore_state(self) -> None:
-        """Put back the decode state the last step wrote (scrub's retry)."""
+        """Put back the decode state the last step wrote (a retry, and each
+        pass of a mixed-tier step after the first)."""
         _copy_tree({"cache": self._cache, "tokens": self._tokens}, self._backup)
-
-    def _audit_params(self, fp: int) -> bool:
-        """True if the at-rest parameter fingerprint ``fp`` (read back)
-        drifted from the reference. In detect mode the reference is then
-        re-baselined, so one upset alarms once, not at every audit; scrub
-        keeps the load-time one (its rebuild restores it)."""
-        if fp == self._params_ref:
-            return False
-        if self.integrity == "detect":
-            self._params_ref = fp
-        return True
 
     def _kv_folds(self, cache) -> tuple:
         """The KV checksums on the device: ``(slot_sums,)`` of the dense
@@ -624,14 +1072,14 @@ class ContinuousBatchingEngine:
 
     # -- staged prefill + paged KV ------------------------------------------
 
-    def _open_job(self, slot, req, sched, pager, registry) -> _PrefillJob:
-        """Reserve ``slot`` and stage ``req``'s prefill: resolve the
-        shared-prefix registry (hit: map its pages read-only and resume
-        from its scratch snapshot; miss: cut the chunk schedule at the
-        prefix boundary and snapshot there for registration at commit),
-        assign pages, and lay out the chunk bounds."""
+    def _open_job(self, slot, req, sched, pager, registry, precision) -> _PrefillJob:
+        """Reserve ``slot`` and stage ``req``'s prefill at ``precision`` (the
+        admission dial): resolve the shared-prefix registry (hit: map its
+        pages read-only and resume from its scratch snapshot; miss: cut the
+        chunk schedule at the prefix boundary and snapshot there for
+        registration at commit), assign pages, and lay out the chunk
+        bounds."""
         sched.reserve(slot)
-        precision = self._precision
         S = int(req.tokens.size)
         # always leave >= 1 suffix token: the request's first sampled token
         # needs the last prompt position's logits from its own chunk
@@ -655,7 +1103,8 @@ class ContinuousBatchingEngine:
                 nxt = min(nxt, Lp)  # miss: land a chunk edge exactly at Lp
             bounds.append((pos, nxt))
             pos = nxt
-        job = _PrefillJob(slot=slot, req=req, steps=(self._prefill, self._prefill_col),
+        prefill, _, pcol, _ = self._steps_for(precision)
+        job = _PrefillJob(slot=slot, req=req, steps=(prefill, pcol),
                           precision=precision, scratch=scratch, bounds=bounds,
                           from_hit=entry is not None)
         if entry is None and Lp:
@@ -667,7 +1116,6 @@ class ContinuousBatchingEngine:
             if job.prefix_tokens is not None:
                 job.prefix_pages = tuple(int(p) for p in job.table[: Lp // self.page_size])
         return job
-
     def _job_step(self, job: _PrefillJob, integ) -> bool:
         """Run the job's next chunk; True when the prefill is complete."""
         a, b = job.bounds[job.next_i]
@@ -744,24 +1192,37 @@ class ContinuousBatchingEngine:
             cache = paging.clear_slot(cache, slot)
         return cache
 
+
     def run(self, requests: list[Request], precision_schedule: Optional[dict] = None,
             injector: Optional[FaultInjector] = None):
         """Serve ``requests`` to completion. Returns (results, stats):
         ``results`` maps rid -> generated int32 tokens; requests that cannot
         finish (deadline passed, retry budget exhausted, no servable slot
-        left) land in ``stats['failed']`` (rid -> reason) instead.
+        left, shed under overload) land in ``stats['failed']`` (rid ->
+        reason) instead.
 
         ``precision_schedule``: optional ``{decode_step: precision}`` over
         the decode-step counter; at each threshold the engine calls
         :meth:`set_precision` before that step. Switches are recorded in
-        ``stats['precision_switches']`` as (decode_step, (a, w)).
+        ``stats['precision_switches']`` as (decode_step, (a, w)). With an
+        autopilot a scheduled entry is routed through the controller
+        (``Autopilot.force``); one due on the decode step the controller
+        switches on loses, is consumed and is recorded in
+        ``stats['autopilot']['schedule_conflicts']``.
 
         ``injector``: a :class:`~repro_torch.runtime.faults.FaultInjector`
         (or a spec string) applied at the top of each engine iteration, the
         SEU harness. Under integrity its events are marked as the
         detectors fire; in scrub mode every weight fault is scrubbed (and
         an alarmed step retried) and KV faults are contained per slot or
-        page (requeue, quarantine)."""
+        page (requeue, quarantine).
+
+        With an autopilot the controller observes (queue depth, per-token
+        latency, scrub count, shadow KL) every iteration and moves the
+        admission tier; in-flight requests keep theirs (mixed-tier decode),
+        and under sustained pressure at the lowest tier the queue tail is
+        shed (``stats['autopilot']``: switches, per-tier tokens, shed
+        counts and the quality probe)."""
         if isinstance(injector, (str, FaultSpec)):
             injector = FaultInjector(injector)
         schedule = dict(precision_schedule or {})
@@ -779,6 +1240,12 @@ class ContinuousBatchingEngine:
         self._reset_state()
         cache, tokens = self._cache, self._tokens
         capture0 = dict(self.capture_s)
+        ap = (Autopilot(self.autopilot_policy, self.n_slots)
+              if self.autopilot_policy is not None else None)
+
+        def admission_precision():
+            return self._tier_precision(ap.tier_index) if ap is not None else self._precision
+
         if self.paged:
             allocator = paging.PageAllocator(self._kv_pages, self.page_size)
             pager = paging.SlotPager(allocator, self.n_slots, self._pages_per_slot)
@@ -797,8 +1264,9 @@ class ContinuousBatchingEngine:
                 if self.share_prefixes and req.shared_prefix_len > 0:
                     Lp = min(int(req.shared_prefix_len), S - 1)
                     if Lp:
-                        protect = registry.key(req.tokens[:Lp], tag=self._precision)
-                        hit = registry.peek(req.tokens[:Lp], tag=self._precision)
+                        prec = admission_precision()
+                        protect = registry.key(req.tokens[:Lp], tag=prec)
+                        hit = registry.peek(req.tokens[:Lp], tag=prec)
                         if hit is not None:
                             need -= len(hit.page_ids)
                 while (allocator.free_pages < need and registry is not None
@@ -823,17 +1291,39 @@ class ContinuousBatchingEngine:
             integ["pages_quarantined"] = 0
         scrubs0 = self._scrubs
         calls0 = collections.Counter(plan_mod.DEFAULT_REGISTRY.calls)
+        slot_tier: dict[int, int] = {}  # in-flight tier contracts
+        request_tiers: dict[int, tuple] = {}
+        tier_tokens: dict[int, int] = {}
+        schedule_conflicts: list = []
+        shadow_probes = 0
+        pending_kl: Optional[float] = None
+        last_latency = float("nan")
+        last_emitted = 0
         step_i = 0
         decode_steps = 0
         decoded_tokens = 0
         switches = []
         prefill_s = 0.0
         decode_s = 0.0
+        step_passes: list = []  # autopilot: passes (tiers) of each decode step
+        step_host_ms: list = []  # and its host time
         # per-iteration wall time including any admission or prefill work,
         # for iterations that emitted decode tokens: the inter-token latency
         # an active request sees (a chunked prefill bounds its stall)
         decode_iter_lat: collections.deque = collections.deque(maxlen=HISTORY_LIMIT)
         t0 = time.perf_counter()
+
+        def keep_live_tiers():
+            live = set(sched.active_slots)
+            for s_ in [s for s in slot_tier if s not in live]:
+                del slot_tier[s_]
+
+        def committed(job, done_now):
+            if ap is not None:
+                request_tiers[job.req.rid] = self._tiers[job.tier_index]
+                if not done_now:
+                    slot_tier[job.slot] = job.tier_index
+
         while not sched.done or job is not None:
             t_iter = time.perf_counter()
             pre_expire = set(sched.active_slots) if self.paged else set()
@@ -842,6 +1332,7 @@ class ContinuousBatchingEngine:
                 for s_ in pre_expire - set(sched.active_slots):
                     pager.release(s_)
                     clears.append(s_)
+            keep_live_tiers()
             if not sched.servable:
                 for rid in sched.pending_rids:
                     sched.drop_pending(rid, "unservable: every decode slot is quarantined")
@@ -873,12 +1364,38 @@ class ContinuousBatchingEngine:
                     if bad:
                         job = self._contain(bad, sched, pager, registry, allocator, job,
                                             clears, page_faults, slot_faults, step_i, integ)
+                        keep_live_tiers()
                         if injector is not None:
                             injector.mark_detected("kv", step_i)
+            decision = None
+            if ap is not None:
+                decision = ap.observe(
+                    step_i, sched.queue_depth(step_i), scrubs=self._scrubs - scrubs0,
+                    step_latency_s=last_latency, tokens_emitted=last_emitted,
+                    shadow_kl=pending_kl,
+                )
+                pending_kl = None
+                if decision.switched:
+                    switches.append((decode_steps, ap.tier))
             due = [s for s in schedule if s <= decode_steps]
             for s in sorted(due):
-                self.set_precision(schedule.pop(s))
-                switches.append((decode_steps, self._precision))
+                prec = schedule.pop(s)
+                if ap is None:
+                    self.set_precision(prec)
+                    switches.append((decode_steps, self._precision))
+                elif decision is not None and decision.switched:
+                    # a race on this decode step: the controller wins, the
+                    # entry is consumed
+                    schedule_conflicts.append((decode_steps, s, prec))
+                elif ap.force(step_i, _norm_precision(prec)).switched:
+                    switches.append((decode_steps, ap.tier))
+            if ap is not None and ap.shedding:
+                waiting = sched.waiting(step_i)
+                if waiting:
+                    est = max(1, round(sum(r.max_new_tokens for r in waiting) / len(waiting)))
+                    for rid in ap.shed_victims(waiting, step_i, service_estimate=est):
+                        sched.shed(rid, f"overload: shed from queue tail at step {step_i} "
+                                        f"(autopilot, tier w{ap.tier[1]})")
             tp = time.perf_counter()
             # flush deferred clears BEFORE admission: pages released since
             # the last flush may be reallocated and committed into below,
@@ -889,6 +1406,7 @@ class ContinuousBatchingEngine:
             clears.clear()
             if (job is not None and job.req.deadline_step is not None
                     and step_i >= job.req.deadline_step):
+                # the job's scratch goes with it; its pages are released
                 self._settle(job, integ)
                 if self.paged:
                     pager.release(job.slot)
@@ -898,7 +1416,11 @@ class ContinuousBatchingEngine:
                 job = None
             if job is None:
                 for slot, req in sched.admissible(step_i, capacity=capacity):
-                    job = self._open_job(slot, req, sched, pager, registry)
+                    # the tier is a per-request contract fixed at admission
+                    tier_index = ap.tier_index if ap is not None else 0
+                    job = self._open_job(slot, req, sched, pager, registry,
+                                         admission_precision())
+                    job.tier_index = tier_index
                     shared_hits += int(job.from_hit)
                     if self.prefill_chunk > 0:
                         # chunked: ONE job in flight, one chunk per engine
@@ -910,20 +1432,46 @@ class ContinuousBatchingEngine:
                         done = self._job_step(job, integ)
                         prefill_chunks += 1
                     cache = self._job_commit(job, cache, tokens, sched, pager, registry, integ)
+                    committed(job, slot not in sched.active_slots)
                     job = None
             if job is not None:
                 if self._job_step(job, integ):
                     cache = self._job_commit(job, cache, tokens, sched, pager, registry, integ)
+                    committed(job, job.slot not in sched.active_slots)
                     job = None
                 prefill_chunks += 1
             prefill_s += time.perf_counter() - tp
             if sched.active_slots:
                 td = time.perf_counter()
                 active = sched.active_slots
+                shadow = None
                 with record_function("serve.decode_step"):
                     self._set_temperatures(sched.temperatures())
-                    toks_np = self._decode_checked(step_i, pending, integ, injector)
+                    if ap is None:
+                        passes, pass_of = [self._precision], np.zeros(self.n_slots, np.int64)
+                    else:
+                        present = sorted({slot_tier.get(s, 0) for s in active})
+                        passes = [self._tier_precision(t) for t in present]
+                        # free slots ride the first pass (their lanes are
+                        # never read)
+                        pass_of = np.zeros(self.n_slots, np.int64)
+                        for s in active:
+                            pass_of[s] = present.index(slot_tier.get(s, 0))
+                        frac = ap.policy.shadow_frac
+                        if (frac > 0.0 and ap.tier_index > 0
+                                and int(decode_steps * frac) > int((decode_steps - 1) * frac)):
+                            shadow = ap.tier_index
+                        if len(passes) > 1 or shadow is not None:
+                            self._set_masks(pass_of, len(passes), active, pager)
+                    toks_np, kl = self._decode_checked(step_i, passes, pass_of, pending, integ,
+                                                       injector, shadow)
+                if shadow is not None:
+                    pending_kl = kl
+                    shadow_probes += 1
                 for slot in active:
+                    if ap is not None:
+                        ti = slot_tier.get(slot, 0)
+                        tier_tokens[ti] = tier_tokens.get(ti, 0) + 1
                     evicted = sched.record(slot, int(toks_np[slot]))
                     decoded_tokens += 1
                     if evicted and self.paged:
@@ -931,8 +1479,13 @@ class ContinuousBatchingEngine:
                         # null-page clear flushes before the next admission
                         pager.release(slot)
                         clears.append(slot)
-                decode_s += time.perf_counter() - td
-                sched.observe_step(step_i)
+                last_latency = time.perf_counter() - td
+                last_emitted = len(active)
+                decode_s += last_latency
+                if ap is not None:
+                    step_passes.append(len(passes))
+                    step_host_ms.append(1e3 * last_latency)
+                sched.observe_step(step_i, last_latency)
                 decode_iter_lat.append(time.perf_counter() - t_iter)
                 decode_steps += 1
                 step_i += 1
@@ -940,6 +1493,8 @@ class ContinuousBatchingEngine:
                 # nothing in flight: fast-forward to the next arrival (not
                 # while a staged prefill progresses: its deadline counts steps)
                 sched.observe_step(step_i)
+                last_latency = float("nan")
+                last_emitted = 0
                 nxt = sched.next_arrival()
                 if job is not None:
                     step_i += 1
@@ -954,6 +1509,8 @@ class ContinuousBatchingEngine:
             torch.cuda.synchronize(self.device)
         wall = max(time.perf_counter() - t0, 1e-9)
         s = sched.stats()
+        waits = np.asarray(s.queue_waits, np.float64)
+        p99_wait = float(np.percentile(waits, 99)) if waits.size else 0.0
         calls = plan_mod.DEFAULT_REGISTRY.calls - calls0
         stats = {
             "wall_s": wall,
@@ -968,6 +1525,7 @@ class ContinuousBatchingEngine:
             "admitted": s.admitted,
             "peak_occupancy": s.peak_occupancy,
             "queue_steps": s.queue_steps,
+            "p99_queue_steps": p99_wait,
             "decode_iter_p99_ms": (
                 float(np.percentile(np.asarray(decode_iter_lat), 99)) * 1e3
                 if decode_iter_lat else 0.0
@@ -1000,31 +1558,101 @@ class ContinuousBatchingEngine:
         if check:
             stats["integrity"] = dict(integ, mode=self.integrity,
                                       scrubs=self._scrubs - scrubs0)
+        if ap is not None:
+            stats["autopilot"] = {
+                "tiers": [list(t) for t in self._tiers],
+                "final_tier": list(ap.tier),
+                "switches": list(ap.switches),
+                "shed": s.shed,
+                "request_tiers": {rid: f"w{w}a{a}" for rid, (a, w) in request_tiers.items()},
+                "tier_tokens": {
+                    f"w{self._tiers[ti][1]}a{self._tiers[ti][0]}": n
+                    for ti, n in sorted(tier_tokens.items())
+                },
+                "shadow_probes": shadow_probes,
+                "shadow_kl_ewma": ap.shadow_kl_ewma,
+                "latency_ewma_ms": ap.latency_ewma_ms,
+                "p99_queue_steps": p99_wait,
+                "schedule_conflicts": schedule_conflicts,
+                "depth_history": list(s.depth_history),
+                # decode steps that ran more than one tier's pass; each
+                # decode step's passes and host ms (its decode range)
+                "mixed_steps": sum(n > 1 for n in step_passes),
+                "step_passes": step_passes,
+                "step_host_ms": step_host_ms,
+            }
         self._last_stats = stats
         return sched.finished, stats
 
-    def _decode_checked(self, step_i: int, pending: list, integ: dict, injector):
-        """One decode step and its one read-back (the tokens, the alarm
-        flags, detect's pending at-rest results); returns the tokens as
-        numpy. An ABFT alarm in scrub mode puts the state back, scrubs and
-        replays the same step with the same seed, at most ``max_retries``
-        times; then :class:`~repro_torch.core.integrity.IntegrityError`."""
+    def _decode_checked(self, step_i: int, passes: list, pass_of, pending: list, integ: dict,
+                        injector, shadow=None):
+        """One decode step — a pass per precision in ``passes`` (a
+        mixed-tier step when more than one), then the shadow probe at tier
+        ``shadow`` — and its one read-back (the tokens, each pass's alarm
+        flags, detect's pending at-rest results, the probe's KL). Returns
+        (tokens as numpy, the KL or None).
+
+        Each pass after the first starts from the pre-step state (restored
+        from the backup the first pass wrote); each but the last leaves the
+        rows of its slots in the merge buffer, and they are put back after
+        the last. In scrub mode each pass reads its alarms back, and an
+        alarmed pass puts the pre-step state back, scrubs and replays with
+        the same seed, at most ``max_retries`` times; then
+        :class:`~repro_torch.core.integrity.IntegrityError`."""
+        n, last = self.n_slots, len(passes) - 1
+        written = {"cache": self._cache, "tokens": self._tokens}
+        outs = []
+        for p, prec in enumerate(passes):
+            if p:
+                self._restore_state()
+            if self.integrity == "scrub":
+                outs.append(self._scrubbed_pass(step_i, prec, integ, injector))
+            else:
+                outs.append(self._decode(step_i, prec))
+            if p < last:
+                self._merge_rows(self._merge, written, p)
+        if last:
+            self._merge_rows(written, self._merge, -2)
+        if self.integrity == "scrub":
+            # every pass's tokens were read back with its alarms
+            toks_np = np.stack([o for o in outs])[pass_of, np.arange(n)]
+            if shadow is None:
+                return toks_np, None
+            return toks_np, _f32_of_bits(self._shadow_bits(step_i, shadow).cpu()[0])
+        parts = [outs[0][0] if not last else self._tokens[:, 0].to(torch.int64)]
+        if last:
+            parts += [out[n:] for out, _ in outs]
+        parts += [v.reshape(1) for *_, v in pending]
+        if shadow is not None:
+            parts.append(self._shadow_bits(step_i, shadow))
+        vals = torch.cat(parts).cpu()
+        toks_np = vals[:n].numpy()
+        kl = _f32_of_bits(vals[-1]) if shadow is not None else None
+        if self.integrity == "off":
+            return toks_np, kl
+        at = n
+        for (out, keys), prec in zip(outs, passes):
+            n_flags = out.numel() - n
+            if self._harvest(self._steps_for(prec)[3], vals[at:at + n_flags], integ, keys):
+                if injector is not None:
+                    injector.mark_detected("params", step_i)
+            at += n_flags
+        self._tally_folds(pending, vals[at:at + len(pending)], integ, injector)
+        return toks_np, kl
+
+    def _scrubbed_pass(self, step_i: int, precision, integ: dict, injector) -> np.ndarray:
+        """One decode pass under scrub: its tokens and alarms read back at
+        once; an alarm puts the pre-step state back, scrubs and replays the
+        same pass with the same seed. Returns the pass's tokens."""
+        n = self.n_slots
+        col = self._steps_for(precision)[3]
         for attempt in range(self.max_retries + 1):
-            out, keys = self._decode(step_i)
-            vals = torch.cat([out] + [v.reshape(1) for *_, v in pending]).cpu()
-            toks_np = vals[: self.n_slots].numpy()
-            if self.integrity == "off":
-                return toks_np
-            n_flags = out.numel() - self.n_slots
-            bad = self._harvest(self._step_col, vals[self.n_slots:self.n_slots + n_flags],
-                                integ, keys)
-            self._tally_folds(pending, vals[self.n_slots + n_flags:], integ, injector)
-            if not bad:
-                return toks_np
+            out, keys = self._decode(step_i, precision)
+            vals = out.cpu()
+            if not self._harvest(col, vals[n:], integ, keys):
+                return vals[:n].numpy()
             if injector is not None:
                 injector.mark_detected("params", step_i)
-            if self.integrity != "scrub":
-                return toks_np  # detect: record and go on
             if attempt < self.max_retries:
                 # re-run from the pre-step state with scrubbed weights and
                 # the same seed: a bit-identical retry
@@ -1092,31 +1720,57 @@ class ContinuousBatchingEngine:
 # ---------------------------------------------------------------------------
 
 
+ROADMAP_REFUSALS = {
+    "--model-parallel": "tensor-parallel serving is not ported yet (ROADMAP.md, queue 1, "
+                        "item 11: tensor parallel)",
+    "--autotune": "the tile autotuner is not ported yet (ROADMAP.md, queue 1, item 10: "
+                  "tile autotuner)",
+    "--plan-store": "the persistent plan store comes with the tile autotuner, not ported "
+                    "yet (ROADMAP.md, queue 1, item 10: tile autotuner)",
+}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="bit-serial quantized serving with continuous batching (PyTorch/CUDA)"
+        description="bit-serial quantized serving (continuous batching by default; "
+        "PyTorch/CUDA)"
     )
     ap.add_argument("--arch", choices=ARCH_NAMES, default="granite-3-8b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--bits", type=int, default=8,
                     help="storage precision: weights are quantized and "
-                    "decomposed at this width (0 disables quantization)")
+                    "decomposed at this width, 1..16 (0 disables quantization; "
+                    "beyond 8 bits the float32-accumulated plain route serves)")
     ap.add_argument("--level", default="digit", choices=("bitplane", "digit"))
     ap.add_argument("--variant", default="booth", choices=("booth", "sbmwc"))
-    ap.add_argument("--n-slots", type=int, default=4, help="decode slots")
-    ap.add_argument("--prompt-lens", default="32",
-                    help="comma-separated prompt lengths, e.g. 8,32,128")
+    ap.add_argument("--mode", default="cb", choices=("cb", "lockstep"),
+                    help="serving mode: continuous batching (default) or the "
+                    "lockstep fixed-batch baseline engine")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="lockstep batch size / default slot count")
+    ap.add_argument("--n-slots", type=int, default=None,
+                    help="continuous-batching decode slots (default: --batch)")
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="lockstep prompt length")
+    ap.add_argument("--prompt-lens", default=None,
+                    help="comma-separated mixed prompt lengths for the "
+                    "continuous-batching workload, e.g. 8,32,128")
     ap.add_argument("--stagger", type=int, default=2,
                     help="decode steps between request arrivals")
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy)")
     ap.add_argument("--precision", type=int, default=None,
                     help="runtime execution precision (<= --bits) by plane-prefix "
                     "truncation (requires --level bitplane)")
     ap.add_argument("--precision-switch", default=None, metavar="STEP:BITS",
-                    help="at decode step STEP drop to BITS, e.g. 8:4")
-    ap.add_argument("--no-fused", action="store_true",
-                    help="stage the linear (separate plane kernel + epilogue) "
-                    "instead of the fused kernel")
+                    help="at decode step STEP drop to BITS (continuous batching "
+                    "only), e.g. 8:4")
+    ap.add_argument("--sparsity", default="off", choices=("off", "gate", "compact"),
+                    help="occupancy-gated sparse plane execution: 'gate' skips "
+                    "all-zero plane work in the kernels; 'compact' also drops "
+                    "all-zero weight planes from the serving cache at load. Both "
+                    "are bit-identical to 'off' (requires --level bitplane)")
     ap.add_argument("--integrity", default="off", choices=("off", "detect", "scrub"),
                     help="fault-tolerant serving: 'detect' "
                     "runs ABFT row-sum checks on every bit-serial matmul "
@@ -1129,7 +1783,31 @@ def build_parser() -> argparse.ArgumentParser:
                     help="SEU injection harness: comma-separated "
                     "site@step[xN] shots with optional ';seed=N', e.g. "
                     "'planes@2,kv@5x2;seed=7'; sites: planes, sign, "
-                    "occupancy, checksum, scale, kv, kv_scale")
+                    "occupancy, checksum, scale, kv, kv_scale "
+                    "(continuous batching only)")
+    ap.add_argument("--autopilot", action="store_true",
+                    help="closed-loop SLA autopilot: watch queue depth, per-token "
+                    "decode latency and the shadow quality probe, and move the "
+                    "admission precision tier down/up the 8-6-4 ladder with "
+                    "hysteresis; past the lowest tier, shed the queue tail. "
+                    "In-flight requests keep their admission tier (mixed-tier "
+                    "decode). Continuous batching only; needs --level bitplane")
+    ap.add_argument("--sla-ms", type=float, default=None,
+                    help="autopilot wall-clock SLA: per-emitted-token decode "
+                    "latency EWMA above this is pressure (degrade), below "
+                    "half of it is headroom (upgrade)")
+    ap.add_argument("--sla-queue-steps", type=int, default=None,
+                    help="autopilot queue SLA: per-request queue-wait budget "
+                    "in engine steps — the deterministic signal the shedding "
+                    "ladder evicts against (predicted wait > budget)")
+    ap.add_argument("--shadow-frac", type=float, default=0.0,
+                    help="fraction of decode steps shadow-scored for quality "
+                    "while degraded: an extra logits pass at the stored "
+                    "width and the current tier, KL between them fed to the "
+                    "controller (0 disables the probe)")
+    ap.add_argument("--model-parallel", type=int, default=1, metavar="P",
+                    help="tensor-parallel serving over P devices: " +
+                    ROADMAP_REFUSALS["--model-parallel"])
     ap.add_argument("--audit-interval", type=int, default=1,
                     help="integrity: run the at-rest parameter fingerprint "
                     "audit every N engine iterations (0 disables at-rest "
@@ -1138,7 +1816,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged KV cache: store KV in fixed-size pages of POS "
                     "positions with per-slot block tables instead of dense "
                     "per-slot extents; admission checks free-page capacity "
-                    "(0 = dense)")
+                    "(0 = dense; --mode cb only, needs int8 KV)")
     ap.add_argument("--kv-pages", type=int, default=None, metavar="N",
                     help="physical page-pool size (default: enough for "
                     "every slot's full extent plus the null page); smaller "
@@ -1146,7 +1824,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-chunk", type=int, default=0, metavar="TOKENS",
                     help="chunked prefill: stage each admission's prefill "
                     "in TOKENS-sized chunks interleaved with decode steps "
-                    "(0 = monolithic)")
+                    "(0 = monolithic; --mode cb only)")
     ap.add_argument("--share-prefixes", action="store_true",
                     help="copy-on-write shared-prefix reuse: requests "
                     "declaring a byte-identical prompt prefix map the same "
@@ -1155,6 +1833,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shared-prefix-len", type=int, default=0, metavar="N",
                     help="synthetic workload: give every request the same "
                     "first N prompt tokens and declare them shared")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tile autotuning: " + ROADMAP_REFUSALS["--autotune"])
+    ap.add_argument("--plan-store", default=None, metavar="PATH",
+                    help="persisted tile configurations: " + ROADMAP_REFUSALS["--plan-store"])
+    ap.add_argument("--deadline", type=int, default=None, metavar="STEPS",
+                    help="per-request deadline: fail any request not "
+                    "finished within STEPS engine iterations of its "
+                    "arrival (frees its slot; continuous batching only)")
+    ap.add_argument("--no-plane-cache", action="store_true",
+                    help="skip the load-time weight-plane decomposition cache")
+    ap.add_argument("--no-fused", action="store_true",
+                    help="stage the linear (separate plane kernel + epilogue) "
+                    "instead of the fused kernel")
+    ap.add_argument("--no-kv-quant", action="store_true",
+                    help="keep the KV cache in bf16 (the bit-exact fallback; int8 "
+                    "quantize-on-append is the default)")
+    ap.add_argument("--no-cb", action="store_true",
+                    help="alias for --mode lockstep (deprecated)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the plain "
                     "versions on the host)")
@@ -1162,51 +1858,135 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def validate_args(args) -> None:
+    """Fail fast on inconsistent flag combinations, with the reference's
+    messages; the flags of modules not ported yet die naming their ROADMAP
+    item."""
+
     def die(msg):
         raise SystemExit(f"[serve] invalid flags: {msg}")
 
-    if args.bits and not 1 <= args.bits <= 8:
-        die("--bits must be in [1, 8] (wider widths are not ported yet; 0 "
-            "disables quantization)")
+    for flag, used in (("--model-parallel", args.model_parallel != 1),
+                       ("--autotune", args.autotune),
+                       ("--plan-store", args.plan_store is not None)):
+        if used and not (flag == "--model-parallel" and args.model_parallel < 1):
+            die(f"{flag}: {ROADMAP_REFUSALS[flag]}")
+    if args.no_cb:
+        args.mode = "lockstep"
+    if args.bits and not 1 <= args.bits <= 16:
+        die("--bits must be in [1, 16] (the paper's synthesis-time maximum; "
+            "0 disables quantization)")
+    if args.mode == "lockstep" and args.prompt_lens:
+        die("--prompt-lens (mixed prompt lengths) needs --mode cb; the "
+            "lockstep engine serves one fixed shape")
+    if args.mode == "lockstep" and args.precision_switch:
+        die("--precision-switch is a continuous-batching feature (--mode cb)")
     if not args.bits:
         for flag, val in (("--no-fused", args.no_fused),
+                          ("--no-plane-cache", args.no_plane_cache),
                           ("--precision", args.precision is not None),
                           ("--precision-switch", args.precision_switch),
+                          ("--sparsity", args.sparsity != "off"),
                           ("--integrity", args.integrity != "off")):
             if val:
                 die(f"{flag} needs an active quantization policy (--bits > 0)")
-    if args.integrity != "off" and args.level != "bitplane":
-        die("--integrity needs --level bitplane: the ABFT column "
-            "checksums ride in the packed bit-plane cache")
-    if args.audit_interval < 0:
-        die("--audit-interval must be >= 0")
+    if args.integrity != "off":
+        if args.level != "bitplane":
+            die("--integrity needs --level bitplane: the ABFT column "
+                "checksums ride in the packed bit-plane cache")
+        if args.no_plane_cache:
+            die("--integrity needs the weight-plane cache (drop "
+                "--no-plane-cache): checksums are computed at decompose "
+                "time and scrub rebuilds the cached decomposition")
+    if args.inject_faults:
+        if args.mode == "lockstep":
+            die("--inject-faults drives the continuous-batching engine "
+                "(--mode cb)")
+        try:
+            args.inject_faults = FaultSpec.parse(args.inject_faults)
+        except ValueError as e:
+            die(f"--inject-faults: {e}")
+    if args.autopilot:
+        if args.mode == "lockstep":
+            die("--autopilot drives the continuous-batching engine "
+                "(--mode cb): the lockstep engine has no queue to watch")
+        if not args.bits:
+            die("--autopilot needs an active quantization policy "
+                "(--bits > 0): the tier ladder truncates the stored "
+                "decomposition")
+        if args.level != "bitplane":
+            die("--autopilot needs --level bitplane (the precision ladder "
+                "is served by plane-prefix truncation)")
+        if args.no_plane_cache:
+            die("--autopilot needs the weight-plane cache (drop "
+                "--no-plane-cache): tier switches truncate the stored "
+                "decomposition instead of re-quantizing")
+    for flag, val in (("--sla-ms", args.sla_ms is not None),
+                      ("--sla-queue-steps", args.sla_queue_steps is not None),
+                      ("--shadow-frac", args.shadow_frac != 0.0)):
+        if val and not args.autopilot:
+            die(f"{flag} is an autopilot knob: add --autopilot")
+    if args.sla_ms is not None and args.sla_ms <= 0:
+        die("--sla-ms must be > 0")
+    if args.sla_queue_steps is not None and args.sla_queue_steps < 1:
+        die("--sla-queue-steps must be >= 1")
+    if not 0.0 <= args.shadow_frac <= 1.0:
+        die("--shadow-frac must be in [0, 1]")
+    if args.model_parallel < 1:
+        die("--model-parallel must be >= 1")
+    if args.deadline is not None:
+        if args.mode == "lockstep":
+            die("--deadline is a continuous-batching feature (--mode cb): "
+                "the lockstep engine has no scheduler to evict from")
+        if args.deadline < 1:
+            die("--deadline must be >= 1 engine step")
     if args.kv_page_size < 0:
         die("--kv-page-size must be >= 0 (0 = dense KV)")
     if args.prefill_chunk < 0:
         die("--prefill-chunk must be >= 0 (0 = monolithic prefill)")
+    if args.kv_page_size:
+        if args.mode == "lockstep":
+            die("--kv-page-size drives the continuous-batching engine "
+                "(--mode cb): the lockstep engine has no slots to page")
+        if args.no_kv_quant:
+            die("--kv-page-size needs int8 KV (drop --no-kv-quant): pages "
+                "hold int8 values plus their scale vectors")
     if args.kv_pages is not None:
         if not args.kv_page_size:
             die("--kv-pages needs --kv-page-size (paged KV)")
         if args.kv_pages < 2:
             die("--kv-pages must be >= 2 (page 0 is the reserved null page)")
+    if args.prefill_chunk and args.mode == "lockstep":
+        die("--prefill-chunk is a continuous-batching feature (--mode cb)")
     if args.share_prefixes and not args.kv_page_size:
         die("--share-prefixes needs --kv-page-size: physical pages are "
             "the sharing unit")
     if args.shared_prefix_len < 0:
         die("--shared-prefix-len must be >= 0")
-    if args.inject_faults:
-        try:
-            args.inject_faults = FaultSpec.parse(args.inject_faults)
-        except ValueError as e:
-            die(f"--inject-faults: {e}")
+    if args.audit_interval < 0:
+        die("--audit-interval must be >= 0")
+    if args.sparsity != "off" and args.level != "bitplane":
+        die("--sparsity needs --level bitplane: occupancy bitmaps and plane "
+            "compaction exist for the packed bit-plane kernels only "
+            "(radix-256 digit planes carry no pack-time occupancy)")
+    if args.sparsity == "compact" and args.no_plane_cache:
+        die("--sparsity compact needs the weight-plane cache (drop "
+            "--no-plane-cache): compaction drops zero planes from the "
+            "load-time decomposition")
     if args.level == "digit" and args.variant == "sbmwc":
         die("--level digit --variant sbmwc has no kernel (SBMwC radix-256 "
             "digits exceed int8); use --variant booth or --level bitplane")
-    if (args.precision is not None or args.precision_switch) and args.level != "bitplane":
-        die("--precision/--precision-switch need --level bitplane "
-            "(digit-plane caches are not prefix-truncatable)")
+    wants_precision = args.precision is not None or args.precision_switch
+    if wants_precision:
+        if args.level != "bitplane":
+            die("--precision/--precision-switch need --level bitplane "
+                "(digit-plane caches are not prefix-truncatable)")
+        if args.no_plane_cache:
+            die("--precision/--precision-switch need the weight-plane cache "
+                "(drop --no-plane-cache): runtime reconfiguration truncates "
+                "the stored decomposition instead of re-quantizing")
     if args.precision is not None and not 1 <= args.precision <= args.bits:
-        die(f"--precision {args.precision} must be in [1, {args.bits}]")
+        die(f"--precision {args.precision} must be in [1, {args.bits}] — the "
+            "dial truncates the stored decomposition, never extends it")
     if args.precision_switch:
         try:
             step_s, bits_s = args.precision_switch.split(":")
@@ -1214,7 +1994,8 @@ def validate_args(args) -> None:
         except ValueError:
             die("--precision-switch expects STEP:BITS, e.g. 8:4")
         if not 1 <= args.precision_switch[1] <= args.bits:
-            die(f"--precision-switch bits must be in [1, {args.bits}]")
+            die(f"--precision-switch bits {args.precision_switch[1]} must be "
+                f"in [1, {args.bits}] (the storage width)")
         if args.precision_switch[0] < 0:
             die("--precision-switch step must be >= 0")
 
@@ -1228,7 +2009,7 @@ def main(argv=None):
         PrecisionPolicy.uniform(
             args.bits, args.bits, variant=args.variant, level=args.level,
             fuse_epilogue=False if args.no_fused else None,
-            integrity=args.integrity,
+            sparsity=args.sparsity, integrity=args.integrity,
         )
         if args.bits
         else PrecisionPolicy.off()
@@ -1236,25 +2017,67 @@ def main(argv=None):
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = init_params(cfg, gen, device=device)
-    lens = [int(x) for x in args.prompt_lens.split(",")]
+    rng = np.random.default_rng(0)
+    run_bits = args.precision or args.bits
+    tag = (f"{cfg.name} ({cfg.n_layers} layers) w{run_bits}a{run_bits} "
+           f"{args.level}/{args.variant}")
+    if args.precision:
+        tag += f" (stored w{args.bits}, truncated)"
+    if args.sparsity != "off":
+        tag += f" sparsity={args.sparsity}"
+    if args.integrity != "off":
+        tag += f" integrity={args.integrity}"
+    tag += f" on {device}"
+
+    if args.mode == "lockstep":
+        engine = Engine(
+            cfg, params, policy, max_len=args.prompt_len + args.gen,
+            plane_cache=not args.no_plane_cache,
+            sample_fn=sampling.make_sample_fn(args.temperature),
+            audit_interval=args.audit_interval, device=device,
+        )
+        if args.precision:
+            engine.set_precision(args.precision)
+        prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
+        tokens, tps = engine.generate(prompts, args.gen)
+        print(f"[serve] {tag} lockstep: generated {tuple(tokens.shape)} at {tps:.1f} tok/s")
+        if args.integrity != "off":
+            print(f"[serve] integrity={args.integrity}: {engine.last_alarms} alarms")
+        print("[serve] first row:", tokens[0].cpu().numpy())
+        return
+
+    lens = (
+        [int(x) for x in args.prompt_lens.split(",")]
+        if args.prompt_lens
+        else [args.prompt_len]
+    )
     if args.shared_prefix_len and args.shared_prefix_len >= min(lens):
         raise SystemExit(
             f"[serve] invalid flags: --shared-prefix-len {args.shared_prefix_len} "
             f"must be shorter than every prompt length (min {min(lens)})"
         )
+    n_slots = args.n_slots or args.batch
     max_len = max(lens) + args.gen
     if args.kv_page_size:
         # round up to a whole number of pages (paged_init_cache requires it)
         max_len = -(-max_len // args.kv_page_size) * args.kv_page_size
+    ap_policy = (
+        AutopilotPolicy(sla_ms=args.sla_ms, sla_queue_steps=args.sla_queue_steps,
+                        shadow_frac=args.shadow_frac)
+        if args.autopilot
+        else None
+    )
     engine = ContinuousBatchingEngine(
-        cfg, params, policy, n_slots=args.n_slots, max_len=max_len,
-        device=device, audit_interval=args.audit_interval,
+        cfg, params, policy, n_slots=n_slots, max_len=max_len,
+        kv_quant=not args.no_kv_quant, plane_cache=not args.no_plane_cache,
+        device=device, audit_interval=args.audit_interval, autopilot=ap_policy,
         page_size=args.kv_page_size, kv_pages=args.kv_pages,
         prefill_chunk=args.prefill_chunk, share_prefixes=args.share_prefixes,
     )
+    if args.kv_page_size:
+        tag += f" paged/{args.kv_page_size}"
     if args.precision:
         engine.set_precision(args.precision)
-    rng = np.random.default_rng(0)
     prefix = (
         rng.integers(0, cfg.vocab_size, (args.shared_prefix_len,))
         if args.shared_prefix_len else None
@@ -1268,7 +2091,9 @@ def main(argv=None):
     requests = [
         Request(
             rid=i, tokens=_prompt(s), max_new_tokens=args.gen,
-            arrival_step=i * args.stagger, shared_prefix_len=args.shared_prefix_len,
+            temperature=args.temperature, arrival_step=i * args.stagger,
+            deadline_step=i * args.stagger + args.deadline if args.deadline else None,
+            shared_prefix_len=args.shared_prefix_len,
         )
         for i, s in enumerate(lens)
     ]
@@ -1279,10 +2104,9 @@ def main(argv=None):
     )
     injector = FaultInjector(args.inject_faults) if args.inject_faults else None
     results, stats = engine.run(requests, precision_schedule=schedule, injector=injector)
-    run_bits = args.precision or args.bits
+    kv = "bf16" if args.no_kv_quant else "int8"
     print(
-        f"[serve] {cfg.name} ({cfg.n_layers} layers) w{run_bits}a{run_bits} "
-        f"{args.level}/{args.variant} on {device}: {len(results)} requests, "
+        f"[serve] {tag} cb/{kv}: {len(results)} requests, "
         f"{stats['decoded_tokens'] + stats['admitted']} tokens at "
         f"{stats['tok_per_s']:.1f} tok/s, slot util {stats['slot_utilization']:.2f}, "
         f"kv cache {stats['kv_cache_bytes'] / 1024:.1f} KiB"
@@ -1299,6 +2123,21 @@ def main(argv=None):
         )
     for step_i, prec in stats["precision_switches"]:
         print(f"[serve] precision switch at decode step {step_i}: -> {prec}")
+    if "autopilot" in stats:
+        apst = stats["autopilot"]
+        print(
+            f"[serve] autopilot: final tier {tuple(apst['final_tier'])}, "
+            f"{len(apst['switches'])} switches, {apst['shed']} shed, "
+            f"p99 queue wait {apst['p99_queue_steps']:.1f} steps, "
+            f"tier tokens {apst['tier_tokens']}"
+        )
+        for sw_step, sw_tier, sw_reason in apst["switches"]:
+            print(f"[serve]   step {sw_step}: -> {tuple(sw_tier)} ({sw_reason})")
+        if apst["shadow_probes"]:
+            print(
+                f"[serve]   shadow probes {apst['shadow_probes']}, "
+                f"KL ewma {apst['shadow_kl_ewma']:.5f}"
+            )
     if "integrity" in stats:
         ig = stats["integrity"]
         print(

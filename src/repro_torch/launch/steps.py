@@ -1,12 +1,12 @@
-"""Serving step functions: prefill (whole or in chunks) and the
-continuous-batching decode step.
+"""Serving step functions: prefill (whole or in chunks), the lockstep
+engine's decode and serve steps, and the continuous-batching decode step.
 
 The factories take an optional ``precision=(a_bits, w_bits)`` runtime
 dial: the policy is re-stamped with
 :meth:`PrecisionPolicy.with_runtime_bits`, so every projection resolves
 its plan at the dialed width (weight planes by MSB-prefix truncation of
 the stored decomposition, activations quantized at the lower width).
-On the card the engine captures the decode step as one CUDA graph per
+On the card the engines capture the decode step as one CUDA graph per
 precision (:mod:`repro_torch.launch.graphs`), the counterpart of the
 reference's ``jax.jit`` of it; prefill runs eagerly.
 
@@ -101,35 +101,82 @@ def make_prefill_step(
     return prefill_step
 
 
+def make_decode_step(cfg: ModelConfig, policy=None, precision: Optional[Tuple[int, int]] = None,
+                     backend: str = "auto"):
+    """decode_step(params, cache, tokens (B, 1)) -> (logits (B, V), cache):
+    one token per row against the cache, which is updated in place."""
+    policy = _dial(policy, precision)
+
+    def decode_step(params, cache, tokens):
+        with torch.no_grad():
+            logits, _aux, cache = forward(
+                cfg, params, {"tokens": tokens}, policy=policy, cache=cache, backend=backend,
+            )
+        return logits[:, -1, :], cache
+
+    return decode_step
+
+
+def make_serve_step(
+    cfg: ModelConfig,
+    policy=None,
+    sample_fn=None,
+    precision: Optional[Tuple[int, int]] = None,
+    backend: str = "auto",
+    collector: Optional[Collector] = None,
+):
+    """One lockstep iteration: decode and sample the next token,
+    serve_step(params, cache, tokens (B, 1), gen=None) -> (next_tokens (B, 1),
+    cache[, alarms]). ``sample_fn(logits, gen) -> (B,) int32`` over the
+    vocab-masked logits (default :func:`~repro_torch.launch.sampling.greedy`)."""
+    decode = make_decode_step(cfg, policy, precision=precision, backend=backend)
+    sample_fn = sample_fn or sampling.greedy
+
+    def serve_step(params, cache, tokens, gen=None):
+        (logits, cache), alarms = _collected(
+            collector, lambda: decode(params, cache, tokens), tokens.device
+        )
+        logits = sampling.mask_vocab(logits, cfg.vocab_size)
+        next_tok = sample_fn(logits, gen)[:, None]
+        if collector is None:
+            return next_tok, cache
+        return next_tok, cache, alarms
+
+    return serve_step
+
+
 def make_cb_decode_step(
     cfg: ModelConfig,
     policy=None,
     precision: Optional[Tuple[int, int]] = None,
     backend: str = "auto",
     collector: Optional[Collector] = None,
+    with_logits: bool = False,
 ):
     """One continuous-batching iteration over the whole slot array:
     cb_step(params, cache, tokens (B, 1), temps (B,), gen) ->
-    (next_tokens (B, 1), cache[, alarms]). Every slot decodes one token at
-    its own length; free slots compute too (their lanes are never read).
-    The step updates ``cache`` in place and returns it; it reads nothing
-    back to the host and builds no tensor from host data, so the engine
-    captures it as one CUDA graph per precision on the card."""
-    policy = _dial(policy, precision)
+    (next_tokens (B, 1), cache[, alarms][, logits]). Every slot decodes one
+    token at its own length; free slots compute too (their lanes are never
+    read). The step updates ``cache`` in place and returns it; it reads
+    nothing back to the host and builds no tensor from host data, so the
+    engine captures it as one CUDA graph per precision on the card.
+    ``with_logits`` adds the raw (unmasked) per-slot logits as the last
+    output: the autopilot's shadow probe scores their KL between tiers
+    (sliced to ``vocab_size`` before any softmax)."""
+    decode = make_decode_step(cfg, policy, precision=precision, backend=backend)
 
     def cb_step(params, cache, tokens, temps, gen=None):
-        def body():
-            with torch.no_grad():
-                return forward(
-                    cfg, params, {"tokens": tokens}, policy=policy, cache=cache,
-                    backend=backend,
-                )
-
-        (logits, _aux, cache), alarms = _collected(collector, body, tokens.device)
-        logits = sampling.mask_vocab(logits[:, -1, :], cfg.vocab_size)
+        (logits, cache), alarms = _collected(
+            collector, lambda: decode(params, cache, tokens), tokens.device
+        )
+        raw = logits
+        logits = sampling.mask_vocab(logits, cfg.vocab_size)
         next_tok = sampling.sample_tokens(logits, temps, gen)[:, None]
-        if collector is None:
-            return next_tok, cache
-        return next_tok, cache, alarms
+        out = (next_tok, cache)
+        if collector is not None:
+            out = out + (alarms,)
+        if with_logits:
+            out = out + (raw,)
+        return out
 
     return cb_step

@@ -16,6 +16,7 @@ extents; :func:`cache_kv_bytes` counts its pools.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
@@ -38,6 +39,12 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     scale = torch.clamp_min(amax, KV_SCALE_EPS) * _KV_RECIP
     q = torch.clamp(torch.round(xf / scale[..., None]), -KV_QMAX, KV_QMAX)
     return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv` (the attention paths fold the scale
+    into scores and probabilities instead of materializing this)."""
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
 
 
 def _attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, kv_quant: bool, device):
@@ -94,6 +101,50 @@ def insert_slot(cache, seq_cache, slot: int):
             leaf[slot] = src.to(leaf.dtype)
     cache["step"][slot] = seq_cache["step"][0]
     return cache
+
+
+def _mask(take, dev) -> torch.Tensor:
+    if isinstance(take, torch.Tensor):
+        return take.to(device=dev, dtype=torch.bool)
+    return torch.as_tensor(np.asarray(take, bool), device=dev)
+
+
+def _select(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor, out):
+    """``where(mask, b, a)`` with ``mask`` along the leading axis, into
+    ``out`` when given (in place: no new tensor)."""
+    m = mask.reshape((-1,) + (1,) * (a.dim() - 1))
+    if out is None:
+        return torch.where(m, b, a)
+    return torch.where(m, b, a, out=out)
+
+
+def select_slots(cache_a, cache_b, take_b, out=None):
+    """Per-slot merge of two same-layout caches: slot ``i`` of the result
+    comes from ``cache_b`` where ``take_b[i]`` else ``cache_a``.
+
+    This is the mixed-tier decode combinator: the engine runs one decode
+    pass per active precision tier from the same pre-step state and keeps
+    each slot's post-step state from the pass of that slot's admission
+    tier. Slot lanes are independent inside a step (per-row activation
+    quantization, per-slot lengths), so the merge is a lane select along
+    every leaf's leading (slot) axis. ``take_b``: an ``(n_slots,)`` bool
+    vector (a device tensor, or host data). With ``out`` (a cache of the
+    same layout, e.g. ``cache_a`` itself) the result is written into its
+    leaves in place and ``out`` is returned."""
+    mask = _mask(take_b, cache_a["step"].device)
+    if out is None:
+        return {
+            "step": _select(cache_a["step"], cache_b["step"], mask, None),
+            "layers": [
+                {k: _select(ablk[k], bblk[k], mask, None) for k in ablk}
+                for ablk, bblk in zip(cache_a["layers"], cache_b["layers"])
+            ],
+        }
+    _select(cache_a["step"], cache_b["step"], mask, out["step"])
+    for ablk, bblk, oblk in zip(cache_a["layers"], cache_b["layers"], out["layers"]):
+        for k in ablk:
+            _select(ablk[k], bblk[k], mask, oblk[k])
+    return out
 
 
 def quantize_scratch(scratch):

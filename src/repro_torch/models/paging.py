@@ -37,7 +37,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.cache import quantize_kv
+from repro_torch.models.cache import _mask, _select, quantize_kv
 from repro_torch.models.config import ModelConfig
 
 
@@ -417,32 +417,28 @@ def clear_slot(cache, slot):
     return cache
 
 
-def select_paged(cache_a, cache_b, take_slots, take_pages):
+def select_paged(cache_a, cache_b, take_slots, take_pages, out=None):
     """Mixed-tier merge for paged caches: slot metadata (len / step / block
     table) selects per slot, pool leaves select per **physical page** —
     ``take_pages`` marks the pages owned by slots whose post-step state
     should come from ``cache_b``. Decode writes touch only the writer
     slot's current owned page (shared prefix pages are read-only), so a
-    page-granular select is exact; page 0 takes either side's garbage."""
+    page-granular select is exact; page 0 takes either side's garbage.
+    The masks are device tensors or host data; with ``out`` the result is
+    written into its leaves in place (see :func:`cache.select_slots`)."""
     dev = cache_a["step"].device
-    take_slots = torch.as_tensor(np.asarray(take_slots, bool), device=dev)
-    take_pages = torch.as_tensor(np.asarray(take_pages, bool), device=dev)
-
-    def sel(a, b, mask):
-        m = mask.reshape((-1,) + (1,) * (a.ndim - 1))
-        return torch.where(m, b, a)
-
-    return {
-        "step": sel(cache_a["step"], cache_b["step"], take_slots),
-        "layers": [
-            {
-                key: sel(ablk[key], bblk[key],
-                         take_pages if key in _POOL_KEYS else take_slots)
-                for key in ablk
-            }
-            for ablk, bblk in zip(cache_a["layers"], cache_b["layers"])
-        ],
-    }
+    take_slots = _mask(take_slots, dev)
+    take_pages = _mask(take_pages, dev)
+    res = {"step": _select(cache_a["step"], cache_b["step"], take_slots,
+                           None if out is None else out["step"]),
+           "layers": []}
+    for i, (ablk, bblk) in enumerate(zip(cache_a["layers"], cache_b["layers"])):
+        res["layers"].append({
+            key: _select(ablk[key], bblk[key], take_pages if key in _POOL_KEYS else take_slots,
+                         None if out is None else out["layers"][i][key])
+            for key in ablk
+        })
+    return res if out is None else out
 
 
 def pool_and_slot_leaves(cache) -> tuple[list, list]:

@@ -714,3 +714,179 @@ def test_restored_and_replayed_decode_step_equals_eager_on_card(cuda_device):
     assert sg["integrity"]["step_retries"] >= 1 and sg["integrity"]["scrubs"] >= 1
     assert list(graph.capture_s) == [None]
     assert [t.data_ptr() for t in integrity._leaves(graph.q_params)] == ptrs
+
+
+def _autopilot_engines(dev, compile_steps=True, **kw):
+    """An autopilot engine and a static one (granite-3-8b reduced to 2
+    layers, 3 slots), and an uneven overload ramp whose slots fall out of
+    step, so requests of different tiers decode side by side."""
+    import numpy as np
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.launch.serve import ContinuousBatchingEngine
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime.autopilot import AutopilotPolicy
+    from repro_torch.runtime.scheduler import Request
+
+    cfg = get_reduced("granite-3-8b")
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = init_params(cfg, g, device=dev)
+    policy = PrecisionPolicy.uniform(8, 8, level="bitplane")
+    common = dict(n_slots=3, max_len=32, device=dev, compile_steps=compile_steps, **kw)
+    ap = ContinuousBatchingEngine(cfg, params, policy, autopilot=AutopilotPolicy(
+        sla_queue_steps=4, degrade_patience=2, upgrade_patience=4, cooldown_steps=2,
+        shadow_frac=0.5), **common)
+    static = ContinuousBatchingEngine(cfg, params, policy, **common)
+
+    def requests():
+        return [Request(rid=i, tokens=np.random.default_rng(i).integers(0, cfg.vocab_size, (s,)),
+                        max_new_tokens=g_, arrival_step=i // 3)
+                for i, (s, g_) in enumerate(zip((5, 9, 7, 6, 11, 4, 8, 5, 9, 6, 7, 10),
+                                                (6, 3, 9, 4, 7, 10, 3, 5, 8, 4, 6, 9)))]
+
+    return ap, static, requests
+
+
+def _state_ptrs(engine):
+    trees = [engine._cache, engine._tokens, engine._backup, engine._merge, engine._mask_dev]
+    return [t.data_ptr() for tree in trees for t in _tensors(tree)]
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+@pytest.mark.cuda
+def test_mixed_tier_step_equals_each_tiers_static_step_on_card(cuda_device):
+    """Each mixed-tier step (a graph replay per tier, merged in place) is
+    checked slot by slot against a static engine's single-tier step of the
+    same pre-step state: every slot's KV rows, length and next token equal
+    the static step of its admission tier's. Every request then equals the
+    static run of its tier, and no state buffer moved."""
+    ap, static, requests = _autopilot_engines(cuda_device)
+    checked = []
+    orig = ap._decode_checked
+
+    def checked_step(step_i, passes, pass_of, *args, **kw):
+        if len(passes) < 2:
+            return orig(step_i, passes, pass_of, *args, **kw)
+        pre = {"cache": [{k: v.clone() for k, v in blk.items()} for blk in ap._cache["layers"]],
+               "step": ap._cache["step"].clone(), "tokens": ap._tokens.clone()}
+        toks, kl = orig(step_i, passes, pass_of, *args, **kw)
+        static._temps.copy_(ap._temps)
+        for p, prec in enumerate(passes):
+            static._cache["step"].copy_(pre["step"])
+            for blk, saved in zip(static._cache["layers"], pre["cache"]):
+                for k in blk:
+                    blk[k].copy_(saved[k])
+            static._tokens.copy_(pre["tokens"])
+            out, _ = static._decode(step_i, prec)
+            for s in [s for s in range(ap.n_slots) if pass_of[s] == p]:
+                assert int(out[s]) == int(toks[s]), (step_i, s)
+                for a, b in zip(ap._cache["layers"], static._cache["layers"]):
+                    for k in a:
+                        assert torch.equal(a[k][s], b[k][s]), (step_i, s, k)
+        checked.append(step_i)
+        return toks, kl
+
+    ap._decode_checked = checked_step
+    ap.run(requests())  # warm-up: captures each tier's graph
+    ptrs = _state_ptrs(ap)
+    results, stats = ap.run(requests())
+    assert checked and stats["autopilot"]["mixed_steps"] > 0
+    assert _state_ptrs(ap) == ptrs and not stats["capture_s"]
+    tiers = stats["autopilot"]["request_tiers"]
+    for name in set(tiers.values()):
+        w = int(name.split("a")[0][1:])
+        static.set_precision(None if w == 8 else w)
+        ref, _ = static.run(requests())
+        for rid in [r for r, t in tiers.items() if t == name and r in results]:
+            assert (results[rid] == ref[rid]).all(), (name, rid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_autopilot_graph_run_equals_eager_on_card(cuda_device, paged):
+    """The autopilot's graph run (mixed-tier passes, merges and the shadow
+    probe replayed) gives the eager run's tokens, switches, shed set and
+    request tiers; its probe's KL agrees within 1e-5."""
+    kw = dict(page_size=8) if paged else {}
+    graph, _, requests = _autopilot_engines(cuda_device, **kw)
+    eager, _, _ = _autopilot_engines(cuda_device, compile_steps=False, **kw)
+    (rg, sg), (re_, se) = graph.run(requests()), eager.run(requests())
+    ag, ae = sg["autopilot"], se["autopilot"]
+    assert sorted(rg) == sorted(re_) and all((rg[r] == re_[r]).all() for r in rg)
+    for key in ("switches", "request_tiers", "tier_tokens", "shed", "mixed_steps",
+                "shadow_probes"):
+        assert ag[key] == ae[key], key
+    assert sg["failed"] == se["failed"]
+    if ag["shadow_kl_ewma"] is not None:
+        assert abs(ag["shadow_kl_ewma"] - ae["shadow_kl_ewma"]) <= 1e-5 * ae["shadow_kl_ewma"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", ["digit", "bitplane"])
+def test_float32_oracle_within_bound_of_float64_on_card(cuda_device, level):
+    """16-bit operands at one full-width shape (granite-3-8b's gate, M=4):
+    the float32-accumulated oracle is within 1e-5 of max|exact| of the
+    float64 product of the same int32 operands (bit-plane level on a
+    narrower N: its 256 pair products are what the card would run)."""
+    from repro_torch.core import bitserial
+
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(16)
+    n = 12800 if level == "digit" else 512
+    a = torch.randint(-(1 << 15), 1 << 15, (4, 4096), generator=g, device=cuda_device,
+                      dtype=torch.int32)
+    w = torch.randint(-(1 << 15), 1 << 15, (4096, n), generator=g, device=cuda_device,
+                      dtype=torch.int32)
+    got = bitserial.bitserial_matmul(a, w, a_bits=16, w_bits=16, level=level,
+                                     accum_dtype=torch.float32)
+    exact = a.double() @ w.double()
+    assert got.dtype == torch.float32
+    assert (got.double() - exact).abs().max() <= 1e-5 * exact.abs().max()
+
+
+@pytest.mark.cuda
+def test_lockstep_graph_replay_equals_eager_on_card(cuda_device):
+    """The lockstep engine's decode steps replayed from graphs (one per
+    precision) give the eager step's tokens, before and after an 8 -> 4
+    dial; with bf16 KV they equal continuous batching at the same batch."""
+    import numpy as np
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.launch.serve import ContinuousBatchingEngine, Engine
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime.scheduler import Request
+
+    cfg = get_reduced("granite-3-8b")
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(0)
+    params = init_params(cfg, g, device=cuda_device)
+    policy = PrecisionPolicy.uniform(8, 8, level="bitplane")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 7))
+    graph, eager = (Engine(cfg, params, policy, max_len=16, device=cuda_device,
+                           compile_steps=c) for c in (True, False))
+    for prec in (None, 4):
+        graph.set_precision(prec)
+        eager.set_precision(prec)
+        tg, _ = graph.generate(prompts, 6)
+        te, _ = eager.generate(prompts, 6)
+        assert torch.equal(tg, te), prec
+    assert set(graph._compiled_graphs) == {None, (4, 4)}
+    graph.set_precision(None)
+    tg, _ = graph.generate(prompts, 6)
+    cb = ContinuousBatchingEngine(cfg, params, policy, n_slots=3, max_len=16, kv_quant=False,
+                                  device=cuda_device)
+    res, _ = cb.run([Request(rid=i, tokens=p, max_new_tokens=6) for i, p in enumerate(prompts)])
+    for i in range(3):
+        assert (res[i] == tg[i].cpu().numpy()).all(), i
