@@ -130,7 +130,32 @@ Phases, each failing the run on any error:
 13. lockstep — Engine.generate on 4 prompts of 64 tokens, 16 new tokens,
    from graphs: equal to its eager control and to continuous batching with
    bf16 KV at the same batch; under detect one flipped weight bit raises
-   its alarm count.
+   its alarm count;
+14. the SSM and hybrid families at full width, seeded random weights, the
+   continuous-batching workload of phase 3 (``FAMILY_LAYERS`` sets each
+   family's depth): mamba2-bitplane (8 -> 4 at step 8), mamba2-digit and
+   mamba2-detect (the packed route, layers unrolled, an audit every
+   iteration: no alarm clean and one check per projection; the fold
+   kernel bit-equal to the plain folds on the cache with its float32 SSM
+   state; one flipped state bit in a live slot moves that slot's fold
+   alone and raises a KV alarm; one flipped weight bit an ABFT and an
+   audit alarm);
+15. rgemma-bitplane — recurrentgemma-2b (periods of rec, rec, attn and a
+   tail) on the same workload;
+16. rgemma-window — prompts 2040/64/128/256, 24 new tokens: the long
+   request's 2048-row ring wraps at its 9th decode token; its decode
+   logits (bf16 ring) are held against a cache-free forward over the same
+   tokens on the plain route within ``WINDOW_DLOGIT_TOL``, and again with
+   the decode's softmax weights kept in float32 (reported: the part of the
+   gap the bf16 rounding of those weights makes).
+   Each family cell replays its decode steps from graphs and is held
+   against its eager twin (tokens, launches) and against the plain route
+   on the card (``backend="torch"``: tokens equal, and max|dlogit| of
+   every prefill and of the first 4 decode steps within
+   ``FAMILY_DLOGIT_TOL``); it prints host and device ms per decode step,
+   busy shares, tok/s, prefill s, launches per route, and the device ms per
+   decode step of the families' own operators (the ``family.*`` profiler
+   ranges of a short eager run).
 
 Every engine cell's main run replays each decode step from the engine's
 CUDA graph of that precision (captured by the warm-up run; the counted
@@ -139,9 +164,10 @@ eager step (``compile_steps=False``): tokens, launches and, in detect mode,
 every integrity count (clean and after the flipped bit) must equal the
 graph run's. Each cell prints each precision's capture seconds on a line
 of its own, its host and device ms per decode step and its busy shares,
-and one replay of its storage-width graph profiled with CPU and CUDA
+and a replay of its storage-width graph profiled with CPU and CUDA
 activities: the main kernels counted by name must equal the launches the
-engine tallies per replay. In the detect cell the fold kernel
+engine tallies per replay (the session's second replay is counted; its
+first, which can lose its first device records, is reported beside it). In the detect cell the fold kernel
 (``csrc/fold.cu``) is held bit-equal to the plain folds on the whole 3.40
 GB quantized tree and on the KV cache, must move with one flipped bit, and
 is timed beside its byte bound.
@@ -1130,11 +1156,14 @@ def _requests(cfg) -> list:
     ]
 
 
-def _check_finished(name: str, cfg, results: dict, stats: dict) -> None:
-    if stats["failed"] or sorted(results) != list(range(len(PROMPT_LENS))):
+def _check_finished(name: str, cfg, results: dict, stats: dict, reqs=None) -> None:
+    """Every request finished with its ``max_new_tokens`` in-vocab tokens
+    (``reqs``: the run's requests, default ``_requests(cfg)``)."""
+    want = {r.rid: r.max_new_tokens for r in (reqs or _requests(cfg))}
+    if stats["failed"] or sorted(results) != sorted(want):
         _die(f"{name}: not every request finished: {stats['failed']}")
     for rid, toks in results.items():
-        if toks.shape != (GEN_TOKENS,) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        if toks.shape != (want[rid],) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
             _die(f"{name}: request {rid} produced malformed tokens {toks}")
 
 
@@ -1147,10 +1176,8 @@ def _same_tokens(name: str, results: dict, other: dict, what: str) -> None:
 def _engine(cfg, params, policy, **kw):
     from repro_torch.launch.serve import ContinuousBatchingEngine
 
-    return ContinuousBatchingEngine(
-        cfg, params, policy, n_slots=N_SLOTS, max_len=max(PROMPT_LENS) + GEN_TOKENS,
-        device="cuda", **kw,
-    )
+    kw.setdefault("max_len", max(PROMPT_LENS) + GEN_TOKENS)
+    return ContinuousBatchingEngine(cfg, params, policy, n_slots=N_SLOTS, device="cuda", **kw)
 
 
 class _ReadBacks:
@@ -1174,24 +1201,25 @@ class _ReadBacks:
         self.mod.is_outer_product = self.orig
 
 
-def _counted_run(name, cfg, engine, schedule, kernel, route, also=()) -> tuple:
+def _counted_run(name, cfg, engine, schedule, kernel, route, also=(), reqs=_requests) -> tuple:
     """One warm-up (on a graph engine it captures each precision's decode
     step), then the counted run: launch counts are set to 0 just before it
     and read just after; ``kernel`` must have launched once per ``route``
     projection call and no other kernel but those in ``also``, and no pair
     weights may have been read back. On a graph engine every decode step
-    must have replayed a captured graph (no capture inside the run)."""
+    must have replayed a captured graph (no capture inside the run).
+    ``reqs(cfg)`` makes the workload's requests."""
     # allocator, library handles, and each precision's decode-step graph
-    engine.run(_requests(cfg)[:1], precision_schedule=schedule)
+    engine.run(reqs(cfg)[:1], precision_schedule=schedule)
     engine.set_precision(None)
     with _ReadBacks() as reads:
         _reset_counts()
-        results, stats = engine.run(_requests(cfg), precision_schedule=schedule)
+        results, stats = engine.run(reqs(cfg), precision_schedule=schedule)
         counts = _read_counts()
     stats["pair_weight_read_backs"] = reads.calls
     if reads.calls:
         _die(f"{name}: {reads.calls} pair-weight read-backs in a served run")
-    _check_finished(name, cfg, results, stats)
+    _check_finished(name, cfg, results, stats, reqs(cfg))
     calls = stats["route_calls"].get(route, 0)
     others = {k: v for k, v in counts.items() if k != kernel and k not in also and v}
     if counts[kernel] == 0 or counts[kernel] != calls or others:
@@ -1208,27 +1236,53 @@ MAIN_KERNELS = {"fused_plane_linear": "plane_mm_fused_main", "plane_matmul": "pl
                 "paged_flash_attention": "decode_split_paged_kernel"}
 
 
+# idle seconds between the two replays of a profiled session. A
+# torch.profiler session can lose the first device records of its first
+# graph replay (late in this script's process, a main kernel among them),
+# so the session replays twice and counts the second replay
+PROFILE_GAP_S = 0.05
+
+
+def _profiled_replays(captured, tallied: dict) -> list:
+    """Two replays of a captured step in one ``torch.profiler`` session,
+    ``PROFILE_GAP_S`` of idle card apart; the device records are split at
+    the longest idle gap between consecutive ones. Per replay: its device
+    events and its main kernels counted by name."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            captured(0)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_GAP_S)
+    cuda = sorted((evt for evt in prof.events()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda evt: evt.time_range.start)
+    cut = max(range(1, len(cuda)),
+              key=lambda i: cuda[i].time_range.start - cuda[i - 1].time_range.end)
+    return [{"device_events": len(replay),
+             "main_kernels": {k: sum(MAIN_KERNELS[k] in evt.name for evt in replay)
+                              for k in tallied}}
+            for replay in (cuda[:cut], cuda[cut:])]
+
+
 def _graph_line(name: str, engine, reps: int = 20) -> dict:
     """The engine's captured decode steps: each precision's warm-up and
     capture seconds on a line of its own; one replay of the storage-width
     graph under ``torch.profiler`` (CPU and CUDA activities), whose main
     kernels counted by name must equal the launches the engine tallies per
     replay; and the device time of a replay (CUDA events around ``reps``
-    replays, on the finished run's state, which the next run resets)."""
+    replays, on the finished run's state, which the next run resets).
+    The profile holds two replays and counts the second
+    (``_profiled_replays``); the first's counts are reported beside it."""
     for prec, secs in engine.capture_s.items():
         print(json.dumps({"engine": name, "graph_precision": str(prec), "capture_s": secs}),
               flush=True)
     captured = engine._compiled_graphs[None]
     captured(0)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        captured(0)
-        torch.cuda.synchronize()
-    names = [evt.name for evt in prof.events()
-             if evt.device_type == torch.autograd.DeviceType.CUDA]
     tallied = {k: v for k, v in captured.increment["launches"].items() if v}
-    found = {k: sum(MAIN_KERNELS[k] in n for n in names) for k in tallied}
+    first, counted = _profiled_replays(captured, tallied)
+    found = counted["main_kernels"]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1238,20 +1292,25 @@ def _graph_line(name: str, engine, reps: int = 20) -> dict:
     end.synchronize()
     line = {"captured_precisions": [str(p) for p in engine._compiled_graphs],
             "capture_s": {str(p): t for p, t in engine.capture_s.items()},
-            "replay_device_events": len(names), "replay_kernel_counts": found,
-            "tallied_launches_per_replay": tallied,
+            "replay_device_events": counted["device_events"], "replay_kernel_counts": found,
+            "tallied_launches_per_replay": tallied, "first_profiled_replay": first,
             "replay_device_ms": start.elapsed_time(end) / reps}
     if found != tallied:
-        _die(f"{name}: a profiled replay ran {found} main kernels, the engine tallies {tallied}")
+        _die(f"{name}: a profiled replay ran {found} main kernels, the engine tallies {tallied} "
+             f"(the session's first replay: {first})")
     return line
 
 
 def _eager_twin(name, cfg, params, policy, schedule, kernel, route, results, counts,
-                also=(), **kw) -> dict:
+                also=(), reqs=_requests, family_ops=False, **kw) -> dict:
     """The same cell with ``compile_steps=False``: the eager step must give
-    the graph run's tokens and launch counts. Returns its host times."""
+    the graph run's tokens and launch counts. Returns its host times and,
+    with ``family_ops``, the device time per decode step of the families'
+    own operators (``_family_ops``, one more profiled run)."""
     engine = _engine(cfg, params, policy, compile_steps=False, **kw)
-    res, stats, cnt = _counted_run(f"{name} eager", cfg, engine, schedule, kernel, route, also)
+    res, stats, cnt = _counted_run(f"{name} eager", cfg, engine, schedule, kernel, route, also,
+                                   reqs)
+    ops = _family_ops(engine, reqs(cfg), schedule) if family_ops else None
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -1262,7 +1321,7 @@ def _eager_twin(name, cfg, params, policy, schedule, kernel, route, results, cou
             "tok_per_s": stats["tok_per_s"], "wall_s": stats["wall_s"],
             "decode_s": stats["decode_s"],
             "host_ms_per_decode_step": 1e3 * stats["decode_s"] / stats["decode_steps"],
-            "integrity": stats.get("integrity")}
+            "integrity": stats.get("integrity"), "family_ops_device_ms_per_decode_step": ops}
 
 
 def _summary(name, cfg, results, stats, counts, kernel, runs, profile) -> dict:
@@ -2421,7 +2480,7 @@ def run_digit16(cfg, params, summary: dict) -> dict:
     _same_tokens(name, results, res_e, "the eager control")
     dense = _prefill_logits(cfg, params, PrecisionPolicy.off(), prompts)
     pol8 = PrecisionPolicy.uniform(8, 8, variant="booth", level="digit")
-    q8 = quantize_params(params, pol8, plane_cache=True, scan_layers=cfg.scan_layers)
+    q8 = quantize_params(params, pol8, cfg=cfg, plane_cache=True)
     logits8 = _prefill_logits(cfg, q8, pol8, prompts)
     del q8
     gc.collect()
@@ -2513,6 +2572,436 @@ def run_lockstep(cfg, params) -> dict:
     return out
 
 
+# the SSM and hybrid families (phases 14-16): full width, depth per FAMILY_LAYERS
+FAMILY_SCHEDULE = {8: 4}
+# max|dlogit| of the kernel route against the plain route (backend="torch")
+# on the same quantized tree, every prefill and the first 4 decode steps:
+# the projections are bit-equal and the rest is the same code, so 0 is
+# expected; 0.05 is about one bf16 step at |logit| in [4, 8)
+FAMILY_DLOGIT_TOL = 0.05
+FAMILY_PARITY_STEPS = 4
+WINDOW_PROMPTS = (2040, 64, 128, 256)
+WINDOW_GEN = 24
+# the long request's decode logits against a cache-free forward over the
+# same tokens: _decode_gqa rounds its softmax weights to bf16 (the
+# reference's order), _local_gqa keeps them in float32, and each projection
+# requantizes its input to int8, so a rounding difference grows with depth
+# (the check is repeated with float32 weights and reported beside it). At
+# the cell's 8 layers an NVIDIA H100 80GB HBM3 at 700 W read 0.1875-0.2412
+# on both sides of the wrap (seeded: the same in every run). One evicted
+# key of 2048 moves a logit less, so the exact check of the ring's rows
+# carries the alignment, and this bounds the noise
+WINDOW_DLOGIT_TOL = 0.3
+WINDOW_WRAP_RATIO = 1.25  # after the wrap, at most this times the largest error before it
+FAMILY_OPS = ("family.ssd", "family.rglru", "family.conv", "family.ring_attention",
+              "family.tied_head")
+LEVEL_KERNELS = {"bitplane": ("fused_plane_linear", "fused_cached"),
+                 "digit": ("plane_matmul", "cached_planes"),
+                 "detect": ("plane_matmul_packed", "cached_packed")}
+
+
+def _window_requests(cfg) -> list:
+    from repro_torch.runtime.scheduler import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size, (s,)),
+                    max_new_tokens=WINDOW_GEN, arrival_step=STAGGER * i)
+            for i, s in enumerate(WINDOW_PROMPTS)]
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0))
+
+
+FAMILY_OPS_STEPS = 4  # decode steps of the profiled eager run
+# depth of each family's cells (full: 48 and 26 = 8 periods + a 2-layer tail).
+# The smoke has 1200 s and aims to finish in half of that, which the whole
+# run passes even with these cuts (PERF.md, section 4): the route cells
+# mamba2-digit and mamba2-detect run 16 layers, and rgemma-window two
+# periods and the tail
+FAMILY_LAYERS = {"mamba2-bitplane": 48, "mamba2-digit": 16, "mamba2-detect": 16,
+                 "rgemma-bitplane": 26, "rgemma-window": 8}
+
+
+def _family_ops(engine, reqs, schedule) -> dict:
+    """The workload's first request alone, ``FAMILY_OPS_STEPS`` decode steps
+    of the eager step (every slot decodes at every step) under
+    ``torch.profiler``: the device time per decode step of the families'
+    own operators (the ``family.*`` ranges: the SSD or RG-LRU step, the
+    causal conv, the ring attention, the tied head; the kernels their ops
+    launch) inside the ``serve.decode_step`` ranges, apart from the
+    projections. A short run: the profiler's host-side cost grows with
+    every op of every layer it records."""
+    cpu = torch.autograd.DeviceType.CPU
+    engine.set_precision(None)
+    req = dataclasses.replace(reqs[0], max_new_tokens=FAMILY_OPS_STEPS + 1)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, stats = engine.run([req], precision_schedule=schedule)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == cpu]
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == "serve.decode_step"]
+    total = {name: 0.0 for name in FAMILY_OPS}
+    for e in events:
+        if e.name in total and any(lo <= e.time_range.start < hi for lo, hi in spans):
+            total[e.name] += _device_us(e)
+    steps = max(stats["decode_steps"], 1)
+    return {name: us / 1e3 / steps for name, us in total.items() if us}
+
+
+def _logit_parity(cfg, q_params, policy, prompts, max_len) -> dict:
+    """The kernel route against the plain route on the card, on one
+    quantized tree: each prompt's prefill (batch 1, int8 KV committed as
+    the engine commits it) and its first ``FAMILY_PARITY_STEPS`` greedy
+    decode steps (the plain route's token fed to both). Returns the
+    largest max|dlogit| of the prefills and of the decode steps."""
+    from repro_torch.launch import sampling
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    steps = {be: (make_prefill_step(cfg, policy, max_len=max_len, kv_quant=True, backend=be),
+                  make_decode_step(cfg, policy, backend=be)) for be in ("auto", "torch")}
+    worst = {"prefill": 0.0, "decode": 0.0}
+    for p in prompts:
+        toks = torch.as_tensor(p, device="cuda", dtype=torch.int32)[None]
+        out = {be: fns[0](q_params, toks) for be, fns in steps.items()}
+        worst["prefill"] = max(worst["prefill"],
+                               float((out["auto"][0] - out["torch"][0]).abs().max()))
+        for _ in range(FAMILY_PARITY_STEPS):
+            tok = sampling.greedy(sampling.mask_vocab(out["torch"][0], cfg.vocab_size))
+            tok = tok.to(torch.int32)[:, None]
+            out = {be: fns[1](q_params, out[be][1], tok) for be, fns in steps.items()}
+            worst["decode"] = max(worst["decode"],
+                                  float((out["auto"][0] - out["torch"][0]).abs().max()))
+        del out
+    torch.cuda.empty_cache()
+    return worst
+
+
+class _StateFlip:
+    """The mamba2-detect cell's upset: at engine iteration ``at``, one bit of
+    the float32 SSM state of the first live slot (a nonzero length) in
+    layer ``layer``, flipped on the card; ``moved`` lists the slots whose
+    fold (the fold kernel) it moved, which must be that slot alone. The
+    flip is recorded as a ``kv`` event of an empty-spec injector, whose
+    bookkeeping the engine's KV check marks."""
+
+    def __init__(self, at: int, layer: int):
+        from repro_torch.runtime.faults import FaultInjector, FaultSpec
+
+        self.base = FaultInjector(FaultSpec((), 0))
+        self.events = self.base.events
+        self.at, self.layer, self.slot, self.moved = at, layer, None, []
+
+    def apply(self, step, params, cache=None):
+        from repro_torch.kernels import fold
+        from repro_torch.runtime.faults import FaultEvent, flip_bit
+
+        if step != self.at:
+            return params, cache
+        blk = cache["layers"][self.layer]
+        self.slot = next(i for i, n in enumerate(blk["len"].tolist()) if n > 0)
+        leaf = blk["state"]
+        per_slot = leaf[0].numel() * leaf.element_size()
+        byte = self.slot * per_slot + 4321 % per_slot
+        before = fold.slot_folds(cache)
+        flip_bit(leaf, byte, 6)
+        self.moved = (fold.slot_folds(cache) != before).nonzero().flatten().tolist()
+        self.events.append(FaultEvent("kv", step, f"/layers/{self.layer}/state", byte, 6, "kv"))
+        return params, cache
+
+    def mark_detected(self, category, step):
+        return self.base.mark_detected(category, step)
+
+    @property
+    def undetected(self):
+        return self.base.undetected
+
+
+def _flip_first_weight_bit(engine) -> None:
+    """Flip one bit of the first packed weight word of layer 0, on the card."""
+    from repro_torch.core import bitplanes as bp
+
+    def first(node):
+        if isinstance(node, bp.WeightPlanes):
+            return node
+        for v in (node.values() if isinstance(node, dict) else []):
+            got = first(v)
+            if got is not None:
+                return got
+        return None
+
+    first(engine.q_params["layers"][0]).packed.mag.view(-1)[7] ^= 1 << 5
+
+
+def _family_detect(name, cfg, params, engine, reqs, results) -> dict:
+    """mamba2-detect's gates on top of the counted clean run: no alarm and
+    one ABFT check per projection call; the fold kernel bit-equal to the
+    plain per-slot folds on the cache with its float32 state; one flipped
+    bit in a live slot's SSM state raises a KV alarm on that slot alone;
+    one flipped weight bit raises at least one ABFT and one audit alarm."""
+    from repro_torch.kernels import fold
+    from repro_torch.models.cache import cache_slot_checksums
+
+    cache = engine._cache
+    kernel_folds, plain_folds = fold.slot_folds(cache), cache_slot_checksums(cache)
+    fold_equal = bool(torch.equal(kernel_folds, plain_folds))
+    state_bytes = sum(b["state"].numel() * 4 for b in cache["layers"])
+    engine.set_precision(None)
+    flip = _StateFlip(at=3, layer=cfg.n_layers // 2)
+    _, sstats = engine.run(reqs(cfg), precision_schedule=FAMILY_SCHEDULE, injector=flip)
+    state_integ = sstats["integrity"]
+    _flip_first_weight_bit(engine)
+    engine.set_precision(None)
+    _, wstats = engine.run(reqs(cfg), precision_schedule=FAMILY_SCHEDULE)
+    weight_integ = wstats["integrity"]
+    out = {"fold_kernel_equal_plain": fold_equal, "state_bytes": state_bytes,
+           "state_flip_slot": flip.slot, "state_flip_moved_slots": flip.moved,
+           "integrity_state_flip": state_integ, "integrity_weight_flip": weight_integ,
+           "state_flip_detected": not flip.undetected}
+    if not fold_equal:
+        _die(f"{name}: the fold kernel differs from the plain folds on the SSM state")
+    if flip.moved != [flip.slot] or state_integ["kv_alarms"] < 1 or flip.undetected:
+        _die(f"{name}: a flipped state bit in slot {flip.slot} moved slots {flip.moved}, "
+             f"integrity {state_integ}")
+    if weight_integ["abft_alarms"] < 1 or weight_integ["audit_alarms"] < 1:
+        _die(f"{name}: a flipped weight bit went undetected: {weight_integ}")
+    return out
+
+
+def _decode_gqa_f32_weights(q, k_cache, v_cache, valid, k_scale=None, v_scale=None):
+    """``layers.attention._decode_gqa`` with its softmax weights kept in
+    float32 for the value product, as ``_local_gqa`` keeps them: the one
+    rounding the two differ by (bf16 ring, no scales)."""
+    b, _, hq, d = q.shape
+    hkv = k_cache.shape[2]
+    qf = q.reshape(b, hkv, hq // hkv, d).to(torch.float32)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.to(torch.float32)) * (d**-0.5)
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, -1e30))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.to(torch.float32)) / torch.clamp_min(l, 1e-30)
+    return out.reshape(b, 1, hq, d)
+
+
+def _window_check(cfg, q_params, policy) -> dict:
+    """The long request of rgemma-window (prompt 2040, 24 decode tokens, a
+    2048-row ring that wraps at its 9th decode token) on the kernel route
+    with a bf16 ring. Exact: after the decodes, every windowed layer's ring
+    holds the prefill's rows 16..2039 unchanged and new rows 2040..2047 and
+    0..15 (the decodes wrote ``pos % 2048``, evicting positions 0..15).
+    Logits: each decode step's against a cache-free forward over the same
+    tokens on the plain route (its logits at every decode position, from
+    one causal forward), every step within ``WINDOW_DLOGIT_TOL`` and the
+    steps after the wrap within ``WINDOW_WRAP_RATIO`` of the largest before
+    it. The same tokens decoded again with the softmax weights kept in
+    float32 (``_decode_gqa_f32_weights``) give the witness line
+    ``max_abs_dlogit_f32_weights``: what is left of the gap without their
+    bf16 rounding (reported, not gated)."""
+    from repro_torch.launch import sampling
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.layers import attention
+    from repro_torch.models.transformer import forward
+
+    prompt, n = WINDOW_PROMPTS[0], WINDOW_GEN
+    rows = min(cfg.local_window, prompt + n)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab_size, (1, prompt)),
+                           device="cuda", dtype=torch.int32)
+    prefill = make_prefill_step(cfg, policy, max_len=prompt + n)
+    decode = make_decode_step(cfg, policy)
+    logits, cache = prefill(q_params, toks)
+    rings = [i for i, k in enumerate(cfg.layer_kinds()) if k == "attn"]
+    before = {i: cache["layers"][i]["k"][0].clone() for i in rings}
+    seq, steps = [toks], []
+    for i in range(n):
+        tok = sampling.greedy(sampling.mask_vocab(logits, cfg.vocab_size)).to(torch.int32)[:, None]
+        seq.append(tok)
+        logits, cache = decode(q_params, cache, tok)
+        steps.append(logits[0].float())
+    wrote = (list(range(prompt, rows)) + list(range(prompt + n - rows)))
+    kept = [r for r in range(rows) if r not in set(wrote)]
+    ring_ok = all(
+        torch.equal(cache["layers"][i]["k"][0][kept], before[i][kept])
+        and all(not torch.equal(cache["layers"][i]["k"][0][r], before[i][r]) for r in wrote)
+        and int(cache["layers"][i]["len"][0]) == prompt + n
+        for i in rings)
+    del cache, before
+    full = torch.cat(seq, dim=1)  # prompt + n tokens; the last n logits are the decodes'
+    with torch.no_grad():
+        free, _, _ = forward(cfg, q_params, {"tokens": full}, policy=policy, backend="torch",
+                             last_only=n)
+    errs = [float((s - f.float()).abs().max()) for s, f in zip(steps, free[0])]
+    plain_decode, attention._decode_gqa = attention._decode_gqa, _decode_gqa_f32_weights
+    try:
+        errs32 = []
+        logits, cache = prefill(q_params, toks)
+        for tok, f in zip(seq[1:], free[0]):
+            logits, cache = decode(q_params, cache, tok)
+            errs32.append(float((logits[0].float() - f.float()).abs().max()))
+    finally:
+        attention._decode_gqa = plain_decode
+    del free, cache
+    torch.cuda.empty_cache()
+    wrap = rows - prompt  # the decode step whose write evicts the first row
+    out = {"prompt": prompt, "ring_rows": rows, "windowed_layers": len(rings),
+           "wraps_at_decode_token": wrap + 1, "rows_written": [wrote[0], wrote[-1]],
+           "ring_rows_exact": ring_ok, "max_abs_dlogit_per_step": errs,
+           "max_abs_dlogit_before_wrap": max(errs[:wrap]),
+           "max_abs_dlogit_after_wrap": max(errs[wrap:]), "tolerance": WINDOW_DLOGIT_TOL,
+           "max_abs_dlogit_f32_weights": max(errs32), "dlogit_f32_weights_per_step": errs32,
+           "wrap_ratio_bound": WINDOW_WRAP_RATIO}
+    if not ring_ok or max(errs) > WINDOW_DLOGIT_TOL or \
+            max(errs[wrap:]) > WINDOW_WRAP_RATIO * max(errs[:wrap]):
+        _die(f"rgemma-window: the ring after the wrap: {out}")
+    return out
+
+
+def run_family(name, cfg, params, mode, reqs=_requests, schedule=FAMILY_SCHEDULE,
+               max_len=None) -> dict:
+    """One cell of the SSM / hybrid families at full width: the graph
+    engine's counted run (every projection through the route's kernel)
+    and a profiled replay; the eager twin (tokens and launches
+    equal) and its device time per decode step of the families' own
+    operators; the plain route on the card (``backend="torch"``): tokens
+    equal, and ``_logit_parity`` within ``FAMILY_DLOGIT_TOL``. ``mode``:
+    bitplane, digit or detect (the packed route, layers unrolled, an audit
+    every iteration; plus ``_family_detect``)."""
+    from repro_torch.core.precision import PrecisionPolicy
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    phases: dict = {}
+
+    def lap(phase):
+        phases[phase] = time.perf_counter() - t0 - sum(phases.values())
+
+    kernel, route = LEVEL_KERNELS[mode]
+    detect = mode == "detect"
+    level = "digit" if mode == "digit" else "bitplane"
+    if detect:
+        cfg = dataclasses.replace(cfg, scan_layers=False)
+    schedule = None if level == "digit" else schedule
+    kw = {"max_len": max_len} if max_len else {}
+    pol = dict(variant="booth", level=level)
+    if detect:
+        pol.update(fuse_epilogue=False, integrity="detect")
+        kw["audit_interval"] = 1
+    policy = PrecisionPolicy.uniform(8, 8, **pol)
+    also = ("fold",) if detect else ()
+    engine = _engine(cfg, params, policy, **kw)
+    lap("load")
+    results, stats, counts = _counted_run(name, cfg, engine, schedule, kernel, route, also, reqs)
+    lap("counted")
+    extra = {}
+    if detect:
+        clean = stats["integrity"]
+        if (clean["abft_alarms"], clean["audit_alarms"], clean["kv_alarms"]) != (0, 0, 0) or \
+                clean["abft_checks"] != stats["route_calls"].get(route, 0):
+            _die(f"{name}: clean-run integrity {clean} against {stats['route_calls']}")
+        extra["integrity_clean"] = clean
+    graph = _graph_line(name, engine)
+    lap("graph_replay")
+    prompts = [r.tokens for r in reqs(cfg)]
+    parity = _logit_parity(cfg, engine.q_params, policy, prompts, engine.max_len)
+    lap("logit_parity")
+    if max(parity.values()) > FAMILY_DLOGIT_TOL:
+        _die(f"{name}: kernel route against the plain route: max|dlogit| {parity}")
+    if name == "rgemma-window":
+        extra["ring"] = _window_check(cfg, engine.q_params, policy)
+        lap("ring_check")
+    if detect:  # last: it flips bits in the engine's state and weights
+        extra.update(_family_detect(name, cfg, params, engine, reqs, results))
+        lap("flips")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager = _eager_twin(name, cfg, params, policy, schedule, kernel, route, results, counts,
+                        also, reqs, family_ops=True, **kw)
+    lap("eager_twin")
+    plain = _engine(cfg, params, policy, backend="torch", compile_steps=False, **kw)
+    _reset_counts()
+    res_plain, stats_plain = plain.run(reqs(cfg), precision_schedule=schedule)
+    plain_counts = _read_counts()
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the plain route launches no kernel but the fold (detect's audits on the card)
+    if any(v for k, v in plain_counts.items() if k != "fold") or \
+            set(stats_plain["route_calls"]) != {"cached_scan"}:
+        _die(f"{name}: the plain run launched kernels {plain_counts} or took routes "
+             f"{stats_plain['route_calls']}")
+    _same_tokens(name, results, res_plain, "the plain route")
+    lap("plain_run")
+    host_ms = 1e3 * stats["decode_s"] / stats["decode_steps"]
+    out = {
+        "engine": name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "requests": len(results), "tokens": stats["decoded_tokens"] + stats["admitted"],
+        "tok_per_s": stats["tok_per_s"], "wall_s": stats["wall_s"],
+        "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+        "decode_steps": stats["decode_steps"], "launches": counts[kernel],
+        "all_launches": counts, "route_calls": stats["route_calls"],
+        "precision_switches": stats["precision_switches"],
+        "host_ms_per_decode_step": host_ms,
+        # the device time of one replay of the storage-width graph (CUDA
+        # events), over the counted run's host time per decode step
+        "device_ms_per_decode_step": graph["replay_device_ms"],
+        "decode_busy_share": graph["replay_device_ms"] / host_ms,
+    }
+    ops = eager.get("family_ops_device_ms_per_decode_step") or {}
+    out.update(card=CARD, family=cfg.family, prompts=[len(p) for p in prompts],
+               new_tokens=reqs(cfg)[0].max_new_tokens, phases_s=phases,
+               peak_allocated_gb=torch.cuda.max_memory_allocated() / 2**30,
+               tokens_equal_plain=True, plain_tok_per_s=stats_plain["tok_per_s"],
+               plain_route_calls=stats_plain["route_calls"],
+               max_abs_dlogit_vs_plain=parity, dlogit_tolerance=FAMILY_DLOGIT_TOL,
+               family_ops_device_ms_per_decode_step=ops,
+               graph=graph, eager=eager, cell_s=time.perf_counter() - t0, **extra)
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def run_families() -> dict:
+    """Phases 14-16: mamba2-1.3b and recurrentgemma-2b (periods of rec, rec,
+    attn and a 2-layer tail) at full width from seeded random weights, each
+    cell at its ``FAMILY_LAYERS`` depth (the first layers of one model per
+    family)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    cells = {}
+    for arch, names in (("mamba2-1.3b", ("mamba2-bitplane", "mamba2-digit", "mamba2-detect")),
+                        ("recurrentgemma-2b", ("rgemma-bitplane", "rgemma-window"))):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=max(FAMILY_LAYERS[n] for n in names))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        # a cell at a cut depth serves the first layers of the same weights
+        params = init_params(cfg, gen, device="cuda")
+        for name in names:
+            depth = FAMILY_LAYERS[name]
+            cfg = dataclasses.replace(full, n_layers=depth)
+            cut = dict(params, layers=params["layers"][:depth])
+            print(f"[chip_smoke] {name}: {cfg.name} at full width ({depth} of "
+                  f"{full.n_layers} layers, {cfg.layer_kinds()[:3]}..., d_model "
+                  f"{cfg.d_model}, vocab {cfg.vocab_size})", flush=True)
+            mode = {"digit": "digit", "detect": "detect"}.get(name.split("-")[1], "bitplane")
+            if name == "rgemma-window":
+                cells[name] = run_family(name, cfg, cut, "bitplane", reqs=_window_requests,
+                                         schedule=None,
+                                         max_len=max(WINDOW_PROMPTS) + WINDOW_GEN)
+            else:
+                cells[name] = run_family(name, cfg, cut, mode)
+            c = cells[name]
+            print(f"[chip_smoke] engine {name} done in {c['cell_s']:.1f} s "
+                  f"({c['tok_per_s']:.1f} tok/s, device ms per decode step "
+                  f"{c['device_ms_per_decode_step']}, family ops "
+                  f"{c['family_ops_device_ms_per_decode_step']})", flush=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return cells
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _die("no CUDA device: this smoke run needs one GPU")
@@ -2592,6 +3081,17 @@ def main() -> None:
     eng_lock = run_lockstep(cfg, params)
     print(f"[chip_smoke] engine lockstep done at {time.perf_counter() - t0:.1f} s "
           f"({eng_lock['decode_tok_per_s'][0]:.1f} decode tok/s)", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam = run_families()
+    print(f"[chip_smoke] SSM and hybrid families done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def fam_launches(kernel):
+        """The kernel's launches in each family cell's counted run."""
+        return {name: c["all_launches"][kernel] for name, c in fam.items()
+                if c["all_launches"].get(kernel)}
 
     def entry(name, source, replaces, lines, launches):
         rep = lines[0]  # decode gate projection, M=4: the most frequent main-path call
@@ -2637,6 +3137,8 @@ def main() -> None:
                    paged_lines[0], paged_lines, eng_pag["launches"], "bitplane-paged decode",
                    "attn_decode.cuh"),
     ]
+    for k in kernels:
+        k["family_launches"] = fam_launches(k["name"])
     fl = summary["fold"][0]
     kernels.append({
         # no Pallas kernel: it replaces the reference's compiled fold
@@ -2647,7 +3149,12 @@ def main() -> None:
         "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
         "library_ms": fl["library_ms"], "shape": f"quantized tree, {fl['tree_bytes']} bytes",
         "path": "bitplane-detect audits and KV checks",
+        "family_launches": fam_launches("fold"),
     })
+    missing = [k for k in ("fused_plane_linear", "plane_matmul", "plane_matmul_packed", "fold")
+               if not fam_launches(k)]
+    if missing:
+        _die(f"the family cells launched no {missing}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

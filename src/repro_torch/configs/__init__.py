@@ -1,5 +1,6 @@
-"""Architecture registry: ``--arch <id>`` resolves here (dense configs
-ported so far)."""
+"""Architecture registry: ``--arch <id>`` resolves here (the dense, SSM
+and hybrid configs ported so far; the MoE, encoder and VLM ones are
+ROADMAP items 12b and 12c)."""
 
 from __future__ import annotations
 
@@ -8,8 +9,12 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
+    "llama3-405b": "repro_torch.configs.llama3_405b",
+    "deepseek-coder-33b": "repro_torch.configs.deepseek_coder_33b",
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
     "yi-6b": "repro_torch.configs.yi_6b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -320,7 +320,18 @@ def pack_planes(
 
 
 def unpack_planes(packed: PackedPlanes, dtype=torch.int8) -> torch.Tensor:
-    """Exact inverse of :func:`pack_planes`."""
+    """Exact inverse of :func:`pack_planes`. Words packed along another
+    axis than the last unpack in chunks of the last axis, so the int32
+    intermediates of a vocabulary-wide head stay bounded."""
+    n = packed.mag.shape[-1]
+    step = max(1, _DECOMPOSE_WEIGHTS * n // max(packed.mag.numel() * WORD_BITS, 1))
+    if packed.axis != packed.mag.dim() - 1 and n > step:
+        return torch.cat([
+            unpack_planes(dataclasses.replace(
+                packed, mag=packed.mag[..., i:i + step],
+                sign=None if packed.sign is None else packed.sign[..., i:i + step]), dtype)
+            for i in range(0, n, step)
+        ], dim=-1)
     if packed.block is not None:
         def fromwords(w):
             return _from_words_blocked(w, packed.axis, packed.k, packed.block)
@@ -389,6 +400,33 @@ class WeightPlanes:
     w_bits: int
 
 
+#: weights a bit-plane decomposition takes at a time (wider weights are
+#: decomposed in column chunks of at most this many values)
+_DECOMPOSE_WEIGHTS = 1 << 26
+
+
+def _cat_columns(parts: list) -> "WeightPlanes":
+    """One bit-plane cache from the caches of consecutive column chunks:
+    the words and planes side by side along N; occupancy (any value in the
+    word over N) ORed and the column checksums (sums over N) added."""
+    first, pks = parts[0], [p.packed for p in parts]
+
+    def cat(ts):
+        return None if ts[0] is None else torch.cat(ts, dim=-1)
+
+    occ = torch.stack([p.occupancy for p in pks]).amax(dim=0)
+    chk = None if pks[0].checksum is None else torch.stack([p.checksum for p in pks]).sum(
+        dim=0, dtype=torch.int32)
+    packed = PackedPlanes(
+        mag=cat([p.mag for p in pks]), sign=cat([p.sign for p in pks]), k=pks[0].k,
+        axis=pks[0].axis, weights=pks[0].weights, block=pks[0].block, occupancy=occ,
+        checksum=chk,
+    )
+    return WeightPlanes(packed=packed, planes=cat([p.planes for p in parts]),
+                        weights=first.weights, level=first.level, variant=first.variant,
+                        w_bits=first.w_bits)
+
+
 def make_weight_planes(
     w_q: torch.Tensor,
     *,
@@ -411,6 +449,17 @@ def make_weight_planes(
     if store == "auto":
         store = "packed" if w_q.is_cuda else "both"
     if level == "bitplane":
+        k, n = w_q.shape
+        step = max(1, _DECOMPOSE_WEIGHTS // max(k, 1))
+        if n > step:
+            # columns decompose independently: a whole vocabulary-wide head
+            # at once would hold tens of GB of int32 / int64 intermediates
+            return _cat_columns([
+                make_weight_planes(w_q[:, i:i + step], w_bits=w_bits, variant=variant,
+                                   level=level, radix_bits=radix_bits, store=store,
+                                   block=block, checksum=checksum)
+                for i in range(0, n, step)
+            ])
         dec = to_bitplanes(w_q, w_bits, variant)
         packed = pack_decomposition(
             dec, axis=-2, variant=variant, block=block, checksum=checksum,

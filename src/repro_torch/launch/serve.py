@@ -128,7 +128,7 @@ from repro_torch.models.cache import (
     select_slots,
 )
 from repro_torch.models.quant import quantize_params
-from repro_torch.models.transformer import init_params
+from repro_torch.models.transformer import check_prefill, init_params
 from repro_torch.runtime.autopilot import Autopilot, AutopilotPolicy
 from repro_torch.runtime.faults import FaultInjector, FaultSpec
 from repro_torch.runtime.scheduler import HISTORY_LIMIT, Request, SlotScheduler
@@ -398,7 +398,7 @@ class _IntegrityRuntime:
         this one path, so a rebuild from intact source reproduces the
         load-time fingerprint."""
         return quantize_params(params, self.policy, plane_cache=self.plane_cache,
-                               scan_layers=self.cfg.scan_layers)
+                               cfg=self.cfg)
 
     def _scrub(self) -> None:
         """Rebuild the quantized tree from the retained source, check its
@@ -1735,7 +1735,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="bit-serial quantized serving (continuous batching by default; "
         "PyTorch/CUDA)"
     )
-    ap.add_argument("--arch", choices=ARCH_NAMES, default="granite-3-8b")
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="yi-6b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--bits", type=int, default=8,
                     help="storage precision: weights are quantized and "
@@ -1960,6 +1960,17 @@ def validate_args(args) -> None:
     if args.share_prefixes and not args.kv_page_size:
         die("--share-prefixes needs --kv-page-size: physical pages are "
             "the sharing unit")
+    # the reference's two defects on recurrent and windowed models, refused
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    lens = ([int(x) for x in args.prompt_lens.split(",")] if args.prompt_lens
+            else [args.prompt_len])
+    chunk = args.prefill_chunk
+    try:
+        for s in lens:  # each prompt as the engine prefills it: its second chunk at ``chunk``
+            check_prefill(cfg, s, chunk if 0 < chunk < s else 0,
+                          min(cfg.local_window, max(lens) + args.gen))
+    except ValueError as e:
+        die(str(e))
     if args.shared_prefix_len < 0:
         die("--shared-prefix-len must be >= 0")
     if args.audit_interval < 0:

@@ -21,15 +21,28 @@ weights to bf16 before the value product, the kernel keeps them in
 float32.
 
 Q/K/V keep their storage dtype (bf16) and the score and value products
-accumulate in float32, the reference's dtypes. Sliding-window caches are
-a later slice.
+accumulate in float32, the reference's dtypes.
+
+A sliding-window layer (``window > 0``, the hybrid's local attention)
+keeps a ring of ``min(window, max_len)`` rows: decode writes at
+``len % rows`` and attends the filled extent (softmax does not depend on
+the order of its keys, and RoPE is already applied). Its prefill attends
+the chunk's own K/V with the block-pair trick (:func:`_local_gqa`) and
+stores the trailing rows. The two windowed prefills the reference gets
+wrong (one that continues a filled ring, one longer than the ring and not
+a multiple of it) are refused by the model before they reach this layer
+(``models.transformer.check_prefill``).
+Paged caches refuse windows (``models.paging``). The windowed attention
+runs inside the ``torch.profiler`` range ``family.ring_attention``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels.flash_attention import paged_flash_attention
 from repro_torch.kernels.ops import resolve_backend
@@ -39,6 +52,7 @@ from repro_torch.layers.rotary import apply_rope
 from repro_torch.models.cache import quantize_kv
 
 NEG_INF = -1e30
+_NO_RANGE = contextlib.nullcontext()
 
 
 def attention_init(gen, d_model, n_heads, n_kv_heads, head_dim, dtype=torch.bfloat16,
@@ -102,6 +116,45 @@ def _chunked_gqa(q, k, v, *, causal: bool, chunk: int, q_offset: int, kv_len=Non
     return out.reshape(b, sq, hq, d)
 
 
+def _local_gqa(q, k, v, *, window: int):
+    """Sliding-window attention by the block-pair trick: the sequence is cut
+    into ``window``-sized blocks (zero-padded at the end) and each query
+    block attends its own and the previous block under a banded causal
+    mask, in float32. q: (B,S,Hq,D); k,v: (B,S,Hkv,D)."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    group = hq // hkv
+    w = window
+    pad = (-s) % w
+    if pad:
+        q = torch.cat([q, q.new_zeros((b, pad, hq, d))], dim=1)
+        k = torch.cat([k, k.new_zeros((b, pad, hkv, d))], dim=1)
+        v = torch.cat([v, v.new_zeros((b, pad, hkv, d))], dim=1)
+    sp = s + pad
+    nb = sp // w
+    dev = q.device
+    qb = q.to(torch.float32).reshape(b, nb, w, hkv, group, d) * (d**-0.5)
+    kb = k.to(torch.float32).reshape(b, nb, w, hkv, d)
+    vb = v.to(torch.float32).reshape(b, nb, w, hkv, d)
+    # the previous block (zeros for block 0)
+    kprev = torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1)
+    vprev = torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1)
+    k2 = torch.cat([kprev, kb], dim=2)  # (B, nb, 2w, Hkv, D)
+    v2 = torch.cat([vprev, vb], dim=2)
+    s_ = torch.einsum("bnqhgd,bnkhd->bnqhgk", qb, k2)  # (B,nb,w,Hkv,G,2w)
+    qpos = torch.arange(w, device=dev)[:, None] + w  # position within the 2w pair
+    kpos = torch.arange(2 * w, device=dev)[None, :]
+    blk = torch.arange(nb, device=dev)[:, None, None]
+    mask = (qpos >= kpos) & (qpos - kpos < w)  # causal sliding band
+    kv_abs = blk * w + kpos - w
+    # block 0 has no previous block; the tail padding is masked too
+    mask = mask[None] & (kv_abs >= 0) & (kv_abs < s)
+    s_ = torch.where(mask[None, :, :, None, None, :], s_, torch.full_like(s_, NEG_INF))
+    p = torch.softmax(s_, dim=-1)
+    out = torch.einsum("bnqhgk,bnkhd->bnqhgd", p, v2)
+    return out.reshape(b, sp, hq, d)[:, :s]
+
+
 def _decode_gqa(q, k_cache, v_cache, valid, k_scale=None, v_scale=None):
     """One-token decode over a slot cache. q: (B,1,Hq,D); ``valid`` (B,S)
     marks live KV positions; int8 caches pass their per-(position, head)
@@ -136,6 +189,7 @@ def attention_apply(
     n_kv_heads: int,
     head_dim: int,
     causal: bool = True,
+    window: int = 0,
     rope_theta: float = 10000.0,
     qk_norm: bool = False,
     chunk: int = 1024,
@@ -149,7 +203,8 @@ def attention_apply(
     (raw bf16) with k/v (B, S_max, Hkv, D), or a paged block
     ``{'k_q','k_scale','v_q','v_scale','block_table','len'}`` with pools
     (n_pages, page_size, Hkv, D); one token per slot decodes, several
-    prefill (into a raw cache only). Decode updates ``cache`` in place
+    prefill (into a raw cache only). ``window > 0``: a sliding window, the
+    cache a ring of rows (module docstring). Decode updates ``cache`` in place
     (the new row and ``len``) and returns it, so a step leaves its results
     in the buffers it reads; prefill leaves its input cache as it was and
     returns a new one."""
@@ -201,37 +256,67 @@ def attention_apply(
         cache["len"].copy_(kv_len)
     elif cache is not None and s == 1:  # decode step
         # the append, in place: each slot's new (position, head) vector into
-        # its row ``len``; a slot at or past the extent writes nothing (its
-        # last row is written back as it was)
+        # its row ``len`` (a ring: ``len % rows``); past the extent of a full
+        # cache a slot writes nothing (its last row is written back as it was)
         quantized = "k_q" in cache
         pos = cache["len"]  # (B,) tokens already in each slot
         s_max = (cache["k_q"] if quantized else cache["k"]).shape[1]
         rows = torch.arange(s_max, device=x.device)[None, :]
         kv_len = pos + 1
-        valid = rows < kv_len[:, None]
         lane = torch.arange(b, device=x.device)
-        at = torch.clamp(pos, max=s_max - 1).to(torch.int64)
-        inside = pos < s_max
+        if window:
+            valid = rows < torch.clamp(kv_len, max=s_max)[:, None]
+            at = torch.remainder(pos, s_max).to(torch.int64)
+            inside = torch.ones_like(pos, dtype=torch.bool)
+        else:
+            valid = rows < kv_len[:, None]
+            at = torch.clamp(pos, max=s_max - 1).to(torch.int64)
+            inside = pos < s_max
 
         def append(leaf, val):
             keep = inside.reshape((b,) + (1,) * (val.dim() - 2))
             leaf[lane, at] = torch.where(keep, val[:, 0].to(leaf.dtype), leaf[lane, at])
 
-        if quantized:
-            k_new, ks_new = quantize_kv(k)
-            v_new, vs_new = quantize_kv(v)
-            for key, val in (("k_q", k_new), ("k_scale", ks_new), ("v_q", v_new),
-                             ("v_scale", vs_new)):
-                append(cache[key], val)
-            out = _decode_gqa(q, cache["k_q"], cache["v_q"], valid, cache["k_scale"],
-                              cache["v_scale"])
-        else:
-            append(cache["k"], k)
-            append(cache["v"], v)
-            out = _decode_gqa(q, cache["k"], cache["v"], valid)
-        cache["len"].copy_(kv_len)
+        with record_function("family.ring_attention") if window else _NO_RANGE:
+            if quantized:
+                k_new, ks_new = quantize_kv(k)
+                v_new, vs_new = quantize_kv(v)
+                for key, val in (("k_q", k_new), ("k_scale", ks_new), ("v_q", v_new),
+                                 ("v_scale", vs_new)):
+                    append(cache[key], val)
+                out = _decode_gqa(q, cache["k_q"], cache["v_q"], valid, cache["k_scale"],
+                                  cache["v_scale"])
+            else:
+                append(cache["k"], k)
+                append(cache["v"], v)
+                out = _decode_gqa(q, cache["k"], cache["v"], valid)
+            cache["len"].copy_(kv_len)
     elif cache is None:
-        out = _chunked_gqa(q, k, v, causal=causal, chunk=chunk, q_offset=0)
+        if window:
+            with record_function("family.ring_attention"):
+                out = _local_gqa(q, k, v, window=window)
+        else:
+            out = _chunked_gqa(q, k, v, causal=causal, chunk=chunk, q_offset=0)
+    elif window:
+        # windowed prefill into a fresh raw scratch ring: attend the
+        # prompt's own K/V and keep its trailing rows (the model refuses a
+        # prefill that continues the ring or lands misaligned in it:
+        # models.transformer.check_prefill)
+        if "k" not in cache:
+            raise ValueError(
+                "prefill runs against a raw (bf16) scratch cache; quantize it "
+                "afterwards with models.cache.quantize_scratch"
+            )
+        s_max = cache["k"].shape[1]
+        kw, vw = (k[:, -s_max:], v[:, -s_max:]) if s > s_max else (k, v)
+        k_cache = cache["k"].clone()
+        v_cache = cache["v"].clone()
+        k_cache[:, :kw.shape[1]] = kw.to(k_cache.dtype)
+        v_cache[:, :vw.shape[1]] = vw.to(v_cache.dtype)
+        new_cache = {"k": k_cache, "v": v_cache,
+                     "len": torch.full((b,), s, dtype=torch.int32, device=x.device)}
+        with record_function("family.ring_attention"):
+            out = _local_gqa(q, k, v, window=window)
     else:
         # prefill into a raw scratch: append at the running length (0
         # when fresh) and attend the cache's whole extent under a

@@ -1,6 +1,12 @@
-"""Decode-state (KV) cache, slot-indexed.
+"""Decode-state (KV / SSM / RG-LRU) cache, slot-indexed.
 
-The cache is ``{"step": (B,) int32, "layers": [per-layer KV dict]}``; the
+The cache is ``{"step": (B,) int32, "layers": [per-layer dict]}``, one
+block per layer in layer order (the reference stacks the blocks of its
+scanned periods and keeps a tail; a sum or a lane select does not see
+the difference): KV for a full-attention layer, a KV ring of
+``min(window, max_len)`` rows for a sliding-window one, and float32
+recurrent state (``conv`` rows plus ``state`` or ``h``) for an SSM or
+RG-LRU layer. The
 leading axis of every leaf is a **slot** for the continuous-batching
 engine, each with its own length. :func:`insert_slot` writes a batch-1
 prefill cache into one slot, overwriting the slot's whole extent (so
@@ -47,8 +53,12 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) ->
     return (q.to(torch.float32) * scale[..., None]).to(dtype)
 
 
-def _attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, kv_quant: bool, device):
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+def _attn_cache(cfg: ModelConfig, batch: int, max_len: int, window: int, dtype,
+                kv_quant: bool, device):
+    """A layer's KV: ``max_len`` rows, or for a sliding window a ring of
+    ``min(window, max_len)`` rows."""
+    s = min(window, max_len) if window else max_len
+    shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
     cache = {"len": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if kv_quant:
         cache.update(
@@ -65,15 +75,52 @@ def _attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, kv_quant: boo
     return cache
 
 
+def _ssm_cache(cfg: ModelConfig, batch: int, device):
+    """A Mamba2 layer's state: the conv's last ``W - 1`` inputs and the
+    ``(H, P, N)`` SSD state, both float32."""
+    conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_state
+    f32 = torch.float32
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, conv_dim), dtype=f32, device=device),
+        "state": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                             dtype=f32, device=device),
+        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def _rec_cache(cfg: ModelConfig, batch: int, device):
+    """An RG-LRU layer's state: the conv rows and ``h``, float32."""
+    f32 = torch.float32
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.lru_width), dtype=f32,
+                            device=device),
+        "h": torch.zeros((batch, cfg.lru_width), dtype=f32, device=device),
+        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
+                 kv_quant: bool, device):
+    if kind == "dense":
+        return _attn_cache(cfg, batch, max_len, 0, dtype, kv_quant, device)
+    if kind == "attn":  # the hybrid's local attention: a ring
+        return _attn_cache(cfg, batch, max_len, cfg.local_window, dtype, kv_quant, device)
+    if kind == "ssm":
+        return _ssm_cache(cfg, batch, device)
+    if kind == "rec":
+        return _rec_cache(cfg, batch, device)
+    raise ValueError(kind)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                kv_quant: bool = False, device=None):
-    """The decode cache: ``batch`` slots of ``max_len`` positions per layer."""
-    cfg.layer_kinds()  # dense only
+    """The decode cache: ``batch`` slots, one block per layer (KV of
+    ``max_len`` positions, a KV ring, or recurrent state)."""
     return {
         "step": torch.zeros((batch,), dtype=torch.int32, device=device),
         "layers": [
-            _attn_cache(cfg, batch, max_len, dtype, kv_quant, device)
-            for _ in range(cfg.n_layers)
+            _block_cache(cfg, kind, batch, max_len, dtype, kv_quant, device)
+            for kind in cfg.layer_kinds()
         ],
     }
 
@@ -150,7 +197,7 @@ def select_slots(cache_a, cache_b, take_b, out=None):
 def quantize_scratch(scratch):
     """Quantize a raw (bf16) prefill cache into the int8 layout. Every
     prefill runs raw and quantizes here, after the fact, as the
-    reference's does."""
+    reference's does; recurrent blocks pass through."""
     layers = []
     for blk in scratch["layers"]:
         if "k" not in blk:
@@ -166,7 +213,8 @@ _KV_LEAF_KEYS = frozenset({"k", "v", "k_q", "v_q", "k_scale", "v_scale"})
 
 
 def cache_kv_bytes(cache) -> int:
-    """Bytes of attention KV state (values + scales) held by ``cache``."""
+    """Bytes of attention KV state (values + scales) held by ``cache``;
+    recurrent state is not counted, as the reference does not count it."""
     return sum(
         leaf.numel() * leaf.element_size()
         for blk in cache["layers"]
@@ -180,7 +228,7 @@ def cache_slot_checksums(cache) -> torch.Tensor:
     layout): ``(n_slots,)`` int64 holding uint32 values, on the cache's
     device. Entry ``i`` sums every byte of every leaf that belongs to slot
     ``i`` (the leading axis) modulo 2^32, so one flipped bit in slot ``i``'s
-    KV, scales or lengths moves ``out[i]`` and only it — the reference's
+    KV, scales, recurrent state or lengths moves ``out[i]`` and only it — the reference's
     ``cache_slot_checksums``, value for value."""
 
     def fold(leaf: torch.Tensor) -> torch.Tensor:

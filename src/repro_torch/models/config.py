@@ -1,4 +1,6 @@
-"""Model configuration: the fields the dense decoder of this slice uses."""
+"""Model configuration: the fields of the dense decoders, the Mamba2 SSD
+stack (``ssm``) and the Griffin hybrid (``hybrid``: RG-LRU and
+local-attention blocks in a repeated period)."""
 
 from __future__ import annotations
 
@@ -7,11 +9,19 @@ from typing import Tuple
 
 import torch
 
+#: families whose layer stacks are ported; the others raise, naming the
+#: ROADMAP item that ports them
+_LATER = {
+    "moe": "ROADMAP item 12b",
+    "encoder": "ROADMAP item 12c",
+    "vlm": "ROADMAP item 12c",
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense (the only family ported so far)
+    family: str  # dense | ssm | hybrid (moe | encoder | vlm: later slices)
     n_layers: int
     d_model: int
     vocab_size: int
@@ -22,14 +32,27 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 500000.0
     causal: bool = True
+    local_window: int = 0  # sliding-window size of the hybrid's attention layers
     # mlp
     d_ff: int = 0
     act: str = "swiglu"
+    # ssm (mamba2)
+    ssm_d_inner: int = 0
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    ssm_state: int = 0
+    conv_width: int = 4
+    ssd_chunk: int = 256
+    # hybrid (recurrentgemma): the layer pattern, repeated; the remainder
+    # of n_layers is a tail of the pattern's first kinds
+    period: Tuple[str, ...] = ()  # e.g. ("rec", "rec", "attn")
+    lru_width: int = 0
     # misc
     tie_embeddings: bool = False
     attn_chunk: int = 1024  # online-softmax KV chunk
-    #: True names every layer ``layers/<kind>`` (the JAX scanned-stack
-    #: names); False names them ``layers/<i>/<kind>`` for per-layer
+    #: True names the layers of the repeated periods ``layers/<kind>`` and
+    #: those of the tail ``layers/tail/<kind>`` (the JAX scanned-stack
+    #: names); False names every layer ``layers/<i>/<kind>`` for per-layer
     #: precision overrides, as the reference's unrolled stack does
     scan_layers: bool = True
     dtype: torch.dtype = torch.bfloat16
@@ -44,9 +67,60 @@ class ModelConfig:
     def is_decoder(self) -> bool:
         return self.family != "encoder"
 
+    @property
+    def has_attention(self) -> bool:
+        return self.family != "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """True when decode state is sub-quadratic (SSM / windowed hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
     def layer_kinds(self) -> Tuple[str, ...]:
-        if self.family != "dense":
+        """The per-layer block kinds, length ``n_layers``."""
+        if self.family in _LATER:
             raise NotImplementedError(
-                f"family {self.family!r} is not ported yet (dense only)"
+                f"family {self.family!r} is not ported yet ({_LATER[self.family]})"
             )
+        if self.family == "ssm":
+            return ("ssm",) * self.n_layers
+        if self.family == "hybrid":
+            if not self.period:
+                raise ValueError("a hybrid config needs a period pattern")
+            reps = -(-self.n_layers // len(self.period))
+            return (self.period * reps)[: self.n_layers]
+        if self.family != "dense":
+            raise ValueError(f"unknown family {self.family!r}")
         return ("dense",) * self.n_layers
+
+    def period_layout(self) -> tuple[Tuple[str, ...], int]:
+        """``(period, n_full)``: the repeated pattern and how many whole
+        periods the reference's scanned stack holds; layers from
+        ``n_full * len(period)`` on are its unrolled tail."""
+        kinds = self.layer_kinds()
+        period = self.period if self.period else kinds[:1]
+        return period, self.n_layers // max(len(period), 1)
+
+    def layer_name(self, i: int) -> str:
+        """Layer ``i``'s name prefix: the reference's ``layers/<kind>`` in a
+        scanned period, ``layers/tail/<kind>`` in the tail, and
+        ``layers/<i>/<kind>`` when the stack is unrolled."""
+        kind = self.layer_kinds()[i]
+        if not self.scan_layers:
+            return f"layers/{i}/{kind}"
+        period, n_full = self.period_layout()
+        if i < n_full * len(period):
+            return f"layers/{kind}"
+        return f"layers/tail/{kind}"
+
+    def param_path(self, i: int) -> str:
+        """Layer ``i``'s path in the reference's parameter tree:
+        ``/periods/b<j>_<kind>`` in a scanned period, ``/tail/<t>`` in the
+        tail, ``/layers/<i>`` unrolled (policy lookups key on it)."""
+        if not self.scan_layers:
+            return f"/layers/{i}"
+        period, n_full = self.period_layout()
+        plen = len(period)
+        if i < n_full * plen:
+            return f"/periods/b{i % plen}_{period[i % plen]}"
+        return f"/tail/{i - n_full * plen}"

@@ -9,10 +9,13 @@ and decomposed at the configured (storage) width, so one tree serves
 every runtime precision at or below it.
 
 Policy lookups use the reference's parameter-tree paths: the port keeps
-its layers in a list, and layer ``i`` is looked up as
-``/periods/b0_dense/...`` (the reference's scanned stack) or, for an
-unrolled stack, ``/layers/<i>/...`` — so a policy regex selects the same
-weights in both packages.
+its layers in a list, and layer ``i`` is looked up at its path in the
+reference's tree (``ModelConfig.param_path``: ``/periods/b<j>_<kind>/...``
+in a scanned period, ``/tail/<t>/...`` in the tail, ``/layers/<i>/...``
+unrolled) — so a policy regex selects the same weights in both packages.
+Only linears (a ``{'w'}`` of two or more axes) are quantized, as in the
+reference: the conv taps, ``A_log``, ``D``, ``dt_bias`` and ``lam`` stay
+float32.
 """
 
 from __future__ import annotations
@@ -48,16 +51,20 @@ def quantize_params(
     params,
     policy: PrecisionPolicy,
     *,
+    cfg,
     plane_cache: bool = False,
     value_bits: int | None = None,
-    scan_layers: bool = True,
 ):
     """Walk the parameter tree, converting policy-active linears.
 
-    ``value_bits`` quantizes the weight values narrower than the storage
-    width (a narrow checkpoint served from the wide cache). With
-    ``policy.sparsity == "compact"`` each bit-plane cache drops its
-    all-zero planes at load (:func:`~repro_torch.core.bitplanes.compact_weight_planes`)."""
+    ``cfg`` (a :class:`~repro_torch.models.config.ModelConfig`) names each
+    layer's path as the reference's tree does (``cfg.param_path``), which
+    the policy's lookups key on; a tree without a ``layers`` list (one
+    layer, a head) never reads it and may pass None. ``value_bits`` quantizes the weight values
+    narrower than the storage width (a narrow checkpoint served from the
+    wide cache). With ``policy.sparsity == "compact"`` each bit-plane cache
+    drops its all-zero planes at load
+    (:func:`~repro_torch.core.bitplanes.compact_weight_planes`)."""
 
     def rec(node, path):
         if _is_linear(node):
@@ -86,10 +93,7 @@ def quantize_params(
             out = {}
             for k, v in node.items():
                 if k == "layers" and path == "" and isinstance(v, list):
-                    out[k] = [
-                        rec(blk, "/periods/b0_dense" if scan_layers else f"/layers/{i}")
-                        for i, blk in enumerate(v)
-                    ]
+                    out[k] = [rec(blk, cfg.param_path(i)) for i, blk in enumerate(v)]
                 else:
                     out[k] = rec(v, f"{path}/{k}")
             return out

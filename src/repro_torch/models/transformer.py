@@ -1,11 +1,15 @@
-"""The dense decoder: embedding, a stack of pre-norm attention+MLP blocks,
-final norm and LM head.
+"""The decoder stack: embedding, pre-norm blocks, final norm and LM head.
 
-Parameters are a plain dictionary, ``{"embed", "final_norm", "lm_head",
-"layers": [block, ...]}``; the reference stacks its scanned layers on a
-leading axis instead, and :func:`params_from_numpy` unstacks them. Layer
-names are the reference's: ``layers/dense/...`` for a scanned stack (every
-layer), ``layers/<i>/dense/...`` when ``cfg.scan_layers`` is False, and
+Block kinds are the reference's: ``dense`` (attention + MLP), ``ssm``
+(Mamba2 SSD), ``rec`` (RG-LRU + MLP) and ``attn`` (the hybrid's
+sliding-window attention + MLP). Parameters are a plain dictionary,
+``{"embed", "final_norm"[, "lm_head"], "layers": [block, ...]}``, one
+block per layer in layer order; the reference stacks the layers of its
+repeated periods on a leading axis and keeps the remainder as an unrolled
+tail, and :func:`params_from_numpy` unstacks both into the list. Layer
+names are the reference's (``ModelConfig.layer_name``): ``layers/<kind>/...``
+inside a scanned period, ``layers/tail/<kind>/...`` in the tail,
+``layers/<i>/<kind>/...`` when ``cfg.scan_layers`` is False, and
 ``lm_head`` — so a :class:`PrecisionPolicy` regex matches the same layers
 in both packages. The stack runs as a Python loop.
 """
@@ -17,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core import integrity
 from repro_torch.core.precision import PrecisionPolicy
@@ -29,21 +34,43 @@ from repro_torch.layers.embedding import (
 )
 from repro_torch.layers.mlp import mlp_apply, mlp_init
 from repro_torch.layers.norms import rmsnorm_apply, rmsnorm_init
+from repro_torch.layers.rglru import rglru_apply, rglru_init
+from repro_torch.layers.ssm import ssm_apply, ssm_init
 from repro_torch.models.config import ModelConfig
+
+#: kinds whose state is recurrent (no per-position KV)
+RECURRENT_KINDS = ("ssm", "rec")
 
 
 def _init_block(gen, cfg: ModelConfig, kind: str, device):
-    if kind not in ("dense", "attn"):
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     d = cfg.d_model
-    return {
-        "attn_norm": rmsnorm_init(d, device),
-        "attn": attention_init(
-            gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dtype, cfg.qk_norm, device
-        ),
-        "mlp_norm": rmsnorm_init(d, device),
-        "mlp": mlp_init(gen, d, cfg.d_ff, cfg.act, cfg.dtype, device),
-    }
+    if kind in ("dense", "attn"):
+        return {
+            "attn_norm": rmsnorm_init(d, device),
+            "attn": attention_init(
+                gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dtype, cfg.qk_norm,
+                device,
+            ),
+            "mlp_norm": rmsnorm_init(d, device),
+            "mlp": mlp_init(gen, d, cfg.d_ff, cfg.act, cfg.dtype, device),
+        }
+    if kind == "ssm":
+        return {
+            "norm": rmsnorm_init(d, device),
+            "ssm": ssm_init(
+                gen, d, d_inner=cfg.ssm_d_inner, n_heads=cfg.ssm_heads,
+                head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state,
+                conv_width=cfg.conv_width, dtype=cfg.dtype, device=device,
+            ),
+        }
+    if kind == "rec":
+        return {
+            "norm": rmsnorm_init(d, device),
+            "rglru": rglru_init(gen, d, cfg.lru_width, cfg.conv_width, cfg.dtype, device),
+            "mlp_norm": rmsnorm_init(d, device),
+            "mlp": mlp_init(gen, d, cfg.d_ff, cfg.act, cfg.dtype, device),
+        }
+    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
@@ -69,11 +96,13 @@ def _to_torch(a, device) -> torch.Tensor:
 
 def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
     """The reference's ``init_params`` tree, as numpy arrays (bf16 passed
-    as ``uint16`` views), converted to the port's parameters. Scanned
-    layers stacked under ``periods/b0_<kind>`` on a leading axis are
-    unstacked into the port's layer list, which takes the stack's place:
-    the keys keep the reference tree's order, so a walk over both trees
-    (the fault injector's) meets the same leaves in the same order."""
+    as ``uint16`` views), converted to the port's parameters. The layers
+    of the scanned periods, stacked under ``periods/b<j>_<kind>`` on a
+    leading axis, are unstacked into the port's layer list in layer order
+    and the ``tail`` blocks appended; the list takes the place of
+    ``periods`` (an unrolled tree's ``layers`` list is taken as it is), so
+    the keys keep the reference tree's order and a walk over both trees
+    (the fault injector's) meets the leaves of a layer in the same order."""
 
     def conv(node):
         if isinstance(node, dict):
@@ -87,38 +116,95 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
             return {k: take(v, i) for k, v in node.items()}
         return node[i].contiguous()
 
-    if tree.get("tail"):
-        raise NotImplementedError("period tails are not ported yet")
+    period, n_full = cfg.period_layout()
     out = {}
     for k, v in tree.items():
         if k == "tail":
             continue
         if k == "periods":
-            stacked = conv(v[f"b0_{cfg.layer_kinds()[0]}"])
-            out["layers"] = [take(stacked, i) for i in range(cfg.n_layers)]
+            stacked = [conv(v[f"b{j}_{kind}"]) for j, kind in enumerate(period)] if n_full else []
+            layers = [take(stacked[j], i) for i in range(n_full) for j in range(len(period))]
+            layers += [conv(blk) for blk in tree.get("tail", [])]
+            if len(layers) != cfg.n_layers:
+                raise ValueError(f"the tree holds {len(layers)} layers, the config "
+                                 f"{cfg.n_layers}")
+            out["layers"] = layers
         else:
             out[k] = conv(v)
     return out
 
 
-def _apply_block(cfg, kind, params, x, positions, *, policy, backend, name, cache=None):
-    h = rmsnorm_apply(params["attn_norm"], x)
-    attn_out, new_cache = attention_apply(
-        params["attn"], h, positions,
-        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-        causal=cfg.causal, rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-        chunk=cfg.attn_chunk, policy=policy, backend=backend, name=f"{name}/attn",
-        cache=cache,
-    )
-    x_f32 = x.to(torch.float32) + attn_out.to(torch.float32)
-    x = x + attn_out
+def _apply_block(cfg, kind, params, x, positions, *, policy, backend, name, cache=None,
+                 x_f32=None):
+    """Pre-norm residual block; returns (x, new_cache, the residual sum
+    before its rounding to x's dtype). ``x_f32``: the unrounded value of
+    ``x``, which the first norm's statistics read (see rmsnorm_apply)."""
+    if kind == "ssm":
+        h = rmsnorm_apply(params["norm"], x, x_f32=x_f32)
+        out, new_cache = ssm_apply(
+            params["ssm"], h, d_inner=cfg.ssm_d_inner, n_heads=cfg.ssm_heads,
+            head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state, conv_width=cfg.conv_width,
+            chunk=cfg.ssd_chunk, policy=policy, backend=backend, name=f"{name}/ssm",
+            cache=cache,
+        )
+        return x + out, new_cache, x.to(torch.float32) + out.to(torch.float32)
+    if kind == "rec":
+        h = rmsnorm_apply(params["norm"], x, x_f32=x_f32)
+        out, new_cache = rglru_apply(
+            params["rglru"], h, lru_width=cfg.lru_width, conv_width=cfg.conv_width,
+            policy=policy, backend=backend, name=f"{name}/rglru", cache=cache,
+        )
+    else:
+        h = rmsnorm_apply(params["attn_norm"], x, x_f32=x_f32)
+        out, new_cache = attention_apply(
+            params["attn"], h, positions,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            causal=cfg.causal, window=cfg.local_window if kind == "attn" else 0,
+            rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+            chunk=cfg.attn_chunk, policy=policy, backend=backend, name=f"{name}/attn",
+            cache=cache,
+        )
+    x_f32 = x.to(torch.float32) + out.to(torch.float32)
+    x = x + out
     # the norm's statistics read the unrounded residual sum, as the
     # reference's fused graph does (see rmsnorm_apply)
     h = rmsnorm_apply(params["mlp_norm"], x, x_f32=x_f32)
-    x = x + mlp_apply(
+    mlp_out = mlp_apply(
         params["mlp"], h, act=cfg.act, policy=policy, backend=backend, name=f"{name}/mlp"
     )
-    return x, new_cache
+    return x + mlp_out, new_cache, x.to(torch.float32) + mlp_out.to(torch.float32)
+
+
+def check_prefill(cfg: ModelConfig, s: int, offset: int, rows: int) -> None:
+    """Refuse the prefills the reference gets wrong on recurrent and
+    sliding-window layers: ``s`` tokens from the running ``offset`` into a
+    cache whose windowed layers keep rings of ``rows`` rows.
+
+    * A prefill that continues a filled cache (chunked prefill): the
+      reference restarts the SSD and RG-LRU states from zero on every
+      multi-token call, and writes a windowed chunk at ring row 0 and
+      attends only within it (reference defect E).
+    * A windowed prefill longer than the ring and not a multiple of it:
+      the reference stores its trailing rows unrotated, so decode then
+      evicts the wrong position (reference defect F).
+
+    The port raises a ``ValueError`` instead of copying either."""
+    kinds = set(cfg.layer_kinds())
+    if offset and kinds & {"ssm", "rec", "attn"}:
+        raise ValueError(
+            f"{cfg.name}: a prefill that continues a filled cache (chunked "
+            "prefill) is refused for recurrent and sliding-window layers — the "
+            "reference restarts their state from zero on every chunk and writes "
+            "a windowed chunk at ring row 0 (reference defect E); prefill the "
+            "whole prompt at once (prefill_chunk=0)"
+        )
+    if "attn" in kinds and s > rows and s % rows:
+        raise ValueError(
+            f"{cfg.name}: a windowed prefill of {s} tokens into a {rows}-row ring "
+            "is refused: longer than the ring and not a multiple of it, the "
+            "reference stores its trailing rows unrotated and decode then evicts "
+            "the wrong position (reference defect F)"
+        )
 
 
 def forward(
@@ -128,17 +214,20 @@ def forward(
     *,
     policy: Optional[PrecisionPolicy] = None,
     cache=None,
-    last_only: bool = False,
+    last_only: bool | int = False,
     backend: str = "auto",
 ):
     """Returns (logits, aux_loss, new_cache). ``batch = {"tokens": (B, S)}``;
     with a cache, S == 1 decodes at each slot's own position, updating the
     cache in place and returning it, and S > 1 prefills from the running
-    per-slot offset into a new cache. The cache's layer blocks
-    are dense (``models.cache``) or paged (``models.paging``: page pools,
-    block table, length; decode only), passed to each layer's attention. ``last_only`` computes the
-    LM head for the final position only. ``backend`` picks the matmul
-    kernels ("auto": the Hopper kernels for CUDA tensors)."""
+    per-slot offset into a new cache (from a fresh cache only, on a model
+    with recurrent or sliding-window layers). The cache's layer blocks
+    are dense (``models.cache``: KV, a KV ring, or SSM / RG-LRU state) or
+    paged (``models.paging``: page pools, block table, length; decode
+    only), passed to each layer. ``last_only`` computes the LM head for
+    the final position only (an int ``n``: the last ``n`` positions).
+    ``backend`` picks the matmul kernels ("auto": the Hopper kernels for
+    CUDA tensors)."""
     policy = policy or PrecisionPolicy.off()
     tokens = batch["tokens"]
     x = embedding_apply(params["embed"], tokens)
@@ -153,19 +242,46 @@ def forward(
     else:
         positions = torch.arange(s, dtype=torch.int32, device=dev)[None, :].expand(b, s)
 
+    kinds = cfg.layer_kinds()
+    if cache is not None and s > 1 and set(kinds) & {"ssm", "rec", "attn"}:
+        rows = next((blk["k"].shape[1] for k, blk in zip(kinds, cache["layers"])
+                     if k == "attn" and "k" in blk), 0)
+        check_prefill(cfg, s, int(cache["step"].max()), rows)
+
+    period, n_full = cfg.period_layout()
+    plen = len(period)
+    n_scanned = n_full * plen if cfg.scan_layers else 0
     new_layers = []
-    # a scanned stack reports its ABFT checks as one folded flag, as the
-    # reference's lax.scan body does; an unrolled stack reports each
-    stack = integrity.scan_scope() if cfg.scan_layers else contextlib.nullcontext()
-    with stack:
-        for i, (kind, blk) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
-            name = f"layers/{kind}" if cfg.scan_layers else f"layers/{i}/{kind}"
+
+    def run(lo, hi):
+        """Layers ``lo:hi``; returns the last one's unrounded residual sum
+        (None after a dense layer). Each block's first norm reads its
+        predecessor's unrounded sum where the reference's compiled graph
+        fuses the two: inside one period of the scanned stack, and between
+        consecutive unrolled (or tail) layers; the scan's carry, at a
+        period boundary, is rounded. A dense stack rounds at every layer
+        boundary, as the port always has (on an unrolled dense stack the
+        reference does not: its logits differ by a bf16 step or two)."""
+        nonlocal x
+        x_f32 = None
+        for i in range(lo, hi):
             blk_cache = cache["layers"][i] if cache is not None else None
-            x, nc = _apply_block(
-                cfg, kind, blk, x, positions, policy=policy, backend=backend, name=name,
-                cache=blk_cache,
+            fused = (i % plen if i < n_scanned else i > lo) and kinds[i - 1] != "dense"
+            x, nc, x_f32 = _apply_block(
+                cfg, kinds[i], params["layers"][i], x, positions, policy=policy,
+                backend=backend, name=cfg.layer_name(i), cache=blk_cache,
+                x_f32=x_f32 if fused else None,
             )
             new_layers.append(nc)
+        return x_f32 if hi > lo and kinds[hi - 1] != "dense" else None
+
+    # the scanned periods report their ABFT checks as one folded flag, as
+    # the reference's lax.scan body does; the tail and an unrolled stack
+    # report each
+    with integrity.scan_scope() if n_scanned else contextlib.nullcontext():
+        run(0, n_scanned)
+    # the final norm reads an unrolled last layer's unrounded sum too
+    x_last = run(n_scanned, cfg.n_layers)
     new_cache = None
     if cache is not None and s == 1:  # decode: the layers updated ``cache`` in place
         cache["step"].add_(1)
@@ -174,10 +290,13 @@ def forward(
         new_cache = {"step": cache["step"] + s, "layers": new_layers}
 
     if last_only:
-        x = x[:, -1:]
-    x = rmsnorm_apply(params["final_norm"], x)
+        rows = 1 if last_only is True else int(last_only)
+        x = x[:, -rows:]
+        x_last = None if x_last is None else x_last[:, -rows:]
+    x = rmsnorm_apply(params["final_norm"], x, x_f32=x_last)
     if cfg.tie_embeddings:
-        logits = x.to(torch.float32) @ params["embed"]["embedding"].to(torch.float32).T
+        with record_function("family.tied_head"):
+            logits = x.to(torch.float32) @ params["embed"]["embedding"].to(torch.float32).T
     else:
         logits = lm_head_apply(params["lm_head"], x, policy=policy, backend=backend)
     return logits, torch.zeros((), dtype=torch.float32, device=dev), new_cache

@@ -890,3 +890,47 @@ def test_lockstep_graph_replay_equals_eager_on_card(cuda_device):
     res, _ = cb.run([Request(rid=i, tokens=p, max_new_tokens=6) for i, p in enumerate(prompts)])
     for i in range(3):
         assert (res[i] == tg[i].cpu().numpy()).all(), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,n_layers", [("mamba2-1.3b", None), ("recurrentgemma-2b", 5)])
+def test_family_graph_replay_equals_eager_on_card(cuda_device, arch, n_layers):
+    """The SSM stack and the hybrid (one period and a 2-layer tail) at their
+    reduced widths: the graph engine's tokens, launches and decode state
+    (the SSM state, the conv rows, the RG-LRU ``h`` and the KV ring, bit
+    for bit) equal the eager step's across an 8 -> 4 switch, with a prompt
+    that fills the reduced hybrid's 16-row ring twice."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.launch.serve import ContinuousBatchingEngine
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime.scheduler import Request
+
+    cfg = get_reduced(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(0)
+    params = init_params(cfg, g, device=cuda_device)
+    policy = PrecisionPolicy.uniform(8, 8, level="bitplane")
+    engines = [ContinuousBatchingEngine(cfg, params, policy, n_slots=2, max_len=48,
+                                        device=cuda_device, compile_steps=c)
+               for c in (True, False)]
+
+    def requests():
+        return [Request(rid=i, tokens=np.random.default_rng(i).integers(0, cfg.vocab_size, (s,)),
+                        max_new_tokens=12, arrival_step=2 * i)
+                for i, s in enumerate((8, 32, 16))]
+
+    (rg, sg, lg), (re_, se, le) = [_serve_counted(e, requests, {4: 4}) for e in engines]
+    assert set(engines[0]._compiled_graphs) == {None, (4, 4)}
+    for rid in rg:
+        assert (rg[rid] == re_[rid]).all(), rid
+    assert sg["route_calls"] == se["route_calls"] and lg == le and lg["fused_plane_linear"] > 0
+    for a, b in zip(engines[0]._cache["layers"], engines[1]._cache["layers"]):
+        for key in a:
+            assert torch.equal(a[key], b[key]), key

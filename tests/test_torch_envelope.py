@@ -270,7 +270,7 @@ def test_prefill_logits_equal_reference(bits, level):
                   TPolicy.uniform(bits, bits, level=level))
     lj, _, _ = jax.jit(lambda p, t: jforward(jc, p, {"tokens": t}, policy=jpol))(
         _jquant(bits, level), jnp.asarray(toks))
-    tq = tquantize_params(tp, tpol, plane_cache=True)
+    tq = tquantize_params(tp, tpol, cfg=tc, plane_cache=True)
     assert "w_planes" not in tq["lm_head"]["head"]  # no cache beyond 8 bits
     lt, _ = make_prefill_step(tc, tpol)(tq, torch.from_numpy(toks))
     np.testing.assert_array_equal(np.asarray(lj[:, -1, :]).astype(np.float32), t2n(lt))

@@ -59,8 +59,7 @@ def _trees():
         pol = dict(level="bitplane", integrity="scrub")
         _TREES["j"] = jquantize(jp, JPolicy.uniform(8, 8, **pol), plane_cache=True)
         tp = params_from_numpy(tc, to_numpy_tree(jp), device="cpu")
-        _TREES["t"] = tquantize(tp, TPolicy.uniform(8, 8, **pol), plane_cache=True,
-                                scan_layers=False)
+        _TREES["t"] = tquantize(tp, TPolicy.uniform(8, 8, **pol), cfg=tc, plane_cache=True)
     return _TREES["j"], _TREES["t"]
 
 
@@ -197,7 +196,7 @@ def test_injector_bookkeeping_and_refusals():
     gen = torch.Generator().manual_seed(0)
     sbmwc = tquantize(init_params(tget(ARCH), gen, device="cpu"),
                       TPolicy.uniform(8, 8, variant="sbmwc", level="bitplane",
-                                      integrity="detect"), plane_cache=True)
+                                      integrity="detect"), cfg=tget(ARCH), plane_cache=True)
     with pytest.raises(ValueError, match="no injection candidates"):
         FaultInjector("sign@0").apply(0, sbmwc)
     with pytest.raises(ValueError, match="contiguous"):

@@ -24,7 +24,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import repro.models  # noqa: F401  (the reference's layers import through models)
 from repro.configs import get_reduced as jget
@@ -40,7 +39,7 @@ from repro_torch.configs import get_reduced as tget
 from repro_torch.core import integrity as tinteg
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.precision import PrecisionPolicy as TPolicy
-from repro_torch.kernels import fold, ops, plane_mm, plane_mm_fused, plane_mm_packed
+from repro_torch.kernels import fold
 from repro_torch.launch import sampling, serve
 from repro_torch.launch.steps import make_cb_decode_step
 from repro_torch.layers import attention
@@ -52,7 +51,14 @@ from repro_torch.models.quant import quantize_params as tquantize_params
 from repro_torch.models.transformer import params_from_numpy
 from repro_torch.runtime.scheduler import Request as TRequest
 
-from _torch_parity import StubRunner, t2n, to_numpy_tree, weight_planes_to_jax
+from _torch_parity import (
+    StubRunner,
+    Watch,
+    stub_kernels,
+    t2n,
+    to_numpy_tree,
+    weight_planes_to_jax,
+)
 
 N_SLOTS = 2
 MAX_LEN = 8
@@ -127,7 +133,7 @@ def test_static_buffer_step_equals_reference(arch, level, paged, monkeypatch):
     jp, tp = _params(arch)
     cfg, jcfg = tget(arch), jget(arch)
     tpol, jpol = TPolicy.uniform(8, 8, level=level), JPolicy.uniform(8, 8, level=level)
-    tq = tquantize_params(tp, tpol, plane_cache=True)
+    tq = tquantize_params(tp, tpol, cfg=cfg, plane_cache=True)
     jq = _to_jax_tree(tq)
     jc, tc = _caches(cfg, jcfg, paged)
     seen = []
@@ -216,44 +222,6 @@ def test_in_place_dense_append_equals_where_append():
 # ---------------------------------------------------------------------------
 
 
-class _Watch(TorchDispatchMode):
-    """Records reads to the host (``_local_scalar_dense``) and tensors built
-    from host data (``lift_fresh``) while a step runs."""
-
-    def __init__(self):
-        super().__init__()
-        self.bad = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = str(func)
-        if "_local_scalar_dense" in name or "lift_fresh" in name:
-            self.bad.append(name)
-        return func(*args, **(kwargs or {}))
-
-
-def _stub_kernels(monkeypatch):
-    """Resolve every plan and attention call to the card's routes, with each
-    kernel replaced by a stub of its output's shape (the kernels run only on
-    the card): what is left is the Python around them."""
-    monkeypatch.setattr(ops, "resolve_backend", lambda backend, device=None: "cuda")
-    monkeypatch.setattr(attention, "resolve_backend", lambda backend, device=None: "cuda")
-
-    def fused(x_q, packed_w, pw, *, a_scale=None, **kw):
-        n = packed_w.mag.shape[-1]
-        return torch.zeros((x_q.shape[0], n),
-                           dtype=torch.int32 if a_scale is None else torch.bfloat16)
-
-    monkeypatch.setattr(plane_mm_fused, "fused_plane_linear", fused)
-    monkeypatch.setattr(plane_mm, "plane_matmul",
-                        lambda a, w, pw, **kw: torch.zeros((a.shape[1], w.shape[2]),
-                                                           dtype=torch.int32))
-    monkeypatch.setattr(plane_mm_packed, "plane_matmul_packed",
-                        lambda a, w, pw, **kw: torch.zeros((a.mag.shape[1], w.mag.shape[2]),
-                                                           dtype=torch.int32))
-    monkeypatch.setattr(attention, "paged_flash_attention",
-                        lambda q, *a, **kw: torch.zeros(q.shape, dtype=torch.bfloat16))
-
-
 ROUTES = {  # cell: (policy kwargs, engine kwargs, scan_layers)
     "fused": (dict(level="bitplane"), {}, True),
     "digit": (dict(level="digit"), {}, True),
@@ -271,7 +239,7 @@ def test_decode_step_reads_nothing_back(route, temps, monkeypatch):
 
     pol_kw, eng_kw, scan = ROUTES[route]
     cfg = dataclasses.replace(tget("granite-3-8b"), scan_layers=scan)
-    _stub_kernels(monkeypatch)
+    stub_kernels(monkeypatch)
     eng = serve.ContinuousBatchingEngine(
         cfg, _params("granite-3-8b")[1], TPolicy.uniform(8, 8, **pol_kw), n_slots=N_SLOTS,
         max_len=MAX_LEN, device="cpu", **eng_kw)
@@ -281,7 +249,7 @@ def test_decode_step_reads_nothing_back(route, temps, monkeypatch):
     want = {"fused": "fused_cached", "digit": "cached_planes", "packed": "cached_packed",
             "paged": "fused_cached"}.get(route, "cached_packed")
     calls0 = plan_mod.DEFAULT_REGISTRY.calls[want]
-    with _Watch() as watch:
+    with Watch() as watch:
         out, _ = eng._decode(1)
     assert watch.bad == []
     assert plan_mod.DEFAULT_REGISTRY.calls[want] - calls0 == 7 * cfg.n_layers + 1

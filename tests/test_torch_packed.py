@@ -210,7 +210,7 @@ def test_compact_weight_planes_and_quantize_params_compaction(rng):
     np.testing.assert_array_equal(np.asarray(cj.packed.mag), t2n(ct.packed.mag))
     params = {"lm_head": {"head": {"w": torch.from_numpy(w.astype(np.float32))}}}
     pol = TPolicy.uniform(8, 8, level="bitplane", sparsity="compact")
-    q = tquantize_params(params, pol, plane_cache=True)["lm_head"]["head"]
+    q = tquantize_params(params, pol, cfg=None, plane_cache=True)["lm_head"]["head"]
     ref = tbp.compact_weight_planes(tbp.make_weight_planes(
         q["w_q"], w_bits=8, variant="booth", level="bitplane"))
     assert q["w_planes"].weights == ref.weights

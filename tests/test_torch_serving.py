@@ -64,7 +64,7 @@ def _jquant(arch, level):
 def test_quantize_params_tree_equals_reference(level):
     jq = _jquant("granite-3-8b", level)
     tq = tquantize_params(_params("granite-3-8b")[1], TPolicy.uniform(8, 8, level=level),
-                          plane_cache=True)
+                          cfg=tget("granite-3-8b"), plane_cache=True)
     pairs = [(jq["lm_head"]["head"], tq["lm_head"]["head"], None)]
     jb = jq["periods"]["b0_dense"]
     for i, blk in enumerate(tq["layers"]):
@@ -96,7 +96,7 @@ def test_prefill_logits_equal_reference(arch, level, rng):
     else:
         jpol, tpol = JPolicy.uniform(8, 8, level=level), TPolicy.uniform(8, 8, level=level)
         jpar = _jquant(arch, level)
-        tpar = tquantize_params(tp, tpol, plane_cache=True)
+        tpar = tquantize_params(tp, tpol, cfg=tc, plane_cache=True)
     lj, _, _ = jax.jit(lambda p, t: jforward(jc, p, {"tokens": t}, policy=jpol))(
         jpar, jnp.asarray(toks))
     lt, _, _ = tforward(tc, tpar, {"tokens": torch.from_numpy(toks)}, policy=tpol)
