@@ -174,8 +174,10 @@ is timed beside its byte bound.
 
 Prints one JSON line per kernel check and per engine cell (the scrub and
 paged-integrity cells' lines carry the card's name and power limit), one
-``{"kernels": [...]}`` summary line (the fold kernel's entry included), the
-card's name and power limit, and last ``{"ok": true, ...}``.
+``{"kernels": [...]}`` summary line (the fold kernel's entry included; the
+fused kernel's entry also counts its launches on the QAT-trained weights,
+``train_launches``), the card's name and power limit, and last
+``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -3002,6 +3004,289 @@ def run_families() -> dict:
     return cells
 
 
+# -- training (phase 17) -----------------------------------------------------
+
+# TrainRun at granite-3-8b's full width, depth cut to LAYERS; train-resume
+# at RESUME_LAYERS (a cut for checkpoint bytes: ~6.0 GB a save)
+TRAIN_BATCH = 8
+TRAIN_SEQ = 256
+TRAIN_STEPS = 12
+TRAIN_LR = 1e-3
+TRAIN_MICRO = 4
+RESUME_LAYERS = 1
+RESUME_EVERY = 6
+# the QAT forward against the bit-serial inference it trains for: the
+# bounds of tests/test_torch_train.py (QAT_GAP, QAT_AGREE)
+QAT_GAP = 0.1  # max|dlogit| / max|logit|
+QAT_AGREE = 0.75  # greedy-token agreement
+QAT_PROMPTS = (4, 64)  # prompts x tokens of the comparison
+
+
+def _train_cell(name: str, cfg, **kw) -> tuple[dict, dict, object]:
+    """One TrainRun on the card (launch counts set to 0 just before it and
+    read just after: training launches none of the port's kernels, its
+    QAT product being a plain bf16 matmul as the reference's is). Returns
+    its line, TrainRun's dict and the run."""
+    from repro_torch.launch.train import TrainRun
+
+    args = dict(cfg=cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                peak_lr=TRAIN_LR, log_every=1000, device="cuda")
+    args.update(kw)
+    run = TrainRun(**args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _reset_counts()
+    out = run.run()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    if any(counts.values()):
+        _die(f"{name}: training launched the port's kernels {counts}")
+    step_ms = run.timings["step_ms"]
+    med = float(np.median(step_ms)) if step_ms else float("nan")
+    line = {
+        "train_cell": name, "card": CARD, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "batch": run.global_batch, "seq": run.seq_len, "microbatches": run.microbatches,
+        "steps": len(out["losses"]), "policy": run.policy.describe(),
+        "losses": out["losses"], "step_ms": step_ms, "step_ms_median": med,
+        "steps_per_s": 1e3 / med, "trainrun_steps_per_s": out["steps_per_s"],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "kernel_launches": counts, "cell_s": time.perf_counter() - t0,
+    }
+    return line, out, run
+
+
+GEMM_TAGS = ("gemm", "nvjet", "xmma", "cutlass", "cublas")  # matmul kernels, by name
+TRAIN_RANGES = ("train.grads", "train.clip", "train.update")
+
+
+def _train_profile(cfg, params, policy) -> dict:
+    """Where a step's device time goes: one warm step of
+    ``make_train_step`` from ``params`` (the run's trained weights, a
+    fresh AdamW state, the pipeline's batch 0), then one under
+    ``torch.profiler``: the kernels' device time in all and in matmul
+    kernels (by name); the device spans of the clip's and the optimizer's
+    ranges (their annotations on the device timeline: ``train.clip``,
+    ``train.update``); the rest (forward and backward, whose backward
+    runs on autograd's thread, outside any annotation) and the 10 kernels
+    that take the most."""
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.launch.steps import init_opt_state, make_train_step
+    from repro_torch.optim import OptimConfig
+
+    opt = OptimConfig(peak_lr=TRAIN_LR, total_steps=TRAIN_STEPS)
+    step = make_train_step(cfg, opt, policy=policy)
+    pipe = DataPipeline(DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                   vocab_size=cfg.vocab_size))
+    dev = params["embed"]["embedding"].device
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(0).items()}
+    p, s, _ = step(params, init_opt_state(cfg, opt, params), batch, 0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        p, s, _ = step(p, s, batch, 1)
+        torch.cuda.synchronize()
+    del p, s
+    by_name: dict = {}
+    spans = {name: 0.0 for name in TRAIN_RANGES}
+    busy = gemm = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        us = e.time_range.end - e.time_range.start
+        if e.name in spans:  # a range's annotation, not a kernel
+            spans[e.name] += us
+            continue
+        busy += us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        if any(t in e.name.lower() for t in GEMM_TAGS):
+            gemm += us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"kernels_ms": busy / 1e3, "matmul_ms": gemm / 1e3,
+            "clip_span_ms": spans["train.clip"] / 1e3,
+            "update_span_ms": spans["train.update"] / 1e3,
+            "rest_ms": (busy - spans["train.clip"] - spans["train.update"]) / 1e3,
+            "top_kernels_ms": {name[:100]: us / 1e3 for name, us in top}}
+
+
+def _loss_falls(name: str, losses: list) -> None:
+    """The reference's criterion (examples/train_tiny_lm.py): every loss
+    finite, the mean of the last 3 below the mean of the first 3."""
+    if not np.isfinite(losses).all():
+        _die(f"{name}: a loss is not finite: {losses}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        _die(f"{name}: the loss did not fall: {losses}")
+
+
+def _train_resume(full) -> dict:
+    """``train-resume``: 12 steps at full width and RESUME_LAYERS, saving
+    every RESUME_EVERY steps; the final checkpoint (step 11) is deleted, a
+    crash after the step-5 save, and a fresh TrainRun resumes from step 5.
+    Both runs use deterministic algorithms (with ``warn_only``: an op with
+    no deterministic CUDA version is named, and then the losses are held
+    within 1e-3 instead of bit for bit)."""
+    import os
+    import shutil
+    import tempfile
+    import warnings
+
+    cfg = dataclasses.replace(full, n_layers=RESUME_LAYERS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            line, out, run = _train_cell("train-resume", cfg, ckpt_dir=tmp,
+                                         ckpt_every=RESUME_EVERY)
+            shutil.rmtree(Path(tmp) / f"step_{TRAIN_STEPS - 1}")
+            kept = sorted(p.name for p in Path(tmp).iterdir())
+            res_line, res_out, res_run = _train_cell("train-resume (resumed)", cfg,
+                                                     ckpt_dir=tmp, ckpt_every=RESUME_EVERY)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    nondet = sorted({str(w.message).split(" does not have a deterministic")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    want = out["losses"][RESUME_EVERY:]
+    got = res_out["losses"]
+    if len(got) != TRAIN_STEPS - RESUME_EVERY:
+        _die(f"train-resume: resumed {len(got)} steps, kept {kept}")
+    exact = got == want
+    if nondet:
+        if not np.allclose(got, want, rtol=1e-3):
+            _die(f"train-resume: nondeterministic ops {nondet}; resumed losses {got} "
+                 f"against {want} beyond rtol 1e-3")
+    elif not exact:
+        _die(f"train-resume: resumed losses {got} differ from the uninterrupted {want}")
+    saves = run.timings["saves"] + res_run.timings["saves"]
+    line.update(
+        cut=f"depth {full.n_layers} -> {RESUME_LAYERS} (checkpoint bytes)",
+        ckpt_every=RESUME_EVERY, kept_after_crash=kept, resumed_losses=got,
+        resumed_equal=exact, nondeterministic_ops=nondet,
+        gate="bit-equal" if not nondet else "rtol 1e-3",
+        saves=saves, save_s=[s["snapshot_s"] + s["write_s"] for s in saves],
+        save_bytes=[s["bytes"] for s in saves], restore_s=res_run.timings["restore_s"],
+        resumed_step_ms_median=res_line["step_ms_median"],
+        resumed_peak_memory_gb=res_line["peak_memory_gb"],
+    )
+    return line
+
+
+def _qat_gap(cfg, params, policy) -> dict:
+    """``train-serve`` (a): the training forward's logits (fake quant)
+    against the on-the-fly bit-serial inference (``training=False``, the
+    same policy and dense weights: route ``fused_repack``, kernel row 1)
+    on QAT_PROMPTS, launches counted over the inference forward alone."""
+    from repro_torch.models.transformer import forward
+
+    b, s = QAT_PROMPTS
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (b, s)))
+    tokens = tokens.to(params["embed"]["embedding"].device)
+    with torch.no_grad():
+        qat = forward(cfg, params, {"tokens": tokens}, policy=policy, training=True)[0]
+        _reset_counts()
+        inf = forward(cfg, params, {"tokens": tokens}, policy=policy)[0]
+        torch.cuda.synchronize()
+        counts = _read_counts()
+    qat = qat.float()[..., :cfg.vocab_size]
+    inf = inf.float()[..., :cfg.vocab_size]
+    gap = float((qat - inf).abs().max())
+    scale = float(qat.abs().max())
+    agree = float((qat.argmax(-1) == inf.argmax(-1)).float().mean())
+    if not counts["fused_plane_linear"] or any(v for k, v in counts.items()
+                                                  if k != "fused_plane_linear"):
+        _die(f"train-serve: the bit-serial forward launched {counts}")
+    if not (np.isfinite(gap) and gap <= QAT_GAP * scale and agree >= QAT_AGREE):
+        _die(f"train-serve: QAT forward against bit-serial max|dlogit| {gap} (max|logit| "
+             f"{scale}), argmax agreement {agree}; bounds {QAT_GAP} of max|logit|, "
+             f"{QAT_AGREE}")
+    return {"max_abs_dlogit": gap, "max_abs_logit": scale, "gap_over_max_logit": gap / scale,
+            "argmax_agreement": agree, "bound": f"{QAT_GAP} of max|logit|, agreement >= "
+            f"{QAT_AGREE}", "prompts": list(QAT_PROMPTS), "launches": counts}
+
+
+def _train_serve(cfg, params, policy) -> dict:
+    """``train-serve``: the QAT-trained weights through (a) the QAT gap
+    and (b) quantize_params(plane_cache=True) and the continuous-batching
+    bitplane engine on 4 requests, whose greedy tokens must equal the
+    plain route's on the card; the fused kernel's launches counted."""
+    from repro_torch.runtime.scheduler import Request
+
+    t0 = time.perf_counter()
+    gap = _qat_gap(cfg, params, policy)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, (s,)) for s in PROMPT_LENS]
+
+    def reqs(_cfg):
+        return [Request(rid=i, tokens=p, max_new_tokens=GEN_TOKENS, arrival_step=STAGGER * i)
+                for i, p in enumerate(prompts)]
+
+    # the precision QAT trained for, served from the plane cache
+    engine = _engine(cfg, params, policy)
+    results, stats, counts = _counted_run("train-serve", cfg, engine, None,
+                                          "fused_plane_linear", "fused_cached", reqs=reqs)
+    del engine
+    plain = _engine(cfg, params, policy, backend="torch", compile_steps=False)
+    res_plain, _ = plain.run(reqs(cfg))
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    _same_tokens("train-serve", results, res_plain, "the plain route")
+    return {"train_cell": "train-serve", "card": CARD, "layers": cfg.n_layers,
+            "qat_vs_bit_serial": gap, "requests": len(results), "tokens_equal_plain": True,
+            "launches": counts, "route_calls": stats["route_calls"],
+            "tok_per_s": stats["tok_per_s"], "cell_s": time.perf_counter() - t0}
+
+
+def run_training() -> dict:
+    """Phase 17: quantization-aware training and checkpoints at
+    granite-3-8b's full width through ``TrainRun`` (train-dense,
+    train-qat8, train-micro4, train-resume, train-serve)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.models.transformer import unstack_layers
+
+    t0 = time.perf_counter()
+    full = get_config("granite-3-8b")
+    cfg = dataclasses.replace(full, n_layers=LAYERS)
+    cells = {}
+
+    def done(name, line):
+        cells[name] = line
+        print(json.dumps(line), flush=True)
+
+    line, dense, _ = _train_cell("train-dense", cfg)
+    _loss_falls("train-dense", dense["losses"])
+    line["profile"] = _train_profile(cfg, dense["params"], PrecisionPolicy.off())
+    done("train-dense", line)
+    del dense
+    # QAT ignores the level; the bit-serial inference of train-serve takes
+    # the fused bit-plane kernel at it
+    qat_policy = PrecisionPolicy.uniform(8, 8, level="bitplane", keep_dense=("lm_head", "embed"))
+    line, qat, _ = _train_cell("train-qat8", cfg, policy=qat_policy)
+    _loss_falls("train-qat8", qat["losses"])
+    line["profile"] = _train_profile(cfg, qat["params"], qat_policy)
+    done("train-qat8", line)
+    trained = unstack_layers(cfg, qat["params"])
+    del qat
+    line, micro, _ = _train_cell("train-micro4", cfg, steps=1, microbatches=TRAIN_MICRO)
+    single = cells["train-dense"]["losses"][0]
+    if not np.isclose(micro["losses"][0], single, rtol=1e-3):
+        _die(f"train-micro4: first-step loss {micro['losses'][0]} against the single-shot "
+             f"{single} beyond rtol 1e-3")
+    line.update(single_shot_first_loss=single, rtol=1e-3)
+    done("train-micro4", line)
+    done("train-resume", _train_resume(full))
+    done("train-serve", _train_serve(cfg, trained, qat_policy))
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    cells["phase_s"] = time.perf_counter() - t0
+    return cells
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _die("no CUDA device: this smoke run needs one GPU")
@@ -3087,6 +3372,10 @@ def main() -> None:
     fam = run_families()
     print(f"[chip_smoke] SSM and hybrid families done at {time.perf_counter() - t0:.1f} s",
           flush=True)
+    train = run_training()
+    print(f"[chip_smoke] training done at {time.perf_counter() - t0:.1f} s (phase "
+          f"{train['phase_s']:.1f} s; step ms dense {train['train-dense']['step_ms_median']:.1f}, "
+          f"qat8 {train['train-qat8']['step_ms_median']:.1f})", flush=True)
 
     def fam_launches(kernel):
         """The kernel's launches in each family cell's counted run."""
@@ -3139,6 +3428,12 @@ def main() -> None:
     ]
     for k in kernels:
         k["family_launches"] = fam_launches(k["name"])
+    # the QAT-trained weights through row 1: the on-the-fly check (a) and the
+    # served run (b) of train-serve
+    kernels[0]["train_launches"] = {
+        "train-serve qat check": train["train-serve"]["qat_vs_bit_serial"]["launches"][
+            "fused_plane_linear"],
+        "train-serve": train["train-serve"]["launches"]["fused_plane_linear"]}
     fl = summary["fold"][0]
     kernels.append({
         # no Pallas kernel: it replaces the reference's compiled fold

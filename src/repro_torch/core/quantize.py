@@ -11,6 +11,10 @@ serving steps XLA folds that division by a constant into a multiply by
 ``reciprocal_scale=True`` reproduces it (activations quantized per token
 during serving), the default divides (weights quantized at load, which
 the reference runs eagerly).
+
+:func:`fake_quant` is the quantization-aware-training form: quantize and
+dequantize in one pass, with a straight-through gradient through the
+rounding.
 """
 
 from __future__ import annotations
@@ -62,6 +66,44 @@ def quantize(x: torch.Tensor, bits: int, axis=None, *, reciprocal_scale: bool = 
     q = torch.clamp(torch.round(x / scale), -qmax - 1 if bits > 1 else 0, qmax)
     store_dtype = torch.int8 if bits <= 8 else torch.int32
     return Quantized(q.to(store_dtype), scale, bits)
+
+
+class _SteRound(torch.autograd.Function):
+    """Round half to even; the gradient passes through unchanged (the
+    reference's ``_ste_round`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def fake_quant(x: torch.Tensor, bits, axis=None) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through gradient (QAT).
+
+    The forward emits the values the bit-serial inference path computes
+    with; the backward passes the gradient through the rounding and keeps
+    the clip's. The scale is ``amax / qmax`` with ``amax`` detached (the
+    reference's ``stop_gradient``). The clip is ``minimum(maximum(v, lo),
+    hi)`` on tensor bounds: like ``jnp.clip`` it gives half the gradient
+    to a value equal to a bound (``torch.clamp`` would give all of it), and
+    a row's maximum lands exactly on ``qmax``. The gradient then reads
+    ``(g * scale) / scale``, as the reference's does. The scale is
+    ``amax * float32(1 / qmax)``, as the reference's compiled train step
+    computes it (see :func:`quantize`)."""
+    if bits is None:
+        return x
+    qmax = _qmax(bits)
+    xd = x.detach()
+    amax = xd.abs().amax() if axis is None else xd.abs().amax(dim=axis, keepdim=True)
+    scale = torch.clamp_min(amax, 1e-8) * _recip(qmax).to(amax.dtype)
+    lo = torch.tensor(-qmax - 1 if bits > 1 else 0, dtype=x.dtype, device=x.device)
+    hi = torch.tensor(qmax, dtype=x.dtype, device=x.device)
+    q = torch.minimum(torch.maximum(_SteRound.apply(x / scale), lo), hi)
+    return (q * scale).to(x.dtype)
 
 
 def dequantize(q: Quantized) -> torch.Tensor:

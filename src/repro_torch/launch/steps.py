@@ -1,5 +1,7 @@
-"""Serving step functions: prefill (whole or in chunks), the lockstep
-engine's decode and serve steps, and the continuous-batching decode step.
+"""Step functions: the train step (gradient accumulation over
+microbatches, optional compressed gradients), and the serving steps —
+prefill (whole or in chunks), the lockstep engine's decode and serve
+steps, and the continuous-batching decode step.
 
 The factories take an optional ``precision=(a_bits, w_bits)`` runtime
 dial: the policy is re-stamped with
@@ -20,14 +22,105 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
+from repro_torch.core import tree as tr
 from repro_torch.core.integrity import Collector
+from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.launch import sampling
 from repro_torch.launch.graphs import clone_tree
 from repro_torch.models.cache import init_cache, quantize_scratch
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import forward
+from repro_torch.models.transformer import forward, loss_fn
+from repro_torch.optim import OptimConfig, apply_updates, clip_by_global_norm
+from repro_torch.optim import compress as gcomp
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    opt_cfg: OptimConfig,
+    policy: Optional[PrecisionPolicy] = None,
+    microbatches: int = 1,
+    compress_grads: bool = False,
+):
+    """Returns train_step(params, opt_state, batch, step) -> (params,
+    opt_state, metrics {"loss", "grad_norm"}), the reference's step:
+
+    * the gradients of :func:`~repro_torch.models.transformer.loss_fn`
+      (``training=True``; eager autograd); with ``microbatches`` > 1 they
+      accumulate in float32 over equal slices of the batch
+      and are divided by their number, as is the loss;
+    * with ``compress_grads`` they pass through int8 error-feedback
+      compression, the error buffer riding in ``opt_state["_gc_error"]``;
+    * then :func:`~repro_torch.optim.clip_by_global_norm`
+      (``opt_cfg.clip_norm``), the optimizer's update and
+      :func:`~repro_torch.optim.apply_updates`.
+
+    ``params`` is any tree :func:`loss_fn` takes (the trainer passes the
+    reference's layout, so the optimizer state lines up with its leaves);
+    ``batch`` holds ``tokens`` and ``targets`` (B, S) on the device;
+    ``step`` is the int step. The tensors given are not modified. The
+    step runs inside ``torch.profiler`` ranges: ``train.grads`` (the
+    forward and backward; the backward itself runs on autograd's thread),
+    ``train.clip`` (compression and clipping) and ``train.update`` (the
+    optimizer and ``apply_updates``)."""
+    optimizer = opt_cfg.build()
+    inv_mb = float(np.float32(1.0) / np.float32(microbatches))
+
+    def grads_of(params, mb):
+        leaves = [p.detach().requires_grad_() for p in tr.leaves(params)]
+        total, _ = loss_fn(cfg, tr.unflatten_like(params, leaves), mb, policy=policy)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        # an unused leaf's gradient is zero, as the reference's
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        return total.detach(), tr.unflatten_like(params, grads)
+
+    def train_step(params, opt_state, batch, step):
+        with record_function("train.grads"):
+            loss, grads = accumulated_grads(params, batch)
+        with torch.no_grad():
+            with record_function("train.clip"):
+                if compress_grads:
+                    qs, scales, err = gcomp.compress_tree(grads, opt_state["_gc_error"])
+                    grads = gcomp.decompress_tree(qs, scales)
+                grads, gnorm = clip_by_global_norm(grads, opt_cfg.clip_norm)
+            with record_function("train.update"):
+                inner = {k: v for k, v in opt_state.items() if not k.startswith("_")}
+                updates, inner = optimizer.update(grads, inner, params, step)
+                params = apply_updates(params, updates)
+        new_state = {**inner, **{k: v for k, v in opt_state.items() if k.startswith("_")}}
+        if compress_grads:
+            new_state["_gc_error"] = err
+        return params, new_state, {"loss": loss, "grad_norm": gnorm}
+
+    def accumulated_grads(params, batch):
+        if microbatches > 1:
+            mbs = {k: v.reshape((microbatches, v.shape[0] // microbatches) + v.shape[1:])
+                   for k, v in batch.items()}
+            gsum = tr.tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+            lsum = None
+            for i in range(microbatches):
+                loss_i, g = grads_of(params, {k: v[i] for k, v in mbs.items()})
+                for a, b in zip(tr.leaves(gsum), tr.leaves(g)):
+                    a.add_(b.to(torch.float32))
+                lsum = loss_i if lsum is None else lsum + loss_i
+            # XLA's form of the divisions by the constant count
+            return lsum * inv_mb, tr.tree_map(lambda g: g * inv_mb, gsum)
+        return grads_of(params, batch)
+
+    return train_step
+
+
+def init_opt_state(cfg, opt_cfg: OptimConfig, params, compress_grads: bool = False) -> dict:
+    """The optimizer's initial state for ``params`` (plus the zero error
+    buffer ``_gc_error`` with ``compress_grads``)."""
+    state = dict(opt_cfg.build().init(params))
+    if compress_grads:
+        state["_gc_error"] = gcomp.init_error(params)
+    return state
 
 
 def _dial(policy, precision: Optional[Tuple[int, int]]):

@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import paged_flash_attention
 from repro_torch.kernels.ops import resolve_backend
@@ -69,11 +70,15 @@ def attention_init(gen, d_model, n_heads, n_kv_heads, head_dim, dtype=torch.bflo
     return params
 
 
-def _chunked_gqa(q, k, v, *, causal: bool, chunk: int, q_offset: int, kv_len=None):
+def _chunked_gqa(q, k, v, *, causal: bool, chunk: int, q_offset: int, kv_len=None,
+                 remat: bool = False):
     """Online-softmax attention. q: (B,Sq,Hq,D); k,v: (B,Skv,Hkv,D) bf16.
 
     ``q_offset``: absolute position of q[0] minus that of k[0];
-    ``kv_len``: valid KV length (the rest of the extent is masked)."""
+    ``kv_len``: valid KV length (the rest of the extent is masked).
+    ``remat``: each chunk's step runs under ``torch.utils.checkpoint``, so
+    the backward recomputes its scores instead of keeping them (the
+    reference's ``jax.checkpoint`` on the scan body)."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -83,16 +88,8 @@ def _chunked_gqa(q, k, v, *, causal: bool, chunk: int, q_offset: int, kv_len=Non
     pad = n_chunks * chunk - skv
     dev = q.device
     q_pos = torch.arange(sq, device=dev)[:, None] + q_offset
-    m = torch.full((b, sq, hkv, group, 1), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, sq, hkv, group, 1), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, sq, hkv, group, d), dtype=torch.float32, device=dev)
-    for j in range(n_chunks):
-        kj = k[:, j * chunk:(j + 1) * chunk]
-        vj = v[:, j * chunk:(j + 1) * chunk]
-        if kj.shape[1] < chunk:
-            extra = chunk - kj.shape[1]
-            kj = torch.cat([kj, kj.new_zeros((b, extra, hkv, d))], dim=1)
-            vj = torch.cat([vj, vj.new_zeros((b, extra, hkv, d))], dim=1)
+
+    def step(m, l, acc, kj, vj, j):
         s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kj.to(torch.float32)) * (d**-0.5)
         k_pos = j * chunk + torch.arange(chunk, device=dev)[None, :]
         mask = torch.ones((sq, chunk), dtype=torch.bool, device=dev)
@@ -110,8 +107,22 @@ def _chunked_gqa(q, k, v, *, causal: bool, chunk: int, q_offset: int, kv_len=Non
         pv = torch.einsum(
             "bqhgk,bkhd->bqhgd", p.to(vj.dtype).to(torch.float32), vj.to(torch.float32)
         )
-        acc = acc * alpha + pv
-        m = m_new
+        return m_new, l, acc * alpha + pv
+
+    m = torch.full((b, sq, hkv, group, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, sq, hkv, group, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, sq, hkv, group, d), dtype=torch.float32, device=dev)
+    for j in range(n_chunks):
+        kj = k[:, j * chunk:(j + 1) * chunk]
+        vj = v[:, j * chunk:(j + 1) * chunk]
+        if kj.shape[1] < chunk:
+            extra = chunk - kj.shape[1]
+            kj = torch.cat([kj, kj.new_zeros((b, extra, hkv, d))], dim=1)
+            vj = torch.cat([vj, vj.new_zeros((b, extra, hkv, d))], dim=1)
+        if remat:
+            m, l, acc = checkpoint(step, m, l, acc, kj, vj, j, use_reentrant=False)
+        else:
+            m, l, acc = step(m, l, acc, kj, vj, j)
     out = acc / torch.clamp_min(l, 1e-30)
     return out.reshape(b, sq, hq, d)
 
@@ -194,6 +205,7 @@ def attention_apply(
     qk_norm: bool = False,
     chunk: int = 1024,
     policy,
+    training: bool = False,
     backend: str = "auto",
     name: str = "attn",
     cache: Optional[dict] = None,
@@ -207,9 +219,11 @@ def attention_apply(
     cache a ring of rows (module docstring). Decode updates ``cache`` in place
     (the new row and ``len``) and returns it, so a step leaves its results
     in the buffers it reads; prefill leaves its input cache as it was and
-    returns a new one."""
+    returns a new one. ``training``: the projections fake-quantize under an
+    active policy (QAT), and the cache-free attention recomputes each KV
+    chunk's scores in the backward."""
     b, s, _ = x.shape
-    la = projection(policy=policy, backend=backend)
+    la = projection(policy=policy, training=training, backend=backend)
     q = la(params["q_proj"], x, name=f"{name}/q_proj").reshape(b, s, n_heads, head_dim)
     k = la(params["k_proj"], x, name=f"{name}/k_proj").reshape(b, s, n_kv_heads, head_dim)
     v = la(params["v_proj"], x, name=f"{name}/v_proj").reshape(b, s, n_kv_heads, head_dim)
@@ -296,7 +310,8 @@ def attention_apply(
             with record_function("family.ring_attention"):
                 out = _local_gqa(q, k, v, window=window)
         else:
-            out = _chunked_gqa(q, k, v, causal=causal, chunk=chunk, q_offset=0)
+            out = _chunked_gqa(q, k, v, causal=causal, chunk=chunk, q_offset=0,
+                               remat=training)
     elif window:
         # windowed prefill into a fresh raw scratch ring: attend the
         # prompt's own K/V and keep its trailing rows (the model refuses a

@@ -20,5 +20,6 @@ def lm_head_init(gen, d_model: int, vocab: int, dtype=torch.bfloat16, device=Non
     return {"head": linear_init(gen, d_model, vocab, dtype, device)}
 
 
-def lm_head_apply(params, x, *, policy, backend="auto", name="lm_head"):
-    return linear_apply(params["head"], x, name=name, policy=policy, backend=backend)
+def lm_head_apply(params, x, *, policy, training=False, backend="auto", name="lm_head"):
+    return linear_apply(params["head"], x, name=name, policy=policy, training=training,
+                        backend=backend)

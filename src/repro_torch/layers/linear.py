@@ -4,6 +4,10 @@ Regimes, selected by the :class:`~repro_torch.core.precision.PrecisionPolicy`
 and the parameter contents:
 
 * dense bf16 (``{'w'}``) with an inactive policy — the reference path;
+* QAT (``{'w'}`` with an active policy and ``training=True``) — both
+  operands fake-quantized at the layer's (w_bits, a_bits) with
+  straight-through gradients, then a product in the layer dtype (bf16),
+  so training sees the values the bit-serial inference path computes with;
 * bit-serial inference — stored-quantized ``{'w_q','w_scale'[, 'w_planes']}``
   from :func:`repro_torch.models.quant.quantize_params`, or ``{'w'}`` with an
   active policy (quantized on the fly). Activations are quantized per
@@ -12,8 +16,7 @@ and the parameter contents:
   the plan call as an :class:`~repro_torch.kernels.ops.Epilogue` (inside the
   fused kernel on CUDA).
 
-Quantization-aware training (fake-quant) and tensor-parallel projections
-are later slices.
+Tensor-parallel projections are a later slice (ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.precision import PrecisionPolicy
-from repro_torch.core.quantize import quantize
+from repro_torch.core.quantize import fake_quant, quantize
 from repro_torch.kernels import ops
 
 
@@ -75,8 +78,6 @@ def linear_apply(
     reference's compiled graph does (XLA keeps the fused product's excess
     precision into the quantizer)."""
     prec = policy.lookup(name)
-    if training:
-        raise NotImplementedError("quantization-aware training is not ported yet")
 
     if "w_q" in params:  # stored-quantized weights (serving path)
         if not prec.active:
@@ -108,6 +109,15 @@ def linear_apply(
     w = params["w"]
     if not prec.active:
         return _finish_dense(x @ w.to(x.dtype), bias, activation, x.dtype)
+
+    if training:
+        # QAT; the activation quantizer reads the unrounded gate*up product,
+        # as in the reference's compiled train step
+        wq = fake_quant(w.to(torch.float32), prec.w_bits, axis=0).to(w.dtype)
+        xsrc = x.to(torch.float32) if x_f32 is None else x_f32
+        xq = fake_quant(xsrc, prec.a_bits, axis=-1).to(x.dtype)
+        y = (xq @ wq.to(x.dtype)).to(x.dtype)
+        return _finish_dense(y, bias, activation, x.dtype)
 
     # on-the-fly quantized inference from dense weights: both operands
     # quantize at the effective width (no stored decomposition to truncate)

@@ -19,8 +19,9 @@ def mlp_init(gen, d_model: int, d_ff: int, act: str = "swiglu", dtype=torch.bflo
     }
 
 
-def mlp_apply(params, x, *, act: str = "swiglu", policy, backend="auto", name="mlp"):
-    la = projection(policy=policy, backend=backend)
+def mlp_apply(params, x, *, act: str = "swiglu", policy, training=False, backend="auto",
+              name="mlp"):
+    la = projection(policy=policy, training=training, backend=backend)
     if act not in ("swiglu", "geglu"):
         raise NotImplementedError(f"mlp act {act!r} is not ported yet")
     nl = "silu" if act == "swiglu" else "gelu"

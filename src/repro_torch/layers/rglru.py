@@ -97,6 +97,7 @@ def rglru_apply(
     lru_width: int,
     conv_width: int = 4,
     policy,
+    training: bool = False,
     backend: str = "auto",
     name: str = "rglru",
     cache=None,
@@ -105,7 +106,7 @@ def rglru_apply(
     token per slot with a cache decodes, updating ``cache`` in place and
     returning it; several tokens prefill from a zero state into a new
     cache."""
-    la = projection(policy=policy, backend=backend)
+    la = projection(policy=policy, training=training, backend=backend)
     f32 = torch.float32
     # gelu (tanh form) on the projection's bf16 output, outside its epilogue
     y_branch = ACTIVATIONS["gelu"](la(params["in_y"], x, name=f"{name}/in_y").to(f32))

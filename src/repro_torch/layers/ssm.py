@@ -153,6 +153,7 @@ def ssm_apply(
     conv_width: int = 4,
     chunk: int = 256,
     policy,
+    training: bool = False,
     backend: str = "auto",
     name: str = "ssm",
     cache=None,
@@ -163,7 +164,7 @@ def ssm_apply(
     in place and returning it; several tokens prefill from a zero state
     and return a new cache."""
     bsz, s, _ = x.shape
-    la = projection(policy=policy, backend=backend)
+    la = projection(policy=policy, training=training, backend=backend)
     conv_dim = d_inner + 2 * d_state
 
     zxbcdt = la(params["in_proj"], x, name=f"{name}/in_proj")

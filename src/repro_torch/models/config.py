@@ -55,6 +55,9 @@ class ModelConfig:
     #: names); False names every layer ``layers/<i>/<kind>`` for per-layer
     #: precision overrides, as the reference's unrolled stack does
     scan_layers: bool = True
+    #: training: scanned periods per checkpointed region; > 1 nests the
+    #: checkpoints (one saved residual per group, recompute per period)
+    remat_group: int = 1
     dtype: torch.dtype = torch.bfloat16
 
     @property

@@ -12,6 +12,16 @@ inside a scanned period, ``layers/tail/<kind>/...`` in the tail,
 ``layers/<i>/<kind>/...`` when ``cfg.scan_layers`` is False, and
 ``lm_head`` — so a :class:`PrecisionPolicy` regex matches the same layers
 in both packages. The stack runs as a Python loop.
+
+Training (``forward(training=True)``, :func:`loss_fn`) takes the
+parameters in either layout: the port's layer list, or the reference's
+tree (:func:`stack_layers`), whose stacked leaves are unbound into the
+layers as views, so gradients and optimizer state are those of the
+reference's leaves. Each scanned period runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its scan
+body; ``cfg.remat_group`` > 1 nests the checkpoints in groups of periods),
+the cache-free attention recomputes each KV chunk, and an active policy
+fake-quantizes every projection (QAT).
 """
 
 from __future__ import annotations
@@ -22,9 +32,11 @@ from typing import Optional
 import numpy as np
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import integrity
 from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.core.tree import tree_map
 from repro_torch.layers.attention import attention_apply, attention_init
 from repro_torch.layers.embedding import (
     embedding_apply,
@@ -111,31 +123,58 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
             return [conv(v) for v in node]
         return _to_torch(node, device)
 
-    def take(node, i):
-        if isinstance(node, dict):
-            return {k: take(v, i) for k, v in node.items()}
-        return node[i].contiguous()
+    return unstack_layers(cfg, conv(tree))
 
+
+def stack_layers(cfg: ModelConfig, params) -> dict:
+    """The port's parameters as the reference's ``init_params`` tree: with
+    ``cfg.scan_layers`` the layers of the whole periods stacked on a
+    leading axis under ``periods/b<j>_<kind>`` and the rest kept as the
+    ``tail`` list (an unrolled config's ``layers`` list is that tree
+    already). The stacks are new tensors."""
+    if not cfg.scan_layers or "layers" not in params:
+        return params
     period, n_full = cfg.period_layout()
-    out = {}
-    for k, v in tree.items():
-        if k == "tail":
-            continue
-        if k == "periods":
-            stacked = [conv(v[f"b{j}_{kind}"]) for j, kind in enumerate(period)] if n_full else []
-            layers = [take(stacked[j], i) for i in range(n_full) for j in range(len(period))]
-            layers += [conv(blk) for blk in tree.get("tail", [])]
-            if len(layers) != cfg.n_layers:
-                raise ValueError(f"the tree holds {len(layers)} layers, the config "
-                                 f"{cfg.n_layers}")
-            out["layers"] = layers
-        else:
-            out[k] = conv(v)
+    plen = len(period)
+    layers = params["layers"]
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["periods"] = {
+        f"b{j}_{kind}": tree_map(lambda *xs: torch.stack(xs),
+                                 *[layers[i * plen + j] for i in range(n_full)])
+        for j, kind in enumerate(period)
+    } if n_full else {}
+    out["tail"] = list(layers[n_full * plen:])
     return out
 
 
+def unstack_layers(cfg: ModelConfig, tree) -> dict:
+    """The reference's tree (:func:`stack_layers`) as the port's layer
+    list: the layers of the periods in layer order, then the ``tail``
+    blocks; the list takes the place of ``periods`` (a tree that holds a
+    ``layers`` list is returned as it is). Each stacked leaf is unbound
+    once into per-layer views, so the backward of a forward over the list
+    stacks the layers' gradients into the stacked leaf's in one pass."""
+    if "layers" in tree:
+        return tree
+    period, n_full = cfg.period_layout()
+    unbound = [tree_map(lambda a: a.unbind(0), tree["periods"][f"b{j}_{kind}"])
+               for j, kind in enumerate(period)] if n_full else []
+
+    def take(node, i):
+        if isinstance(node, dict):
+            return {k: take(v, i) for k, v in node.items()}
+        return node[i]
+
+    layers = [take(unbound[j], i) for i in range(n_full) for j in range(len(period))]
+    layers += list(tree.get("tail", []))
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"the tree holds {len(layers)} layers, the config {cfg.n_layers}")
+    return {("layers" if k == "periods" else k): (layers if k == "periods" else v)
+            for k, v in tree.items() if k != "tail"}
+
+
 def _apply_block(cfg, kind, params, x, positions, *, policy, backend, name, cache=None,
-                 x_f32=None):
+                 x_f32=None, training=False):
     """Pre-norm residual block; returns (x, new_cache, the residual sum
     before its rounding to x's dtype). ``x_f32``: the unrounded value of
     ``x``, which the first norm's statistics read (see rmsnorm_apply)."""
@@ -144,15 +183,16 @@ def _apply_block(cfg, kind, params, x, positions, *, policy, backend, name, cach
         out, new_cache = ssm_apply(
             params["ssm"], h, d_inner=cfg.ssm_d_inner, n_heads=cfg.ssm_heads,
             head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state, conv_width=cfg.conv_width,
-            chunk=cfg.ssd_chunk, policy=policy, backend=backend, name=f"{name}/ssm",
-            cache=cache,
+            chunk=cfg.ssd_chunk, policy=policy, training=training, backend=backend,
+            name=f"{name}/ssm", cache=cache,
         )
         return x + out, new_cache, x.to(torch.float32) + out.to(torch.float32)
     if kind == "rec":
         h = rmsnorm_apply(params["norm"], x, x_f32=x_f32)
         out, new_cache = rglru_apply(
             params["rglru"], h, lru_width=cfg.lru_width, conv_width=cfg.conv_width,
-            policy=policy, backend=backend, name=f"{name}/rglru", cache=cache,
+            policy=policy, training=training, backend=backend, name=f"{name}/rglru",
+            cache=cache,
         )
     else:
         h = rmsnorm_apply(params["attn_norm"], x, x_f32=x_f32)
@@ -161,8 +201,8 @@ def _apply_block(cfg, kind, params, x, positions, *, policy, backend, name, cach
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
             causal=cfg.causal, window=cfg.local_window if kind == "attn" else 0,
             rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-            chunk=cfg.attn_chunk, policy=policy, backend=backend, name=f"{name}/attn",
-            cache=cache,
+            chunk=cfg.attn_chunk, policy=policy, training=training, backend=backend,
+            name=f"{name}/attn", cache=cache,
         )
     x_f32 = x.to(torch.float32) + out.to(torch.float32)
     x = x + out
@@ -170,7 +210,8 @@ def _apply_block(cfg, kind, params, x, positions, *, policy, backend, name, cach
     # reference's fused graph does (see rmsnorm_apply)
     h = rmsnorm_apply(params["mlp_norm"], x, x_f32=x_f32)
     mlp_out = mlp_apply(
-        params["mlp"], h, act=cfg.act, policy=policy, backend=backend, name=f"{name}/mlp"
+        params["mlp"], h, act=cfg.act, policy=policy, training=training, backend=backend,
+        name=f"{name}/mlp",
     )
     return x + mlp_out, new_cache, x.to(torch.float32) + mlp_out.to(torch.float32)
 
@@ -213,6 +254,7 @@ def forward(
     batch,
     *,
     policy: Optional[PrecisionPolicy] = None,
+    training: bool = False,
     cache=None,
     last_only: bool | int = False,
     backend: str = "auto",
@@ -227,8 +269,14 @@ def forward(
     only), passed to each layer. ``last_only`` computes the LM head for
     the final position only (an int ``n``: the last ``n`` positions).
     ``backend`` picks the matmul kernels ("auto": the Hopper kernels for
-    CUDA tensors)."""
+    CUDA tensors). ``training``: cache-free, the scanned periods
+    recomputed in the backward and, under an active policy, every
+    projection fake-quantized (module docstring); ``params`` may be the
+    reference's tree."""
     policy = policy or PrecisionPolicy.off()
+    if training and cache is not None:
+        raise ValueError("training runs without a cache")
+    params = unstack_layers(cfg, params)
     tokens = batch["tokens"]
     x = embedding_apply(params["embed"], tokens)
     b, s = x.shape[:2]
@@ -253,16 +301,16 @@ def forward(
     n_scanned = n_full * plen if cfg.scan_layers else 0
     new_layers = []
 
-    def run(lo, hi):
-        """Layers ``lo:hi``; returns the last one's unrounded residual sum
-        (None after a dense layer). Each block's first norm reads its
-        predecessor's unrounded sum where the reference's compiled graph
-        fuses the two: inside one period of the scanned stack, and between
-        consecutive unrolled (or tail) layers; the scan's carry, at a
-        period boundary, is rounded. A dense stack rounds at every layer
-        boundary, as the port always has (on an unrolled dense stack the
-        reference does not: its logits differ by a bf16 step or two)."""
-        nonlocal x
+    def run(lo, hi, x):
+        """Layers ``lo:hi``; returns x and the last one's unrounded
+        residual sum (None after a dense layer). Each block's first norm
+        reads its predecessor's unrounded sum where the reference's
+        compiled graph fuses the two: inside one period of the scanned
+        stack, and between consecutive unrolled (or tail) layers; the
+        scan's carry, at a period boundary, is rounded. A dense stack
+        rounds at every layer boundary, as the port always has (on an
+        unrolled dense stack the reference does not: its logits differ by
+        a bf16 step or two)."""
         x_f32 = None
         for i in range(lo, hi):
             blk_cache = cache["layers"][i] if cache is not None else None
@@ -270,18 +318,38 @@ def forward(
             x, nc, x_f32 = _apply_block(
                 cfg, kinds[i], params["layers"][i], x, positions, policy=policy,
                 backend=backend, name=cfg.layer_name(i), cache=blk_cache,
-                x_f32=x_f32 if fused else None,
+                x_f32=x_f32 if fused else None, training=training,
             )
-            new_layers.append(nc)
-        return x_f32 if hi > lo and kinds[hi - 1] != "dense" else None
+            if cache is not None:
+                new_layers.append(nc)
+        return x, x_f32 if hi > lo and kinds[hi - 1] != "dense" else None
+
+    def period_body(x, p):
+        return run(p * plen, (p + 1) * plen, x)[0]
 
     # the scanned periods report their ABFT checks as one folded flag, as
     # the reference's lax.scan body does; the tail and an unrolled stack
     # report each
     with integrity.scan_scope() if n_scanned else contextlib.nullcontext():
-        run(0, n_scanned)
+        if not (training and n_scanned):
+            x, _ = run(0, n_scanned, x)
+        elif cfg.remat_group > 1 and n_full % cfg.remat_group == 0:
+            # two-level remat: one saved residual per group of periods, and
+            # the group's backward recomputes period by period
+            grp = cfg.remat_group
+
+            def group_body(x, g):
+                for p in range(g * grp, (g + 1) * grp):
+                    x = checkpoint(period_body, x, p, use_reentrant=False)
+                return x
+
+            for g in range(n_full // grp):
+                x = checkpoint(group_body, x, g, use_reentrant=False)
+        else:
+            for p in range(n_full):
+                x = checkpoint(period_body, x, p, use_reentrant=False)
     # the final norm reads an unrolled last layer's unrounded sum too
-    x_last = run(n_scanned, cfg.n_layers)
+    x, x_last = run(n_scanned, cfg.n_layers, x)
     new_cache = None
     if cache is not None and s == 1:  # decode: the layers updated ``cache`` in place
         cache["step"].add_(1)
@@ -298,5 +366,34 @@ def forward(
         with record_function("family.tied_head"):
             logits = x.to(torch.float32) @ params["embed"]["embedding"].to(torch.float32).T
     else:
-        logits = lm_head_apply(params["lm_head"], x, policy=policy, backend=backend)
+        logits = lm_head_apply(params["lm_head"], x, policy=policy, training=training,
+                               backend=backend)
     return logits, torch.zeros((), dtype=torch.float32, device=dev), new_cache
+
+
+def cross_entropy(logits, targets, mask=None, n_valid=None) -> torch.Tensor:
+    """Mean token cross entropy in float32, the reference's stable form
+    (max, log-sum-exp, gold logit). ``n_valid`` masks the padded vocab
+    columns out of the partition function; ``mask`` weights the tokens."""
+    logits = logits.to(torch.float32)
+    if n_valid is not None and n_valid != logits.shape[-1]:
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(col < n_valid, logits, torch.full_like(logits, -1e30))
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
+    gold = torch.gather(logits, -1, targets[..., None].to(torch.int64))[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, policy=None, training=True, aux_weight=0.01):
+    """Returns (total, {"loss", "aux_loss"}): the cross entropy of
+    ``batch["targets"]`` (``batch.get("loss_mask")`` weighting tokens) plus
+    ``aux_weight`` times the auxiliary loss (0: no MoE layer is ported)."""
+    logits, aux, _ = forward(cfg, params, batch, policy=policy, training=training)
+    loss = cross_entropy(logits, batch["targets"], batch.get("loss_mask"),
+                         n_valid=cfg.vocab_size)
+    return loss + aux_weight * aux, {"loss": loss, "aux_loss": aux}
