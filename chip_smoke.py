@@ -156,6 +156,26 @@ Phases, each failing the run on any error:
    busy shares, tok/s, prefill s, launches per route, and the device ms per
    decode step of the families' own operators (the ``family.*`` profiler
    ranges of a short eager run).
+17. the MoE, VLM and encoder architectures at full width, seeded random
+   weights, the reference's serving policy (8-bit bit-plane, the front
+   end and the MoE router kept dense; depths in ``ARCH_LAYERS``):
+   qwen3moe-bitplane (qwen3-moe-235b-a22b, 128 experts top-8) and
+   scout-bitplane (llama4-scout-17b-a16e, 16 experts top-1) on phase 3's
+   workload, held as the family cells are and printing the device ms per
+   decode step of the ``moe.*`` ranges (route, dispatch, the experts' fake
+   quantizers, their products, the combine) and the eager twin's dropped
+   expert copies at prefill and decode (at least one at decode: with 4
+   slots an expert holds one decode copy); internvl2-bitplane (internvl2-2b
+   on text, the same workload and gates); internvl2-patches
+   (``make_prefill_step`` on 4 x (256 patches + 64 text tokens), 16 decode
+   steps through ``make_serve_step``: tokens equal to the plain route's,
+   max|dlogit| of the prefill and the first 4 decode steps within
+   ``FAMILY_DLOGIT_TOL``); hubert-encode (``forward`` on 4 x 500 frames of
+   512 features: every frame's argmax equal to the plain route's, max|dlogit|
+   within ``FAMILY_DLOGIT_TOL``). Every projection launches
+   fused_plane_linear (the encoder's float32 projections take its raw
+   accumulator);
+18. training at granite-3-8b's full width (``run_training``).
 
 Every engine cell's main run replays each decode step from the engine's
 CUDA graph of that precision (captured by the warm-up run; the counted
@@ -176,12 +196,14 @@ Prints one JSON line per kernel check and per engine cell (the scrub and
 paged-integrity cells' lines carry the card's name and power limit), one
 ``{"kernels": [...]}`` summary line (the fold kernel's entry included; the
 fused kernel's entry also counts its launches on the QAT-trained weights,
-``train_launches``), the card's name and power limit, and last
+``train_launches``, and in each phase-17 cell, ``arch_launches``), the
+card's name and power limit, and last
 ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -1203,18 +1225,20 @@ class _ReadBacks:
         self.mod.is_outer_product = self.orig
 
 
-def _counted_run(name, cfg, engine, schedule, kernel, route, also=(), reqs=_requests) -> tuple:
+def _counted_run(name, cfg, engine, schedule, kernel, route, also=(), reqs=_requests,
+                 around=contextlib.nullcontext) -> tuple:
     """One warm-up (on a graph engine it captures each precision's decode
     step), then the counted run: launch counts are set to 0 just before it
     and read just after; ``kernel`` must have launched once per ``route``
     projection call and no other kernel but those in ``also``, and no pair
     weights may have been read back. On a graph engine every decode step
     must have replayed a captured graph (no capture inside the run).
-    ``reqs(cfg)`` makes the workload's requests."""
+    ``reqs(cfg)`` makes the workload's requests; ``around()`` is entered
+    around the counted run alone."""
     # allocator, library handles, and each precision's decode-step graph
     engine.run(reqs(cfg)[:1], precision_schedule=schedule)
     engine.set_precision(None)
-    with _ReadBacks() as reads:
+    with _ReadBacks() as reads, around():
         _reset_counts()
         results, stats = engine.run(reqs(cfg), precision_schedule=schedule)
         counts = _read_counts()
@@ -1308,10 +1332,21 @@ def _eager_twin(name, cfg, params, policy, schedule, kernel, route, results, cou
     """The same cell with ``compile_steps=False``: the eager step must give
     the graph run's tokens and launch counts. Returns its host times and,
     with ``family_ops``, the device time per decode step of the families'
-    own operators (``_family_ops``, one more profiled run)."""
+    own operators (``_family_ops``, one more profiled run); on an MoE model
+    the counted run's dropped expert copies (``_drops``)."""
+    from repro_torch.layers import moe
+
+    logs = []
+
+    @contextlib.contextmanager
+    def drops():
+        with moe.record_drops() as log:
+            yield
+        logs.append(log)
+
     engine = _engine(cfg, params, policy, compile_steps=False, **kw)
     res, stats, cnt = _counted_run(f"{name} eager", cfg, engine, schedule, kernel, route, also,
-                                   reqs)
+                                   reqs, around=drops)
     ops = _family_ops(engine, reqs(cfg), schedule) if family_ops else None
     del engine
     gc.collect()
@@ -1323,7 +1358,21 @@ def _eager_twin(name, cfg, params, policy, schedule, kernel, route, results, cou
             "tok_per_s": stats["tok_per_s"], "wall_s": stats["wall_s"],
             "decode_s": stats["decode_s"],
             "host_ms_per_decode_step": 1e3 * stats["decode_s"] / stats["decode_steps"],
-            "integrity": stats.get("integrity"), "family_ops_device_ms_per_decode_step": ops}
+            "integrity": stats.get("integrity"), "family_ops_device_ms_per_decode_step": ops,
+            "moe_dropped_copies": _drops(logs[0]) if cfg.family == "moe" else None}
+
+
+def _drops(log) -> dict:
+    """The MoE layers' dispatches of one eager run, prefill (a sequence of
+    several tokens) and decode (one token per slot) apart: calls, token
+    copies and copies dropped past an expert's capacity."""
+    out = {phase: {"calls": 0, "copies": 0, "dropped": 0} for phase in ("prefill", "decode")}
+    for s, n, dropped in log:
+        c = out["decode" if s == 1 else "prefill"]
+        c["calls"] += 1
+        c["copies"] += n
+        c["dropped"] += int(dropped)
+    return out
 
 
 def _summary(name, cfg, results, stats, counts, kernel, runs, profile) -> dict:
@@ -2595,8 +2644,10 @@ WINDOW_GEN = 24
 # carries the alignment, and this bounds the noise
 WINDOW_DLOGIT_TOL = 0.3
 WINDOW_WRAP_RATIO = 1.25  # after the wrap, at most this times the largest error before it
+# the MoE layer's parts (phase 17)
+MOE_OPS = ("moe.route", "moe.dispatch", "moe.expert_quant", "moe.expert_mm", "moe.combine")
 FAMILY_OPS = ("family.ssd", "family.rglru", "family.conv", "family.ring_attention",
-              "family.tied_head")
+              "family.tied_head") + MOE_OPS
 LEVEL_KERNELS = {"bitplane": ("fused_plane_linear", "fused_cached"),
                  "digit": ("plane_matmul", "cached_planes"),
                  "detect": ("plane_matmul_packed", "cached_packed")}
@@ -2859,7 +2910,7 @@ def _window_check(cfg, q_params, policy) -> dict:
 
 
 def run_family(name, cfg, params, mode, reqs=_requests, schedule=FAMILY_SCHEDULE,
-               max_len=None) -> dict:
+               max_len=None, keep_dense=()) -> dict:
     """One cell of the SSM / hybrid families at full width: the graph
     engine's counted run (every projection through the route's kernel)
     and a profiled replay; the eager twin (tokens and launches
@@ -2867,7 +2918,10 @@ def run_family(name, cfg, params, mode, reqs=_requests, schedule=FAMILY_SCHEDULE
     operators; the plain route on the card (``backend="torch"``): tokens
     equal, and ``_logit_parity`` within ``FAMILY_DLOGIT_TOL``. ``mode``:
     bitplane, digit or detect (the packed route, layers unrolled, an audit
-    every iteration; plus ``_family_detect``)."""
+    every iteration; plus ``_family_detect``). ``keep_dense``: the policy's
+    dense layers (an MoE model's router). An MoE cell also counts the eager
+    twin's dropped expert copies, of which decode must drop at least one
+    (free slots compete for capacity)."""
     from repro_torch.core.precision import PrecisionPolicy
 
     t0 = time.perf_counter()
@@ -2884,7 +2938,7 @@ def run_family(name, cfg, params, mode, reqs=_requests, schedule=FAMILY_SCHEDULE
         cfg = dataclasses.replace(cfg, scan_layers=False)
     schedule = None if level == "digit" else schedule
     kw = {"max_len": max_len} if max_len else {}
-    pol = dict(variant="booth", level=level)
+    pol = dict(variant="booth", level=level, keep_dense=keep_dense)
     if detect:
         pol.update(fuse_epilogue=False, integrity="detect")
         kw["audit_interval"] = 1
@@ -2920,6 +2974,8 @@ def run_family(name, cfg, params, mode, reqs=_requests, schedule=FAMILY_SCHEDULE
     eager = _eager_twin(name, cfg, params, policy, schedule, kernel, route, results, counts,
                         also, reqs, family_ops=True, **kw)
     lap("eager_twin")
+    if cfg.family == "moe" and eager["moe_dropped_copies"]["decode"]["dropped"] < 1:
+        _die(f"{name}: no expert copy was dropped at decode: {eager['moe_dropped_copies']}")
     plain = _engine(cfg, params, policy, backend="torch", compile_steps=False, **kw)
     _reset_counts()
     res_plain, stats_plain = plain.run(reqs(cfg), precision_schedule=schedule)
@@ -2957,6 +3013,7 @@ def run_family(name, cfg, params, mode, reqs=_requests, schedule=FAMILY_SCHEDULE
                plain_route_calls=stats_plain["route_calls"],
                max_abs_dlogit_vs_plain=parity, dlogit_tolerance=FAMILY_DLOGIT_TOL,
                family_ops_device_ms_per_decode_step=ops,
+               moe_dropped_copies=eager["moe_dropped_copies"], keep_dense=list(keep_dense),
                graph=graph, eager=eager, cell_s=time.perf_counter() - t0, **extra)
     print(json.dumps(out), flush=True)
     return out
@@ -3004,7 +3061,234 @@ def run_families() -> dict:
     return cells
 
 
-# -- training (phase 17) -----------------------------------------------------
+# -- the MoE, VLM and encoder architectures (phase 17) -----------------------
+
+# the reference's serving policy keeps these dense (src/repro/launch/dryrun.py:55)
+ARCH_KEEP_DENSE = ("frontend", "router")
+# depth of each cell (full: 94, 48, 24 and 48 layers); width is never cut.
+# The MoE cells are cut for the smoke's 1200 s and the card's 80 GB (the
+# expert stacks are fake-quantized on every call), internvl2-bitplane for
+# the smoke's time (its plain-route control runs ~1 s a decode step at 24
+# layers; internvl2-patches serves all 24); PERF.md, section 4
+ARCH_LAYERS = {"qwen3moe-bitplane": 4, "scout-bitplane": 2, "internvl2-bitplane": 12,
+               "internvl2-patches": 24, "hubert-encode": 48}
+VLM_TEXT = 64  # text tokens after internvl2's 256 patches
+VLM_BATCH = 4
+VLM_GEN = 16
+ENC_BATCH = 4
+ENC_FRAMES = 500  # 10 s of 16 kHz audio at 20 ms frames
+
+
+def _card_ms(fn, reps: int = 3) -> float:
+    """CUDA events around ``reps`` calls of ``fn`` after one warm-up: ms per
+    call on the card's clock (for an eager call, the host's gaps between
+    launches included)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def run_vlm_patches(name, cfg, params, policy) -> dict:
+    """internvl2-patches: ``make_prefill_step`` on ``VLM_BATCH`` x (256
+    patches of 1024 features + ``VLM_TEXT`` text tokens), then ``VLM_GEN``
+    greedy decode steps through ``make_serve_step``, on the kernel route
+    and on the plain route (``backend="torch"``) from one quantized tree.
+    Gates: every token equal; max|dlogit| of the prefill and of the first
+    ``FAMILY_PARITY_STEPS`` decode steps within ``FAMILY_DLOGIT_TOL``; the
+    kernel route launches the fused kernel on every projection and nothing
+    else, the plain route nothing. Times: prefill and decode host ms (each
+    ended by a synchronize), the prefill's ms between CUDA events."""
+    from repro_torch.launch import sampling
+    from repro_torch.launch.inputs import make_batch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.quant import quantize_params
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    q_params = quantize_params(params, policy, plane_cache=True, cfg=cfg)
+    seq = cfg.num_patches + VLM_TEXT
+    batch = make_batch(cfg, VLM_BATCH, seq, "prefill", np.random.default_rng(0), device="cuda")
+    runs = {}
+    for be in ("auto", "torch"):
+        prefill = make_prefill_step(cfg, policy, max_len=seq + VLM_GEN, kv_quant=True, backend=be)
+        seen = []
+
+        def greedy(logits, gen, seen=seen):
+            seen.append(logits[:, :cfg.vocab_size].float())
+            return sampling.greedy(logits, gen)
+
+        step = make_serve_step(cfg, policy, sample_fn=greedy, backend=be)
+        prefill(q_params, batch)  # warm-up: allocator and library handles
+        torch.cuda.synchronize()
+        _reset_counts()
+        t1 = time.perf_counter()
+        logits, cache = prefill(q_params, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        positions = cache["step"].tolist()
+        toks = [sampling.greedy(sampling.mask_vocab(logits, cfg.vocab_size)).to(torch.int32)]
+        for _ in range(VLM_GEN - 1):
+            tok, cache = step(q_params, cache, toks[-1][:, None])
+            toks.append(tok[:, 0])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        runs[be] = {"counts": _read_counts(), "prefill_s": t2 - t1,
+                    "host_ms_per_decode_step": 1e3 * (t3 - t2) / (VLM_GEN - 1),
+                    "tokens": torch.stack(toks, 1).cpu().numpy(),
+                    "logits": [logits[:, :cfg.vocab_size].float()] + seen,
+                    "step": positions}
+        del cache
+        if be == "auto":
+            runs[be]["prefill_event_ms"] = _card_ms(lambda: prefill(q_params, batch), reps=2)
+    k, p = runs["auto"], runs["torch"]
+    errs = [float((a - b).abs().max()) for a, b in zip(k["logits"], p["logits"])]
+    parity = {"prefill": errs[0], "decode": max(errs[1:1 + FAMILY_PARITY_STEPS])}
+    launches = k["counts"]["fused_plane_linear"]
+    out = {"engine": name, "card": CARD, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "batch": VLM_BATCH, "patches": cfg.num_patches, "text_tokens": VLM_TEXT,
+           "new_tokens": VLM_GEN, "positions_after_prefill": k["step"],
+           "prefill_s": k["prefill_s"], "prefill_event_ms": k["prefill_event_ms"],
+           "host_ms_per_decode_step": k["host_ms_per_decode_step"],
+           "tok_per_s": VLM_BATCH / (k["host_ms_per_decode_step"] / 1e3),
+           "plain_prefill_s": p["prefill_s"],
+           "plain_host_ms_per_decode_step": p["host_ms_per_decode_step"],
+           "launches": launches, "all_launches": k["counts"], "plain_launches": p["counts"],
+           "tokens_equal_plain": bool((k["tokens"] == p["tokens"]).all()),
+           "max_abs_dlogit_vs_plain": parity, "dlogit_tolerance": FAMILY_DLOGIT_TOL,
+           "finite": all(bool(torch.isfinite(x).all()) for x in k["logits"]),
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "cell_s": time.perf_counter() - t0}
+    print(json.dumps(out), flush=True)
+    others = {n: v for n, v in k["counts"].items() if v and n != "fused_plane_linear"}
+    if not launches or others or any(p["counts"].values()):
+        _die(f"{name}: kernel route launches {k['counts']}, plain route {p['counts']}")
+    if k["step"] != [seq] * VLM_BATCH:
+        _die(f"{name}: the cache holds {k['step']} positions after the prefill, not {seq}")
+    if not out["tokens_equal_plain"] or max(parity.values()) > FAMILY_DLOGIT_TOL \
+            or not out["finite"]:
+        _die(f"{name}: kernel route against the plain route: tokens equal "
+             f"{out['tokens_equal_plain']}, max|dlogit| {parity}")
+    del q_params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_encoder(name, cfg, params, policy) -> dict:
+    """hubert-encode: ``forward`` on ``ENC_BATCH`` x ``ENC_FRAMES`` frames of
+    512 features (float32 hidden state; the encoder has no cache), on the
+    kernel route and the plain route from one quantized tree. Gates: every
+    frame's argmax over the labels equal, max|dlogit| within
+    ``FAMILY_DLOGIT_TOL``, finite logits of the expected shape; the kernel
+    route launches the fused kernel (its raw accumulator: the float32
+    epilogue runs beside it) and nothing else, the plain route nothing.
+    Times: ms per forward on each route between CUDA events (the eager
+    forward's host gaps included)."""
+    from repro_torch.launch.inputs import make_batch
+    from repro_torch.models.quant import quantize_params
+    from repro_torch.models.transformer import forward
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    q_params = quantize_params(params, policy, plane_cache=True, cfg=cfg)
+    batch = make_batch(cfg, ENC_BATCH, ENC_FRAMES, "prefill", np.random.default_rng(0),
+                       device="cuda")
+    logits, counts, ms = {}, {}, {}
+    with torch.no_grad():
+        for be in ("auto", "torch"):
+            def fwd(be=be):
+                return forward(cfg, q_params, batch, policy=policy, backend=be)[0]
+            if be == "auto":  # the plain route (~6 s a call) is timed on its one call
+                ms[be] = _card_ms(fwd, reps=2)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            _reset_counts()
+            start.record()
+            logits[be] = fwd()[..., :cfg.vocab_size].float()
+            end.record()
+            end.synchronize()
+            counts[be] = _read_counts()
+            ms.setdefault(be, start.elapsed_time(end))
+    k, p = logits["auto"], logits["torch"]
+    frames_equal = float((k.argmax(-1) == p.argmax(-1)).float().mean())
+    out = {"engine": name, "card": CARD, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "batch": ENC_BATCH, "frames": ENC_FRAMES, "logits_shape": list(k.shape),
+           "forward_event_ms": ms["auto"], "plain_forward_event_ms": ms["torch"],
+           "frames_per_s": ENC_BATCH * ENC_FRAMES / (ms["auto"] / 1e3),
+           "launches": counts["auto"]["fused_plane_linear"], "all_launches": counts["auto"],
+           "plain_launches": counts["torch"], "frame_argmax_equal_share": frames_equal,
+           "max_abs_dlogit_vs_plain": float((k - p).abs().max()),
+           "dlogit_tolerance": FAMILY_DLOGIT_TOL, "finite": bool(torch.isfinite(k).all()),
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "cell_s": time.perf_counter() - t0}
+    print(json.dumps(out), flush=True)
+    others = {n: v for n, v in counts["auto"].items() if v and n != "fused_plane_linear"}
+    if not out["launches"] or others or any(counts["torch"].values()):
+        _die(f"{name}: kernel route launches {counts['auto']}, plain route {counts['torch']}")
+    if frames_equal != 1.0 or out["max_abs_dlogit_vs_plain"] > FAMILY_DLOGIT_TOL or \
+            not out["finite"] or out["logits_shape"] != [ENC_BATCH, ENC_FRAMES, cfg.vocab_size]:
+        _die(f"{name}: kernel route against the plain route: {out}")
+    del q_params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_architectures() -> dict:
+    """Phase 17: qwen3-moe-235b-a22b and llama4-scout-17b-a16e served
+    bit-serially with the router dense, internvl2-2b served on text and
+    prefilled with its 256 image patches, hubert-xlarge's encoder forward;
+    full width, seeded random weights made on the card, the reference's
+    serving policy (``ARCH_KEEP_DENSE``), depths per ``ARCH_LAYERS``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.models.transformer import init_params
+
+    t0 = time.perf_counter()
+    policy = PrecisionPolicy.uniform(8, 8, variant="booth", level="bitplane",
+                                     keep_dense=ARCH_KEEP_DENSE)
+    cells = {}
+    for arch, names in (("qwen3-moe-235b-a22b", ("qwen3moe-bitplane",)),
+                        ("llama4-scout-17b-a16e", ("scout-bitplane",)),
+                        ("internvl2-2b", ("internvl2-bitplane", "internvl2-patches")),
+                        ("hubert-xlarge", ("hubert-encode",))):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=max(ARCH_LAYERS[n] for n in names))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        # a cell at a cut depth serves the first layers of the same weights
+        all_params = init_params(cfg, gen, device="cuda")
+        for name in names:
+            cfg = dataclasses.replace(full, n_layers=ARCH_LAYERS[name])
+            params = dict(all_params, layers=all_params["layers"][:cfg.n_layers])
+            n_params = sum(t.numel() for t in tree.leaves(params))
+            print(f"[chip_smoke] {name}: {cfg.name} at full width ({cfg.n_layers} of "
+                  f"{full.n_layers} layers, {n_params / 1e9:.2f} G parameters, d_model "
+                  f"{cfg.d_model}, vocab {cfg.vocab_size})", flush=True)
+            if name == "internvl2-patches":
+                cells[name] = run_vlm_patches(name, cfg, params, policy)
+            elif name == "hubert-encode":
+                cells[name] = run_encoder(name, cfg, params, policy)
+            else:
+                cells[name] = run_family(name, cfg, params, "bitplane",
+                                         keep_dense=ARCH_KEEP_DENSE)
+            cells[name]["parameters"] = n_params
+            print(f"[chip_smoke] {name} done in {cells[name]['cell_s']:.1f} s", flush=True)
+        del params, all_params
+        gc.collect()
+        torch.cuda.empty_cache()
+    cells["phase_s"] = time.perf_counter() - t0
+    return cells
+
+
+# -- training (phase 18) -----------------------------------------------------
 
 # TrainRun at granite-3-8b's full width, depth cut to LAYERS; train-resume
 # at RESUME_LAYERS (a cut for checkpoint bytes: ~6.0 GB a save)
@@ -3241,7 +3525,7 @@ def _train_serve(cfg, params, policy) -> dict:
 
 
 def run_training() -> dict:
-    """Phase 17: quantization-aware training and checkpoints at
+    """Phase 18: quantization-aware training and checkpoints at
     granite-3-8b's full width through ``TrainRun`` (train-dense,
     train-qat8, train-micro4, train-resume, train-serve)."""
     from repro_torch.configs import get_config
@@ -3372,6 +3656,9 @@ def main() -> None:
     fam = run_families()
     print(f"[chip_smoke] SSM and hybrid families done at {time.perf_counter() - t0:.1f} s",
           flush=True)
+    archs = run_architectures()
+    print(f"[chip_smoke] MoE, VLM and encoder architectures done at "
+          f"{time.perf_counter() - t0:.1f} s (phase {archs['phase_s']:.1f} s)", flush=True)
     train = run_training()
     print(f"[chip_smoke] training done at {time.perf_counter() - t0:.1f} s (phase "
           f"{train['phase_s']:.1f} s; step ms dense {train['train-dense']['step_ms_median']:.1f}, "
@@ -3428,6 +3715,12 @@ def main() -> None:
     ]
     for k in kernels:
         k["family_launches"] = fam_launches(k["name"])
+    # row 1 in the MoE, VLM and encoder cells (phase 17): every projection
+    arch_launches = {name: c["all_launches"].get("fused_plane_linear", 0)
+                     for name, c in archs.items() if name != "phase_s"}
+    if not all(arch_launches.values()):
+        _die(f"a phase-17 cell launched no fused_plane_linear: {arch_launches}")
+    kernels[0]["arch_launches"] = arch_launches
     # the QAT-trained weights through row 1: the on-the-fly check (a) and the
     # served run (b) of train-serve
     kernels[0]["train_launches"] = {

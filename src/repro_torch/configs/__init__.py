@@ -1,6 +1,5 @@
-"""Architecture registry: ``--arch <id>`` resolves here (the dense, SSM
-and hybrid configs ported so far; the MoE, encoder and VLM ones are
-ROADMAP items 12b and 12c)."""
+"""Architecture registry: ``--arch <id>`` resolves here (the reference's
+ten: dense, MoE, SSM, hybrid, encoder and VLM)."""
 
 from __future__ import annotations
 
@@ -14,7 +13,11 @@ _MODULES = {
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
     "yi-6b": "repro_torch.configs.yi_6b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

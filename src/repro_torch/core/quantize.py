@@ -100,7 +100,14 @@ def fake_quant(x: torch.Tensor, bits, axis=None) -> torch.Tensor:
     xd = x.detach()
     amax = xd.abs().amax() if axis is None else xd.abs().amax(dim=axis, keepdim=True)
     scale = torch.clamp_min(amax, 1e-8) * _recip(qmax).to(amax.dtype)
-    lo = torch.tensor(-qmax - 1 if bits > 1 else 0, dtype=x.dtype, device=x.device)
+    lo_v = -qmax - 1 if bits > 1 else 0
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        # no gradient: the same values from scalar bounds, no tensor built
+        # from host data (a CUDA graph captures this form), in place on one
+        # temporary (an MoE layer's expert stack is gigabytes)
+        q = x / scale
+        return q.round_().clamp_(lo_v, qmax).mul_(scale).to(x.dtype)
+    lo = torch.tensor(lo_v, dtype=x.dtype, device=x.device)
     hi = torch.tensor(qmax, dtype=x.dtype, device=x.device)
     q = torch.minimum(torch.maximum(_SteRound.apply(x / scale), lo), hi)
     return (q * scale).to(x.dtype)

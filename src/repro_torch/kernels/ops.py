@@ -185,7 +185,10 @@ def fused_linear(
 
     ``x_q`` (M, K) int8; ``packed_w`` blocked-layout packed weight planes;
     ``epilogue`` the dequant epilogue (``None`` returns the raw int32
-    accumulator). The torch backend is the kernel's plain version.
+    accumulator). The torch backend is the kernel's plain version. The
+    kernel's epilogue writes bf16: an epilogue with another ``out_dtype``
+    (the encoder's float32 hidden state) takes the kernel's raw
+    accumulator and the plain epilogue, in the same operation order.
     """
     backend = resolve_backend(backend, x_q.device)
     pair_w = _pair_weights(bp.plane_weights(a_bits, variant), packed_w.weights, x_q.device)
@@ -196,6 +199,16 @@ def fused_linear(
     if backend == "torch":
         return plane_mm_fused.fused_plane_linear_plain(
             x_q, packed_w, pair_w, a_bits=a_bits, variant=variant, **ep
+        )
+    if epilogue is not None and epilogue.out_dtype != torch.bfloat16:
+        acc = plane_mm_fused.fused_plane_linear(
+            x_q, packed_w, pair_w, a_bits=a_bits, variant=variant, bm=bm, gate=gate
+        )
+        m, n = acc.shape
+        return epilogue_plain(
+            acc, torch.broadcast_to(epilogue.a_scale.reshape(-1, 1).to(torch.float32), (m, 1)),
+            torch.broadcast_to(epilogue.w_scale.reshape(1, -1).to(torch.float32), (1, n)),
+            epilogue.bias, epilogue.activation, epilogue.out_dtype,
         )
     return plane_mm_fused.fused_plane_linear(
         x_q, packed_w, pair_w, a_bits=a_bits, variant=variant, bm=bm, gate=gate, **ep

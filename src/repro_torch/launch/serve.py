@@ -10,6 +10,16 @@ Hopper kernel at ``--level bitplane`` and the plane-pair kernel at
 8 bits (up to the paper's 16) the plans take the float32-accumulated plain
 route, as the reference's do: the weight is decomposed on every call.
 
+Both engines serve the dense, MoE, SSM, hybrid and VLM decoders (the VLM
+text only, as the reference's engines do; its image prefix goes through
+``steps.make_prefill_step``) and refuse the encoder. An MoE model serves
+bit-serially under a policy that keeps its router dense,
+``PrecisionPolicy.uniform(..., keep_dense=("frontend", "router"))`` (the
+reference's serving policy); the CLI's uniform ``--bits`` would quantize
+the router and dies naming reference defect G. In a continuous-batching
+step every slot of the array, free ones included, competes for the MoE
+experts' capacity, as in the reference.
+
 :class:`ContinuousBatchingEngine` admits requests with different prompt
 lengths and arrival steps into free decode slots mid-flight (a
 per-request prefill inserted into its slot while the other slots keep
@@ -1875,6 +1885,11 @@ def validate_args(args) -> None:
     if args.bits and not 1 <= args.bits <= 16:
         die("--bits must be in [1, 16] (the paper's synthesis-time maximum; "
             "0 disables quantization)")
+    if args.bits and get_config(args.arch).family == "moe":
+        die(f"--bits {args.bits} on {args.arch}: the CLI's uniform policy quantizes the "
+            "MoE router, which the layer reads dense (reference defect G); serve it "
+            "with --bits 0, or bit-serially through the Python API with "
+            "PrecisionPolicy.uniform(..., keep_dense=('frontend', 'router'))")
     if args.mode == "lockstep" and args.prompt_lens:
         die("--prompt-lens (mixed prompt lengths) needs --mode cb; the "
             "lockstep engine serves one fixed shape")
@@ -2016,6 +2031,8 @@ def main(argv=None):
     validate_args(args)
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if not cfg.is_decoder:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode path")
     policy = (
         PrecisionPolicy.uniform(
             args.bits, args.bits, variant=args.variant, level=args.level,

@@ -149,7 +149,12 @@ def make_prefill_step(
     collector: Optional[Collector] = None,
 ):
     """prefill_step(params, tokens (B, S), scratch=None) -> (last_logits
-    (B, V), cache[, alarms]).
+    (B, V), cache[, alarms]). ``tokens`` may be the reference's batch dict
+    instead: ``{"tokens"}``, a VLM's ``{"tokens", "patches"}`` (the cache
+    then holds the patches' positions first, and decode continues after
+    them) or the encoder's ``{"features"}`` (no cache: the cache returned
+    is None and the logits are the last frame's, as the reference's step
+    returns them; the encoder's whole output is ``forward``'s).
 
     The forward appends ``tokens`` to a **raw** bf16 scratch cache at its
     running length and attends the whole written extent under a length
@@ -167,12 +172,20 @@ def make_prefill_step(
     policy = _dial(policy, precision)
 
     def prefill_step(params, tokens, scratch=None):
-        if scratch is None:
-            bsz, s = tokens.shape
-            scratch = init_cache(
-                cfg, bsz, max_len or s, cfg.dtype, kv_quant=False, device=tokens.device
-            )
-        elif tokens.shape[1] == 1:
+        batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
+        if cfg.frontend == "audio":
+            bsz, s = batch["features"].shape[:2]
+        else:
+            bsz, s = batch["tokens"].shape
+            if cfg.frontend == "vision" and "patches" in batch:
+                s += batch["patches"].shape[1]
+        device = next(iter(batch.values())).device
+        if not cfg.is_decoder:
+            scratch = None
+        elif scratch is None:
+            scratch = init_cache(cfg, bsz, max_len or s, cfg.dtype, kv_quant=False,
+                                 device=device)
+        elif s == 1:
             # a one-token chunk takes the forward's decode branch, which
             # writes its cache in place: keep the given scratch as it was
             scratch = clone_tree(scratch)
@@ -180,12 +193,12 @@ def make_prefill_step(
         def body():
             with torch.no_grad():
                 return forward(
-                    cfg, params, {"tokens": tokens}, policy=policy, cache=scratch,
-                    last_only=True, backend=backend,
+                    cfg, params, batch, policy=policy, cache=scratch,
+                    last_only=cfg.is_decoder, backend=backend,
                 )
 
-        (logits, _aux, cache), alarms = _collected(collector, body, tokens.device)
-        if kv_quant:
+        (logits, _aux, cache), alarms = _collected(collector, body, device)
+        if kv_quant and cache is not None:
             cache = quantize_scratch(cache)
         if collector is None:
             return logits[:, -1, :], cache

@@ -202,6 +202,7 @@ def attention_apply(
     causal: bool = True,
     window: int = 0,
     rope_theta: float = 10000.0,
+    use_rope: bool = True,
     qk_norm: bool = False,
     chunk: int = 1024,
     policy,
@@ -221,7 +222,8 @@ def attention_apply(
     in the buffers it reads; prefill leaves its input cache as it was and
     returns a new one. ``training``: the projections fake-quantize under an
     active policy (QAT), and the cache-free attention recomputes each KV
-    chunk's scores in the backward."""
+    chunk's scores in the backward. ``use_rope=False`` leaves q and k
+    unrotated; ``causal=False`` (cache-free) attends every position."""
     b, s, _ = x.shape
     la = projection(policy=policy, training=training, backend=backend)
     q = la(params["q_proj"], x, name=f"{name}/q_proj").reshape(b, s, n_heads, head_dim)
@@ -230,8 +232,9 @@ def attention_apply(
     if qk_norm:
         q = rmsnorm_apply(params["q_norm"], q)
         k = rmsnorm_apply(params["k_norm"], k)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
 
     new_cache = cache
     if cache is not None and s == 1 and "block_table" in cache:  # paged decode

@@ -1,4 +1,6 @@
-"""Token embedding and the LM head."""
+"""Token embedding, the LM head, and the modality front ends: projections
+of precomputed audio frame or vision patch features into the backbone's
+width."""
 
 from __future__ import annotations
 
@@ -23,3 +25,15 @@ def lm_head_init(gen, d_model: int, vocab: int, dtype=torch.bfloat16, device=Non
 def lm_head_apply(params, x, *, policy, training=False, backend="auto", name="lm_head"):
     return linear_apply(params["head"], x, name=name, policy=policy, training=training,
                         backend=backend)
+
+
+def frontend_init(gen, frontend_dim: int, d_model: int, dtype=torch.bfloat16, device=None):
+    return {"proj": linear_init(gen, frontend_dim, d_model, dtype, device)}
+
+
+def frontend_apply(params, feats, *, policy, training=False, backend="auto", name="frontend"):
+    """``feats`` (B, S, frontend_dim), float32 as the batch gives them: a
+    dense front end returns float32 (``x @ w`` in x's dtype), as the
+    reference's does."""
+    return linear_apply(params["proj"], feats, name=f"{name}/proj", policy=policy,
+                        training=training, backend=backend)

@@ -1,4 +1,5 @@
-"""RMSNorm with float32 statistics (the reference's operation order)."""
+"""RMSNorm and LayerNorm with float32 statistics (the reference's
+operation order)."""
 
 from __future__ import annotations
 
@@ -22,3 +23,18 @@ def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-6, *, x_f32=None) -> 
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     inv = torch.reciprocal(torch.sqrt(var + eps)).to(x.dtype)
     return (x * inv) * params["scale"].to(x.dtype)
+
+
+def layernorm_init(d: int, device=None):
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm_apply(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Mean and (biased) variance in float32, normalized, scaled and
+    shifted in float32, then one cast to x's dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    out = (xf - mu) * torch.reciprocal(torch.sqrt(var + eps)) * params["scale"] + params["bias"]
+    return out.to(x.dtype)

@@ -101,7 +101,7 @@ def _rec_cache(cfg: ModelConfig, batch: int, device):
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
                  kv_quant: bool, device):
-    if kind == "dense":
+    if kind in ("dense", "moe"):
         return _attn_cache(cfg, batch, max_len, 0, dtype, kv_quant, device)
     if kind == "attn":  # the hybrid's local attention: a ring
         return _attn_cache(cfg, batch, max_len, cfg.local_window, dtype, kv_quant, device)
@@ -115,7 +115,10 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                kv_quant: bool = False, device=None):
     """The decode cache: ``batch`` slots, one block per layer (KV of
-    ``max_len`` positions, a KV ring, or recurrent state)."""
+    ``max_len`` positions for a dense, MoE or VLM layer, a KV ring, or
+    recurrent state). An encoder has no cache."""
+    if not cfg.is_decoder:
+        raise ValueError(f"{cfg.name} is encoder-only: it has no decode cache")
     return {
         "step": torch.zeros((batch,), dtype=torch.int32, device=device),
         "layers": [

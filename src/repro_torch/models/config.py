@@ -1,6 +1,8 @@
-"""Model configuration: the fields of the dense decoders, the Mamba2 SSD
-stack (``ssm``) and the Griffin hybrid (``hybrid``: RG-LRU and
-local-attention blocks in a repeated period)."""
+"""Model configuration: one dataclass for the ten architectures — the
+dense decoders, the mixture-of-experts decoders (``moe``), the Mamba2 SSD
+stack (``ssm``), the Griffin hybrid (``hybrid``: RG-LRU and
+local-attention blocks in a repeated period), the audio encoder
+(``encoder``) and the vision-language decoder (``vlm``)."""
 
 from __future__ import annotations
 
@@ -9,19 +11,13 @@ from typing import Tuple
 
 import torch
 
-#: families whose layer stacks are ported; the others raise, naming the
-#: ROADMAP item that ports them
-_LATER = {
-    "moe": "ROADMAP item 12b",
-    "encoder": "ROADMAP item 12c",
-    "vlm": "ROADMAP item 12c",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encoder", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | ssm | hybrid (moe | encoder | vlm: later slices)
+    family: str  # dense | moe | ssm | hybrid | encoder | vlm
     n_layers: int
     d_model: int
     vocab_size: int
@@ -35,7 +31,14 @@ class ModelConfig:
     local_window: int = 0  # sliding-window size of the hybrid's attention layers
     # mlp
     d_ff: int = 0
-    act: str = "swiglu"
+    act: str = "swiglu"  # swiglu | geglu | gelu (a plain, ungated MLP)
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    moe_impl: str = "gshard_ep"  # gshard_ep (capacity-bounded) | global_sort (dropless)
+    #: 0 = dropless; > 0 bounds each expert's buffer to cf * T * k / E copies
+    moe_capacity_factor: float = 0.0
     # ssm (mamba2)
     ssm_d_inner: int = 0
     ssm_heads: int = 0
@@ -47,6 +50,10 @@ class ModelConfig:
     # of n_layers is a tail of the pattern's first kinds
     period: Tuple[str, ...] = ()  # e.g. ("rec", "rec", "attn")
     lru_width: int = 0
+    # modality front end: a projection of precomputed features
+    frontend: str = "none"  # none | audio | vision
+    frontend_dim: int = 0
+    num_patches: int = 0  # vlm: image patches put in front of the text
     # misc
     tie_embeddings: bool = False
     attn_chunk: int = 1024  # online-softmax KV chunk
@@ -81,10 +88,8 @@ class ModelConfig:
 
     def layer_kinds(self) -> Tuple[str, ...]:
         """The per-layer block kinds, length ``n_layers``."""
-        if self.family in _LATER:
-            raise NotImplementedError(
-                f"family {self.family!r} is not ported yet ({_LATER[self.family]})"
-            )
+        if self.family not in FAMILIES:
+            raise ValueError(f"unknown family {self.family!r}")
         if self.family == "ssm":
             return ("ssm",) * self.n_layers
         if self.family == "hybrid":
@@ -92,9 +97,49 @@ class ModelConfig:
                 raise ValueError("a hybrid config needs a period pattern")
             reps = -(-self.n_layers // len(self.period))
             return (self.period * reps)[: self.n_layers]
-        if self.family != "dense":
-            raise ValueError(f"unknown family {self.family!r}")
+        if self.family == "moe":
+            return ("moe",) * self.n_layers
         return ("dense",) * self.n_layers
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings and blocks), the
+        reference's: the roofline's ``6 * N * D`` reads it."""
+        d = self.d_model
+        n = self.vocab_size * d  # embedding
+        if not self.tie_embeddings and self.family != "encoder":
+            n += d * self.vocab_size  # head
+        if self.family == "encoder":
+            n += d * self.vocab_size
+        if self.frontend != "none":
+            n += self.frontend_dim * d
+        hd = self.head_dim
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+        for kind in self.layer_kinds():
+            n += 2 * d  # norms
+            if kind in ("dense", "moe"):
+                n += attn
+            if kind == "dense":
+                n += 3 * d * self.d_ff
+            elif kind == "moe":
+                n += d * self.n_experts + self.n_experts * 3 * d * self.moe_d_ff
+            elif kind == "ssm":
+                conv_dim = self.ssm_d_inner + 2 * self.ssm_state
+                n += d * (self.ssm_d_inner + conv_dim + self.ssm_heads)
+                n += self.ssm_d_inner * d + self.conv_width * conv_dim
+            elif kind == "rec":
+                w = self.lru_width
+                n += 2 * d * w + w * d + 2 * w * w + self.conv_width * w
+            elif kind == "attn":
+                n += attn + 3 * d * self.d_ff
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters active per token (an MoE layer runs ``top_k`` of its
+        experts)."""
+        n = self.param_count()
+        if self.family != "moe":
+            return n
+        return n - self.n_layers * (self.n_experts - self.top_k) * 3 * self.d_model * self.moe_d_ff
 
     def period_layout(self) -> tuple[Tuple[str, ...], int]:
         """``(period, n_full)``: the repeated pattern and how many whole

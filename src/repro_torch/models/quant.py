@@ -15,7 +15,10 @@ in a scanned period, ``/tail/<t>/...`` in the tail, ``/layers/<i>/...``
 unrolled) — so a policy regex selects the same weights in both packages.
 Only linears (a ``{'w'}`` of two or more axes) are quantized, as in the
 reference: the conv taps, ``A_log``, ``D``, ``dt_bias`` and ``lam`` stay
-float32.
+float32, and the MoE experts' stacked ``(E, d, f)`` arrays stay bf16 (the
+layer fake-quantizes them per call). A policy that would quantize an MoE
+router is refused (reference defect G: the reference quantizes it and its
+layer then cannot read it).
 """
 
 from __future__ import annotations
@@ -71,6 +74,14 @@ def quantize_params(
             prec = policy.lookup(path)
             if not prec.active:
                 return node
+            if path.endswith("/moe/router"):
+                raise ValueError(
+                    f"layer {path}: the policy quantizes an MoE router, which the "
+                    "layer reads dense (the reference quantizes it and its moe_apply "
+                    "then fails on router['w']: reference defect G); keep it dense "
+                    "with keep_dense=('router',) — the reference's serving policy "
+                    "keeps ('frontend', 'router')"
+                )
             if value_bits is not None and not 1 <= value_bits <= prec.w_bits:
                 raise ValueError(
                     f"layer {path}: value_bits must be in [1, {prec.w_bits}] "

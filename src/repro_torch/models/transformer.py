@@ -1,9 +1,15 @@
-"""The decoder stack: embedding, pre-norm blocks, final norm and LM head.
+"""The model stack: embedding or front end, pre-norm blocks, final norm
+and LM head.
 
-Block kinds are the reference's: ``dense`` (attention + MLP), ``ssm``
-(Mamba2 SSD), ``rec`` (RG-LRU + MLP) and ``attn`` (the hybrid's
-sliding-window attention + MLP). Parameters are a plain dictionary,
-``{"embed", "final_norm"[, "lm_head"], "layers": [block, ...]}``, one
+Block kinds are the reference's: ``dense`` (attention + MLP), ``moe``
+(attention + mixture of experts), ``ssm`` (Mamba2 SSD), ``rec`` (RG-LRU +
+MLP) and ``attn`` (the hybrid's sliding-window attention + MLP). The
+audio encoder's input is ``batch["features"]`` through its front end in
+place of the token embedding; the VLM puts ``batch["patches"]`` through
+its front end in front of the text, and the positions count the patches.
+The MoE layers' load-balancing losses are summed in layer order into
+``forward``'s ``aux``. Parameters are a plain dictionary, ``{"embed"[,
+"frontend"], "final_norm"[, "lm_head"], "layers": [block, ...]}``, one
 block per layer in layer order; the reference stacks the layers of its
 repeated periods on a leading axis and keeps the remainder as an unrolled
 tail, and :func:`params_from_numpy` unstacks both into the list. Layer
@@ -41,10 +47,13 @@ from repro_torch.layers.attention import attention_apply, attention_init
 from repro_torch.layers.embedding import (
     embedding_apply,
     embedding_init,
+    frontend_apply,
+    frontend_init,
     lm_head_apply,
     lm_head_init,
 )
 from repro_torch.layers.mlp import mlp_apply, mlp_init
+from repro_torch.layers.moe import moe_apply, moe_init
 from repro_torch.layers.norms import rmsnorm_apply, rmsnorm_init
 from repro_torch.layers.rglru import rglru_apply, rglru_init
 from repro_torch.layers.ssm import ssm_apply, ssm_init
@@ -56,16 +65,20 @@ RECURRENT_KINDS = ("ssm", "rec")
 
 def _init_block(gen, cfg: ModelConfig, kind: str, device):
     d = cfg.d_model
-    if kind in ("dense", "attn"):
-        return {
+    if kind in ("dense", "attn", "moe"):
+        params = {
             "attn_norm": rmsnorm_init(d, device),
             "attn": attention_init(
                 gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dtype, cfg.qk_norm,
                 device,
             ),
             "mlp_norm": rmsnorm_init(d, device),
-            "mlp": mlp_init(gen, d, cfg.d_ff, cfg.act, cfg.dtype, device),
         }
+        if kind == "moe":
+            params["moe"] = moe_init(gen, d, cfg.moe_d_ff, cfg.n_experts, cfg.dtype, device)
+        else:
+            params["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.act, cfg.dtype, device)
+        return params
     if kind == "ssm":
         return {
             "norm": rmsnorm_init(d, device),
@@ -82,17 +95,17 @@ def _init_block(gen, cfg: ModelConfig, kind: str, device):
             "mlp_norm": rmsnorm_init(d, device),
             "mlp": mlp_init(gen, d, cfg.d_ff, cfg.act, cfg.dtype, device),
         }
-    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     """Random parameters with the reference's distributions (normal
     weights scaled by 1/sqrt(fan-in), embedding by 1/sqrt(d_model), unit
     norm scales), drawn from ``gen`` on ``device``."""
-    params = {
-        "embed": embedding_init(gen, cfg.vocab_padded, cfg.d_model, cfg.dtype, device),
-        "final_norm": rmsnorm_init(cfg.d_model, device),
-    }
+    params = {"embed": embedding_init(gen, cfg.vocab_padded, cfg.d_model, cfg.dtype, device)}
+    if cfg.frontend != "none":
+        params["frontend"] = frontend_init(gen, cfg.frontend_dim, cfg.d_model, cfg.dtype, device)
+    params["final_norm"] = rmsnorm_init(cfg.d_model, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = lm_head_init(gen, cfg.d_model, cfg.vocab_padded, cfg.dtype, device)
     params["layers"] = [_init_block(gen, cfg, kind, device) for kind in cfg.layer_kinds()]
@@ -176,8 +189,9 @@ def unstack_layers(cfg: ModelConfig, tree) -> dict:
 def _apply_block(cfg, kind, params, x, positions, *, policy, backend, name, cache=None,
                  x_f32=None, training=False):
     """Pre-norm residual block; returns (x, new_cache, the residual sum
-    before its rounding to x's dtype). ``x_f32``: the unrounded value of
-    ``x``, which the first norm's statistics read (see rmsnorm_apply)."""
+    before its rounding to x's dtype, the MoE load-balancing loss or
+    None). ``x_f32``: the unrounded value of ``x``, which the first norm's
+    statistics read (see rmsnorm_apply)."""
     if kind == "ssm":
         h = rmsnorm_apply(params["norm"], x, x_f32=x_f32)
         out, new_cache = ssm_apply(
@@ -186,7 +200,7 @@ def _apply_block(cfg, kind, params, x, positions, *, policy, backend, name, cach
             chunk=cfg.ssd_chunk, policy=policy, training=training, backend=backend,
             name=f"{name}/ssm", cache=cache,
         )
-        return x + out, new_cache, x.to(torch.float32) + out.to(torch.float32)
+        return x + out, new_cache, x.to(torch.float32) + out.to(torch.float32), None
     if kind == "rec":
         h = rmsnorm_apply(params["norm"], x, x_f32=x_f32)
         out, new_cache = rglru_apply(
@@ -209,11 +223,19 @@ def _apply_block(cfg, kind, params, x, positions, *, policy, backend, name, cach
     # the norm's statistics read the unrounded residual sum, as the
     # reference's fused graph does (see rmsnorm_apply)
     h = rmsnorm_apply(params["mlp_norm"], x, x_f32=x_f32)
-    mlp_out = mlp_apply(
-        params["mlp"], h, act=cfg.act, policy=policy, training=training, backend=backend,
-        name=f"{name}/mlp",
-    )
-    return x + mlp_out, new_cache, x.to(torch.float32) + mlp_out.to(torch.float32)
+    aux = None
+    if kind == "moe":
+        mlp_out, aux = moe_apply(
+            params["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k, policy=policy,
+            training=training, name=f"{name}/moe", impl=cfg.moe_impl,
+            capacity_factor=cfg.moe_capacity_factor,
+        )
+    else:
+        mlp_out = mlp_apply(
+            params["mlp"], h, act=cfg.act, policy=policy, training=training, backend=backend,
+            name=f"{name}/mlp",
+        )
+    return x + mlp_out, new_cache, x.to(torch.float32) + mlp_out.to(torch.float32), aux
 
 
 def check_prefill(cfg: ModelConfig, s: int, offset: int, rows: int) -> None:
@@ -259,11 +281,15 @@ def forward(
     last_only: bool | int = False,
     backend: str = "auto",
 ):
-    """Returns (logits, aux_loss, new_cache). ``batch = {"tokens": (B, S)}``;
-    with a cache, S == 1 decodes at each slot's own position, updating the
-    cache in place and returning it, and S > 1 prefills from the running
-    per-slot offset into a new cache (from a fresh cache only, on a model
-    with recurrent or sliding-window layers). The cache's layer blocks
+    """Returns (logits, aux_loss, new_cache). ``batch = {"tokens": (B, S)}``,
+    plus ``"patches"`` (B, P, frontend_dim) for a VLM (put in front of the
+    text; S counts them from here on), or ``{"features": (B, S,
+    frontend_dim)}`` for the audio encoder; ``aux_loss`` is the MoE layers'
+    load-balancing loss (0 without one). With a cache, S == 1 decodes at
+    each slot's own position, updating the cache in place and returning
+    it, and S > 1 prefills from the running per-slot offset into a new
+    cache (from a fresh cache only, on a model with recurrent or
+    sliding-window layers). The cache's layer blocks
     are dense (``models.cache``: KV, a KV ring, or SSM / RG-LRU state) or
     paged (``models.paging``: page pools, block table, length; decode
     only), passed to each layer. ``last_only`` computes the LM head for
@@ -277,11 +303,20 @@ def forward(
     if training and cache is not None:
         raise ValueError("training runs without a cache")
     params = unstack_layers(cfg, params)
-    tokens = batch["tokens"]
-    x = embedding_apply(params["embed"], tokens)
+    if cfg.frontend == "audio":
+        x = frontend_apply(params["frontend"], batch["features"], policy=policy,
+                           training=training, backend=backend)
+    else:
+        x = embedding_apply(params["embed"], batch["tokens"])
+        if cfg.frontend == "vision" and "patches" in batch:
+            patch = frontend_apply(params["frontend"], batch["patches"], policy=policy,
+                                   training=training, backend=backend)
+            x = torch.cat([patch.to(x.dtype), x], dim=1)
     b, s = x.shape[:2]
     dev = x.device
-    if cache is not None and s == 1:
+    if cfg.frontend == "audio":
+        positions = torch.arange(s, dtype=torch.int32, device=dev)[None, :].expand(b, s)
+    elif cache is not None and s == 1:
         positions = cache["step"][:, None].to(torch.int32)
     elif cache is not None:
         positions = cache["step"][:, None].to(torch.int32) + torch.arange(
@@ -301,13 +336,13 @@ def forward(
     n_scanned = n_full * plen if cfg.scan_layers else 0
     new_layers = []
 
-    def run(lo, hi, x):
-        """Layers ``lo:hi``; returns x and the last one's unrounded
-        residual sum (None after a dense layer). Each block's first norm
-        reads its predecessor's unrounded sum where the reference's
-        compiled graph fuses the two: inside one period of the scanned
-        stack, and between consecutive unrolled (or tail) layers; the
-        scan's carry, at a period boundary, is rounded. A dense stack
+    def run(lo, hi, x, aux):
+        """Layers ``lo:hi``; returns x, the last one's unrounded residual
+        sum (None after a dense layer) and ``aux`` plus the MoE layers'
+        losses. Each block's first norm reads its predecessor's unrounded
+        sum where the reference's compiled graph fuses the two: inside one
+        period of the scanned stack, and between consecutive unrolled (or
+        tail) layers; the scan's carry, at a period boundary, is rounded. A dense stack
         rounds at every layer boundary, as the port always has (on an
         unrolled dense stack the reference does not: its logits differ by
         a bf16 step or two)."""
@@ -315,41 +350,45 @@ def forward(
         for i in range(lo, hi):
             blk_cache = cache["layers"][i] if cache is not None else None
             fused = (i % plen if i < n_scanned else i > lo) and kinds[i - 1] != "dense"
-            x, nc, x_f32 = _apply_block(
+            x, nc, x_f32, a = _apply_block(
                 cfg, kinds[i], params["layers"][i], x, positions, policy=policy,
                 backend=backend, name=cfg.layer_name(i), cache=blk_cache,
                 x_f32=x_f32 if fused else None, training=training,
             )
+            if a is not None:
+                aux = aux + a
             if cache is not None:
                 new_layers.append(nc)
-        return x, x_f32 if hi > lo and kinds[hi - 1] != "dense" else None
+        return x, x_f32 if hi > lo and kinds[hi - 1] != "dense" else None, aux
 
-    def period_body(x, p):
-        return run(p * plen, (p + 1) * plen, x)[0]
+    def period_body(x, aux, p):
+        x, _, aux = run(p * plen, (p + 1) * plen, x, aux)
+        return x, aux
 
     # the scanned periods report their ABFT checks as one folded flag, as
     # the reference's lax.scan body does; the tail and an unrolled stack
     # report each
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     with integrity.scan_scope() if n_scanned else contextlib.nullcontext():
         if not (training and n_scanned):
-            x, _ = run(0, n_scanned, x)
+            x, _, aux = run(0, n_scanned, x, aux)
         elif cfg.remat_group > 1 and n_full % cfg.remat_group == 0:
             # two-level remat: one saved residual per group of periods, and
             # the group's backward recomputes period by period
             grp = cfg.remat_group
 
-            def group_body(x, g):
+            def group_body(x, aux, g):
                 for p in range(g * grp, (g + 1) * grp):
-                    x = checkpoint(period_body, x, p, use_reentrant=False)
-                return x
+                    x, aux = checkpoint(period_body, x, aux, p, use_reentrant=False)
+                return x, aux
 
             for g in range(n_full // grp):
-                x = checkpoint(group_body, x, g, use_reentrant=False)
+                x, aux = checkpoint(group_body, x, aux, g, use_reentrant=False)
         else:
             for p in range(n_full):
-                x = checkpoint(period_body, x, p, use_reentrant=False)
+                x, aux = checkpoint(period_body, x, aux, p, use_reentrant=False)
     # the final norm reads an unrolled last layer's unrounded sum too
-    x, x_last = run(n_scanned, cfg.n_layers, x)
+    x, x_last, aux = run(n_scanned, cfg.n_layers, x, aux)
     new_cache = None
     if cache is not None and s == 1:  # decode: the layers updated ``cache`` in place
         cache["step"].add_(1)
@@ -368,7 +407,7 @@ def forward(
     else:
         logits = lm_head_apply(params["lm_head"], x, policy=policy, training=training,
                                backend=backend)
-    return logits, torch.zeros((), dtype=torch.float32, device=dev), new_cache
+    return logits, aux, new_cache
 
 
 def cross_entropy(logits, targets, mask=None, n_valid=None) -> torch.Tensor:
@@ -392,8 +431,11 @@ def cross_entropy(logits, targets, mask=None, n_valid=None) -> torch.Tensor:
 def loss_fn(cfg: ModelConfig, params, batch, *, policy=None, training=True, aux_weight=0.01):
     """Returns (total, {"loss", "aux_loss"}): the cross entropy of
     ``batch["targets"]`` (``batch.get("loss_mask")`` weighting tokens) plus
-    ``aux_weight`` times the auxiliary loss (0: no MoE layer is ported)."""
+    ``aux_weight`` times the MoE layers' load-balancing loss. A VLM's
+    patch positions carry no target: their logits are dropped."""
     logits, aux, _ = forward(cfg, params, batch, policy=policy, training=training)
+    if cfg.frontend == "vision" and "patches" in batch:
+        logits = logits[:, batch["patches"].shape[1]:, :]
     loss = cross_entropy(logits, batch["targets"], batch.get("loss_mask"),
                          n_valid=cfg.vocab_size)
     return loss + aux_weight * aux, {"loss": loss, "aux_loss": aux}

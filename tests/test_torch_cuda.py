@@ -937,6 +937,46 @@ def test_family_graph_replay_equals_eager_on_card(cuda_device, arch, n_layers):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "llama4-scout-17b-a16e", "internvl2-2b"])
+def test_moe_and_vlm_graph_replay_equals_eager_on_card(cuda_device, arch):
+    """The MoE decode step (the capacity dispatch, the per-call expert fake
+    quantizers, the combine in k order) and the VLM's, at their reduced
+    widths with the router dense: the graph engine's tokens, launches and
+    cache equal the eager step's across an 8 -> 4 switch; at 2 slots a
+    reduced scout's expert holds one decode copy, so free slots compete."""
+    import numpy as np
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.launch.serve import ContinuousBatchingEngine
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime.scheduler import Request
+
+    cfg = get_reduced(arch)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(0)
+    params = init_params(cfg, g, device=cuda_device)
+    policy = PrecisionPolicy.uniform(8, 8, level="bitplane", keep_dense=("frontend", "router"))
+    engines = [ContinuousBatchingEngine(cfg, params, policy, n_slots=2, max_len=48,
+                                        device=cuda_device, compile_steps=c)
+               for c in (True, False)]
+
+    def requests():
+        return [Request(rid=i, tokens=np.random.default_rng(i).integers(0, cfg.vocab_size, (s,)),
+                        max_new_tokens=12, arrival_step=2 * i)
+                for i, s in enumerate((8, 32, 16))]
+
+    (rg, sg, lg), (re_, se, le) = [_serve_counted(e, requests, {4: 4}) for e in engines]
+    assert set(engines[0]._compiled_graphs) == {None, (4, 4)}
+    for rid in rg:
+        assert (rg[rid] == re_[rid]).all(), rid
+    assert sg["route_calls"] == se["route_calls"] and lg == le and lg["fused_plane_linear"] > 0
+    for a, b in zip(engines[0]._cache["layers"], engines[1]._cache["layers"]):
+        for key in a:
+            assert torch.equal(a[key], b[key]), key
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("w_bits,microbatches", [(0, 1), (8, 2)])
 def test_train_step_on_card_equals_host_step(cuda_device, w_bits, microbatches):
     """One ``make_train_step`` step of the reduced granite-3-8b on the card

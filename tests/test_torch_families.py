@@ -1,8 +1,8 @@
 """The port's model registry and CLI against the reference's, on the CPU.
 
-* Every registered config is the reference's, field for field, full and
-  reduced; the families not ported yet (MoE, encoder, VLM) stay out of the
-  registry and their kinds raise naming their ROADMAP item.
+* The registry is the reference's ten architectures, and every config is
+  the reference's, field for field, full and reduced (with
+  ``param_count`` and ``active_param_count``).
 * The two dense configs added with the SSM and hybrid families,
   llama3-405b and deepseek-coder-33b, at ``REDUCED``: w8a8 forward logits
   bit-equal and the continuous-batching engine's greedy tokens equal.
@@ -13,7 +13,8 @@
   for value against the reference's.
 * The serving CLI's defaults are the reference's for every flag the two
   parsers share (``--arch`` is yi-6b in both), and its ``--arch`` choices
-  are a subset of the reference's.
+  are the reference's ten; ``--bits`` on an MoE arch dies naming
+  reference defect G (the CLI's uniform policy would quantize the router).
 """
 
 import dataclasses
@@ -59,11 +60,14 @@ def test_registered_configs_are_the_references(arch):
             (jc.has_attention, jc.supports_long_context)
 
 
-@pytest.mark.parametrize("family, item", [("moe", "12b"), ("encoder", "12c"), ("vlm", "12c")])
-def test_later_families_raise_naming_their_item(family, item):
-    cfg = ModelConfig(name="x", family=family, n_layers=2, d_model=8, vocab_size=16)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        cfg.layer_kinds()
+def test_registry_is_the_references():
+    assert tconfigs.ARCH_NAMES == jconfigs.ARCH_NAMES
+    for arch in tconfigs.ARCH_NAMES:
+        jc, tc = jconfigs.get_config(arch), tconfigs.get_config(arch)
+        assert (tc.param_count(), tc.active_param_count()) == \
+            (jc.param_count(), jc.active_param_count()), arch
+    with pytest.raises(ValueError, match="unknown family"):
+        ModelConfig(name="x", family="conv", n_layers=2, d_model=8, vocab_size=16).layer_kinds()
 
 
 _P: dict = {}
@@ -167,8 +171,11 @@ def test_cli_defaults_are_the_references():
     assert targs["arch"] == "yi-6b"
     tchoices = next(a.choices for a in serve.build_parser()._actions if a.dest == "arch")
     jchoices = next(a.choices for a in jserve.build_parser()._actions if a.dest == "arch")
-    assert set(tchoices) <= set(jchoices)
-    assert {"mamba2-1.3b", "recurrentgemma-2b", *NEW_DENSE} <= set(tchoices)
+    assert tuple(tchoices) == tuple(jchoices) == jconfigs.ARCH_NAMES
+    for arch in ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e"):
+        with pytest.raises(SystemExit, match="defect G"):
+            serve.validate_args(serve.build_parser().parse_args(["--arch", arch, "--bits", "8"]))
+        serve.validate_args(serve.build_parser().parse_args(["--arch", arch, "--bits", "0"]))
 
 
 @pytest.mark.parametrize("variant", ["booth", "sbmwc"])
