@@ -39,6 +39,24 @@ Phases, each failing the run on any error:
    timed runs give the spread of the host times, and one run under
    ``torch.profiler`` the device time in all and inside the engine's
    prefill and decode-step ranges;
+3b. autotune — the tile autotuner on the card: for each of the three plane
+   kernels at the decode gate shape (M=4, K=4096, N=12800) and at M=256,
+   every candidate the tuner ranks (row tile, K split; the default first)
+   must give the default's output bit for bit (the fused kernel's raw
+   accumulator and its bf16 epilogue), and the default's and the winner's
+   device ms are printed (the tuner's CUDA-event timing, the weight read
+   cold, and graph replays), with the default's row tile in one K range;
+   ``ops.bitserial_matmul`` on the card at the gate shape (fused with its
+   epilogue, packed, digit) bit-equal to the ``torch`` backend,
+   each launching its row's kernel; then the bitplane cell again with
+   ``autotune=True`` on a plan store under a temp dir: ``bitplane-autotune``
+   (cold: ``tunes == store_misses >= 1``, every stored record legal) and
+   ``bitplane-autotune-warm`` (a new tuner on the same file, the registry
+   cleared: no tune, no miss, ``store_hits`` = the cold tunes), both with
+   ``bitplane``'s tokens, a fingerprint naming the card, and no plan
+   resolved inside a CUDA-graph capture; each prints its graph replay's
+   device ms beside ``bitplane``'s and the tiles chosen. The tuner is
+   detached after the phase;
 4. engine at --level digit — the same through the plane-pair kernel
    (digit caches are not truncatable, so no precision switch);
 5. engine bitplane-nofused — the bitplane workload with the fused kernel
@@ -196,8 +214,9 @@ Prints one JSON line per kernel check and per engine cell (the scrub and
 paged-integrity cells' lines carry the card's name and power limit), one
 ``{"kernels": [...]}`` summary line (the fold kernel's entry included; the
 fused kernel's entry also counts its launches on the QAT-trained weights,
-``train_launches``, and in each phase-17 cell, ``arch_launches``), the
-card's name and power limit, and last
+``train_launches``, and in each phase-17 cell, ``arch_launches``; rows 1-3
+also their default and tuned device ms, ``autotune``), the card's name and
+power limit, and last
 ``{"ok": true, ...}``.
 """
 
@@ -212,6 +231,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1436,6 +1456,295 @@ def run_engine(level: str, cfg, params, kernel: str, route: str) -> tuple[dict, 
                graph=graph, eager=eager)
     print(json.dumps(out), flush=True)
     return out, results, res_plain
+
+
+# -- the tile autotuner and its plan store (phase 3b) --------------------------
+
+# rows 1-3 of the kernel table and the plan route each is timed on; the
+# plane-pair kernel at the digit level, as the digit cell runs it
+TUNED_ROWS = (("fused_plane_linear", "fused_cached", "bitplane"),
+              ("plane_matmul_packed", "cached_packed", "bitplane"),
+              ("plane_matmul", "cached_planes", "digit"))
+TUNED_SHAPES = ((4, 4096, 12800), (256, 4096, 12800))  # the decode gate shape; prefill M=256
+
+
+def _tuning_key(m, k, n, route, level):
+    """The plan key a granite projection resolves to on ``route``."""
+    from repro_torch.core import bitplanes as bp
+    from repro_torch.core.plan import PlanKey
+
+    cache = (("bitplane", "booth", 8, True, bp.DEFAULT_BLOCK, False, 8, False)
+             if level == "bitplane" else ("digit", "booth", 8, False, None, True, 2, False))
+    return PlanKey(m=m, k=k, n=n, a_bits=8, w_bits=8, a_in_bits=8, w_in_bits=8,
+                   variant="booth", level=level, mode="fully_serial", backend="cuda",
+                   accum="int32", has_epilogue=True, cache=cache,
+                   fused=None if route == "fused_cached" else False, packed=None,
+                   bm=None, bn=None, bk=None)
+
+
+def check_tuned_kernels() -> list:
+    """Rows 1-3 at the decode gate shape and at M=256: each of the tuner's
+    candidates (``tile_candidates``, the default first) must give the
+    default's output bit for bit (the fused kernel's raw int32 accumulator
+    and its bf16 epilogue); the tuner then times them on the route's kernel
+    (``KernelTimer``: CUDA events, the card idled ahead of back-to-back
+    calls, the weight read cold) and the default and the winner are timed
+    again as graph replays (``_graph_ms``, the kernel table's device time),
+    with the default's row tile in one K range beside them: the default
+    before it filled a part-empty last wave. Printed, not gated."""
+    from repro_torch.core import autotune
+
+    hw = autotune.hardware_model("cuda")
+    lines = []
+    for m, k, n in TUNED_SHAPES:
+        for name, route, level in TUNED_ROWS:
+            key = _tuning_key(m, k, n, route, level)
+            timer = autotune.KernelTimer()
+            tuner = autotune.PlanAutotuner(None, hw=hw, measure=timer)
+            cands = autotune.tile_candidates(key, route, hw)
+            call = timer.route_call(key, route)
+            outs = {}
+            for raw in ({False, True} if route == "fused_cached" else {False}):
+                want = call(cands[0][0], cands[0][3], raw=raw)
+                for tiles in cands[1:]:
+                    if not torch.equal(call(tiles[0], tiles[3], raw=raw), want):
+                        _die(f"autotune {name} M={m}: candidate {tiles} differs from the "
+                             f"default {cands[0]} (raw={raw})")
+                outs[raw] = want
+            winner, detail = tuner.tune(key, route)
+            tag = "x".join(map(str, winner))
+            line = {
+                "autotune_kernel": name, "route": route, "level": level, "M": m, "K": k, "N": n,
+                "candidates": [list(t) for t in cands], "candidates_bit_equal": True,
+                "default": list(cands[0]), "tuned": list(winner),
+                "timer_us": detail["wall_us"],
+                "default_timer_us": detail["wall_us"]["x".join(map(str, cands[0]))],
+                "tuned_timer_us": detail["wall_us"][tag],
+                "model_us": {"x".join(map(str, t)): autotune._predict_us(hw, route, key, t[0],
+                                                                         t[2], t[3])
+                             for t in cands},
+                "default_device_ms": _graph_ms(lambda: call(cands[0][0], cands[0][3])),
+                "tuned_device_ms": _graph_ms(lambda: call(winner[0], winner[3])),
+                "one_range_device_ms": _graph_ms(lambda: call(cands[0][0], 1)),
+                "card": CARD,
+            }
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            del call, timer, tuner, outs
+            gc.collect()
+            torch.cuda.empty_cache()
+    return lines
+
+
+def check_front_door() -> dict:
+    """``ops.bitserial_matmul`` on the card at the decode gate shape — fused
+    with its epilogue, packed, and at the digit level — bit-equal to the
+    ``torch`` backend (the plain versions) on the same operands, each
+    raising its row's launch counter."""
+    from repro_torch.kernels import ops
+
+    m, k, n = TUNED_SHAPES[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    ep = ops.Epilogue(a_scale=torch.rand((m, 1), generator=gen, device="cuda"),
+                      w_scale=torch.rand((n,), generator=gen, device="cuda") * 1e-3)
+    cases = {"fused": ("fused_plane_linear", dict(level="bitplane", epilogue=ep)),
+             "packed": ("plane_matmul_packed", dict(level="bitplane", packed=True)),
+             "digit": ("plane_matmul", dict(level="digit"))}
+    out = {}
+    for case, (kernel, kw) in cases.items():
+        _reset_counts()
+        with warnings.catch_warnings():  # the legacy keywords warn once, by design
+            warnings.simplefilter("ignore", DeprecationWarning)
+            got = ops.bitserial_matmul(a, w, a_bits=8, w_bits=8, backend="cuda", **kw)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            plain = ops.bitserial_matmul(a, w, a_bits=8, w_bits=8, backend="torch", **kw)
+        if not counts[kernel] or not torch.equal(got, plain):
+            _die(f"front door {case}: launches {counts}, equal to the plain version "
+                 f"{torch.equal(got, plain)}")
+        out[case] = {"kernel": kernel, "launches": counts[kernel], "dtype": str(got.dtype),
+                     "bit_equal": True}
+    line = {"front_door": out, "M": m, "K": k, "N": n}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def _stored_records(path: str, fingerprint: str) -> dict:
+    return json.loads(Path(path).read_text())["hosts"].get(fingerprint, {})
+
+
+def _stored_key(key_id: str):
+    """The PlanKey a store's key id was made from (requested tiles None)."""
+    from repro_torch.core.plan import PlanKey
+
+    d = json.loads(key_id)
+    d["cache"] = None if d["cache"] is None else tuple(d["cache"])
+    d["shard"] = None if d["shard"] is None else tuple(d["shard"])
+    return PlanKey(bm=None, bn=None, bk=None, **d)
+
+
+def _replay_ms(engine, reps: int = 20) -> float:
+    """Device ms of one replay of the engine's storage-width decode graph:
+    CUDA events around ``reps`` replays on the finished run's state."""
+    captured = engine._compiled_graphs[None]
+    captured(0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        captured(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def run_autotune(cfg, params, bit_results: dict) -> dict:
+    """The bitplane cell served with the tile autotuner on a plan store
+    under a temp dir: ``bitplane-autotune`` (cold: a fresh store, every plan
+    of the workload tuned on the card in the eager warm-ups and prefills)
+    and ``bitplane-autotune-warm`` (a new tuner on the same file, the plan
+    registry cleared: every plan from the store). Gates: tokens equal to
+    ``bitplane``'s in both; cold ``tunes == store_misses >= 1`` and every
+    stored record legal; warm no tune, no miss and ``store_hits`` = the cold
+    cell's tunes; the fingerprint names the card; no plan resolved inside a
+    capture. Printed: the tiles chosen, and tuned (the cold engine) against
+    an untuned control engine of the same cell, in turns (control, tuned,
+    tuned, control): the device ms of a replay of the storage-width decode
+    graph, and a profiled run's device time inside the prefill and
+    decode-step ranges. The tuner is detached and the registry cleared
+    after."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import autotune, plan as plan_mod
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.kernels import ops
+
+    registry = plan_mod.DEFAULT_REGISTRY
+    policy = PrecisionPolicy.uniform(8, 8, variant="booth", level="bitplane")
+    schedule = {8: 4}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plans_")
+    path = str(Path(tmp) / "plans.json")
+    capturing = []  # per plan the tuner resolved: was a stream capturing?
+    out = {}
+    engines = {}
+    try:
+        registry.attach_tuner(None)
+        registry.clear()
+        control = _engine(cfg, params, policy)  # untuned: the wrappers' default geometry
+        results, _ = control.run(_requests(cfg), precision_schedule=schedule)
+        _same_tokens("bitplane-autotune control", results, bit_results, "bitplane's")
+        engines["control"] = control
+        for name in ("bitplane-autotune", "bitplane-autotune-warm"):
+            registry.attach_tuner(None)  # the next engine attaches a new tuner
+            registry.clear()
+            t0 = time.perf_counter()
+            engine = _engine(cfg, params, policy, autotune=True, plan_store_path=path)
+            tuner = engine.autotuner
+            tiles_for = tuner.tiles_for
+
+            def watched(key, kernel, _tiles_for=tiles_for):
+                capturing.append(torch.cuda.is_current_stream_capturing())
+                return _tiles_for(key, kernel)
+
+            tuner.tiles_for = watched
+            results, stats, counts = _counted_run(name, cfg, engine, schedule,
+                                                  "fused_plane_linear", "fused_cached")
+            _same_tokens(name, results, bit_results, "bitplane's")
+            ps = tuner.stats()
+            tuned = [p for p in registry.plans() if p.tuned]
+            line = {
+                "engine": name, "store": ps, "cell_s": time.perf_counter() - t0,
+                "plans_resolved": len(registry), "plans_tuned": len(tuned),
+                "tok_per_s": stats["tok_per_s"], "wall_s": stats["wall_s"],
+                "prefill_s": stats["prefill_s"], "launches": counts["fused_plane_linear"],
+                "tokens_equal_bitplane": True,
+                # (route, M, K, N, a_bits, bm, k_split) of every tuned plan
+                "tiles": sorted({(p.kernel, p.key.m, p.key.k, p.key.n, p.key.a_bits, p.bm,
+                                  p.k_split) for p in tuned}),
+                "card": CARD,
+            }
+            fp = ps["fingerprint"]
+            if autotune._slug(torch.cuda.get_device_name(0)) not in fp:
+                _die(f"{name}: the fingerprint {fp} does not name the card")
+            if name == "bitplane-autotune":
+                engines["tuned"] = engine
+                if not ps["tunes"] >= 1 or ps["tunes"] != ps["store_misses"] or ps["store_hits"]:
+                    _die(f"{name}: store counters {ps}")
+                records = _stored_records(path, fp)
+                for kid, rec in records.items():
+                    key = json.loads(kid)
+                    block = key["cache"][4] if rec["kernel"] == "fused_cached" else None
+                    if not ops.tiles_legal(rec["bm"], rec["bn"], rec["bk"], kernel=rec["kernel"],
+                                           k_split=rec["k_split"], k=key["k"],
+                                           pack_block=block):
+                        _die(f"{name}: illegal stored record {rec} for {kid}")
+                measured = sum(r["source"] == "measured" for r in records.values())
+                defaults = sum(
+                    (r["bm"], r["bn"], r["bk"], r["k_split"])
+                    == autotune._heuristic_tiles(_stored_key(kid), r["kernel"])
+                    for kid, r in records.items())
+                if len(records) != ps["tunes"] or not measured:
+                    _die(f"{name}: {len(records)} records ({measured} measured) for "
+                         f"{ps['tunes']} tunes")
+                line.update(records=len(records), records_measured=measured,
+                            records_default_won=defaults, records_legal=True)
+            else:
+                tuners = {"control": None, "tuned": tuner}  # the warm tuner: all memo hits
+                del engine
+                if ps["tunes"] or ps["store_misses"] or \
+                        ps["store_hits"] != out["bitplane-autotune"]["store"]["tunes"]:
+                    _die(f"{name}: store counters {ps} after a cold run of "
+                         f"{out['bitplane-autotune']['store']}")
+            out[name] = line
+            print(json.dumps(line), flush=True)
+        if any(capturing) or not capturing:
+            _die(f"plans resolved inside a CUDA-graph capture: {sum(capturing)} of "
+                 f"{len(capturing)}")
+        order = ("control", "tuned", "tuned", "control")
+        turns = [(who, _replay_ms(engines[who])) for who in order]
+        profiles = []
+        for who in order:  # eager prefill resolves its plans: the registry as each engine's
+            registry.attach_tuner(tuners[who])
+            registry.clear()
+            engines[who].set_precision(None)
+            engines[who].run(_requests(cfg), precision_schedule=schedule)  # resolve, untimed
+            engines[who].set_precision(None)
+            profiles.append((who, _profile(engines[who], _requests(cfg), schedule)))
+
+        def mean(values, who):
+            return float(np.mean([v for w, v in values if w == who]))
+
+        per_step = [(w, 1e3 * p["decode_device_s"] / max(1, p["decode_ranges"]))
+                    for w, p in profiles]
+        out["replay"] = {
+            "turns": turns,
+            "untuned_device_ms": mean(turns, "control"),
+            "tuned_device_ms": mean(turns, "tuned"),
+            "prefill_device_s": [(w, p["prefill_device_s"]) for w, p in profiles],
+            "untuned_prefill_device_s": mean([(w, p["prefill_device_s"]) for w, p in profiles],
+                                             "control"),
+            "tuned_prefill_device_s": mean([(w, p["prefill_device_s"]) for w, p in profiles],
+                                           "tuned"),
+            "untuned_decode_device_ms_per_step": mean(per_step, "control"),
+            "tuned_decode_device_ms_per_step": mean(per_step, "tuned"),
+            "card": CARD,
+        }
+        print(json.dumps({"engine": "bitplane-autotune", "replay": out["replay"]}), flush=True)
+    finally:
+        engines.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        registry.attach_tuner(None)
+        registry.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["tuner_lookups"] = len(capturing)
+    out["tuner_lookups_inside_capture"] = 0
+    return out
 
 
 def run_nofused(cfg, params, fused_results: dict, plain_results: dict) -> tuple:
@@ -3614,6 +3923,16 @@ def main() -> None:
     eng_bit, res_bit, res_plain = run_engine(
         "bitplane", cfg, params, "fused_plane_linear", "fused_cached")
     print(f"[chip_smoke] engine bitplane done at {time.perf_counter() - t0:.1f} s", flush=True)
+    t_tune = time.perf_counter()
+    tuned_rows = check_tuned_kernels()
+    front_door = check_front_door()
+    eng_tune = run_autotune(cfg, params, res_bit)
+    cold, warm = eng_tune["bitplane-autotune"], eng_tune["bitplane-autotune-warm"]
+    print(f"[chip_smoke] autotune done at {time.perf_counter() - t0:.1f} s (phase "
+          f"{time.perf_counter() - t_tune:.1f} s; cold {cold['store']['tunes']} tunes, warm "
+          f"{warm['store']['store_hits']} store hits; decode graph replay device ms "
+          f"{eng_tune['replay']['tuned_device_ms']:.3f} tuned against "
+          f"{eng_tune['replay']['untuned_device_ms']:.3f} untuned)", flush=True)
     eng_dig, _, _ = run_engine("digit", cfg, params, "plane_matmul", "cached_planes")
     print(f"[chip_smoke] engine digit done at {time.perf_counter() - t0:.1f} s", flush=True)
     eng_nof, res_nof, res_nof8 = run_nofused(cfg, params, res_bit, res_plain)
@@ -3715,6 +4034,15 @@ def main() -> None:
     ]
     for k in kernels:
         k["family_launches"] = fam_launches(k["name"])
+        rows = [r for r in tuned_rows if r["autotune_kernel"] == k["name"]]
+        if rows:  # rows 1-3: the default's and the tuner's winner's device ms
+            k["autotune"] = {f"M={r['M']}": {"default": r["default"], "tuned": r["tuned"],
+                                             "default_device_ms": r["default_device_ms"],
+                                             "tuned_device_ms": r["tuned_device_ms"],
+                                             "one_range_device_ms": r["one_range_device_ms"]}
+                             for r in rows}
+            k["front_door_launches"] = sum(c["launches"] for c in front_door["front_door"].values()
+                                           if c["kernel"] == k["name"])
     # row 1 in the MoE, VLM and encoder cells (phase 17): every projection
     arch_launches = {name: c["all_launches"].get("fused_plane_linear", 0)
                      for name, c in archs.items() if name != "phase_s"}

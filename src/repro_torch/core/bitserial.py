@@ -162,3 +162,41 @@ def bitserial_matmul(
     else:
         raise ValueError(f"unknown level {level!r}")
     return _plane_pair_scan(dec_a, dec_w, accum_dtype)
+
+
+def quantized_matmul(
+    a_q: torch.Tensor,
+    w_q: torch.Tensor,
+    scale_a: torch.Tensor,
+    scale_w: torch.Tensor,
+    *,
+    a_bits: int,
+    w_bits: int,
+    out_dtype=torch.float32,
+    **kwargs,
+) -> torch.Tensor:
+    """Dequantized product ``(scale_a ⊗ scale_w) * (a_q @ w_q)`` through
+    :func:`bitserial_matmul` (``kwargs`` are its options). ``scale_a``
+    broadcasts over ``a_q``'s leading dims (per-token scales have shape
+    ``a_q.shape[:-1] + (1,)``), ``scale_w`` over the output features
+    (per-channel: ``(N,)``); float32, ``(acc * scale_a) * scale_w``, as the
+    reference rounds it."""
+    acc = bitserial_matmul(a_q, w_q, a_bits=a_bits, w_bits=w_bits, **kwargs)
+    return (acc.to(torch.float32) * scale_a * scale_w).to(out_dtype)
+
+
+def plane_pass_count(a_bits: int, w_bits: int, level: str, mode: str,
+                     radix_bits: int = 8) -> int:
+    """Plane-pair products one matmul costs at a configuration: the
+    software analogue of the paper's cycle counts (the reference's, used by
+    the cost model and the benchmarks)."""
+    if level == "fused":
+        return 1
+    if level == "bitplane":
+        return a_bits * (w_bits if mode == "fully_serial" else 1)
+    if level == "digit":
+        da = -(-a_bits // radix_bits)
+        dw = -(-w_bits // radix_bits)
+        # a Booth recode can add one digit; the common case is reported
+        return da * (dw if mode == "fully_serial" else 1)
+    raise ValueError(level)

@@ -15,7 +15,10 @@ kernel and ``cached_planes``/``staged`` the plane-pair kernel;
 ``cached_planes``/``staged`` the plane-pair kernel and
 ``cached_packed``/``staged_packed`` the packed kernel; ``cached_scan`` and
 ``oracle`` are plain PyTorch on any device, as they are jnp on any device
-in the reference. Integrity-checked plans (``integrity != "off"``) verify
+in the reference. An attached tuner (:meth:`PlanRegistry.attach_tuner`,
+``core/autotune``) picks each Hopper route's row tile and K split before
+the :func:`~repro_torch.kernels.ops.hopper_tiles` default; explicit tiles
+always win. Integrity-checked plans (``integrity != "off"``) verify
 the ABFT row-sum identity on the raw int32 accumulator of every route that
 has one and report the flag to :mod:`~repro_torch.core.integrity`.
 Tensor-parallel plans raise: their key field exists so a later slice need
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import warnings
 from typing import Any, Callable, Optional, Tuple
 
 import torch
@@ -108,13 +112,20 @@ class PlanKey:
 class PlanRegistry:
     """Interning cache ``PlanKey -> MatmulPlan``: a repeated key returns
     the identical plan. ``hits``/``misses`` count lookups, ``calls`` counts
-    executions per route (the engine's route report)."""
+    executions per route (the engine's route report).
+
+    An attached tuner (:meth:`attach_tuner`; see ``core/autotune``) is
+    asked for a plan's tiles before the ``hopper_tiles`` default; with a
+    persistent store behind it, plans are tuned once per host. ``clear``
+    drops plans but keeps the tuner, so a re-resolved plan still finds its
+    stored tiles."""
 
     def __init__(self) -> None:
         self._plans: dict[PlanKey, "MatmulPlan"] = {}
         self.hits = 0
         self.misses = 0
         self.calls: collections.Counter = collections.Counter()
+        self.tuner = None
 
     def get(self, key: PlanKey) -> "MatmulPlan":
         plan = self._plans.get(key)
@@ -125,6 +136,23 @@ class PlanRegistry:
         else:
             self.hits += 1
         return plan
+
+    def attach_tuner(self, tuner) -> None:
+        """Attach (or, with None, detach) a ``PlanAutotuner``-shaped object:
+        ``tiles_for(key, kernel) -> (bm, bn, bk, k_split) | None`` and
+        ``stats()``. The serving layer injects it; core imports no runtime
+        module. A change of tuner drops the plans the old one tuned, so
+        every plan's tiles come from the attached tuner or the default."""
+        if tuner is not self.tuner:
+            self._plans = {k: p for k, p in self._plans.items() if not p.tuned}
+        self.tuner = tuner
+
+    def store_stats(self) -> dict:
+        """The tuner's and its store's counters for engine ``stats()``;
+        zeros with no tuner attached."""
+        if self.tuner is None:
+            return {"store_hits": 0, "store_misses": 0, "tunes": 0}
+        return self.tuner.stats()
 
     def clear(self) -> None:
         self._plans.clear()
@@ -268,10 +296,22 @@ def _build_plan(key: PlanKey, registry: "PlanRegistry") -> "MatmulPlan":
     pack_block = None
     if kernel == "fused_cached":
         pack_block = cache[4]
-    bm, bn, bk = _ops().hopper_tiles(
-        key.m, key.k, key.n, kernel=kernel, bm=key.bm, bn=key.bn, bk=key.bk,
-        pack_block=pack_block,
-    )
+    # Tiles, once: explicit tiles win; else an attached tuner (a store hit
+    # or a fresh measurement on the card, core/autotune) gives the row tile
+    # and the K split; else the hopper_tiles default, whose K split the
+    # wrappers pick at launch (k_split None).
+    tiles = None
+    if registry.tuner is not None and key.bm is None and key.bn is None and key.bk is None:
+        tiles = registry.tuner.tiles_for(key, kernel)
+    tuned = tiles is not None
+    if tuned:
+        bm, bn, bk, k_split = tiles
+    else:
+        k_split = None
+        bm, bn, bk = _ops().hopper_tiles(
+            key.m, key.k, key.n, kernel=kernel, bm=key.bm, bn=key.bn, bk=key.bk,
+            pack_block=pack_block,
+        )
     if kernel == "fused_repack":
         pack_block = bk  # the weight is packed with the K tile as block
 
@@ -299,6 +339,8 @@ def _build_plan(key: PlanKey, registry: "PlanRegistry") -> "MatmulPlan":
         trunc_cache=trunc_cache,
         gate=gate,
         check=check,
+        tuned=tuned,
+        k_split=k_split,
     )
 
 
@@ -361,6 +403,7 @@ def _exec_fused_cached(plan, x, w, wp, ep):
     out2 = _ops().fused_linear(
         x2.contiguous(), packed_w, _a_scale_rows(ep), a_bits=key.a_bits,
         variant=key.variant, backend=key.backend, bm=plan.bm, gate=plan.gate,
+        k_split=plan.k_split,
     )
     return out2.reshape(lead + (packed_w.mag.shape[-1],))
 
@@ -375,6 +418,7 @@ def _exec_fused_repack(plan, x, w, wp, ep):
     out2 = _ops().fused_linear(
         x2.contiguous(), packed_w, _a_scale_rows(ep), a_bits=key.a_bits,
         variant=key.variant, backend=key.backend, bm=plan.bm, gate=plan.gate,
+        k_split=plan.k_split,
     )
     return out2.reshape(lead + (packed_w.mag.shape[-1],))
 
@@ -390,7 +434,8 @@ def _exec_cached_packed(plan, x, w, wp, ep):
         dec_a, axis=-1, variant=key.variant, block=wp_eff.packed.block,
     )
     out2 = ops.plane_matmul_packed(
-        pa, wp_eff.packed, pw, backend=key.backend, bm=plan.bm, gate=plan.gate
+        pa, wp_eff.packed, pw, backend=key.backend, bm=plan.bm, gate=plan.gate,
+        k_split=plan.k_split,
     )
     if plan.check:
         _abft_check(plan, x2, out2, bp.checksum_vector(wp_eff.packed))
@@ -415,7 +460,7 @@ def _exec_cached_planes(plan, x, w, wp, ep):
     pw = ops._pair_weights(dec_a.weights, wp_eff.weights, x.device)
     out2 = ops.plane_matmul(
         dec_a.planes.to(torch.int8).contiguous(), wpl.to(torch.int8).contiguous(), pw,
-        backend=key.backend, bm=plan.bm,
+        backend=key.backend, bm=plan.bm, k_split=plan.k_split,
     )
     if plan.check:
         _abft_check(plan, x2, out2, bp.checksum_vector(wp_eff.packed))
@@ -449,13 +494,14 @@ def _exec_staged(plan, x, w, wp, ep):
         pa = bp.pack_decomposition(dec_a, axis=-1, variant=key.variant)
         pwk = bp.pack_decomposition(dec_w, axis=-2, variant=key.variant)
         out2 = ops.plane_matmul_packed(
-            pa, pwk, pw, backend=key.backend, bm=plan.bm, gate=plan.gate
+            pa, pwk, pw, backend=key.backend, bm=plan.bm, gate=plan.gate,
+            k_split=plan.k_split,
         )
     else:
         out2 = ops.plane_matmul(
             dec_a.planes.to(torch.int8).contiguous(),
             dec_w.planes.to(torch.int8).contiguous(), pw,
-            backend=key.backend, bm=plan.bm,
+            backend=key.backend, bm=plan.bm, k_split=plan.k_split,
         )
     if plan.check:
         # uncached route: the row sums come from the in-hand integer weight
@@ -524,6 +570,13 @@ class MatmulPlan:
     trunc_cache: bool
     gate: bool = False
     check: bool = False
+    #: provenance: the tiles came from an attached autotuner (a store hit or
+    #: a fresh measurement) rather than the ``hopper_tiles`` default. A tuned
+    #: plan is bit-equal to the default's: tiles and K splits change the
+    #: launch geometry, and split partial sums meet modulo 2^32 in any order
+    tuned: bool = False
+    #: K splits the Hopper kernel's launch takes (None: its default at launch)
+    k_split: Optional[int] = None
 
     def __call__(self, x, w=None, *, w_planes=None, epilogue=None):
         key = self.key
@@ -609,6 +662,25 @@ class MatmulPlan:
             skipped_fraction=round(1.0 - executed / max(dense, 1), 4),
         )
         return out
+
+    def describe(self) -> str:
+        k = self.key
+        s = (
+            f"MatmulPlan[{k.m}x{k.k}x{k.n}] w{k.w_bits}a{k.a_bits} "
+            f"{k.level}/{k.variant} -> {self.kernel} backend={k.backend} "
+            f"tiles=(bm={self.bm}, bn={self.bn}, bk={self.bk})"
+        )
+        if self.k_split is not None:
+            s += f" k_split={self.k_split}"
+        if self.tuned:
+            s += " tuned"
+        if self.a_shift or self.w_shift:
+            s += f" trunc(w {k.w_in_bits}->{k.w_bits}, a {k.a_in_bits}->{k.a_bits})"
+        if k.sparsity != "off":
+            s += f" sparsity={k.sparsity}{' (gated)' if self.gate else ''}"
+        if k.integrity != "off":
+            s += f" integrity={k.integrity}{' (checked)' if self.check else ''}"
+        return s
 
 
 # ---------------------------------------------------------------------------
@@ -743,3 +815,32 @@ def plan_cacheable(policy: PrecisionPolicy, prec: LayerPrecision) -> bool:
         and prec.active
         and max(prec.w_bits, prec.a_bits) <= 8
     )
+
+
+# ---------------------------------------------------------------------------
+# Deprecation plumbing for the legacy flag API (ops.bitserial_matmul)
+# ---------------------------------------------------------------------------
+
+_DEPRECATION_WARNED: set[str] = set()
+
+_DEPRECATION_TEXT = {
+    "packed": "bitserial_matmul(packed=…) is deprecated; packing is resolved "
+    "once at plan time — use repro_torch.core.plan.make_plan / plan_for_operands",
+    "fused": "bitserial_matmul(fused=…) is deprecated; epilogue fusion is "
+    "resolved once at plan time — use repro_torch.core.plan.make_plan / "
+    "plan_for_operands",
+    "epilogue": "bitserial_matmul(epilogue=…) is deprecated; build a plan "
+    "with has_epilogue=True and pass the epilogue to the plan call",
+}
+
+
+def _warn_deprecated(kw: str) -> None:
+    """One DeprecationWarning per legacy keyword per process."""
+    if kw in _DEPRECATION_WARNED:
+        return
+    _DEPRECATION_WARNED.add(kw)
+    warnings.warn(_DEPRECATION_TEXT[kw], DeprecationWarning, stacklevel=3)
+
+
+def _reset_deprecation_warnings() -> None:
+    _DEPRECATION_WARNED.clear()

@@ -160,11 +160,33 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def k_split(m: int, n: int, kw: int, tile: int, device: torch.device) -> int:
-    """K splits (at most one per chunk) that bring the grid to
-    ``BLOCKS_PER_SM`` blocks per SM; partial sums meet by atomics."""
+def k_split(m: int, n: int, n_chunks: int, tile: int, sms: int) -> int:
+    """The kernels' default K split of an (M, N) call at row tile ``tile``
+    on ``sms`` SMs (at most one split per K chunk; partial sums meet by
+    atomics). A grid under one wave of ``BLOCKS_PER_SM`` blocks on each SM
+    is split until it fills that wave. A grid of a wave or more takes, of
+    at most ``BLOCKS_PER_SM`` splits, the one whose last wave ends first
+    (waves times K chunks a block; the fewer splits on a tie): it fills a
+    part-empty last wave."""
     blocks = -(-n // COLS_PER_BLOCK) * -(-m // tile)
-    return max(1, min(-(-kw // CHUNK_WORDS), -(-BLOCKS_PER_SM * _sm_count(device) // blocks)))
+    slots = BLOCKS_PER_SM * sms
+    if blocks < slots:
+        return max(1, min(n_chunks, -(-slots // blocks)))
+
+    def span(split: int) -> int:
+        per = -(-n_chunks // split)  # chunks a block; the kernels launch ceil(n_chunks/per) ranges
+        return -(-blocks * -(-n_chunks // per) // slots) * per
+
+    return min(range(1, min(n_chunks, BLOCKS_PER_SM) + 1), key=lambda s: (span(s), s))
+
+
+def checked_k_split(k_split_: Optional[int]) -> Optional[int]:
+    """An explicit K split passed through (an int >= 1; the kernels cap it
+    at the call's K chunks), or None for :func:`k_split`'s default."""
+    if k_split_ is not None and (isinstance(k_split_, bool) or not isinstance(k_split_, int)
+                                 or k_split_ < 1):
+        raise ValueError(f"k_split must be an int >= 1, got {k_split_!r}")
+    return k_split_
 
 
 def vec4_ok(n: int, *words: Optional[torch.Tensor]) -> bool:

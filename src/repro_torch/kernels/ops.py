@@ -29,13 +29,21 @@ __all__ = [
     "BACKENDS",
     "Epilogue",
     "apply_epilogue",
+    "bitserial_matmul",
     "flash_attention",
     "fused_linear",
     "hopper_tiles",
+    "k_chunks",
     "plane_matmul",
     "plane_matmul_packed",
     "resolve_backend",
+    "tiles_legal",
 ]
+
+#: plan routes whose kernel is the fused one (its K tile is the weight's
+#: pack block) and those whose kernel is the packed one
+FUSED_KERNELS = ("fused_cached", "fused_repack")
+PACKED_KERNELS = ("cached_packed", "staged_packed")
 
 
 def resolve_backend(backend: str, device=None) -> str:
@@ -71,8 +79,8 @@ def hopper_tiles(
     ``plane_matmul``'s K tile) or, on the fused routes, the weight's pack
     block (the kernel stages any block in 16-word chunks). Explicit values
     pass through and the kernels check them."""
-    fused = kernel in ("fused_cached", "fused_repack")
-    packed = kernel in ("cached_packed", "staged_packed")
+    fused = kernel in FUSED_KERNELS
+    packed = kernel in PACKED_KERNELS
     if bm is None:
         bm = bytesplit.row_tile(m)
     if bn is None:
@@ -85,6 +93,56 @@ def hopper_tiles(
         else:
             bk = plane_mm.K_TILE
     return bm, bn, bk
+
+
+def k_chunks(kernel: str, k: int, bk: int) -> int:
+    """The K chunks a route's kernel splits over (the unit of ``k_split``):
+    16 packed words on the fused route (whose ``bk``, the pack block, pads
+    K to whole blocks) and the packed one, ``plane_mm.K_TILE`` values on
+    the plane-pair route and the plain ones."""
+    if kernel in FUSED_KERNELS:
+        words = -(-k // bk) * bk // bp.WORD_BITS
+    elif kernel in PACKED_KERNELS:
+        words = -(-k // bp.WORD_BITS)
+    else:
+        return -(-k // plane_mm.K_TILE)
+    return -(-words // bytesplit.CHUNK_WORDS)
+
+
+def tiles_legal(
+    bm: int,
+    bn: int,
+    bk: int,
+    *,
+    kernel: str,
+    k_split: Optional[int] = None,
+    k: Optional[int] = None,
+    pack_block: Optional[int] = None,
+) -> bool:
+    """Would the Hopper kernels of ``kernel``'s route take these tiles?
+
+    The one predicate the autotuner's candidates and its check of a stored
+    record share: ``bm`` one of the instantiated row tiles
+    (``bytesplit.ROW_TILES``), ``bn`` the 128 columns of a block (four
+    warps; the kernels have no other column tile), ``bk`` the route's own
+    K extent (:func:`hopper_tiles`: the fused route's pack block, a whole
+    number of words, given ``k`` the one its weight is packed with), and
+    ``k_split`` an int in ``[1, k_chunks]`` (with ``k``; else >= 1)."""
+    if bm not in bytesplit.ROW_TILES or bn != bytesplit.COLS_PER_BLOCK:
+        return False
+    if kernel in FUSED_KERNELS:
+        if bk <= 0 or bk % bp.WORD_BITS:
+            return False
+        if k is not None and bk != hopper_tiles(1, k, 1, kernel=kernel,
+                                                pack_block=pack_block)[2]:
+            return False
+    elif bk != hopper_tiles(1, k or 1, 1, kernel=kernel)[2]:
+        return False
+    if k_split is None:
+        return True
+    if isinstance(k_split, bool) or not isinstance(k_split, int) or k_split < 1:
+        return False
+    return k is None or k_split <= k_chunks(kernel, k, bk)
 
 
 # ---------------------------------------------------------------------------
@@ -141,12 +199,13 @@ def plane_matmul(
     *,
     backend: str = "auto",
     bm: Optional[int] = None,
+    k_split: Optional[int] = None,
 ) -> torch.Tensor:
     """Plane-pair matmul: the Hopper kernel or its plain version."""
     backend = resolve_backend(backend, a_planes.device)
     if backend == "torch":
         return plane_matmul_ref(a_planes, w_planes, pair_weights)
-    return plane_mm.plane_matmul(a_planes, w_planes, pair_weights, bm=bm)
+    return plane_mm.plane_matmul(a_planes, w_planes, pair_weights, bm=bm, k_split=k_split)
 
 
 def plane_matmul_packed(
@@ -157,6 +216,7 @@ def plane_matmul_packed(
     backend: str = "auto",
     bm: Optional[int] = None,
     gate: bool = False,
+    k_split: Optional[int] = None,
 ) -> torch.Tensor:
     """Packed plane matmul: the Hopper kernel or its plain version.
     ``gate`` skips all-zero plane work in the kernel (bit-identical); the
@@ -166,7 +226,7 @@ def plane_matmul_packed(
     if backend == "torch":
         return plane_mm_packed.plane_matmul_packed_plain(packed_a, packed_w, pair_weights)
     return plane_mm_packed.plane_matmul_packed(
-        packed_a, packed_w, pair_weights, bm=bm, gate=gate
+        packed_a, packed_w, pair_weights, bm=bm, gate=gate, k_split=k_split
     )
 
 
@@ -180,6 +240,7 @@ def fused_linear(
     backend: str = "auto",
     bm: Optional[int] = None,
     gate: bool = False,
+    k_split: Optional[int] = None,
 ) -> torch.Tensor:
     """Fully-fused bit-serial linear over 2-D quantized activations.
 
@@ -202,7 +263,8 @@ def fused_linear(
         )
     if epilogue is not None and epilogue.out_dtype != torch.bfloat16:
         acc = plane_mm_fused.fused_plane_linear(
-            x_q, packed_w, pair_w, a_bits=a_bits, variant=variant, bm=bm, gate=gate
+            x_q, packed_w, pair_w, a_bits=a_bits, variant=variant, bm=bm, gate=gate,
+            k_split=k_split,
         )
         m, n = acc.shape
         return epilogue_plain(
@@ -211,7 +273,8 @@ def fused_linear(
             epilogue.bias, epilogue.activation, epilogue.out_dtype,
         )
     return plane_mm_fused.fused_plane_linear(
-        x_q, packed_w, pair_w, a_bits=a_bits, variant=variant, bm=bm, gate=gate, **ep
+        x_q, packed_w, pair_w, a_bits=a_bits, variant=variant, bm=bm, gate=gate,
+        k_split=k_split, **ep
     )
 
 
@@ -231,6 +294,70 @@ def _matmul_cached(
         dec_a = bp.to_digits(a2, a_bits, variant)
         wpl = w_planes.planes
     return bs._plane_pair_scan(dec_a, bp.PlaneDecomposition(wpl, w_planes.weights))
+
+
+def bitserial_matmul(
+    a: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    a_bits: int,
+    w_bits: int,
+    variant: str = "booth",
+    level: str = "digit",
+    mode: str = "fully_serial",
+    backend: str = "auto",
+    accum_dtype=torch.int32,
+    packed: Optional[bool] = None,
+    w_planes: Optional[bp.WeightPlanes] = None,
+    fused: Optional[bool] = None,
+    epilogue: Optional[Epilogue] = None,
+    **tile_kw,
+) -> torch.Tensor:
+    """Kernel-dispatching bit-serial matmul — the reference's **legacy
+    compatibility shim** (``src/repro/kernels/ops.py::bitserial_matmul``).
+
+    It builds (or fetches, interned by shape, precision, backend and cache
+    layout) a :class:`~repro_torch.core.plan.MatmulPlan` for ``a``'s device
+    and runs it, with the reference's dispatch semantics: ``packed=True``
+    raises for configurations it cannot pack (digit planes, non-serial
+    modes, non-int32 accumulation), ``fused=True`` for those the fused
+    kernel cannot serve; ``None`` is auto, ``fused=False`` keeps the
+    staged kernels and the plain epilogue; ``w_planes`` supplies the
+    decompose-once cache; ``bm``/``bn``/``bk`` are requested tiles. The
+    ``packed=``/``fused=``/``epilogue=`` keywords are deprecated (one
+    :class:`DeprecationWarning` each per process): resolve a plan once
+    with :func:`~repro_torch.core.plan.plan_for_operands` or ``make_plan``
+    and call it."""
+    from repro_torch.core import plan as plan_mod
+
+    unknown = set(tile_kw) - {"bm", "bn", "bk"}
+    if unknown:
+        raise TypeError(
+            f"bitserial_matmul got unexpected keyword argument(s) {sorted(unknown)}; "
+            "tile keywords are bm/bn/bk"
+        )
+    for kw_name, val in (("packed", packed), ("fused", fused), ("epilogue", epilogue)):
+        if val is not None:
+            plan_mod._warn_deprecated(kw_name)
+    plan = plan_mod.plan_for_operands(
+        (a.shape, w.shape),
+        a_bits=a_bits,
+        w_bits=w_bits,
+        variant=variant,
+        level=level,
+        mode=mode,
+        backend=backend,
+        device=a.device,
+        accum_dtype=accum_dtype,
+        has_epilogue=epilogue is not None,
+        w_planes=w_planes,
+        fused=fused,
+        packed=packed,
+        bm=tile_kw.get("bm"),
+        bn=tile_kw.get("bn"),
+        bk=tile_kw.get("bk"),
+    )
+    return plan(a, w, w_planes=w_planes, epilogue=epilogue)
 
 
 def _pad_to(x: torch.Tensor, multiples: tuple) -> torch.Tensor:

@@ -24,8 +24,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.bytesplit import BLOCKS_PER_SM, COLS_PER_BLOCK, _sm_count, row_tile
+from repro_torch.kernels import _build, bytesplit
+from repro_torch.kernels.bytesplit import _sm_count, row_tile
 from repro_torch.kernels.ref import plane_matmul_ref
 
 #: K values per chunk: one pair product's exact int32 span, the unit of the K split
@@ -97,14 +97,6 @@ def byte_transpose4x4(words: Sequence[int]) -> list[int]:
             perm(t2, t3, 0x7632)]
 
 
-def k_split(m: int, n: int, k: int, tile: int, device: torch.device) -> int:
-    """K splits (at most one per chunk) that bring the grid to
-    ``BLOCKS_PER_SM`` blocks per SM; partial sums meet by atomics. The row
-    tiles and the 128-column blocks are the byte-split kernels'."""
-    blocks = -(-n // COLS_PER_BLOCK) * -(-m // tile)
-    return max(1, min(-(-k // K_TILE), -(-BLOCKS_PER_SM * _sm_count(device) // blocks)))
-
-
 def _lib():
     fn = _build.load("plane_mm").plane_matmul_launch
     if fn.argtypes is None:
@@ -120,17 +112,23 @@ def plane_matmul(
     pair_weights: torch.Tensor,
     *,
     bm: Optional[int] = None,
+    k_split: Optional[int] = None,
 ) -> torch.Tensor:
     """sum_{i,j} pair_weights[i*P_w+j] * (a_planes[i] @ w_planes[j]) as
-    (M, N) int32, wrapping, for any int32 pair weights. CPU tensors run the
-    plain version; CUDA tensors launch the kernel, and arguments it does
-    not take raise."""
+    (M, N) int32, wrapping, for any int32 pair weights. ``bm`` (the row
+    tile: 8, 16 or 32 tokens) and ``k_split`` (the ranges the ``K_TILE``
+    chunks split into) choose the launch's geometry, never its result;
+    None takes :func:`bytesplit.row_tile` / :func:`bytesplit.k_split`
+    (the byte-split kernels' row tiles and 128-column blocks). CPU tensors
+    run the plain version; CUDA tensors launch the kernel, and arguments
+    it does not take raise."""
     n_a, m, k = a_planes.shape
     n_w, k2, n = w_planes.shape
     if k != k2:
         raise ValueError(f"K mismatch {tuple(a_planes.shape)} vs {tuple(w_planes.shape)}")
     if tuple(pair_weights.shape) != (n_a * n_w,):
         raise ValueError("pair_weights must have shape (P_a * P_w,)")
+    bytesplit.checked_k_split(k_split)
     if not a_planes.is_cuda:
         return plane_matmul_plain(a_planes, w_planes, pair_weights)
     dev = a_planes.device
@@ -148,7 +146,7 @@ def plane_matmul(
     if n_w > MAX_W_PLANES:
         raise ValueError(f"the kernel takes at most {MAX_W_PLANES} weight planes, got {n_w}")
     tile = row_tile(m, bm)
-    ksplit = k_split(m, n, k, tile, dev)
+    ksplit = k_split or bytesplit.k_split(m, n, -(-k // K_TILE), tile, _sm_count(dev))
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
     plane_matmul.launches += 1
     err = _lib()(

@@ -182,6 +182,7 @@ def fused_plane_linear(
     out_dtype: torch.dtype = torch.bfloat16,
     bm: Optional[int] = None,
     gate: bool = False,
+    k_split: Optional[int] = None,
 ) -> torch.Tensor:
     """Fused bit-serial linear: quantized matmul + dequant epilogue.
 
@@ -201,10 +202,13 @@ def fused_plane_linear(
     counted by ``plane_matmul``). With ``a_scale``/``w_scale`` the
     epilogue runs and the result is bf16; without, the raw int32
     accumulator comes back. ``gate`` (occupancy-gated pairs) gives the same
-    result; the kernel reads every word. CPU tensors run the plain
-    version; CUDA tensors launch a kernel, and arguments it does not take
-    raise.
+    result; the kernel reads every word. ``bm`` (the row tile) and
+    ``k_split`` (the ranges the K chunks split into) choose the launch's
+    geometry, never its result; None takes :func:`bytesplit.row_tile` /
+    :func:`bytesplit.k_split`. CPU tensors run the plain version; CUDA
+    tensors launch a kernel, and arguments it does not take raise.
     """
+    bytesplit.checked_k_split(k_split)
     if not x_q.is_cuda:
         return fused_plane_linear_plain(
             x_q, packed_w, pair_weights, a_bits=a_bits, variant=variant,
@@ -251,7 +255,8 @@ def fused_plane_linear(
     if bytesplit.pair_route(pair_weights, wa, packed_w.weights, a_bits,
                             packed_w.mag.shape[0]) == bytesplit.ALL_PAIRS:
         acc = plane_mm.plane_matmul(torch.stack(slice_activation_planes(x_q, a_bits, variant)),
-                                    unpack_planes(packed_w).contiguous(), pair_weights, bm=bm)
+                                    unpack_planes(packed_w).contiguous(), pair_weights, bm=bm,
+                                    k_split=k_split)
         if raw:
             return acc
         out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
@@ -264,7 +269,8 @@ def fused_plane_linear(
     # the pair weights' factors, from the plane weights
     plan = bytesplit.digit_plan(wa, tuple(packed_w.weights), packed_w.sign is not None, 1)
     tile = row_tile(m, bm)
-    ksplit = bytesplit.k_split(m, n, kw, tile, dev)
+    ksplit = k_split or bytesplit.k_split(m, n, -(-kw // bytesplit.CHUNK_WORDS), tile,
+                                          bytesplit._sm_count(dev))
     out = torch.empty((m, n), dtype=torch.int32 if raw else torch.bfloat16, device=dev)
     ws = torch.empty((m, n), dtype=torch.int32, device=dev) if ksplit > 1 else None
     adig = torch.empty((m, bytesplit.padded_words(kw) * WORD_BITS), dtype=torch.uint8, device=dev)

@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.core.bitplanes import WORD_BITS, PackedPlanes, occupancy_per_tile, unpack_planes
 from repro_torch.kernels import _build, bytesplit, plane_mm
-from repro_torch.kernels.bytesplit import CHUNK_WORDS, row_tile
+from repro_torch.kernels.bytesplit import CHUNK_WORDS, _sm_count, row_tile
 from repro_torch.kernels.ref import plane_matmul_ref
 
 
@@ -99,6 +99,7 @@ def plane_matmul_packed(
     *,
     bm: Optional[int] = None,
     gate: bool = False,
+    k_split: Optional[int] = None,
 ) -> torch.Tensor:
     """sum_{i,j} pair_weights[i*P_w+j] * (A_i @ W_j) as (M, N) int32 from
     packed planes, for any int32 pair weights. When ``pair_weights`` is the
@@ -111,14 +112,18 @@ def plane_matmul_packed(
     (:func:`bytesplit.pair_route`: no read-back for a pw that
     ``ops._pair_weights`` built, which must not be written; any other pw
     is read back on every call). ``gate`` skips weight tiles the pack-time
-    occupancy marks zero, with a bit-identical result. CPU tensors run the
-    plain version; CUDA tensors launch a kernel, and arguments it does not
-    take raise."""
+    occupancy marks zero, with a bit-identical result. ``bm`` (the row
+    tile) and ``k_split`` (the ranges the K chunks split into) choose the
+    launch's geometry, never its result; None takes
+    :func:`bytesplit.row_tile` / :func:`bytesplit.k_split`. CPU tensors run
+    the plain version; CUDA tensors launch a kernel, and arguments it does
+    not take raise."""
     if gate and packed_w.occupancy is None:
         raise ValueError(
             "gate=True needs weight occupancy metadata; re-pack the weight "
             "operand (pack_planes computes it) or pass gate=False"
         )
+    bytesplit.checked_k_split(k_split)
     if not packed_a.mag.is_cuda:
         return plane_matmul_packed_plain(packed_a, packed_w, pair_weights)
     validate_packed_operands(packed_a, packed_w, pair_weights)
@@ -142,7 +147,7 @@ def plane_matmul_packed(
                             n_w) == bytesplit.ALL_PAIRS:
         return plane_mm.plane_matmul(unpack_planes(packed_a).contiguous(),
                                      unpack_planes(packed_w).contiguous(),
-                                     pair_weights.contiguous(), bm=bm)
+                                     pair_weights.contiguous(), bm=bm, k_split=k_split)
     occ = None
     if gate:
         if packed_w.occupancy.device != dev:
@@ -153,7 +158,7 @@ def plane_matmul_packed(
     plan = bytesplit.digit_plan(tuple(packed_a.weights), tuple(packed_w.weights),
                                 wsg is not None, n_ad)
     tile = row_tile(m, bm)
-    ksplit = bytesplit.k_split(m, n, kw, tile, dev)
+    ksplit = k_split or bytesplit.k_split(m, n, -(-kw // CHUNK_WORDS), tile, _sm_count(dev))
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
     adig = torch.empty((n_ad, m, bytesplit.padded_words(kw) * WORD_BITS), dtype=torch.uint8,
                        device=dev)

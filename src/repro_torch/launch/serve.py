@@ -97,6 +97,15 @@ a declared shared prompt prefix. On the card every decode step's
 attention reads the pools straight through the block tables in the paged
 flash-attention kernel.
 
+With ``autotune=True`` (``--autotune``) a tile autotuner
+(``core/autotune``) is attached to the process plan registry before the
+first plan resolves, optionally backed by a persistent per-host plan store
+(``plan_store_path``, ``--plan-store``; ``runtime/plan_store``): on the
+card each new plan's launch geometry (row tile, K split) is measured on
+its route's kernel, and a warm store serves every plan with zero tuning.
+Tokens are bit-identical to the untuned engine's. Plans resolve in a
+step's eager warm-up, never inside a CUDA-graph capture.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
         --reduced --bits 8 --level bitplane --prompt-lens 8,32,64 --gen 16 \
         --precision-switch 8:4
@@ -110,6 +119,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import os
 import time
 import warnings
 from typing import Optional, Tuple
@@ -406,9 +416,11 @@ class _IntegrityRuntime:
     def _requantize(self, params):
         """Source -> serving tree. Load time and a scrub's rebuild share
         this one path, so a rebuild from intact source reproduces the
-        load-time fingerprint."""
+        load-time fingerprint. ``value_bits`` quantizes the weight values
+        narrower than the storage width (a narrow checkpoint served from
+        the uniform-width cache)."""
         return quantize_params(params, self.policy, plane_cache=self.plane_cache,
-                               cfg=self.cfg)
+                               value_bits=self._value_bits, cfg=self.cfg)
 
     def _scrub(self) -> None:
         """Rebuild the quantized tree from the retained source, check its
@@ -448,6 +460,66 @@ class _IntegrityRuntime:
         return True
 
 
+class _PlanTuning:
+    """Shared autotuner wiring for both engines (the reference's
+    ``_PlanTuning``).
+
+    ``autotune=True`` attaches a tile autotuner (``core/autotune``),
+    optionally backed by a persistent per-host plan store
+    (``runtime/plan_store``), to the process plan registry at construction,
+    before any plan of the engine resolves: with a warm store the engine
+    starts with zero tuning runs. Engines of one process on one store share
+    the tuner and its memo. The tuner's model takes the hardware row of the
+    engine's device, fitted to the kernel report that
+    ``BENCH_TORCH_KERNEL_JSON`` names when it is set (never the reference's
+    ``BENCH_kernel.json``). ``plan_stats`` gives the registry's counters and
+    the tuner's store hits, misses and tunes.
+
+    The registry is the process's, so the engine built last decides: an
+    engine with ``autotune=False`` detaches any tuner an earlier engine
+    attached (and the registry drops that tuner's plans), so it runs the
+    default tiles and reports no tuner's counters."""
+
+    def _init_autotune(self, autotune: bool, plan_store_path, device) -> None:
+        self.autotuner = None
+        if not autotune:
+            if plan_store_path:
+                raise ValueError(
+                    "plan_store_path requires autotune=True (the store is "
+                    "only read/written by the attached tuner)"
+                )
+            plan_mod.DEFAULT_REGISTRY.attach_tuner(None)
+            return
+        from repro_torch.core.autotune import PlanAutotuner, calibrate_from_bench, hardware_model
+        from repro_torch.runtime.plan_store import PlanStore
+
+        registry = plan_mod.DEFAULT_REGISTRY
+        store = PlanStore(plan_store_path) if plan_store_path else None
+        current = registry.tuner
+        if (
+            current is not None
+            and store is not None
+            and getattr(getattr(current, "store", None), "path", None) == store.path
+        ):
+            self.autotuner = current
+            return
+        backend = "cuda" if device.type == "cuda" else "cpu"
+        bench_path = os.environ.get("BENCH_TORCH_KERNEL_JSON")
+        hw = calibrate_from_bench(bench_path, backend) if bench_path else hardware_model(backend)
+        self.autotuner = PlanAutotuner(store=store, hw=hw)
+        registry.attach_tuner(self.autotuner)
+
+    def plan_stats(self) -> dict:
+        reg = plan_mod.DEFAULT_REGISTRY
+        out = {
+            "registry_hits": reg.hits,
+            "registry_misses": reg.misses,
+            "resolved": len(reg),
+        }
+        out.update(reg.store_stats())
+        return out
+
+
 def _check_backend(device, compile_steps: bool, backend: str) -> None:
     if compile_steps and device.type == "cuda" and backend == "torch":
         raise ValueError(
@@ -457,7 +529,7 @@ def _check_backend(device, compile_steps: bool, backend: str) -> None:
         )
 
 
-class Engine(_PrecisionDial, _StepRunner, _IntegrityRuntime):
+class Engine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _PlanTuning):
     """The lockstep batched generation engine: one fixed batch prefills
     together and decodes in unison (the reference's ``Engine``).
 
@@ -470,7 +542,10 @@ class Engine(_PrecisionDial, _StepRunner, _IntegrityRuntime):
     (ABFT), the weight fingerprint is audited every ``audit_interval``
     steps, and scrub mode retries an alarmed step from its pre-step state
     after scrubbing, at most ``max_retries`` times; :attr:`last_alarms`
-    counts the alarms of the last :meth:`generate`."""
+    counts the alarms of the last :meth:`generate`. ``value_bits`` serves
+    weight values quantized narrower than the storage width
+    (``quantize_params``); ``autotune`` / ``plan_store_path`` attach the
+    tile autotuner (:class:`_PlanTuning`)."""
 
     def __init__(
         self,
@@ -481,8 +556,11 @@ class Engine(_PrecisionDial, _StepRunner, _IntegrityRuntime):
         plane_cache: bool = True,
         sample_fn=None,
         seed: int = 0,
+        value_bits: Optional[int] = None,
         audit_interval: int = 1,
         max_retries: int = 2,
+        autotune: bool = False,
+        plan_store_path: Optional[str] = None,
         device=None,
         backend: str = "auto",
         compile_steps: bool = True,
@@ -493,6 +571,8 @@ class Engine(_PrecisionDial, _StepRunner, _IntegrityRuntime):
             raise ValueError(f"audit_interval must be >= 0, got {audit_interval}")
         self.integrity = integrity.check_integrity_mode(policy.integrity)
         self.device = resolve_device(device)
+        self._init_autotune(autotune, plan_store_path, self.device)
+        self._value_bits = value_bits
         self.compile_steps = bool(compile_steps)
         _check_backend(self.device, self.compile_steps, backend)
         self.cfg = cfg
@@ -668,7 +748,7 @@ class _PrefillJob:
     alarms: list = dataclasses.field(default_factory=list)
 
 
-class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime):
+class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _PlanTuning):
     """Slot-scheduled serving over a shared, optionally int8, KV cache.
 
     ``n_slots`` decode lanes share one slot cache of ``max_len`` positions
@@ -703,6 +783,11 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime):
     steps; ``degrade_after``/``degrade_to`` are the deprecated spelling of
     a pure scrub-rate policy (they warn once per process).
 
+    ``value_bits`` serves weight values quantized narrower than the
+    storage width (``quantize_params``); ``autotune`` /
+    ``plan_store_path`` attach the tile autotuner (:class:`_PlanTuning`),
+    and ``stats()["plans"]`` reports its counters.
+
     ``compile_steps`` (default): on CUDA each precision's decode step is
     captured as a CUDA graph and replayed; a capture or replay error
     raises. ``False`` runs the step eagerly, as on the host (where it is
@@ -733,6 +818,9 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime):
         autopilot: Optional[AutopilotPolicy] = None,
         degrade_after: Optional[int] = None,
         degrade_to: int = 4,
+        value_bits: Optional[int] = None,
+        autotune: bool = False,
+        plan_store_path: Optional[str] = None,
     ):
         if not cfg.is_decoder:
             raise ValueError(f"{cfg.name} is encoder-only: no decode path")
@@ -783,6 +871,8 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime):
             raise ValueError("kv_pages needs page_size > 0 (paged KV)")
         self.audit_interval = audit_interval
         self.device = resolve_device(device)
+        self._init_autotune(autotune, plan_store_path, self.device)
+        self._value_bits = value_bits
         self.compile_steps = bool(compile_steps)
         _check_backend(self.device, self.compile_steps, backend)
         self.cfg = cfg
@@ -1546,6 +1636,9 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime):
             "quarantined_slots": sorted(sched.quarantined_slots),
             "route_calls": dict(calls),
             "device": str(self.device),
+            # the plan layer: registry hits and misses, the autotuner's store
+            # hits, misses and tunes (zeros untuned)
+            "plans": self.plan_stats(),
             # warm-up and capture host seconds of the graphs this run captured
             "capture_s": {str(p): t for p, t in self.capture_s.items() if p not in capture0},
         }
@@ -1733,10 +1826,6 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime):
 ROADMAP_REFUSALS = {
     "--model-parallel": "tensor-parallel serving is not ported yet (ROADMAP.md, queue 1, "
                         "item 11: tensor parallel)",
-    "--autotune": "the tile autotuner is not ported yet (ROADMAP.md, queue 1, item 10: "
-                  "tile autotuner)",
-    "--plan-store": "the persistent plan store comes with the tile autotuner, not ported "
-                    "yet (ROADMAP.md, queue 1, item 10: tile autotuner)",
 }
 
 
@@ -1844,9 +1933,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="synthetic workload: give every request the same "
                     "first N prompt tokens and declare them shared")
     ap.add_argument("--autotune", action="store_true",
-                    help="tile autotuning: " + ROADMAP_REFUSALS["--autotune"])
+                    help="tile autotuning: prune each plan's launch geometry "
+                    "(row tile bm, K split) with the calibrated analytic model, "
+                    "time <= 4 survivors on the route's kernel, and serve every "
+                    "plan at its winner (bit-identical tokens; tiles change the "
+                    "launch geometry, never the arithmetic)")
     ap.add_argument("--plan-store", default=None, metavar="PATH",
-                    help="persisted tile configurations: " + ROADMAP_REFUSALS["--plan-store"])
+                    help="persist winning tile configurations at PATH keyed "
+                    "(host fingerprint, plan key): a warm store restarts "
+                    "the process at peak with zero tuning runs — "
+                    "tune-once-per-fleet (needs --autotune)")
     ap.add_argument("--deadline", type=int, default=None, metavar="STEPS",
                     help="per-request deadline: fail any request not "
                     "finished within STEPS engine iterations of its "
@@ -1869,17 +1965,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def validate_args(args) -> None:
     """Fail fast on inconsistent flag combinations, with the reference's
-    messages; the flags of modules not ported yet die naming their ROADMAP
+    messages; ``--model-parallel`` (not ported yet) dies naming its ROADMAP
     item."""
 
     def die(msg):
         raise SystemExit(f"[serve] invalid flags: {msg}")
 
-    for flag, used in (("--model-parallel", args.model_parallel != 1),
-                       ("--autotune", args.autotune),
-                       ("--plan-store", args.plan_store is not None)):
-        if used and not (flag == "--model-parallel" and args.model_parallel < 1):
-            die(f"{flag}: {ROADMAP_REFUSALS[flag]}")
+    if args.model_parallel > 1:
+        die(f"--model-parallel: {ROADMAP_REFUSALS['--model-parallel']}")
     if args.no_cb:
         args.mode = "lockstep"
     if args.bits and not 1 <= args.bits <= 16:
@@ -1988,6 +2081,9 @@ def validate_args(args) -> None:
         die(str(e))
     if args.shared_prefix_len < 0:
         die("--shared-prefix-len must be >= 0")
+    if args.plan_store and not args.autotune:
+        die("--plan-store needs --autotune: the store is only read and "
+            "written by the attached tuner")
     if args.audit_interval < 0:
         die("--audit-interval must be >= 0")
     if args.sparsity != "off" and args.level != "bitplane":
@@ -2026,6 +2122,19 @@ def validate_args(args) -> None:
             die("--precision-switch step must be >= 0")
 
 
+def _print_plan_stats(engine) -> None:
+    ps = engine.plan_stats()
+    line = (
+        f"[serve] plans: {ps['resolved']} resolved "
+        f"(registry {ps['registry_hits']} hits / {ps['registry_misses']} "
+        f"misses), store {ps['store_hits']} hits / {ps['store_misses']} "
+        f"misses, {ps['tunes']} tuned"
+    )
+    if "fingerprint" in ps:
+        line += f", host {ps['fingerprint']}"
+    print(line)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     validate_args(args)
@@ -2062,12 +2171,15 @@ def main(argv=None):
             cfg, params, policy, max_len=args.prompt_len + args.gen,
             plane_cache=not args.no_plane_cache,
             sample_fn=sampling.make_sample_fn(args.temperature),
-            audit_interval=args.audit_interval, device=device,
+            audit_interval=args.audit_interval, autotune=args.autotune,
+            plan_store_path=args.plan_store, device=device,
         )
         if args.precision:
             engine.set_precision(args.precision)
         prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
         tokens, tps = engine.generate(prompts, args.gen)
+        if args.autotune:
+            _print_plan_stats(engine)
         print(f"[serve] {tag} lockstep: generated {tuple(tokens.shape)} at {tps:.1f} tok/s")
         if args.integrity != "off":
             print(f"[serve] integrity={args.integrity}: {engine.last_alarms} alarms")
@@ -2101,7 +2213,10 @@ def main(argv=None):
         device=device, audit_interval=args.audit_interval, autopilot=ap_policy,
         page_size=args.kv_page_size, kv_pages=args.kv_pages,
         prefill_chunk=args.prefill_chunk, share_prefixes=args.share_prefixes,
+        autotune=args.autotune, plan_store_path=args.plan_store,
     )
+    if args.autotune:
+        tag += " autotuned"
     if args.kv_page_size:
         tag += f" paged/{args.kv_page_size}"
     if args.precision:
@@ -2175,6 +2290,8 @@ def main(argv=None):
             f"({ig['kv_alarms']} alarms), {ig['scrubs']} scrubs, "
             f"{ig['step_retries']} step retries"
         )
+    if args.autotune:
+        _print_plan_stats(engine)
     if injector is not None:
         undet = injector.undetected
         print(

@@ -1015,3 +1015,35 @@ def test_train_step_on_card_equals_host_step(cuda_device, w_bits, microbatches):
     for (path, a), b in zip(tr.flatten_with_path(hp), tr.leaves(cp)):
         assert a.dtype == b.dtype
         assert (a == b).float().mean() >= 0.97, tr.path_key(path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,level", [("fused_cached", "bitplane"), ("staged_packed", "bitplane"),
+                                         ("staged", "digit"), ("cached_planes", "bitplane")])
+@pytest.mark.parametrize("m,k,n", [(1, 33, 16), (5, 2000, 257), (40, 4096, 129)])
+def test_every_tuner_candidate_equals_the_default_on_card(cuda_device, route, level, m, k, n):
+    """Row tiles and K splits change a launch's geometry, never its result:
+    every candidate the tuner ranks gives the default's output bit for bit
+    (the fused kernel's raw accumulator and its bf16 epilogue), and the
+    tuner's timer returns a finite time for each and puts every wrapper's
+    launch count back."""
+    from repro_torch.core import autotune
+    from repro_torch.core.plan import PlanKey
+    from repro_torch.launch import graphs
+
+    cache = ("bitplane", "booth", 8, True, 512, False, 8, False) if route == "fused_cached" else None
+    key = PlanKey(m=m, k=k, n=n, a_bits=8, w_bits=8, a_in_bits=8, w_in_bits=8, variant="booth",
+                  level=level, mode="fully_serial", backend="cuda", accum="int32",
+                  has_epilogue=route == "fused_cached", cache=cache, fused=None, packed=None,
+                  bm=None, bn=None, bk=None)
+    timer = autotune.KernelTimer()
+    call = timer.route_call(key, route)
+    cands = autotune.tile_candidates(key, route)
+    for raw in ((False, True) if route == "fused_cached" else (False,)):
+        want = call(cands[0][0], cands[0][3], raw=raw)
+        for tiles in cands[1:]:
+            assert torch.equal(call(tiles[0], tiles[3], raw=raw), want), (tiles, raw)
+    before = {name: fn.launches for name, fn in graphs.launch_counters().items()}
+    for tiles in cands:
+        assert 0 < timer(key, route, tiles, repeats=1) < 1e6
+    assert {name: fn.launches for name, fn in graphs.launch_counters().items()} == before

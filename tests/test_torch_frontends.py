@@ -235,7 +235,7 @@ def test_float32_epilogue_takes_the_kernels_raw_accumulator(monkeypatch, rng):
     calls = []
 
     def kernel(x_q, packed_w, pair_w, *, a_scale=None, out_dtype=torch.bfloat16, bm=None,
-               gate=False, **kw):
+               gate=False, k_split=None, **kw):
         if a_scale is not None and out_dtype != torch.bfloat16:
             raise ValueError(f"the kernel's epilogue writes bfloat16, got {out_dtype}")
         calls.append(a_scale is None)

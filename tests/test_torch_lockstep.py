@@ -16,7 +16,7 @@ of its eager quantization, as in ``test_torch_scrub.py``):
   ``tests/test_serving.py``);
 * ``validate_args`` dies with the reference's message for every invalid
   combination of the flags the two share, and names the ROADMAP item for
-  the three flags still refused.
+  the flag still refused (``--model-parallel``).
 """
 
 import contextlib
@@ -279,9 +279,6 @@ def test_validate_args_dies_with_the_reference_message(argv):
 
 @pytest.mark.parametrize("argv, item", [
     (["--model-parallel", "2"], "item 11"),
-    (["--autotune"], "item 10"),
-    (["--plan-store", "plans.json"], "item 10"),
-    (["--autotune", "--plan-store", "plans.json"], "item 10"),
 ])
 def test_flags_of_later_items_are_refused_naming_the_item(argv, item):
     msg = _message(serve, argv)
