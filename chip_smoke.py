@@ -193,7 +193,23 @@ Phases, each failing the run on any error:
    within ``FAMILY_DLOGIT_TOL``). Every projection launches
    fused_plane_linear (the encoder's float32 projections take its raw
    accumulator);
-18. training at granite-3-8b's full width (``run_training``).
+18. training at granite-3-8b's full width (``run_training``);
+19. tensor-parallel serving at phase 3's width and depth: tp1-nccl (in
+   this process, a ``TPContext`` over an NCCL group of world size 1: the
+   tensor-parallel prefill and decode steps serve the workload's four
+   prompts and 16 decode steps; the decode step captured in a CUDA graph
+   with its collectives must replay the eager TP step's tokens, which must
+   equal the single-device steps'), then bitplane-tp2 and
+   bitplane-paged-tp2 (two ranks spawned over gloo, both on this card,
+   eager steps: gloo's collectives cannot be captured) on phase 3's and
+   phase 8's workloads: on each rank the tokens of the single-device cell,
+   fused_plane_linear for every column- and vocab-parallel projection,
+   plane_matmul_packed for every row-parallel one, the paged kernel layers
+   x decode steps times, no plain route; each rank's plane bytes at most
+   0.55 of one device's, its dense weights kept on the host (each rank's
+   card memory printed beside one device's). Before the cells, the plain
+   attention paths over one rank's heads at P = 2 and 4 must give the
+   whole heads' bits.
 
 Every engine cell's main run replays each decode step from the engine's
 CUDA graph of that precision (captured by the warm-up run; the counted
@@ -215,8 +231,9 @@ paged-integrity cells' lines carry the card's name and power limit), one
 ``{"kernels": [...]}`` summary line (the fold kernel's entry included; the
 fused kernel's entry also counts its launches on the QAT-trained weights,
 ``train_launches``, and in each phase-17 cell, ``arch_launches``; rows 1-3
-also their default and tuned device ms, ``autotune``), the card's name and
-power limit, and last
+also their default and tuned device ms, ``autotune``; rows 1, 2 and 5 their
+launches on each rank of the phase-19 cells, ``tp_launches``), the card's
+name and power limit, and last
 ``{"ok": true, ...}``.
 """
 
@@ -2979,10 +2996,12 @@ FAMILY_OPS_STEPS = 4  # decode steps of the profiled eager run
 # depth of each family's cells (full: 48 and 26 = 8 periods + a 2-layer tail).
 # The smoke has 1200 s and aims to finish in half of that, which the whole
 # run passes even with these cuts (PERF.md, section 4): the route cells
-# mamba2-digit and mamba2-detect run 16 layers, and rgemma-window two
-# periods and the tail
-FAMILY_LAYERS = {"mamba2-bitplane": 48, "mamba2-digit": 16, "mamba2-detect": 16,
-                 "rgemma-bitplane": 26, "rgemma-window": 8}
+# mamba2-digit and mamba2-detect run 16 layers, rgemma-window two periods
+# and the tail, and rgemma-bitplane four periods and the 2-layer tail (the
+# tensor-parallel phase took its 26 layers' time); mamba2-bitplane 32 (the
+# dense decode attention's one-head-at-a-time loop took the time of 16)
+FAMILY_LAYERS = {"mamba2-bitplane": 32, "mamba2-digit": 16, "mamba2-detect": 16,
+                 "rgemma-bitplane": 14, "rgemma-window": 8}
 
 
 def _family_ops(engine, reqs, schedule) -> dict:
@@ -3378,8 +3397,9 @@ ARCH_KEEP_DENSE = ("frontend", "router")
 # The MoE cells are cut for the smoke's 1200 s and the card's 80 GB (the
 # expert stacks are fake-quantized on every call), internvl2-bitplane for
 # the smoke's time (its plain-route control runs ~1 s a decode step at 24
-# layers; internvl2-patches serves all 24); PERF.md, section 4
-ARCH_LAYERS = {"qwen3moe-bitplane": 4, "scout-bitplane": 2, "internvl2-bitplane": 12,
+# layers, and its decode attention attends one KV head at a time;
+# internvl2-patches serves all 24); PERF.md, section 4
+ARCH_LAYERS = {"qwen3moe-bitplane": 4, "scout-bitplane": 2, "internvl2-bitplane": 6,
                "internvl2-patches": 24, "hubert-encode": 48}
 VLM_TEXT = 64  # text tokens after internvl2's 256 patches
 VLM_BATCH = 4
@@ -3880,6 +3900,329 @@ def run_training() -> dict:
     return cells
 
 
+# -- tensor-parallel serving (phase 19) ---------------------------------------
+
+TP_SIZE = 2  # ranks of the gloo cells, sharing the one card
+TP_DECODE_STEPS = 16  # decode steps of tp1-nccl's loops
+TP_BYTES_RATIO = 0.55  # per-rank plane bytes at P=2 against P=1's, at most
+
+
+def _seed_params(cfg, store=None):
+    """Phase 3's weights: ``init_params`` from a CUDA generator seeded 0,
+    kept on ``store`` (default: the card)."""
+    from repro_torch.models.transformer import init_params
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    return init_params(cfg, gen, device="cuda", store=store)
+
+
+def _tp_loop(cfg, kv_cfg, q_params, prefill, step, prompts, max_len,
+             runner=None) -> np.ndarray:
+    """Prefill ``prompts`` one by one into the slots of an int8 slot cache
+    (``kv_cfg``'s heads), then ``TP_DECODE_STEPS`` greedy decode steps over
+    the slot array: eagerly, or with ``runner`` as replays of one CUDA graph
+    of the step (``graphs.CapturedStep``, captured on the loop's state).
+    Returns the (steps, slots) tokens."""
+    from repro_torch.launch import graphs, sampling
+    from repro_torch.launch.serve import _decode_body
+    from repro_torch.models.cache import init_cache, insert_slot, quantize_scratch
+
+    n = len(prompts)
+    state = {"cache": init_cache(kv_cfg, n, max_len, cfg.dtype, kv_quant=True, device="cuda"),
+             "tokens": torch.zeros((n, 1), dtype=torch.int32, device="cuda"),
+             "temps": torch.zeros((n,), dtype=torch.float32, device="cuda")}
+    for slot, p in enumerate(prompts):
+        toks = torch.as_tensor(p, device="cuda")[None, :]
+        logits, scratch = prefill(q_params, toks)
+        insert_slot(state["cache"], quantize_scratch(scratch), slot)
+        state["tokens"][slot, 0] = sampling.greedy(
+            sampling.mask_vocab(logits, cfg.vocab_size), None)[0]
+    body = _decode_body(step, q_params, False)
+    captured = None
+    if runner is not None:
+        from repro_torch.core import plan as plan_mod
+
+        captured = graphs.CapturedStep(body, state, plan_mod.DEFAULT_REGISTRY, runner)
+    out = []
+    for i in range(TP_DECODE_STEPS):
+        toks = body(state, None) if captured is None else captured(i)
+        out.append(toks.cpu().numpy())
+    return np.stack(out)
+
+
+def run_tp_nccl(cfg, params, base: int) -> dict:
+    """tp1-nccl: a ``TPContext`` over an NCCL group of world size 1 in this
+    process. The single-device steps and the tensor-parallel ones (eager,
+    then the decode step captured in a CUDA graph with its collectives)
+    serve the workload's first prompts; the tokens must agree. ``params``
+    lie on the card, drawn there after the peak memory count was reset at
+    ``base`` bytes: the single-device load's peak (the dense tree and its
+    quantization) is reported beside the ranks'."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.launch import graphs, mesh
+    from repro_torch.launch.steps import (make_cb_decode_step, make_prefill_step,
+                                          make_tp_cb_decode_step, make_tp_prefill_step)
+    from repro_torch.models.quant import quantize_params
+    from repro_torch.sharding.tp import plane_cache_device_bytes, shard_quantized
+
+    t0 = time.perf_counter()
+    name = "tp1-nccl"
+    policy = PrecisionPolicy.uniform(8, 8, variant="booth", level="bitplane")
+    prompts = [r.tokens for r in _requests(cfg)]
+    max_len = max(p.size for p in prompts) + TP_DECODE_STEPS
+    single = quantize_params(params, policy, cfg=cfg, plane_cache=True)
+    one_bytes = plane_cache_device_bytes(single)
+    one_peak = torch.cuda.max_memory_allocated() - base
+    one_resident = torch.cuda.memory_allocated() - base  # the dense tree and its quantization
+    ref = _tp_loop(cfg, cfg, single, make_prefill_step(cfg, policy, max_len=max_len),
+                   make_cb_decode_step(cfg, policy), prompts, max_len)
+    del single
+    with tempfile.TemporaryDirectory(prefix="tp1_") as where:
+        tp = mesh.init_tp_group(1, 0, where, backend="nccl")
+        try:
+            q = shard_quantized(params, policy, tp, cfg=cfg)
+            kv_cfg = tp.local_config(cfg)
+            prefill = make_tp_prefill_step(cfg, tp, policy, max_len=max_len)
+            step = make_tp_cb_decode_step(cfg, tp, policy)
+            eager = _tp_loop(cfg, kv_cfg, q, prefill, step, prompts, max_len)
+            _reset_counts()
+            replayed = _tp_loop(cfg, kv_cfg, q, prefill, step, prompts, max_len,
+                                runner=graphs.CudaGraphRunner(torch.device("cuda")))
+            counts = _read_counts()
+            del q
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    if not np.array_equal(eager, ref):
+        _die(f"{name}: the eager TP step's tokens differ from the single-device steps'")
+    if not np.array_equal(replayed, eager):
+        _die(f"{name}: the captured TP decode step's tokens differ from the eager TP step's")
+    line = {"engine": name, "layers": cfg.n_layers, "backend": "nccl", "world_size": 1,
+            "prompts": [int(p.size) for p in prompts], "decode_steps": TP_DECODE_STEPS,
+            "tokens_equal_single_device": True, "graph_equals_eager": True,
+            "launches_graph_loop": counts, "plane_cache_bytes_p1": one_bytes,
+            "load_peak_gb_p1": one_peak / 2**30, "resident_gb_p1": one_resident / 2**30,
+            "phase_s": time.perf_counter() - t0}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def _tp_cell(name, cfg, engine, reqs, schedule, rank) -> dict:
+    """One tensor-parallel cell on this rank: a warm-up run, the counted
+    run (launch counts set to 0 just before it, read just after) and a
+    profiled run of the first request alone (rank 0 reports the device
+    time of its decode ranges)."""
+    t0 = time.perf_counter()
+    engine.run(reqs[:1], precision_schedule=schedule)
+    engine.set_precision(None)
+    _reset_counts()
+    results, stats = engine.run(reqs, precision_schedule=schedule)
+    counts = _read_counts()
+    engine.set_precision(None)
+    profile = _profile(engine, reqs[:1], schedule)
+    engine.set_precision(None)
+    return {"engine": name, "rank": rank, "cell_s": time.perf_counter() - t0,
+            "tokens": {rid: t.tolist() for rid, t in results.items()},
+            "failed": stats["failed"], "launches": counts, "route_calls": stats["route_calls"],
+            "decode_steps": stats["decode_steps"], "prefill_s": stats["prefill_s"],
+            "host_ms_per_decode_step": 1e3 * stats["decode_s"] / stats["decode_steps"],
+            "tok_per_s": stats["tok_per_s"], "wall_s": stats["wall_s"],
+            "device_ms_per_decode_step": (1e3 * profile["decode_device_s"]
+                                          / profile["decode_ranges"]
+                                          if profile["decode_ranges"] else None),
+            "decode_busy_share": profile["decode_device_s"] / max(stats["decode_s"], 1e-9),
+            "plane_cache_bytes": engine.plane_cache_bytes_per_device()}
+
+
+def _tp_rank_cells(tp, device, n_layers: int) -> list:
+    """One rank of the gloo cells (every rank on ``cuda:0``): bitplane-tp2
+    on phase 3's workload with its 8 -> 4 switch at step 8, and
+    bitplane-paged-tp2 on phase 8's, both with eager steps (gloo's
+    collectives cannot be captured). Returns every rank's lines (rank 0's
+    is the one ``spawn_tp`` hands back)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+
+    started = time.time()
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=n_layers)
+    params = _seed_params(cfg, store="cpu")  # the dense tree stays on the host
+    policy = PrecisionPolicy.uniform(8, 8, variant="booth", level="bitplane")
+    lines = []
+    gc.collect()  # the card copies of the drawn tree go before the count starts
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine = _engine(cfg, params, policy, compile_steps=False, model_parallel=tp.size)
+    load_s = time.perf_counter() - t0
+    memory = {"load_peak_gb": (torch.cuda.max_memory_allocated() - base) / 2**30,
+              "resident_gb": (torch.cuda.memory_allocated() - base) / 2**30}
+    lines.append(dict(_tp_cell("bitplane-tp2", cfg, engine, _requests(cfg), {8: 4}, tp.rank),
+                      load_s=load_s, started=started, memory=memory))
+    del engine
+    gc.collect()
+    engine = _paged_engine(cfg, params, policy, compile_steps=False, model_parallel=tp.size)
+    lines.append(_tp_cell("bitplane-paged-tp2", cfg, engine, _paged_requests(cfg), None,
+                          tp.rank))
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    every = [None] * tp.size
+    dist.all_gather_object(every, lines)
+    return every
+
+
+def run_tp(cfg, controls: dict, p1_bytes: int, p1_memory: tuple, twins: dict) -> dict:
+    """Phase 19, tensor-parallel serving: ``TP_SIZE`` ranks spawned over
+    gloo, all on this card, serve bitplane-tp2 and bitplane-paged-tp2. On
+    each rank: the tokens equal the single-device cell's (``controls``),
+    every column- and vocab-parallel projection launches
+    fused_plane_linear and every row-parallel one plane_matmul_packed (the
+    paged cell also paged_flash_attention, layers x decode steps times),
+    no plain route runs; each rank's plane bytes are at most
+    ``TP_BYTES_RATIO`` of the single-device tree's ``p1_bytes``. Prints a
+    line per cell with each rank's launches, host ms per decode step beside
+    the single-device eager twin's (``twins``) and prefill s; the first
+    cell's also each rank's card memory at load (peak, and resident after)
+    beside the single-device load's, ``p1_memory`` (GiB)."""
+    from repro_torch.launch import mesh
+
+    t0, t0_wall = time.perf_counter(), time.time()
+    every = mesh.spawn_tp(_tp_rank_cells, TP_SIZE, device="cuda", share_device=True,
+                          args=(cfg.n_layers,))
+    spawn_s = time.perf_counter() - t0
+    out = {}
+    for i, name in enumerate(("bitplane-tp2", "bitplane-paged-tp2")):
+        ranks = [lines[i] for lines in every]
+        for r in ranks:
+            tag = f"{name} rank {r['rank']}"
+            if r["failed"]:
+                _die(f"{tag}: requests failed: {r['failed']}")
+            got = {int(k): np.asarray(v) for k, v in r["tokens"].items()}
+            _same_tokens(tag, got, controls[name], "the single-device cell")
+            c, routes = r["launches"], r["route_calls"]
+            paged = name.endswith("paged-tp2")
+            want_attn = cfg.n_layers * r["decode_steps"] if paged else 0
+            others = {k: v for k, v in c.items() if v and k not in (
+                "fused_plane_linear", "plane_matmul_packed", "paged_flash_attention")}
+            if (not c["fused_plane_linear"] or c["fused_plane_linear"] != routes.get("fused_cached")
+                    or not c["plane_matmul_packed"]
+                    or c["plane_matmul_packed"] != routes.get("cached_packed")
+                    or set(routes) != {"fused_cached", "cached_packed"}
+                    or c["paged_flash_attention"] != want_attn or others):
+                _die(f"{tag}: launches {c} against routes {routes} "
+                     f"({want_attn} paged-kernel launches wanted)")
+            if r["plane_cache_bytes"] > TP_BYTES_RATIO * p1_bytes:
+                _die(f"{tag}: {r['plane_cache_bytes']} plane bytes on the rank against "
+                     f"{p1_bytes} on one device (more than {TP_BYTES_RATIO} of them)")
+        r0 = ranks[0]
+        line = {"engine": name, "layers": cfg.n_layers, "ranks": TP_SIZE, "backend": "gloo",
+                "device": "cuda:0 (every rank)", "compile_steps": False,
+                "tokens_equal_single_device": True,
+                "launches_per_rank": [r["launches"] for r in ranks],
+                "route_calls_per_rank": [r["route_calls"] for r in ranks],
+                "host_ms_per_decode_step_per_rank": [r["host_ms_per_decode_step"] for r in ranks],
+                "single_device_eager_host_ms_per_decode_step": twins[name],
+                "prefill_s_per_rank": [r["prefill_s"] for r in ranks],
+                "tok_per_s_rank0": r0["tok_per_s"], "wall_s_rank0": r0["wall_s"],
+                "decode_steps": r0["decode_steps"],
+                "plane_cache_bytes_per_rank": [r["plane_cache_bytes"] for r in ranks],
+                "plane_cache_bytes_p1": p1_bytes,
+                "bytes_ratio": max(r["plane_cache_bytes"] for r in ranks) / p1_bytes,
+                "cell_s_per_rank": [r["cell_s"] for r in ranks], "card": CARD}
+        print(json.dumps({"engine": name, "profiled_eager_rank0": {
+            "device_ms_per_decode_step": r0["device_ms_per_decode_step"],
+            "decode_busy_share": r0["decode_busy_share"]}}), flush=True)
+        if "load_s" in r0:  # the first cell: the rank's start-up and load
+            line["load_s_rank0"] = r0["load_s"]
+            line["rank0_started_s_after_spawn"] = r0["started"] - t0_wall
+            line["memory_per_rank"] = [r["memory"] for r in ranks]
+            line["load_peak_gb_p1"], line["resident_gb_p1"] = p1_memory
+        print(json.dumps(line), flush=True)
+        out[name] = line
+    out["phase_s"] = time.perf_counter() - t0
+    out["spawn_s"] = spawn_s
+    return out
+
+
+def _head_slices(cfg) -> dict:
+    """The plain attention paths (which are not kernels) over one rank's
+    heads at P = 2 and 4 against the whole heads, at granite's shapes:
+    the decode path ``_decode_gqa`` on an int8 cache (4 slots, 272
+    positions) and the prefill path ``_chunked_gqa`` (one 256-token bf16
+    prompt). Each slice must give the whole's bits: a float32 reduction
+    whose order followed the head count would let tensor-parallel tokens
+    drift from one device's at near-ties."""
+    from repro_torch.layers.attention import _chunked_gqa, _decode_gqa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    hq, hkv, d, b, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, N_SLOTS, PAGED_MAX_LEN
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q = rnd(b, 1, hq, d).to(torch.bfloat16)
+    kq = torch.randint(-127, 128, (b, s, hkv, d), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    vq = torch.randint(-127, 128, (b, s, hkv, d), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    ks, vs = rnd(b, s, hkv).abs() * 0.01, rnd(b, s, hkv).abs() * 0.01
+    valid = torch.arange(s, device="cuda")[None, :] < torch.tensor(
+        [[1], [37], [200], [272]], device="cuda")
+    qp, kp, vp = (rnd(1, 256, h, d).to(torch.bfloat16) for h in (hq, hkv, hkv))
+    whole = {"decode": _decode_gqa(q, kq, vq, valid, ks, vs),
+             "prefill": _chunked_gqa(qp, kp, vp, causal=True, chunk=cfg.attn_chunk, q_offset=0)}
+    out, unequal = {}, []
+    for p in (2, 4):
+        hs, ks_ = hq // p, hkv // p
+        parts = {"decode": [], "prefill": []}
+        for r in range(p):
+            qh, kh = slice(r * hs, (r + 1) * hs), slice(r * ks_, (r + 1) * ks_)
+            parts["decode"].append(_decode_gqa(q[:, :, qh], kq[:, :, kh], vq[:, :, kh], valid,
+                                               ks[:, :, kh], vs[:, :, kh]))
+            parts["prefill"].append(_chunked_gqa(qp[:, :, qh], kp[:, :, kh], vp[:, :, kh],
+                                                 causal=True, chunk=cfg.attn_chunk, q_offset=0))
+        for path, chunks in parts.items():
+            got = torch.cat(chunks, dim=2)
+            out[f"{path} P={p}"] = {"bit_equal": bool(torch.equal(got, whole[path])),
+                                    "max_abs_diff": float((got - whole[path]).abs().max())}
+            if not out[f"{path} P={p}"]["bit_equal"]:
+                unequal.append(f"{path} P={p}")
+    print(json.dumps({"check": "tp head slices of the plain attention paths", "results": out,
+                      "card": CARD}), flush=True)
+    if unequal:
+        _die(f"tp head slices: {unequal} differ from the whole heads' attention")
+    return out
+
+
+def run_tp_phase(cfg, controls: dict, twins: dict) -> dict:
+    """Phase 19: tp1-nccl in this process, the head slices, then the gloo
+    cells."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = _seed_params(cfg)
+    nccl = run_tp_nccl(cfg, params, base)
+    del params
+    _head_slices(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = run_tp(cfg, controls, nccl["plane_cache_bytes_p1"],
+                 (nccl["load_peak_gb_p1"], nccl["resident_gb_p1"]), twins)
+    out["tp1-nccl"] = nccl
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _die("no CUDA device: this smoke run needs one GPU")
@@ -3982,6 +4325,12 @@ def main() -> None:
     print(f"[chip_smoke] training done at {time.perf_counter() - t0:.1f} s (phase "
           f"{train['phase_s']:.1f} s; step ms dense {train['train-dense']['step_ms_median']:.1f}, "
           f"qat8 {train['train-qat8']['step_ms_median']:.1f})", flush=True)
+    tp = run_tp_phase(
+        cfg, {"bitplane-tp2": res_bit, "bitplane-paged-tp2": res_pag},
+        {"bitplane-tp2": eng_bit["eager"]["host_ms_per_decode_step"],
+         "bitplane-paged-tp2": eng_pag["eager"]["host_ms_per_decode_step"]})
+    print(f"[chip_smoke] tensor-parallel serving done at {time.perf_counter() - t0:.1f} s "
+          f"(phase {tp['phase_s']:.1f} s, spawn {tp['spawn_s']:.1f} s)", flush=True)
 
     def fam_launches(kernel):
         """The kernel's launches in each family cell's counted run."""
@@ -4067,6 +4416,13 @@ def main() -> None:
         "path": "bitplane-detect audits and KV checks",
         "family_launches": fam_launches("fold"),
     })
+    # rows 1, 2 and 5 on every rank of the tensor-parallel cells (phase 19)
+    for k in kernels:
+        tp_launches = {f"{name} rank {r}": c[k["name"]]
+                       for name in ("bitplane-tp2", "bitplane-paged-tp2")
+                       for r, c in enumerate(tp[name]["launches_per_rank"]) if c[k["name"]]}
+        if tp_launches:
+            k["tp_launches"] = tp_launches
     missing = [k for k in ("fused_plane_linear", "plane_matmul", "plane_matmul_packed", "fold")
                if not fam_launches(k)]
     if missing:

@@ -500,12 +500,26 @@ def occupancy_per_tile(occ: torch.Tensor, words_per_tile: int) -> torch.Tensor:
     return (occ.reshape(p, nt, words_per_tile) != 0).any(dim=-1).to(torch.int32)
 
 
-def compact_packed(packed: PackedPlanes) -> PackedPlanes:
+def plane_alive(packed: PackedPlanes) -> list[bool]:
+    """Per plane, whether its occupancy bitmap has a set word anywhere (over
+    any leading batch axes): the kept set of :func:`compact_packed`, read
+    back to the host."""
+    if packed.occupancy is None:
+        raise ValueError("compact_packed needs occupancy metadata (re-pack first)")
+    occ = packed.occupancy
+    plane_axis = occ.dim() - 2
+    reduce_axes = tuple(a for a in range(occ.dim()) if a != plane_axis)
+    return [bool(a) for a in (occ != 0).any(dim=reduce_axes).tolist()]
+
+
+def compact_packed(packed: PackedPlanes, alive: Optional[list] = None) -> PackedPlanes:
     """Drop planes whose occupancy bitmap is all zero. The kept set is
     shape information, so it is read back to the host: call this at load
     time. Surviving planes keep their shift weights, so the result
     reconstructs the same integers; an all-zero operand keeps one inert
-    plane so no kernel sees an empty planes axis."""
+    plane so no kernel sees an empty planes axis. ``alive`` (one bool per
+    plane) overrides the kept set: the tensor-parallel shards of one weight
+    keep the planes alive in any shard (``sharding/tp.py``)."""
     if packed.occupancy is None:
         raise ValueError("compact_packed needs occupancy metadata (re-pack first)")
     occ = packed.occupancy
@@ -516,8 +530,8 @@ def compact_packed(packed: PackedPlanes) -> PackedPlanes:
             f"{len(packed.weights)} weights for {occ.shape[-2]} planes)"
         )
     plane_axis = occ.dim() - 2
-    reduce_axes = tuple(a for a in range(occ.dim()) if a != plane_axis)
-    alive = (occ != 0).any(dim=reduce_axes).tolist()
+    if alive is None:
+        alive = plane_alive(packed)
     idx = [i for i, a in enumerate(alive) if a] or [0]
     if len(idx) == len(packed.weights):
         return packed
@@ -535,13 +549,14 @@ def compact_packed(packed: PackedPlanes) -> PackedPlanes:
     )
 
 
-def compact_weight_planes(wp: WeightPlanes) -> WeightPlanes:
+def compact_weight_planes(wp: WeightPlanes, alive: Optional[list] = None) -> WeightPlanes:
     """Compact a bit-plane weight cache: the packed words and the optional
-    raw planes lose the same all-zero planes. ``w_bits`` is unchanged, so
-    prefix truncation of the result stays exact."""
+    raw planes lose the same all-zero planes (or those ``alive`` marks
+    dead; :func:`compact_packed`). ``w_bits`` is unchanged, so prefix
+    truncation of the result stays exact."""
     if wp.level != "bitplane" or wp.packed is None:
         raise ValueError("compaction needs a packed bitplane cache")
-    packed = compact_packed(wp.packed)
+    packed = compact_packed(wp.packed, alive)
     if packed is wp.packed:
         return wp
     keep = set(packed.weights)

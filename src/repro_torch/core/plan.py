@@ -21,8 +21,11 @@ the :func:`~repro_torch.kernels.ops.hopper_tiles` default; explicit tiles
 always win. Integrity-checked plans (``integrity != "off"``) verify
 the ABFT row-sum identity on the raw int32 accumulator of every route that
 has one and report the flag to :mod:`~repro_torch.core.integrity`.
-Tensor-parallel plans raise: their key field exists so a later slice need
-not re-key plans.
+A tensor-parallel plan (``shard=(axis, size, role)``, from
+``layers/linear.py`` inside a TP step) resolves from the rank's local
+shapes and never aliases an unsharded key; a row-parallel one has no
+epilogue (the sum over the ranks comes first), so on cached planes it
+takes the packed route and returns its raw int32 accumulator.
 """
 
 from __future__ import annotations
@@ -580,8 +583,6 @@ class MatmulPlan:
 
     def __call__(self, x, w=None, *, w_planes=None, epilogue=None):
         key = self.key
-        if key.shard is not None:
-            raise NotImplementedError("tensor-parallel plans are not ported yet")
         if key.has_epilogue != (epilogue is not None):
             raise ValueError(
                 f"plan was resolved {'with' if key.has_epilogue else 'without'} "

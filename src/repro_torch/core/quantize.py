@@ -46,18 +46,23 @@ def _recip(qmax: int) -> torch.Tensor:
     return torch.tensor(1.0 / qmax, dtype=torch.float32)
 
 
-def quantize(x: torch.Tensor, bits: int, axis=None, *, reciprocal_scale: bool = False) -> Quantized:
+def quantize(x: torch.Tensor, bits: int, axis=None, *, reciprocal_scale: bool = False,
+             amax: torch.Tensor | None = None) -> Quantized:
     """Symmetric quantization of ``x`` to ``bits``-bit integers.
 
     ``axis``: axis to *reduce* for the scale (None = per tensor); for a
     ``(K, N)`` weight ``axis=0`` (or -2) gives per-output-channel scales,
     for ``(..., K)`` activations ``axis=-1`` gives per-token scales.
+
+    ``amax``: a precomputed |x| maximum, broadcastable against ``x``, in
+    place of the local reduction. The row-parallel projections pass the
+    maximum over every rank's slice of a K-sharded activation
+    (:meth:`~repro_torch.sharding.tp.TPContext.global_amax`), so each rank
+    quantizes its slice with the scale of the whole row.
     """
     qmax = _qmax(bits)
-    if axis is None:
-        amax = x.abs().amax()
-    else:
-        amax = x.abs().amax(dim=axis, keepdim=True)
+    if amax is None:
+        amax = x.abs().amax() if axis is None else x.abs().amax(dim=axis, keepdim=True)
     amax = torch.clamp_min(amax, 1e-8).to(torch.float32)
     if reciprocal_scale:
         scale = amax * _recip(qmax)

@@ -118,7 +118,9 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
+import io
 import os
 import time
 import warnings
@@ -138,6 +140,8 @@ from repro_torch.launch.steps import (
     make_cb_decode_step,
     make_prefill_step,
     make_serve_step,
+    make_tp_cb_decode_step,
+    make_tp_prefill_step,
 )
 from repro_torch.models import paging
 from repro_torch.models.cache import (
@@ -152,6 +156,13 @@ from repro_torch.models.transformer import check_prefill, init_params
 from repro_torch.runtime.autopilot import Autopilot, AutopilotPolicy
 from repro_torch.runtime.faults import FaultInjector, FaultSpec
 from repro_torch.runtime.scheduler import HISTORY_LIMIT, Request, SlotScheduler
+from repro_torch.sharding.tp import (
+    MAX_TP_BITS,
+    TPContext,
+    check_exact_bits,
+    plane_cache_device_bytes,
+    shard_quantized,
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -419,6 +430,11 @@ class _IntegrityRuntime:
         load-time fingerprint. ``value_bits`` quantizes the weight values
         narrower than the storage width (a narrow checkpoint served from
         the uniform-width cache)."""
+        tp = getattr(self, "tp", None)
+        if tp is not None:  # this rank's shard tree
+            return shard_quantized(params, self.policy, tp, cfg=self.cfg,
+                                   plane_cache=self.plane_cache, value_bits=self._value_bits,
+                                   device=self.device)
         return quantize_params(params, self.policy, plane_cache=self.plane_cache,
                                value_bits=self._value_bits, cfg=self.cfg)
 
@@ -793,6 +809,20 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
     raises. ``False`` runs the step eagerly, as on the host (where it is
     the only mode); the plain versions (``backend="torch"``) read values
     back and need it on CUDA.
+
+    ``model_parallel=P > 1`` serves tensor-parallel (``sharding/tp.py``),
+    one engine per rank of an initialised default process group of world
+    size P (``launch/mesh.spawn_tp``), every rank given the same
+    arguments: each holds its shard of the plane caches (column-, row- and
+    vocab-parallel) and a KV cache of ``n_kv_heads / P`` heads (dense or
+    paged), runs the tensor-parallel steps, and returns the tokens the
+    single-device engine returns. ``params`` may lie on the host: a rank
+    slices each weight there and moves only its slice to its device. Over
+    NCCL the decode steps capture into CUDA graphs with their collectives;
+    gloo's collectives cannot be captured, so on CUDA over gloo
+    ``compile_steps=True`` raises. Integrity
+    ``"scrub"``, the autopilot, the tile autotuner and every family but
+    the dense one are ROADMAP item 11b and raise.
     """
 
     def __init__(
@@ -821,10 +851,17 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
         value_bits: Optional[int] = None,
         autotune: bool = False,
         plan_store_path: Optional[str] = None,
+        model_parallel: int = 1,
     ):
         if not cfg.is_decoder:
             raise ValueError(f"{cfg.name} is encoder-only: no decode path")
         self.integrity = integrity.check_integrity_mode(policy.integrity)
+        self.model_parallel = int(model_parallel)
+        self.tp = (self._tp_context(cfg, policy, autopilot is not None or degrade_after is not None,
+                                    autotune)
+                   if self.model_parallel > 1 else None)
+        #: the config the caches are built with: the rank's heads under TP
+        self._kv_cfg = cfg if self.tp is None else self.tp.local_config(cfg)
         self.max_retries = int(max_retries)
         self.quarantine_after = int(quarantine_after)
         if audit_interval < 0:
@@ -875,6 +912,13 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
         self._value_bits = value_bits
         self.compile_steps = bool(compile_steps)
         _check_backend(self.device, self.compile_steps, backend)
+        if (self.tp is not None and self.compile_steps and self.device.type == "cuda"
+                and torch.distributed.get_backend() != "nccl"):
+            raise ValueError(
+                f"compile_steps=True under model_parallel={self.model_parallel} needs the "
+                f"NCCL backend: {torch.distributed.get_backend()}'s collectives cannot be "
+                "captured in a CUDA graph; pass compile_steps=False"
+            )
         self.cfg = cfg
         self.policy = policy
         self.n_slots = n_slots
@@ -885,17 +929,19 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
         self.backend = backend
         self.autopilot_policy = self._autopilot_policy(policy, autopilot, degrade_after,
                                                        degrade_to)
-        params = _to_device(params, self.device)
+        if self.tp is None:  # a rank moves only its slices (shard_quantized)
+            params = _to_device(params, self.device)
         self.q_params = self._requantize(params) if policy.default.active else params
         self._init_integrity(params)
         # the decode state: allocated once (a captured graph holds its
         # addresses), reset in place by every run
         if self.paged:
             self._cache = paging.paged_init_cache(
-                cfg, n_slots, max_len, self.page_size, self._kv_pages, device=self.device)
+                self._kv_cfg, n_slots, max_len, self.page_size, self._kv_pages,
+                device=self.device)
         else:
-            self._cache = init_cache(cfg, n_slots, max_len, cfg.dtype, kv_quant=kv_quant,
-                                     device=self.device)
+            self._cache = init_cache(self._kv_cfg, n_slots, max_len, cfg.dtype,
+                                     kv_quant=kv_quant, device=self.device)
         self._tokens = torch.zeros((n_slots, 1), dtype=torch.int32, device=self.device)
         ap = self.autopilot_policy
         written = {"cache": self._cache, "tokens": self._tokens}
@@ -931,6 +977,38 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
         self._shadow_bodies: dict = {}
         self._last_stats: dict = {}
         self._init_dial()
+
+    def _tp_context(self, cfg, policy, autopilot: bool, autotune: bool) -> TPContext:
+        """Validate a tensor-parallel engine (the reference's checks and
+        messages, then the refusals of this slice) and return its context
+        over the default process group."""
+        p = self.model_parallel
+        if not policy.default.active:
+            raise ValueError(
+                "model_parallel > 1 requires an active quantization policy: TP "
+                "relays out the quantized serving tree (shard_quantized), there is "
+                "no dense TP path"
+            )
+        check_exact_bits(policy.default.a_bits, policy.default.w_bits)
+        TPContext(size=p).local_config(cfg)  # fail fast on head divisibility
+        later = [what for what, on in (
+            (f"the {cfg.family} family", cfg.family != "dense"),
+            ("integrity='scrub'", self.integrity == "scrub"),
+            ("the autopilot", autopilot),
+            ("the tile autotuner", autotune),
+        ) if on]
+        if later:
+            raise NotImplementedError(
+                f"tensor-parallel serving of {', '.join(later)} is not ported "
+                "(ROADMAP item 11b)"
+            )
+        dist = torch.distributed
+        if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() != p:
+            raise ValueError(
+                f"model_parallel={p} needs an initialised default process group of "
+                f"world size {p}, one engine per rank (launch/mesh.spawn_tp)"
+            )
+        return TPContext(size=p, rank=dist.get_rank())
 
     def _autopilot_policy(self, policy, autopilot, degrade_after, degrade_to):
         """The engine's autopilot policy, its ladder clamped to the storage
@@ -983,19 +1061,26 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
         check = self.integrity != "off"
         pcol = integrity.Collector() if check else None
         scol = integrity.Collector() if check else None
-        step = make_cb_decode_step(
-            self.cfg, self.policy, precision=precision, backend=self.backend, collector=scol,
+        tp = () if self.tp is None else (self.tp,)
+        step = (make_cb_decode_step if self.tp is None else make_tp_cb_decode_step)(
+            self.cfg, *tp, policy=self.policy, precision=precision, backend=self.backend,
+            collector=scol,
         )
         return (
             # staged: every prefill chunk is given the job's raw scratch
-            make_prefill_step(
-                self.cfg, self.policy, precision=precision, backend=self.backend,
+            (make_prefill_step if self.tp is None else make_tp_prefill_step)(
+                self.cfg, *tp, policy=self.policy, precision=precision, backend=self.backend,
                 collector=pcol,
             ),
             _decode_body(step, self.q_params, check),
             pcol,
             scol,
         )
+
+    def plane_cache_bytes_per_device(self) -> int:
+        """Bytes of the packed-plane caches this engine's device holds (its
+        shard under tensor parallelism: ~1/P of the single-device engine's)."""
+        return plane_cache_device_bytes(self.q_params)
 
     def _tier_precision(self, tier_index: int) -> Optional[Tuple[int, int]]:
         """Ladder rung -> the dial it runs at. Rung 0 (the storage width)
@@ -1110,17 +1195,18 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
 
     def _tally_folds(self, pending: list, vals, integ: dict, injector) -> None:
         """Tally read-back at-rest results in the order they were taken:
-        ("audit", step, fingerprint) and ("kv", step, checksums that moved)."""
-        for (kind, step, _), v in zip(pending, vals.tolist()):
-            if kind == "audit":
-                bad = self._audit_params(int(v))
-                integ["audit_alarms"] += int(bad)
-                category = "params"
-            else:
-                bad = int(v) > 0
-                integ["kv_alarms"] += int(v)
-                category = "kv"
-            if bad and injector is not None:
+        ("audit", step, fingerprint) and ("kv", step, checksums that moved).
+        Under tensor parallelism each rank audits its own shard and KV
+        heads, and the ranks' results are maximized before the tally: an
+        alarm on any rank is an alarm on every rank."""
+        found = [int(self._audit_params(int(v))) if kind == "audit" else int(v)
+                 for (kind, _, _), v in zip(pending, vals.tolist())]
+        if self.tp is not None:
+            found = self.tp.reduce_max_host(found, self.device)
+        for (kind, step, _), v in zip(pending, found):
+            category = "params" if kind == "audit" else "kv"
+            integ["audit_alarms" if kind == "audit" else "kv_alarms"] += v
+            if v and injector is not None:
                 injector.mark_detected(category, step)
         pending.clear()
 
@@ -1192,8 +1278,8 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
         if entry is not None:
             scratch, start, shared = entry.scratch, Lp, list(entry.page_ids)
         else:
-            scratch = init_cache(self.cfg, 1, self.max_len, self.cfg.dtype, kv_quant=False,
-                                 device=self.device)
+            scratch = init_cache(self._kv_cfg, 1, self.max_len, self.cfg.dtype,
+                                 kv_quant=False, device=self.device)
             start, shared = 0, []
         c = self.prefill_chunk if self.prefill_chunk > 0 else S
         bounds, pos = [], start
@@ -1325,6 +1411,18 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
         counts and the quality probe)."""
         if isinstance(injector, (str, FaultSpec)):
             injector = FaultInjector(injector)
+        if self.tp is not None:
+            # Every rank must take the same host decisions, or the next
+            # collective deadlocks. The workload and the precision schedule
+            # are rank 0's, broadcast; everything else is the same on every
+            # rank by construction: scheduling and deadlines count steps,
+            # greedy and seeded sampling read the gathered logits, and ABFT
+            # alarms (in the steps) and at-rest results (_tally_folds) are
+            # maximized over the ranks before the engine reads them. The
+            # timed inputs (the autopilot's latency, the tuner's timings) are
+            # refused under TP (ROADMAP item 11b); nothing else is timed.
+            requests, precision_schedule = self.tp.broadcast_object(
+                (requests, precision_schedule))
         schedule = dict(precision_schedule or {})
         sched = SlotScheduler(self.n_slots, max_extent=self.max_len)
         for r in sorted(requests, key=lambda r: r.arrival_step):
@@ -1823,12 +1921,6 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
 # ---------------------------------------------------------------------------
 
 
-ROADMAP_REFUSALS = {
-    "--model-parallel": "tensor-parallel serving is not ported yet (ROADMAP.md, queue 1, "
-                        "item 11: tensor parallel)",
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="bit-serial quantized serving (continuous batching by default; "
@@ -1905,8 +1997,12 @@ def build_parser() -> argparse.ArgumentParser:
                     "width and the current tier, KL between them fed to the "
                     "controller (0 disables the probe)")
     ap.add_argument("--model-parallel", type=int, default=1, metavar="P",
-                    help="tensor-parallel serving over P devices: " +
-                    ROADMAP_REFUSALS["--model-parallel"])
+                    help="tensor-parallel serving over P ranks, one process each "
+                    "(NCCL on cuda:0..P-1; gloo with --device cpu): plane caches "
+                    "shard column-parallel (q/k/v/gate/up), row-parallel (o/down) "
+                    "and vocab-parallel (lm_head), the KV cache by head; tokens "
+                    "are bit-identical to P=1. Needs P CUDA devices on the card, "
+                    "--bits in [1,8], head counts divisible by P; --mode cb only")
     ap.add_argument("--audit-interval", type=int, default=1,
                     help="integrity: run the at-rest parameter fingerprint "
                     "audit every N engine iterations (0 disables at-rest "
@@ -1965,14 +2061,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def validate_args(args) -> None:
     """Fail fast on inconsistent flag combinations, with the reference's
-    messages; ``--model-parallel`` (not ported yet) dies naming its ROADMAP
-    item."""
+    messages."""
 
     def die(msg):
         raise SystemExit(f"[serve] invalid flags: {msg}")
 
-    if args.model_parallel > 1:
-        die(f"--model-parallel: {ROADMAP_REFUSALS['--model-parallel']}")
     if args.no_cb:
         args.mode = "lockstep"
     if args.bits and not 1 <= args.bits <= 16:
@@ -2041,6 +2134,21 @@ def validate_args(args) -> None:
         die("--shadow-frac must be in [0, 1]")
     if args.model_parallel < 1:
         die("--model-parallel must be >= 1")
+    if args.model_parallel > 1:
+        if args.mode == "lockstep":
+            die("--model-parallel drives the continuous-batching engine "
+                "(--mode cb)")
+        if not args.bits:
+            die("--model-parallel needs an active quantization policy "
+                "(--bits > 0): TP shards the quantized serving tree")
+        if args.bits > MAX_TP_BITS:
+            die("--model-parallel needs --bits <= 8: the row-parallel "
+                "partial sums must accumulate exactly in int32")
+        on_card = args.device is None or torch.device(args.device).type == "cuda"
+        if on_card and torch.cuda.device_count() < args.model_parallel:
+            die(f"--model-parallel {args.model_parallel} needs that many "
+                f"CUDA devices; this host exposes {torch.cuda.device_count()} "
+                "(--device cpu runs the ranks on the host)")
     if args.deadline is not None:
         if args.mode == "lockstep":
             die("--deadline is a continuous-batching feature (--mode cb): "
@@ -2138,7 +2246,28 @@ def _print_plan_stats(engine) -> None:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     validate_args(args)
-    device = resolve_device(args.device)
+    if args.model_parallel > 1:
+        # one process per rank (launch/mesh.py); rank 0's lines are printed
+        from repro_torch.launch.mesh import spawn_tp
+
+        on_host = args.device is not None and torch.device(args.device).type == "cpu"
+        print(spawn_tp(_serve_rank, args.model_parallel, device="cpu" if on_host else "cuda",
+                       args=(args,)), end="")
+        return
+    _serve(args, resolve_device(args.device))
+
+
+def _serve_rank(tp, device, args) -> str:
+    """One rank of a tensor-parallel :func:`main`: rank 0's printed lines."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _serve(args, device)
+    return buf.getvalue() if tp.rank == 0 else ""
+
+
+def _serve(args, device) -> None:
+    """Serve the CLI's workload on ``device`` (on every rank, under
+    ``--model-parallel``) and print the results."""
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     if not cfg.is_decoder:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode path")
@@ -2153,7 +2282,10 @@ def main(argv=None):
     )
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    params = init_params(cfg, gen, device=device)
+    # a tensor-parallel rank keeps the dense tree on the host: only its
+    # slices reach its card
+    params = init_params(cfg, gen, device=device,
+                         store="cpu" if args.model_parallel > 1 else None)
     rng = np.random.default_rng(0)
     run_bits = args.precision or args.bits
     tag = (f"{cfg.name} ({cfg.n_layers} layers) w{run_bits}a{run_bits} "
@@ -2214,9 +2346,12 @@ def main(argv=None):
         page_size=args.kv_page_size, kv_pages=args.kv_pages,
         prefill_chunk=args.prefill_chunk, share_prefixes=args.share_prefixes,
         autotune=args.autotune, plan_store_path=args.plan_store,
+        model_parallel=args.model_parallel,
     )
     if args.autotune:
         tag += " autotuned"
+    if args.model_parallel > 1:
+        tag += f" tp={args.model_parallel}"
     if args.kv_page_size:
         tag += f" paged/{args.kv_page_size}"
     if args.precision:
@@ -2302,6 +2437,13 @@ def main(argv=None):
             print(f"[serve]   UNDETECTED: {e.site}@{e.step} at {e.leaf}")
     for rid, reason in sorted(stats["failed"].items()):
         print(f"[serve] rid {rid} FAILED: {reason}")
+    if device.type == "cuda":  # each rank's card
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        peaks = [peak]
+        if args.model_parallel > 1:
+            peaks = [None] * args.model_parallel
+            torch.distributed.all_gather_object(peaks, peak)
+        print(f"[serve] card memory peak GiB per rank: {[round(p, 3) for p in peaks]}")
     for rid in sorted(results):
         print(f"[serve] rid {rid}:", results[rid])
 

@@ -16,6 +16,16 @@ With a ``collector`` (:class:`~repro_torch.core.integrity.Collector`) a
 step runs its forward under ABFT alarm collection and returns one more
 output, the ``(n_checks,)`` bool alarm vector on the device: the engine
 reads it back once per step, with the tokens.
+
+The tensor-parallel steps (:func:`make_tp_prefill_step`,
+:func:`make_tp_chunk_prefill_step`, :func:`make_tp_cb_decode_step`; the
+reference's ``src/repro/launch/steps.py:285-434``) build the same steps on
+the rank's local config (``n_heads / P`` and ``n_kv_heads / P`` heads, so
+caches hold the rank's heads), run them under the
+:class:`~repro_torch.sharding.tp.TPContext`'s scope on the rank's shard
+tree and OR-reduce the alarm vector over the ranks. Logits and tokens come
+back replicated on every rank: every rank samples the same tokens from
+the same gathered logits.
 """
 
 from __future__ import annotations
@@ -284,5 +294,89 @@ def make_cb_decode_step(
         if with_logits:
             out = out + (raw,)
         return out
+
+    return cb_step
+
+
+def _tp_reduced(tp, out, at: Optional[int]):
+    """``out`` with its alarm vector (at index ``at``) OR-reduced over the
+    ranks."""
+    if at is None:
+        return out
+    out = list(out)
+    out[at] = tp.reduce_alarms(out[at])
+    return tuple(out)
+
+
+def make_tp_prefill_step(
+    cfg: ModelConfig,
+    tp,
+    policy=None,
+    max_len: Optional[int] = None,
+    kv_quant: bool = False,
+    precision: Optional[Tuple[int, int]] = None,
+    backend: str = "auto",
+    collector: Optional[Collector] = None,
+):
+    """Tensor-parallel :func:`make_prefill_step`: the same signature and
+    outputs, on this rank's shard tree; the cache (a fresh scratch, or the
+    given one) holds the rank's KV heads."""
+    inner = make_prefill_step(tp.local_config(cfg), policy, max_len=max_len, kv_quant=kv_quant,
+                              precision=precision, backend=backend, collector=collector)
+
+    def prefill_step(params, tokens, scratch=None):
+        with tp.scope():
+            out = inner(params, tokens, scratch)
+        return _tp_reduced(tp, out, None if collector is None else 2)
+
+    return prefill_step
+
+
+def make_tp_chunk_prefill_step(
+    cfg: ModelConfig,
+    tp,
+    policy=None,
+    precision: Optional[Tuple[int, int]] = None,
+    backend: str = "auto",
+    collector: Optional[Collector] = None,
+):
+    """The reference's chunk step under tensor parallelism:
+    chunk_step(params, scratch, tokens) -> (last_logits, scratch[, alarms]),
+    one chunk appended to the raw scratch (the rank's heads), which is not
+    modified (the port's prefill step with a scratch given). The engine
+    calls :func:`make_tp_prefill_step` with the scratch itself; only the
+    tests call this form, the reference's signature."""
+    step = make_tp_prefill_step(cfg, tp, policy, precision=precision, backend=backend,
+                                collector=collector)
+
+    def chunk_step(params, scratch, tokens):
+        return step(params, tokens, scratch)
+
+    return chunk_step
+
+
+def make_tp_cb_decode_step(
+    cfg: ModelConfig,
+    tp,
+    policy=None,
+    precision: Optional[Tuple[int, int]] = None,
+    backend: str = "auto",
+    collector: Optional[Collector] = None,
+    with_logits: bool = False,
+):
+    """Tensor-parallel :func:`make_cb_decode_step`: cb_step(params, cache,
+    tokens, temps, gen) on this rank's shard tree and its cache of the
+    rank's heads (dense slots or paged pools alike: block tables, lengths
+    and page ids are the same on every rank). Sampling runs on every rank
+    from the gathered logits, so the tokens are replicated without another
+    collective. Reads nothing back: on the card over NCCL it captures into
+    a CUDA graph with its collectives inside."""
+    inner = make_cb_decode_step(tp.local_config(cfg), policy, precision=precision,
+                                backend=backend, collector=collector, with_logits=with_logits)
+
+    def cb_step(params, cache, tokens, temps, gen=None):
+        with tp.scope():
+            out = inner(params, cache, tokens, temps, gen)
+        return _tp_reduced(tp, out, None if collector is None else 2)
 
     return cb_step

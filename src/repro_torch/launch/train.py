@@ -10,7 +10,7 @@ without a GPU the default is an error. Parameters come from the port's
 in the reference's tree (``models.transformer.stack_layers``), so the
 optimizer state and the checkpoints line up leaf for leaf with the
 reference trainer's: a checkpoint either writes, the other resumes.
-Tensor parallelism (``--model-axis`` > 1) is ROADMAP item 11.
+Tensor-parallel training (``--model-axis`` > 1) is ROADMAP item 11b.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from repro_torch.optim import OptimConfig
 from repro_torch.runtime import StragglerDetector, retry_step
 
 MODEL_AXIS_REFUSAL = ("tensor-parallel training is not ported yet (ROADMAP.md, queue 1, "
-                      "item 11: tensor parallel)")
+                      "item 11b: tensor-parallel training)")
 
 
 @dataclasses.dataclass

@@ -169,26 +169,39 @@ def _local_gqa(q, k, v, *, window: int):
 def _decode_gqa(q, k_cache, v_cache, valid, k_scale=None, v_scale=None):
     """One-token decode over a slot cache. q: (B,1,Hq,D); ``valid`` (B,S)
     marks live KV positions; int8 caches pass their per-(position, head)
-    scales, folded into scores (K) and softmax weights (V)."""
+    scales, folded into scores (K) and softmax weights (V).
+
+    The two products and the softmax sum run one KV head at a time, on the
+    shapes of one head: over several heads at once the library picks its
+    reduction order by their number (cuBLAS's batched products do on the
+    card), and a tensor-parallel rank, which holds ``Hkv / P`` of them,
+    would then round otherwise than one device. The element-wise steps
+    between them, and the maximum (exact in any order), run on every head
+    at once. The operands are laid out head-major, so every head's slices
+    have the same strides, and each head's slice starts 16-byte aligned
+    (or is copied), as the library's kernel choice also reads alignment."""
     b, _, hq, d = q.shape
-    hkv = k_cache.shape[2]
+    s_len, hkv = k_cache.shape[1], k_cache.shape[2]
     group = hq // hkv
-    qf = q.reshape(b, hkv, group, d).to(torch.float32)
+    qf = q.reshape(b, hkv, group, d).transpose(0, 1).to(torch.float32).contiguous()
     kc = (k_cache.to(q.dtype) if k_scale is not None else k_cache).to(torch.float32)
-    s = torch.einsum("bhgd,bkhd->bhgk", qf, kc) * (d**-0.5)
-    if k_scale is not None:  # (B,S,Hkv) -> (B,Hkv,1,S)
-        s = s * k_scale.permute(0, 2, 1)[:, :, None, :]
-    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    kc = kc.permute(2, 0, 1, 3).contiguous()  # (Hkv, B, S, D)
+    vc = v_cache.to(q.dtype) if v_scale is not None else v_cache
+    vf = vc.to(torch.float32).permute(2, 0, 1, 3).contiguous()
+    s = torch.stack([torch.bmm(qf[h], kc[h].transpose(1, 2)) for h in range(hkv)])
+    s = s * (d**-0.5)  # (Hkv, B, G, S)
+    if k_scale is not None:
+        s = s * k_scale.permute(2, 0, 1)[:, :, None, :]
+    s = torch.where(valid[None, :, None, :], s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    vc = v_cache.to(q.dtype) if v_scale is not None else v_cache
-    if v_scale is not None:
-        p = p * v_scale.permute(0, 2, 1)[:, :, None, :]
-    out = torch.einsum(
-        "bhgk,bkhd->bhgd", p.to(vc.dtype).to(torch.float32), vc.to(torch.float32)
-    ) / torch.clamp_min(l, 1e-30)
-    return out.reshape(b, 1, hq, d)
+    pv = p * v_scale.permute(2, 0, 1)[:, :, None, :] if v_scale is not None else p
+    pv = pv.to(vc.dtype).to(torch.float32)
+    head = (lambda t: t.clone()) if (b * group * s_len) % 4 else (lambda t: t)
+    l = torch.stack([head(p[h]).sum(dim=-1, keepdim=True) for h in range(hkv)])
+    out = torch.stack([torch.bmm(head(pv[h]), vf[h]) for h in range(hkv)])
+    out = out / torch.clamp_min(l, 1e-30)  # (Hkv, B, G, D)
+    return out.transpose(0, 1).reshape(b, 1, hq, d)
 
 
 def attention_apply(

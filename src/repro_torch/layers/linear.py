@@ -16,7 +16,15 @@ and the parameter contents:
   the plan call as an :class:`~repro_torch.kernels.ops.Epilogue` (inside the
   fused kernel on CUDA).
 
-Tensor-parallel projections are a later slice (ROADMAP item 11).
+Inside a tensor-parallel step (:meth:`~repro_torch.sharding.tp.TPContext.scope`)
+the stored-quantized path follows the projection's role
+(:func:`~repro_torch.sharding.tp.tp_role`): a column-parallel projection
+runs unchanged on its column slice; a row-parallel one quantizes its K
+slice with the whole row's scale, runs its plan without an epilogue, sums
+the ranks' int32 accumulators and applies the epilogue once; the
+vocab-parallel head gathers the ranks' logits. Every plan carries the
+shard triple on its key. QAT and on-the-fly quantization under tensor
+parallelism are ROADMAP item 11b.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from repro_torch.core import plan as plan_mod
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.quantize import fake_quant, quantize
 from repro_torch.kernels import ops
+from repro_torch.sharding.tp import check_exact_bits, current_tp, tp_role
 
 
 def _accum_dtype(w_bits: int, a_bits: int):
@@ -51,6 +60,35 @@ def _finish_dense(y, bias, activation: str, out_dtype):
         out = out + bias.to(torch.float32)
     out = ops.ACTIVATIONS[activation](out)
     return out.to(out_dtype)
+
+
+def _row_parallel(params, x, xsrc, tp, eff, prec, *, name, policy, backend, shard, bias,
+                  activation):
+    """A row-parallel (K-sharded) projection: the activation quantized
+    with the whole row's scale (the maximum over every rank's slice: a
+    rank-local scale would make partial sums that do not compose), the plan
+    without an epilogue (its raw int32 accumulator), the sum over the ranks
+    (exact at <= 8 bits), then the epilogue once, with the plan's truncation
+    correction folded into ``w_scale`` as the plan itself would fold it."""
+    check_exact_bits(eff.a_bits, eff.w_bits)
+    xq = quantize(xsrc, eff.a_bits, axis=-1, reciprocal_scale=True, amax=tp.global_amax(xsrc))
+    plan = plan_mod.make_plan(
+        policy, name, (tuple(x.shape), tuple(params["w_q"].shape)), backend,
+        device=x.device,
+        w_planes=params.get("w_planes"),
+        w_stored_bits=prec.w_bits,
+        has_epilogue=False,
+        accum_dtype=torch.int32,
+        shard=shard,
+    )
+    acc = tp.sum_partials(plan(xq.values, params["w_q"], w_planes=params.get("w_planes")))
+    w_scale = params["w_scale"]
+    if plan.scale_mult != 1.0:
+        w_scale = w_scale * plan.scale_mult
+    return ops.apply_epilogue(acc, ops.Epilogue(
+        a_scale=xq.scale, w_scale=w_scale, bias=bias, activation=activation,
+        out_dtype=x.dtype,
+    ))
 
 
 def projection(*, policy: PrecisionPolicy, training: bool = False, backend: str = "auto"):
@@ -83,7 +121,14 @@ def linear_apply(
         if not prec.active:
             raise ValueError(f"layer {name}: quantized params but inactive policy")
         eff = policy.effective(prec)
+        tp = current_tp()
+        role = tp_role(name) if tp is not None else None
+        shard = None if role is None else (tp.axis, tp.size, role)
         xsrc = x.to(torch.float32) if x_f32 is None else x_f32
+        if role == "row":
+            return _row_parallel(params, x, xsrc, tp, eff, prec, name=name, policy=policy,
+                                 backend=backend, shard=shard, bias=bias,
+                                 activation=activation)
         xq = quantize(xsrc, eff.a_bits, axis=-1, reciprocal_scale=True)
         plan = plan_mod.make_plan(
             policy, name, (tuple(x.shape), tuple(params["w_q"].shape)), backend,
@@ -92,8 +137,9 @@ def linear_apply(
             w_stored_bits=prec.w_bits,
             has_epilogue=True,
             accum_dtype=_accum_dtype(eff.w_bits, eff.a_bits),
+            shard=shard,
         )
-        return plan(
+        out = plan(
             xq.values,
             params["w_q"],
             w_planes=params.get("w_planes"),
@@ -105,6 +151,8 @@ def linear_apply(
                 out_dtype=x.dtype,
             ),
         )
+        # the vocab-parallel head: the sampler reads the whole vocab
+        return tp.gather_columns(out) if role == "vocab" else out
 
     w = params["w"]
     if not prec.active:

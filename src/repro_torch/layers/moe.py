@@ -33,7 +33,7 @@ The layer's parts run inside ``torch.profiler`` ranges: ``moe.route``,
 
 The expert-parallel mesh branch of the reference (``shard_map`` with
 all-gathers and a ``psum_scatter``) is tensor-parallel work, ROADMAP
-item 11.
+item 11b.
 """
 
 from __future__ import annotations
@@ -199,7 +199,7 @@ def moe_apply_gshard(params, x, *, n_experts: int, top_k: int, policy, training:
     if mesh is not None:
         raise NotImplementedError(
             "expert-parallel MoE dispatch over a mesh is tensor-parallel work "
-            "(ROADMAP item 11); the single-device dispatch takes mesh=None"
+            "(ROADMAP item 11b); the single-device dispatch takes mesh=None"
         )
     if "w" not in params["router"]:
         raise ValueError(f"{name}/router is quantized: the router must stay dense "

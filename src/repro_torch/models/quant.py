@@ -50,6 +50,64 @@ def decompose_linear_weight(
     )
 
 
+def weight_precision(path: str, policy: PrecisionPolicy, value_bits: int | None = None):
+    """The precision of the linear at ``path``, or None where the policy
+    leaves it dense; raises where the policy quantizes an MoE router or
+    ``value_bits`` is outside the storage width."""
+    prec = policy.lookup(path)
+    if not prec.active:
+        return None
+    if path.endswith("/moe/router"):
+        raise ValueError(
+            f"layer {path}: the policy quantizes an MoE router, which the "
+            "layer reads dense (the reference quantizes it and its moe_apply "
+            "then fails on router['w']: reference defect G); keep it dense "
+            "with keep_dense=('router',) — the reference's serving policy "
+            "keeps ('frontend', 'router')"
+        )
+    if value_bits is not None and not 1 <= value_bits <= prec.w_bits:
+        raise ValueError(
+            f"layer {path}: value_bits must be in [1, {prec.w_bits}] "
+            f"(the configured storage width), got {value_bits}"
+        )
+    return prec
+
+
+def weight_plane_cache(w_q: torch.Tensor, prec, policy: PrecisionPolicy,
+                       compact: bool = True) -> bp.WeightPlanes:
+    """The plane cache of ``w_q`` (checksummed under integrity), compacted
+    under ``sparsity="compact"`` unless ``compact`` is False."""
+    wp = decompose_linear_weight(
+        w_q, w_bits=prec.w_bits, variant=policy.variant, level=policy.level,
+        checksum=policy.integrity != "off",
+    )
+    if compact and policy.sparsity == "compact" and policy.level == "bitplane":
+        wp = bp.compact_weight_planes(wp)
+    return wp
+
+
+def map_linears(params, cfg, fn):
+    """The tree with every linear (a ``{'w'}`` of two or more axes) replaced
+    by ``fn(node, path)``, ``path`` its path in the reference's tree."""
+
+    def rec(node, path):
+        if _is_linear(node):
+            return fn(node, path)
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                if k == "layers" and path == "" and isinstance(v, list):
+                    out[k] = [rec(blk, cfg.param_path(i)) for i, blk in enumerate(v)]
+                else:
+                    out[k] = rec(v, f"{path}/{k}")
+            return out
+        if isinstance(node, (list, tuple)):
+            return type(node)(rec(v, f"{path}/{i}") for i, v in enumerate(node))
+        return node
+
+    return rec(params, "")
+
+
 def quantize_params(
     params,
     policy: PrecisionPolicy,
@@ -69,47 +127,14 @@ def quantize_params(
     drops its all-zero planes at load
     (:func:`~repro_torch.core.bitplanes.compact_weight_planes`)."""
 
-    def rec(node, path):
-        if _is_linear(node):
-            prec = policy.lookup(path)
-            if not prec.active:
-                return node
-            if path.endswith("/moe/router"):
-                raise ValueError(
-                    f"layer {path}: the policy quantizes an MoE router, which the "
-                    "layer reads dense (the reference quantizes it and its moe_apply "
-                    "then fails on router['w']: reference defect G); keep it dense "
-                    "with keep_dense=('router',) — the reference's serving policy "
-                    "keeps ('frontend', 'router')"
-                )
-            if value_bits is not None and not 1 <= value_bits <= prec.w_bits:
-                raise ValueError(
-                    f"layer {path}: value_bits must be in [1, {prec.w_bits}] "
-                    f"(the configured storage width), got {value_bits}"
-                )
-            q = quantize(node["w"].to(torch.float32), value_bits or prec.w_bits, axis=-2)
-            out = {"w_q": q.values, "w_scale": q.scale}
-            if plane_cache and plan_cacheable(policy, prec):
-                out["w_planes"] = decompose_linear_weight(
-                    q.values,
-                    w_bits=prec.w_bits,
-                    variant=policy.variant,
-                    level=policy.level,
-                    checksum=policy.integrity != "off",
-                )
-                if policy.sparsity == "compact" and policy.level == "bitplane":
-                    out["w_planes"] = bp.compact_weight_planes(out["w_planes"])
-            return out
-        if isinstance(node, dict):
-            out = {}
-            for k, v in node.items():
-                if k == "layers" and path == "" and isinstance(v, list):
-                    out[k] = [rec(blk, cfg.param_path(i)) for i, blk in enumerate(v)]
-                else:
-                    out[k] = rec(v, f"{path}/{k}")
-            return out
-        if isinstance(node, (list, tuple)):
-            return type(node)(rec(v, f"{path}/{i}") for i, v in enumerate(node))
-        return node
+    def one(node, path):
+        prec = weight_precision(path, policy, value_bits)
+        if prec is None:
+            return node
+        q = quantize(node["w"].to(torch.float32), value_bits or prec.w_bits, axis=-2)
+        out = {"w_q": q.values, "w_scale": q.scale}
+        if plane_cache and plan_cacheable(policy, prec):
+            out["w_planes"] = weight_plane_cache(q.values, prec, policy)
+        return out
 
-    return rec(params, "")
+    return map_linears(params, cfg, one)

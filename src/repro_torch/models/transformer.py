@@ -98,17 +98,25 @@ def _init_block(gen, cfg: ModelConfig, kind: str, device):
     raise ValueError(f"unknown block kind {kind!r}")
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
+def init_params(cfg: ModelConfig, gen: torch.Generator, device=None, store=None) -> dict:
     """Random parameters with the reference's distributions (normal
     weights scaled by 1/sqrt(fan-in), embedding by 1/sqrt(d_model), unit
-    norm scales), drawn from ``gen`` on ``device``."""
-    params = {"embed": embedding_init(gen, cfg.vocab_padded, cfg.d_model, cfg.dtype, device)}
+    norm scales), drawn from ``gen`` on ``device``. ``store``: the device
+    the tree is kept on, each part moved there as soon as it is drawn (the
+    same values; a tree drawn on the card then needs one layer of card
+    memory at a time, as a tensor-parallel rank loads it)."""
+    keep = (lambda t: t) if store is None else (
+        lambda t: tree_map(lambda x: x.to(store) if isinstance(x, torch.Tensor) else x, t))
+    params = {"embed": keep(embedding_init(gen, cfg.vocab_padded, cfg.d_model, cfg.dtype,
+                                           device))}
     if cfg.frontend != "none":
-        params["frontend"] = frontend_init(gen, cfg.frontend_dim, cfg.d_model, cfg.dtype, device)
-    params["final_norm"] = rmsnorm_init(cfg.d_model, device)
+        params["frontend"] = keep(frontend_init(gen, cfg.frontend_dim, cfg.d_model, cfg.dtype,
+                                                device))
+    params["final_norm"] = keep(rmsnorm_init(cfg.d_model, device))
     if not cfg.tie_embeddings:
-        params["lm_head"] = lm_head_init(gen, cfg.d_model, cfg.vocab_padded, cfg.dtype, device)
-    params["layers"] = [_init_block(gen, cfg, kind, device) for kind in cfg.layer_kinds()]
+        params["lm_head"] = keep(lm_head_init(gen, cfg.d_model, cfg.vocab_padded, cfg.dtype,
+                                              device))
+    params["layers"] = [keep(_init_block(gen, cfg, kind, device)) for kind in cfg.layer_kinds()]
     return params
 
 

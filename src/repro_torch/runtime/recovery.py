@@ -11,7 +11,7 @@
 * ``HealthMonitor``     — heartbeat bookkeeping for worker liveness.
 
 The reference's ``ElasticMesh`` rebuilds a device mesh; it comes with the
-port of tensor-parallel serving (ROADMAP.md, queue 1, item 11).
+port of tensor-parallel training (ROADMAP.md, queue 1, item 11b).
 """
 
 from __future__ import annotations

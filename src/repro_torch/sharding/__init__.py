@@ -1,0 +1,26 @@
+"""Tensor-parallel serving: the Megatron split of the quantized plane tree
+over ``torch.distributed`` ranks (``sharding/tp.py``)."""
+
+from repro_torch.sharding.tp import (
+    COL_PARALLEL,
+    ROW_PARALLEL,
+    VOCAB_PARALLEL,
+    TPContext,
+    current_tp,
+    plane_cache_device_bytes,
+    shard_quantized,
+    shard_quantized_all,
+    tp_role,
+)
+
+__all__ = [
+    "COL_PARALLEL",
+    "ROW_PARALLEL",
+    "VOCAB_PARALLEL",
+    "TPContext",
+    "current_tp",
+    "plane_cache_device_bytes",
+    "shard_quantized",
+    "shard_quantized_all",
+    "tp_role",
+]

@@ -1,0 +1,420 @@
+"""Tensor-parallel serving of the packed bit-plane stack on
+``torch.distributed`` (the port of ``src/repro/sharding/tp.py``).
+
+One process per rank, every rank running the same engine loop on its own
+shard (SPMD). The quantized parameter tree is laid out per rank on load
+and the serving steps run under :meth:`TPContext.scope`, where
+:func:`~repro_torch.layers.linear.linear_apply` finds the context and puts
+the collectives where the reference puts ``psum``, ``pmax`` and
+``all_gather``. The split is Megatron's, specialised to the plane cache:
+
+* **column-parallel** (``q/k/v/gate/up``): the output dim N is sharded —
+  each rank holds ``w_q[:, n0:n1]``, its own plane decomposition of that
+  slice and the matching ``w_scale`` columns. No collective: outputs stay
+  sharded (heads for attention, ffn columns for the MLP).
+* **row-parallel** (``o/down``): the input dim K is sharded — each rank
+  holds ``w_q[k0:k1, :]`` and its decomposition; ``w_scale`` replicates.
+  The activation is quantized with the scale of the whole row (an
+  all-reduce MAX of the per-rank |x| maxima), the plan runs without an
+  epilogue, the raw int32 accumulators are all-reduced (SUM; exact: at
+  <= 8 bits ``|sum| <= 128 * 128 * K < 2^31`` for K up to 12800, so
+  nothing wraps), and the dequant epilogue runs once, after the sum.
+* **vocab-parallel** (``lm_head/head``): column-sharded like the
+  column-parallel set; the sharded logits are gathered (all-gather, the
+  ranks' columns concatenated in rank order) so the replicated sampler
+  sees the whole vocab.
+* **KV head-parallel**: each rank's cache holds ``n_kv_heads / P`` heads
+  (:meth:`TPContext.local_config`); attention is head-local.
+
+The quantized values are the reference's, which quantizes **globally
+first** (per-output-channel scales over the full K), then slices, then
+decomposes per rank, with checksums under integrity. Here the dense
+weight is sliced first, on the device it was handed on (the host, for a
+model larger than one card), and only the rank's slice reaches the rank's
+device: a column slice holds whole columns, so its own scales are the
+global ones; a row slice's column maxima are maximized over the ranks (an
+all-reduce) before it is quantized. The integers and scales are the same
+bits. Under
+``sparsity="compact"`` the kept-plane set of a weight is the global one:
+a plane is kept where it is non-zero in any rank's slice (an all-reduce
+of the ranks' occupancy), never from one slice alone.
+
+Where the reference stacks every shard on a leading axis of one tree and
+``shard_map`` hands each device its slice, each rank here holds only its
+own shard tree (:func:`shard_quantized`); :func:`shard_quantized_all`
+builds every rank's in one process, the form the tests hold against the
+reference's stacked leaves. As the port's ``quantize_params`` does, a
+layer's plane cache is compacted on its own (the reference's scanned stack
+keeps the planes alive in any of its layers).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+from typing import Any, ClassVar, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import bitplanes as bp
+
+#: parameter-path suffixes whose output dim is sharded
+COL_PARALLEL = frozenset({"q_proj", "k_proj", "v_proj", "gate_proj", "up_proj"})
+#: parameter-path suffixes whose input dim is sharded (deferred epilogue)
+ROW_PARALLEL = frozenset({"o_proj", "down_proj"})
+#: vocab-parallel heads: column-sharded, the logits gathered after the
+#: product. "head" is the parameter-tree component (``lm_head/head/w_q``),
+#: "lm_head" the layer name ``lm_head_apply`` passes to ``linear_apply``.
+VOCAB_PARALLEL = frozenset({"head", "lm_head"})
+
+#: KV-cache leaf names sharded on their head axis
+_KV_VALUE_LEAVES = frozenset({"k", "v", "k_q", "v_q"})
+_KV_SCALE_LEAVES = frozenset({"k_scale", "v_scale"})
+
+
+#: the widest operands the row-parallel int32 partial sums hold exactly
+MAX_TP_BITS = 8
+
+
+def check_exact_bits(a_bits: int, w_bits: int) -> None:
+    """Refuse operands wider than :data:`MAX_TP_BITS` (the reference's
+    message): their row-parallel partial sums would not be exact in int32."""
+    if max(a_bits, w_bits) > MAX_TP_BITS:
+        raise ValueError(
+            "model_parallel > 1 requires <= 8-bit operands: the row-parallel "
+            "partial sums must accumulate exactly in int32 for the psum to be "
+            "bit-identical"
+        )
+
+
+def tp_role(name: str) -> Optional[str]:
+    """Classify a layer or parameter path: "col", "row", "vocab" or None
+    (replicated), by its last component."""
+    leaf = name.rsplit("/", 1)[-1]
+    if leaf in COL_PARALLEL:
+        return "col"
+    if leaf in ROW_PARALLEL:
+        return "row"
+    if leaf in VOCAB_PARALLEL:
+        return "vocab"
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class TPContext:
+    """One tensor-parallel serving configuration: ``size`` ranks of the
+    process group ``group`` (None: the default group), this process being
+    ``rank``. The collectives run in an initialised process group (a world
+    of one included: a CUDA graph then captures them as it would for more
+    ranks); with no process group a context of size 1 makes them the
+    identity."""
+
+    size: int
+    rank: int = 0
+    group: Any = None
+    #: the axis name a plan's shard triple carries, the reference's
+    axis: ClassVar[str] = "model"
+
+    # -- ambient scope -----------------------------------------------------
+
+    @contextlib.contextmanager
+    def scope(self):
+        """Install this context while a step body runs."""
+        token = _TP.set(self)
+        try:
+            yield self
+        finally:
+            _TP.reset(token)
+
+    # -- model-side helpers ------------------------------------------------
+
+    def local_config(self, cfg):
+        """Per-rank model config: the head counts divide over the ranks;
+        every other dimension follows from the sliced parameter shapes."""
+        if cfg.n_heads % self.size or cfg.n_kv_heads % self.size:
+            raise ValueError(
+                f"model_parallel={self.size} must divide n_heads="
+                f"{cfg.n_heads} and n_kv_heads={cfg.n_kv_heads} "
+                "(head-parallel attention + head-parallel KV cache)"
+            )
+        return dataclasses.replace(
+            cfg, n_heads=cfg.n_heads // self.size, n_kv_heads=cfg.n_kv_heads // self.size,
+        )
+
+    # -- collectives ---------------------------------------------------------
+
+    def _live(self) -> bool:
+        if dist.is_available() and dist.is_initialized():
+            return True
+        if self.size > 1:
+            raise RuntimeError(
+                f"tensor-parallel size {self.size} needs an initialised process group "
+                "(launch/mesh.init_tp_group or spawn_tp)"
+            )
+        return False
+
+    def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        if self._live():
+            dist.all_reduce(t, op=op, group=self.group)
+        return t
+
+    def reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """Element-wise maximum of ``t`` over the ranks, in place (exact)."""
+        return self._all_reduce(t, dist.ReduceOp.MAX)
+
+    def reduce_alarms(self, alarms: torch.Tensor) -> torch.Tensor:
+        """OR of a per-rank ABFT alarm vector over the ranks (all-reduce
+        MAX), so every rank sees an alarm raised on any rank's planes."""
+        if alarms.numel() == 0:
+            return alarms
+        return self.reduce_max(alarms.to(torch.int32)).to(torch.bool)
+
+    def global_amax(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-row |x| maximum of a K-sharded activation over every rank's
+        slice (keepdim; float32, whose maximum is exact): the row-parallel
+        quantizer's scale is then the unsharded one."""
+        return self.reduce_max(x.abs().amax(dim=-1, keepdim=True).to(torch.float32))
+
+    def sum_partials(self, acc: torch.Tensor) -> torch.Tensor:
+        """Sum of the ranks' raw int32 accumulators, in place (exact at
+        <= 8 bits: no partial or total reaches 2^31)."""
+        return self._all_reduce(acc, dist.ReduceOp.SUM)
+
+    def gather_columns(self, out: torch.Tensor) -> torch.Tensor:
+        """The ranks' column blocks of ``out`` concatenated in rank order on
+        the last axis (list-form all-gather, which gloo takes on CUDA
+        tensors too)."""
+        if not self._live():
+            return out
+        out = out.contiguous()
+        parts = [torch.empty_like(out) for _ in range(self.size)]
+        dist.all_gather(parts, out, group=self.group)
+        return torch.cat(parts, dim=-1)
+
+    def reduce_max_host(self, values: list, device) -> list:
+        """Element-wise maximum over the ranks of a list of host ints (one
+        small all-reduce on ``device``, the group's)."""
+        if not values or not self._live():
+            return list(values)
+        t = torch.tensor(values, dtype=torch.int64, device=device)
+        return [int(v) for v in self.reduce_max(t).tolist()]
+
+    def broadcast_object(self, obj):
+        """Rank 0's ``obj`` on every rank (pickled)."""
+        if not self._live():
+            return obj
+        box = [obj]
+        src = 0 if self.group is None else dist.get_global_rank(self.group, 0)
+        dist.broadcast_object_list(box, src=src, group=self.group)
+        return box[0]
+
+    # -- layout descriptions ---------------------------------------------------
+
+    def cache_specs(self, cache):
+        """The tree of ``cache`` with each leaf replaced by the axis it is
+        head-sharded on, or None where it replicates: KV value leaves
+        ``(..., S, Hkv, D)`` on ``Hkv``, scale leaves ``(..., S, Hkv)`` on
+        their last axis (dense slots and paged pools alike); lengths, step
+        counters and block tables replicate. Raises where a head axis does
+        not divide ``size``. The reference feeds these specs to
+        ``shard_map``; the port has none (each rank allocates its own
+        heads' cache from :meth:`local_config`), so only the tests call
+        it, to hold the layout against the reference's."""
+
+        def rec(node, name):
+            if isinstance(node, dict):
+                return {k: rec(v, k) for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return type(node)(rec(v, name) for v in node)
+            if name in _KV_VALUE_LEAVES:
+                axis = node.dim() - 2
+            elif name in _KV_SCALE_LEAVES:
+                axis = node.dim() - 1
+            else:
+                return None
+            if node.shape[axis] % self.size:
+                raise ValueError(
+                    f"KV leaf {name!r} head axis {node.shape[axis]} does not "
+                    f"divide model_parallel={self.size}"
+                )
+            return axis
+
+        return rec(cache, None)
+
+
+_TP: contextvars.ContextVar[Optional[TPContext]] = contextvars.ContextVar(
+    "tp_context", default=None
+)
+
+
+def current_tp() -> Optional[TPContext]:
+    """The ambient :class:`TPContext` inside a tensor-parallel step, else
+    None (single-device execution)."""
+    return _TP.get()
+
+
+# ---------------------------------------------------------------------------
+# Quantized-tree relayout
+# ---------------------------------------------------------------------------
+
+
+class _PerRank(list):
+    """A linear's nodes, one per rank asked for (split off by :func:`_pick`)."""
+
+
+def _slice(t: torch.Tensor, axis: int, n: int, r: int) -> torch.Tensor:
+    axis = axis % t.dim()
+    if t.shape[axis] % n:
+        raise ValueError(f"axis {axis} extent {t.shape[axis]} not divisible by {n} shards")
+    step = t.shape[axis] // n
+    return t.narrow(axis, r * step, step).contiguous()
+
+
+def _pick(node, i: int):
+    if isinstance(node, _PerRank):
+        return node[i]
+    if isinstance(node, dict):
+        return {k: _pick(v, i) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_pick(v, i) for v in node)
+    return node
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def _shard_trees(params, policy, cfg, size: int, ranks, *, plane_cache: bool, value_bits,
+                 device, col_max, union):
+    """The shard trees of ``ranks`` on ``device``. ``col_max(list of
+    (1, N) column maxima of the ranks' row slices) -> the whole K's``;
+    ``union(alive lists) -> alive`` gives a weight's global kept-plane set
+    under compaction."""
+    from repro_torch.core.plan import plan_cacheable
+    from repro_torch.core.quantize import quantize
+    from repro_torch.models.quant import map_linears, weight_plane_cache, weight_precision
+
+    compact = policy.sparsity == "compact" and policy.level == "bitplane"
+
+    def one(node, path):
+        role = tp_role(path)
+        prec = weight_precision(path, policy, value_bits)
+        if prec is None:
+            if role is not None:
+                raise NotImplementedError(
+                    f"layer {path}: a dense (unquantized) tensor-parallel projection is not "
+                    "ported (ROADMAP item 11b); quantize every sharded projection")
+            return node
+        bits = value_bits or prec.w_bits
+        cached = plane_cache and plan_cacheable(policy, prec)
+        if role is None:
+            q = quantize(node["w"].to(device, torch.float32), bits, axis=-2)
+            out = {"w_q": q.values, "w_scale": q.scale}
+            if cached:
+                out["w_planes"] = weight_plane_cache(q.values, prec, policy)
+            return _PerRank([out] * len(ranks))
+        # slice where the dense weight lies, then only the slice to the device
+        ws = [_slice(node["w"], -2 if role == "row" else -1, size, r).to(device, torch.float32)
+              for r in ranks]
+        # a row slice's per-output-channel scale is over the whole K; a
+        # column slice's own columns are whole, and so is its scale
+        amax = (col_max([w.abs().amax(dim=-2, keepdim=True) for w in ws])
+                if role == "row" else None)
+        parts = []
+        for w in ws:
+            q = quantize(w, bits, axis=-2, amax=amax)
+            parts.append({"w_q": q.values, "w_scale": q.scale})
+        del ws
+        if cached:
+            caches = [weight_plane_cache(p["w_q"], prec, policy, compact=False) for p in parts]
+            if compact:
+                alive = union([bp.plane_alive(c.packed) for c in caches])
+                caches = [bp.compact_weight_planes(c, alive) for c in caches]
+            for p, c in zip(parts, caches):
+                p["w_planes"] = c
+        return _PerRank(parts)
+
+    tree = map_linears(params, cfg, one)
+    return [_to(_pick(tree, i), device) for i in range(len(ranks))]
+
+
+def _or(alive_lists) -> list:
+    return [any(col) for col in zip(*alive_lists)]
+
+
+def _max(tensors) -> torch.Tensor:
+    out = tensors[0]
+    for t in tensors[1:]:
+        out = torch.maximum(out, t)
+    return out
+
+
+def shard_quantized(params, policy, tp: TPContext, *, cfg, plane_cache: bool = True,
+                    value_bits=None, device=None):
+    """This rank's shard tree of the dense tree ``params``, on ``device``
+    (default: where ``params`` lie): each linear's weight sliced where it
+    lies (rows for "row", columns for "col" / "vocab"), the slice moved to
+    ``device`` and quantized there to the reference's integers and scales
+    (a row slice with the column maxima of the whole K: one all-reduce per
+    weight; ``w_scale`` then replicates), then decomposed from the slice's
+    own integers. Under compaction the kept planes are those alive in any
+    rank's slice (one all-reduce per weight). Every rank must pass the same
+    ``params``; a tree on the host never reaches the card whole. ``cfg``
+    names the layers' paths (``models.quant.quantize_params``)."""
+    device = _device_of(params) if device is None else torch.device(device)
+
+    def union(alive_lists):
+        local = [int(a) for a in _or(alive_lists)]
+        return [bool(v) for v in tp.reduce_max_host(local, device)]
+
+    return _shard_trees(params, policy, cfg, tp.size, [tp.rank], plane_cache=plane_cache,
+                        value_bits=value_bits, device=device,
+                        col_max=lambda maxima: tp.reduce_max(maxima[0]), union=union)[0]
+
+
+def _device_of(tree) -> torch.device:
+    """The device of a parameter tree's first tensor."""
+    if isinstance(tree, torch.Tensor):
+        return tree.device
+    for v in tree.values() if isinstance(tree, dict) else tree:
+        if isinstance(v, (torch.Tensor, dict, list, tuple)):
+            return _device_of(v)
+    raise ValueError("the tree holds no tensor")
+
+
+def shard_quantized_all(params, policy, size: int, *, cfg, plane_cache: bool = True,
+                        value_bits=None) -> list:
+    """Every rank's shard tree (:func:`shard_quantized`), built in one
+    process on the device of ``params``: rank ``r``'s is element ``r``."""
+    return _shard_trees(params, policy, cfg, size, list(range(size)), plane_cache=plane_cache,
+                        value_bits=value_bits, device=_device_of(params), col_max=_max,
+                        union=_or)
+
+
+def plane_cache_device_bytes(tree) -> int:
+    """Bytes of the weight-plane caches (every tensor under a ``w_planes``)
+    that ``tree`` holds: for a rank's shard tree, what its device holds,
+    which shrinks ~1/P with the ranks (K-padding of the packed words and
+    replicated leaves give the "~")."""
+
+    def nbytes(node) -> int:
+        if isinstance(node, torch.Tensor):
+            return node.numel() * node.element_size()
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            return sum(nbytes(getattr(node, f.name)) for f in dataclasses.fields(node))
+        return 0
+
+    def rec(node) -> int:
+        if isinstance(node, dict):
+            return sum(nbytes(v) if k == "w_planes" else rec(v) for k, v in node.items())
+        if isinstance(node, (list, tuple)):
+            return sum(rec(v) for v in node)
+        return 0
+
+    return rec(tree)

@@ -1047,3 +1047,140 @@ def test_every_tuner_candidate_equals_the_default_on_card(cuda_device, route, le
     for tiles in cands:
         assert 0 < timer(key, route, tiles, repeats=1) < 1e6
     assert {name: fn.launches for name, fn in graphs.launch_counters().items()} == before
+
+
+@pytest.mark.cuda
+def test_tp_decode_step_graph_over_nccl_equals_eager_on_card(cuda_device, tmp_path):
+    """A tensor-parallel decode step over an NCCL group of world size 1,
+    captured in a CUDA graph with its collectives inside, replays the eager
+    TP step's tokens, which equal the single-device step's."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.launch import graphs, mesh
+    from repro_torch.launch.serve import _decode_body
+    from repro_torch.launch.steps import make_cb_decode_step, make_tp_cb_decode_step
+    from repro_torch.models.cache import init_cache
+    from repro_torch.models.quant import quantize_params
+    from repro_torch.models.transformer import init_params
+    from repro_torch.sharding.tp import shard_quantized
+
+    cfg = get_reduced("granite-3-8b")
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(0)
+    params = init_params(cfg, g, device=cuda_device)
+    policy = PrecisionPolicy.uniform(8, 8, level="bitplane")
+
+    def state():
+        # a cache with garbage history: random int8 KV, lengths 3 and 7
+        gs = torch.Generator(device=cuda_device)
+        gs.manual_seed(1)
+        cache = init_cache(cfg, 2, 16, cfg.dtype, kv_quant=True, device=cuda_device)
+        for blk in cache["layers"]:
+            blk["k_q"].copy_(torch.randint(-127, 128, blk["k_q"].shape, generator=gs,
+                                           device=cuda_device, dtype=torch.int8))
+            blk["v_q"].copy_(torch.randint(-127, 128, blk["v_q"].shape, generator=gs,
+                                           device=cuda_device, dtype=torch.int8))
+            blk["k_scale"].fill_(0.01)
+            blk["v_scale"].fill_(0.01)
+            blk["len"].copy_(torch.tensor([3, 7], dtype=torch.int32))
+        cache["step"].copy_(torch.tensor([3, 7], dtype=torch.int32))
+        return {"cache": cache, "tokens": torch.tensor([[5], [9]], dtype=torch.int32,
+                                                       device=cuda_device),
+                "temps": torch.zeros((2,), dtype=torch.float32, device=cuda_device)}
+
+    def run(body, graph=False):
+        st = state()
+        if not graph:
+            return [body(st, None).cpu() for _ in range(4)]
+        captured = graphs.CapturedStep(body, st, plan_mod.DEFAULT_REGISTRY,
+                                       graphs.CudaGraphRunner(cuda_device))
+        return [captured(i).cpu() for i in range(4)]
+
+    single = run(_decode_body(make_cb_decode_step(cfg, policy),
+                              quantize_params(params, policy, cfg=cfg, plane_cache=True), False))
+    tp = mesh.init_tp_group(1, 0, str(tmp_path), backend="nccl")
+    try:
+        body = _decode_body(make_tp_cb_decode_step(cfg, tp, policy),
+                            shard_quantized(params, policy, tp, cfg=cfg), False)
+        eager = run(body)
+        replayed = run(body, graph=True)
+    finally:
+        dist.destroy_process_group()
+    for a, b, c in zip(single, eager, replayed):
+        assert torch.equal(a, b) and torch.equal(b, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [2, 4])
+def test_decode_attention_over_head_slices_is_bit_equal_on_card(cuda_device, size):
+    """On the card the decode attention over one rank's heads gives the
+    whole heads' bits (cuBLAS picks a batched product's reduction order by
+    the batch count, so the heads are attended one at a time), at
+    granite-3-8b's head shapes with an int8 cache."""
+    from repro_torch.layers.attention import _decode_gqa
+
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(size)
+    b, s, hq, hkv, d = 4, 272, 32, 8, 128
+    q = torch.randn((b, 1, hq, d), generator=g, device=cuda_device).to(torch.bfloat16)
+    k, v = (torch.randint(-127, 128, (b, s, hkv, d), generator=g, device=cuda_device,
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((b, s, hkv), generator=g, device=cuda_device) * 0.01
+              for _ in range(2))
+    valid = torch.arange(s, device=cuda_device)[None, :] < torch.tensor(
+        [[1], [37], [200], [272]], device=cuda_device)
+    whole = _decode_gqa(q, k, v, valid, ks, vs)
+    hs, kh = hq // size, hkv // size
+    for r in range(size):
+        sl = slice(r * kh, (r + 1) * kh)
+        part = _decode_gqa(q[:, :, r * hs:(r + 1) * hs], k[:, :, sl], v[:, :, sl], valid,
+                           ks[:, :, sl], vs[:, :, sl])
+        assert torch.equal(part, whole[:, :, r * hs:(r + 1) * hs]), f"rank {r}"
+
+
+@pytest.mark.cuda
+def test_shards_of_a_host_tree_equal_the_card_quantization(cuda_device):
+    """A dense tree drawn on the card and kept on the host
+    (``init_params(store="cpu")``) holds the card tree's values; its shard,
+    sliced on the host and quantized on the card (a context of one rank),
+    equals the single-device quantization of the card tree leaf for leaf,
+    every leaf on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.tree import leaves
+    from repro_torch.models.quant import quantize_params
+    from repro_torch.models.transformer import init_params
+    from repro_torch.sharding.tp import TPContext, shard_quantized
+
+    cfg = get_reduced("granite-3-8b")
+    policy = PrecisionPolicy.uniform(8, 8, level="bitplane", integrity="detect")
+
+    def draw(store=None):
+        g = torch.Generator(device=cuda_device)
+        g.manual_seed(0)
+        return init_params(cfg, g, device=cuda_device, store=store)
+
+    host, card = draw("cpu"), draw()
+    assert all(a.device.type == "cpu" and torch.equal(a, b.cpu())
+               for a, b in zip(leaves(host), leaves(card)))
+
+    def flat(node):
+        if isinstance(node, torch.Tensor):
+            return [node]
+        if dataclasses.is_dataclass(node):
+            return [t for f in dataclasses.fields(node) for t in flat(getattr(node, f.name))]
+        if isinstance(node, (list, tuple)):
+            return [t for v in node for t in flat(v)]
+        if isinstance(node, dict):
+            return [t for k in sorted(node) for t in flat(node[k])]
+        return []
+
+    got = flat(shard_quantized(host, policy, TPContext(size=1), cfg=cfg, device=cuda_device))
+    want = flat(quantize_params(card, policy, cfg=cfg, plane_cache=True))
+    assert len(got) == len(want)
+    assert all(x.is_cuda and x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(got, want))

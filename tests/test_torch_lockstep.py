@@ -15,8 +15,9 @@ of its eager quantization, as in ``test_torch_scrub.py``):
   through fewer slots than requests (the reference's serving contract,
   ``tests/test_serving.py``);
 * ``validate_args`` dies with the reference's message for every invalid
-  combination of the flags the two share, and names the ROADMAP item for
-  the flag still refused (``--model-parallel``).
+  combination of the flags the two share (``--model-parallel`` among
+  them); ``--model-parallel 2`` on the host serves the ``--model-parallel
+  1`` tokens from two spawned ranks.
 """
 
 import contextlib
@@ -256,6 +257,9 @@ INVALID = [
     ["--precision-switch", "2:9", "--level", "bitplane"],
     ["--precision-switch=-1:4", "--level", "bitplane"],
     ["--model-parallel", "0"],
+    ["--model-parallel", "2", "--mode", "lockstep"],
+    ["--model-parallel", "2", "--bits", "0"],
+    ["--model-parallel", "2", "--bits", "12"],
 ]
 
 
@@ -277,14 +281,6 @@ def test_validate_args_dies_with_the_reference_message(argv):
         assert msg == _message(jserve, argv)
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["--model-parallel", "2"], "item 11"),
-])
-def test_flags_of_later_items_are_refused_naming_the_item(argv, item):
-    msg = _message(serve, argv)
-    assert "ROADMAP.md" in msg and item in msg and "not ported yet" in msg
-
-
 def test_cli_serves_every_new_flag_on_the_host(capsys):
     base = ["--reduced", "--device", "cpu", "--gen", "3"]
     serve.main(base + ["--mode", "lockstep", "--batch", "2", "--prompt-len", "5",
@@ -301,3 +297,18 @@ def test_cli_serves_every_new_flag_on_the_host(capsys):
                        "--no-plane-cache"])
     out = capsys.readouterr().out
     assert "w16a16" in out and "'oracle'" in out
+
+
+def test_cli_model_parallel_prints_the_single_device_tokens(capsys):
+    """``--model-parallel 2 --device cpu`` spawns two gloo ranks; rank 0
+    prints the tokens of ``--model-parallel 1`` under the ``tp=2`` tag."""
+    base = ["--reduced", "--device", "cpu", "--bits", "8", "--level", "bitplane",
+            "--prompt-lens", "5,9,7", "--gen", "4", "--n-slots", "2"]
+    serve.main(base + ["--model-parallel", "1"])
+    one = capsys.readouterr().out
+    serve.main(base + ["--model-parallel", "2"])
+    two = capsys.readouterr().out
+    rids = [line for line in one.splitlines() if line.startswith("[serve] rid ")]
+    assert len(rids) == 3 and " tp=" not in one
+    assert " tp=2 cb/int8" in two
+    assert [line for line in two.splitlines() if line.startswith("[serve] rid ")] == rids

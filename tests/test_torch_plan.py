@@ -149,11 +149,11 @@ def test_route_outputs_equal_reference(level, variant, dial, rng):
                                           err_msg=f"route {route}")
 
 
-def test_later_slice_routes_raise_not_implemented(rng):
-    """Tensor-parallel plans are a later slice and raise. The packed route
-    and ABFT-checked plans run now: a CUDA-backend packed plan given host
-    tensors raises instead of falling back to the plain version, and a
-    checked host plan returns the exact product."""
+def test_packed_host_refusal_checked_plan_and_sharded_key(rng):
+    """A CUDA-backend packed plan given host tensors raises instead of
+    falling back to the plain version; a checked host plan returns the
+    exact product; a tensor-parallel plan runs on its local shapes under a
+    key no unsharded plan shares."""
     w = rng.integers(-8, 8, (64, 8)).astype(np.int8)
     x = rng.integers(-8, 8, (4, 64)).astype(np.int8)
     wt = tbp.make_weight_planes(torch.from_numpy(w), w_bits=8, variant="booth",
@@ -172,5 +172,6 @@ def test_later_slice_routes_raise_not_implemented(rng):
     tp_plan = tplan.plan_for_operands((4, 64, 8), a_bits=8, w_bits=8, level="bitplane",
                                       backend="torch", device=CPU, shard=("model", 2, "col"),
                                       registry=tplan.PlanRegistry())
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        tp_plan(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_array_equal(t2n(tp_plan(torch.from_numpy(x), torch.from_numpy(w))),
+                                  x.astype(np.int64) @ w)
+    assert tp_plan.key != dataclasses.replace(tp_plan.key, shard=None)
