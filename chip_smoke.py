@@ -206,10 +206,24 @@ Phases, each failing the run on any error:
    fused_plane_linear for every column- and vocab-parallel projection,
    plane_matmul_packed for every row-parallel one, the paged kernel layers
    x decode steps times, no plain route; each rank's plane bytes at most
-   0.55 of one device's, its dense weights kept on the host (each rank's
-   card memory printed beside one device's). Before the cells, the plain
-   attention paths over one rank's heads at P = 2 and 4 must give the
-   whole heads' bits.
+   0.55 of one device's. Every model of the spawn is loaded layer by
+   layer (``SeededParams(0)``: a rank draws one part at a time on the card
+   and keeps its shard of it): a "tp load" line gives each rank's card
+   peak part by part and resident after, beside one device's load. In the
+   same spawn: bitplane-scrub-tp2 (bitplane-scrub's engine, one seeded
+   plane flip on rank 1 alone: found on both ranks, one scrub each, the
+   fingerprint restored, tokens of bitplane-scrub), bitplane-autopilot-tp2
+   (the autopilot cell's ramp: each request's tokens, the switches, the
+   tiers and the shed set of the single-device cell, whose requests equal
+   static runs of their tiers), bitplane-autotune-tp2 and -warm-tp2 (a
+   fresh plan store then warm from it: rank 0 alone tunes and keeps the one
+   store, every rank the same tiles, warm no tune; bitplane's tokens), and
+   mamba2-tp2 (4 layers), qwen3moe-tp2 (1 layer, router dense) and
+   internvl2-patches-tp2 (2 layers, the image prefix through the TP
+   prefill and decode steps), each against a single-device eager twin at
+   its depth run in this call; rows 1 and 2 on every rank of every cell,
+   no plain route. Before the cells, the plain attention paths over one
+   rank's heads at P = 2 and 4 must give the whole heads' bits.
 
 Every engine cell's main run replays each decode step from the engine's
 CUDA graph of that precision (captured by the warm-up run; the counted
@@ -244,6 +258,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2763,6 +2778,9 @@ def run_autopilot(cfg, params, paged: bool) -> dict:
     if paged:
         out["paging"] = stats["paging"]
     print(json.dumps(out), flush=True)
+    # phase 19's control (not printed): the tokens and the shed set
+    out.update(tokens=results, failed=stats["failed"],
+               host_ms_per_decode_step=out["host_ms_per_decode_step"])
     return out
 
 
@@ -2998,9 +3016,10 @@ FAMILY_OPS_STEPS = 4  # decode steps of the profiled eager run
 # run passes even with these cuts (PERF.md, section 4): the route cells
 # mamba2-digit and mamba2-detect run 16 layers, rgemma-window two periods
 # and the tail, and rgemma-bitplane four periods and the 2-layer tail (the
-# tensor-parallel phase took its 26 layers' time); mamba2-bitplane 32 (the
-# dense decode attention's one-head-at-a-time loop took the time of 16)
-FAMILY_LAYERS = {"mamba2-bitplane": 32, "mamba2-digit": 16, "mamba2-detect": 16,
+# tensor-parallel phase took its 26 layers' time); mamba2-bitplane 24 (the
+# dense decode attention's one-head-at-a-time loop took the time of 16, the
+# tensor-parallel phase's later cells that of 8 more)
+FAMILY_LAYERS = {"mamba2-bitplane": 24, "mamba2-digit": 16, "mamba2-detect": 16,
                  "rgemma-bitplane": 14, "rgemma-window": 8}
 
 
@@ -3395,11 +3414,12 @@ def run_families() -> dict:
 ARCH_KEEP_DENSE = ("frontend", "router")
 # depth of each cell (full: 94, 48, 24 and 48 layers); width is never cut.
 # The MoE cells are cut for the smoke's 1200 s and the card's 80 GB (the
-# expert stacks are fake-quantized on every call), internvl2-bitplane for
+# expert stacks are fake-quantized on every call; qwen3moe-bitplane 4 -> 2
+# for the tensor-parallel phase's new cells), internvl2-bitplane for
 # the smoke's time (its plain-route control runs ~1 s a decode step at 24
 # layers, and its decode attention attends one KV head at a time;
 # internvl2-patches serves all 24); PERF.md, section 4
-ARCH_LAYERS = {"qwen3moe-bitplane": 4, "scout-bitplane": 2, "internvl2-bitplane": 6,
+ARCH_LAYERS = {"qwen3moe-bitplane": 2, "scout-bitplane": 2, "internvl2-bitplane": 6,
                "internvl2-patches": 24, "hubert-encode": 48}
 VLM_TEXT = 64  # text tokens after internvl2's 256 patches
 VLM_BATCH = 4
@@ -3907,14 +3927,14 @@ TP_DECODE_STEPS = 16  # decode steps of tp1-nccl's loops
 TP_BYTES_RATIO = 0.55  # per-rank plane bytes at P=2 against P=1's, at most
 
 
-def _seed_params(cfg, store=None):
+def _seed_params(cfg):
     """Phase 3's weights: ``init_params`` from a CUDA generator seeded 0,
-    kept on ``store`` (default: the card)."""
+    on the card."""
     from repro_torch.models.transformer import init_params
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    return init_params(cfg, gen, device="cuda", store=store)
+    return init_params(cfg, gen, device="cuda")
 
 
 def _tp_loop(cfg, kv_cfg, q_params, prefill, step, prompts, max_len,
@@ -4039,104 +4059,395 @@ def _tp_cell(name, cfg, engine, reqs, schedule, rank) -> dict:
             "plane_cache_bytes": engine.plane_cache_bytes_per_device()}
 
 
-def _tp_rank_cells(tp, device, n_layers: int) -> list:
-    """One rank of the gloo cells (every rank on ``cuda:0``): bitplane-tp2
-    on phase 3's workload with its 8 -> 4 switch at step 8, and
-    bitplane-paged-tp2 on phase 8's, both with eager steps (gloo's
-    collectives cannot be captured). Returns every rank's lines (rank 0's
-    is the one ``spawn_tp`` hands back)."""
+#: one plane-word flip before iteration 2, injected on rank 1 alone
+TP_SCRUB_SPEC = "planes@2;seed=11"
+#: the families served tensor-parallel in phase 19: name -> (arch, depth,
+#: dense layers). Depth is cut for the phase's time, never width; each is
+#: held against a single-device eager twin at the same depth
+TP_FAMILIES = {"mamba2-tp2": ("mamba2-1.3b", 4, ()),
+               "qwen3moe-tp2": ("qwen3-moe-235b-a22b", 1, ARCH_KEEP_DENSE),
+               "internvl2-patches-tp2": ("internvl2-2b", 2, ARCH_KEEP_DENSE)}
+#: the routes of the plane kernels on the TP main path (rows 1 and 2)
+TP_ROUTES = {"fused_cached": "fused_plane_linear", "cached_packed": "plane_matmul_packed"}
+
+
+def _tp_load_line(tp, cfg, policy) -> dict:
+    """This rank's shard drawn by the layer-by-layer loader
+    (``sharding.tp.load_shard``, phase 3's seed): its card memory peak
+    while each part (the embedding, the final norm, the head, each layer)
+    is drawn, sliced, quantized and decomposed — everything held then
+    included — and resident after, in GiB above the count's start."""
+    from repro_torch.models.transformer import SeededParams
+    from repro_torch.sharding.tp import load_shard
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    parts = {}
+
+    def on_part(path):
+        parts[path] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    shard = load_shard(cfg, SeededParams(0).generator("cuda"), policy, tp, on_part=on_part)
+    torch.cuda.synchronize()
+    out = {"load_s": time.perf_counter() - t0, "peak_gb": max(parts.values()),
+           "resident_gb": (torch.cuda.memory_allocated() - base) / 2**30,
+           "part_peak_gb": parts, "largest_part": max(parts, key=parts.get)}
+    del shard
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_counted(name, engine, reqs, schedule, rank, injector=None) -> tuple:
+    """One counted run on this rank (launch counts set to 0 just before it,
+    read just after): (results, stats, the line's common fields)."""
+    t0 = time.perf_counter()
+    _reset_counts()
+    results, stats = engine.run(reqs, precision_schedule=schedule, injector=injector)
+    counts = _read_counts()
+    return results, stats, {
+        "engine": name, "rank": rank, "run_s": time.perf_counter() - t0,
+        "tokens": {rid: t.tolist() for rid, t in results.items()}, "failed": stats["failed"],
+        "launches": counts, "route_calls": stats["route_calls"],
+        "decode_steps": stats["decode_steps"], "prefill_s": stats["prefill_s"],
+        "host_ms_per_decode_step": 1e3 * stats["decode_s"] / max(stats["decode_steps"], 1)}
+
+
+def _tp_scrub_cell(tp, cfg, seeded) -> dict:
+    """bitplane-scrub-tp2: bitplane-scrub's engine (the packed route, layers
+    unrolled, an audit every iteration) on each rank, with one seeded plane
+    flip on rank 1 alone: found by rank 1's audit, maximized over the
+    ranks, so both scrub at the same iteration."""
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.kernels import fold
+    from repro_torch.runtime.faults import FaultInjector
+
+    name = "bitplane-scrub-tp2"
+    unrolled = dataclasses.replace(cfg, scan_layers=False)
+    policy = PrecisionPolicy.uniform(8, 8, variant="booth", level="bitplane", integrity="scrub")
+    t0 = time.perf_counter()
+    engine = _engine(unrolled, seeded, policy, audit_interval=1, compile_steps=False,
+                     model_parallel=tp.size)
+    inj = FaultInjector(TP_SCRUB_SPEC) if tp.rank == 1 else None
+    _, stats, line = _tp_counted(name, engine, _requests(unrolled), None, tp.rank, inj)
+    line.update(integrity=stats["integrity"], scrub_s=list(engine.scrub_s),
+                injected=len(inj.events) if inj else 0,
+                undetected=len(inj.undetected) if inj else 0,
+                fingerprint_restored=int(fold.tree_fold(engine.q_params)) == engine._params_ref,
+                source_bytes=_tree_bytes(engine._src_params),
+                quantized_tree_bytes=_tree_bytes(engine.q_params),
+                cell_s=time.perf_counter() - t0)
+    del engine
+    gc.collect()
+    return line
+
+
+def _tp_autopilot_cell(tp, cfg, seeded, policy) -> dict:
+    """bitplane-autopilot-tp2: bitplane-autopilot's engine and overload
+    ramp (16 requests, prefill chunks of 64) on each rank, eager."""
+    from repro_torch.launch.serve import ContinuousBatchingEngine
+    from repro_torch.runtime.autopilot import AutopilotPolicy
+
+    t0 = time.perf_counter()
+    engine = ContinuousBatchingEngine(cfg, seeded, policy, n_slots=N_SLOTS, max_len=AP_MAX_LEN,
+                                      device="cuda", prefill_chunk=PAGED_CHUNK,
+                                      compile_steps=False, model_parallel=tp.size,
+                                      autopilot=AutopilotPolicy(**AP_POLICY))
+    _, stats, line = _tp_counted("bitplane-autopilot-tp2", engine, _ap_requests(cfg, False),
+                                 None, tp.rank)
+    ap = stats["autopilot"]
+    line.update({k: ap[k] for k in ("switches", "request_tiers", "tier_tokens", "shed",
+                                    "mixed_steps", "shadow_probes", "shadow_kl_ewma")},
+                host_ms_split=_split_steps(ap["step_host_ms"], ap["step_passes"]),
+                cell_s=time.perf_counter() - t0)
+    del engine
+    gc.collect()
+    return line
+
+
+def _tp_autotune_cells(tp, cfg, seeded, policy, plans_dir) -> list:
+    """bitplane-autotune-tp2 (the tile autotuner on a fresh plan store in
+    ``plans_dir``: rank 0 tunes and writes it, every rank takes rank 0's
+    picks) and -warm-tp2 (a new tuner on the same store, the registry
+    cleared): bitplane's workload, eager. The tuner is detached after."""
+    from repro_torch.core import plan as plan_mod
+
+    registry = plan_mod.DEFAULT_REGISTRY
+    path = os.path.join(plans_dir, "plans.json")
+    out = []
+    for name in ("bitplane-autotune-tp2", "bitplane-autotune-warm-tp2"):
+        registry.attach_tuner(None)
+        registry.clear()
+        t0 = time.perf_counter()
+        engine = _engine(cfg, seeded, policy, autotune=True, plan_store_path=path,
+                         compile_steps=False, model_parallel=tp.size)
+        _, stats, line = _tp_counted(name, engine, _requests(cfg), {8: 4}, tp.rank)
+        inner = engine.autotuner.tuner
+        tuned = [p for p in registry.plans() if p.tuned]
+        line.update(store=stats["plans"], keeps_store=getattr(inner, "store", None) is not None,
+                    tiles=sorted({(p.kernel, p.key.m, p.key.k, p.key.n, p.key.a_bits, p.bm,
+                                   p.k_split) for p in tuned}),
+                    store_files=sorted(os.listdir(plans_dir)), cell_s=time.perf_counter() - t0)
+        out.append(line)
+        del engine
+        gc.collect()
+    registry.attach_tuner(None)
+    registry.clear()
+    return out
+
+
+def _vlm_loop(cfg, q_params, prefill, step) -> np.ndarray:
+    """internvl2's image prefix: ``prefill`` of ``VLM_BATCH`` x (256
+    patches + ``VLM_TEXT`` tokens), then ``VLM_GEN - 1`` greedy decode
+    steps of ``step`` (a continuous-batching step at temperature 0).
+    Returns the (batch, VLM_GEN) tokens."""
+    from repro_torch.launch import sampling
+    from repro_torch.launch.inputs import make_batch
+
+    seq = cfg.num_patches + VLM_TEXT
+    batch = make_batch(cfg, VLM_BATCH, seq, "prefill", np.random.default_rng(0), device="cuda")
+    logits, cache = prefill(q_params, batch)
+    tok = sampling.greedy(sampling.mask_vocab(logits, cfg.vocab_size)).to(torch.int32)[:, None]
+    temps = torch.zeros((VLM_BATCH,), dtype=torch.float32, device="cuda")
+    toks = [tok]
+    for _ in range(VLM_GEN - 1):
+        tok, cache = step(q_params, cache, tok, temps, None)[:2]
+        toks.append(tok)
+    return torch.cat(toks, dim=1).cpu().numpy()
+
+
+def _tp_family_setup(name):
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+
+    arch, layers, keep = TP_FAMILIES[name]
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    return cfg, PrecisionPolicy.uniform(8, 8, variant="booth", level="bitplane",
+                                        keep_dense=keep)
+
+
+def _tp_family_cell(tp, name) -> dict:
+    """One family served tensor-parallel on this rank, eager, its weights
+    drawn by the layer-by-layer loader (phase 3's seed): the engine on
+    ``_requests`` with the families' 8 -> 4 switch, or internvl2's image
+    prefix through the tensor-parallel prefill and decode steps."""
+    from repro_torch.launch.steps import make_tp_cb_decode_step, make_tp_prefill_step
+    from repro_torch.models.transformer import SeededParams
+    from repro_torch.sharding.tp import load_shard
+
+    cfg, policy = _tp_family_setup(name)
+    t0 = time.perf_counter()
+    if name == "internvl2-patches-tp2":
+        q = load_shard(cfg, SeededParams(0).generator("cuda"), policy, tp)
+        prefill = make_tp_prefill_step(cfg, tp, policy,
+                                       max_len=cfg.num_patches + VLM_TEXT + VLM_GEN,
+                                       kv_quant=True)
+        step = make_tp_cb_decode_step(cfg, tp, policy)
+        _reset_counts()
+        t1 = time.perf_counter()
+        toks = _vlm_loop(cfg, q, prefill, step)
+        counts = _read_counts()
+        line = {"engine": name, "rank": tp.rank, "run_s": time.perf_counter() - t1,
+                "tokens": toks.tolist(), "failed": {}, "launches": counts,
+                "route_calls": None}
+        del q
+    else:
+        engine = _engine(cfg, SeededParams(0), policy, compile_steps=False,
+                         model_parallel=tp.size)
+        _, _, line = _tp_counted(name, engine, _requests(cfg), FAMILY_SCHEDULE, tp.rank)
+        del engine
+    line.update(layers=cfg.n_layers, cell_s=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def _tp_family_twins() -> dict:
+    """The single-device eager twin of each ``TP_FAMILIES`` cell at its
+    depth, on phase 3's seed: the tokens (and the host ms a decode step)."""
+    from repro_torch.launch.steps import make_cb_decode_step, make_prefill_step
+    from repro_torch.models.quant import quantize_params
+
+    out = {}
+    for name in TP_FAMILIES:
+        cfg, policy = _tp_family_setup(name)
+        params = _seed_params(cfg)
+        t0 = time.perf_counter()
+        if name == "internvl2-patches-tp2":
+            q = quantize_params(params, policy, cfg=cfg, plane_cache=True)
+            prefill = make_prefill_step(cfg, policy, max_len=cfg.num_patches + VLM_TEXT + VLM_GEN,
+                                        kv_quant=True)
+            out[name] = {"tokens": _vlm_loop(cfg, q, prefill, make_cb_decode_step(cfg, policy))}
+            del q
+        else:
+            engine = _engine(cfg, params, policy, compile_steps=False)
+            results, stats = engine.run(_requests(cfg), precision_schedule=FAMILY_SCHEDULE)
+            _check_finished(f"{name} twin", cfg, results, stats)
+            out[name] = {"tokens": results, "host_ms_per_decode_step":
+                         1e3 * stats["decode_s"] / stats["decode_steps"]}
+            del engine
+        out[name]["s"] = time.perf_counter() - t0
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank_cells(tp, device, n_layers: int, plans_dir: str) -> list:
+    """One rank of the gloo cells (every rank on ``cuda:0``), each eager
+    (gloo's collectives cannot be captured), every model drawn by the
+    layer-by-layer loader from phase 3's seed (``SeededParams(0)``): the
+    load line; bitplane-tp2 on phase 3's workload with its 8 -> 4 switch at
+    step 8, and bitplane-paged-tp2 on phase 8's; the scrub, autopilot and
+    autotune cells; the families (``TP_FAMILIES``). Returns every rank's
+    lines (rank 0's is the one ``spawn_tp`` hands back)."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.models.transformer import SeededParams
 
     started = time.time()
     cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=n_layers)
-    params = _seed_params(cfg, store="cpu")  # the dense tree stays on the host
+    seeded = SeededParams(0)
     policy = PrecisionPolicy.uniform(8, 8, variant="booth", level="bitplane")
     lines = []
-    gc.collect()  # the card copies of the drawn tree go before the count starts
+    loader = _tp_load_line(tp, cfg, policy)
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    engine = _engine(cfg, params, policy, compile_steps=False, model_parallel=tp.size)
+    engine = _engine(cfg, seeded, policy, compile_steps=False, model_parallel=tp.size)
     load_s = time.perf_counter() - t0
     memory = {"load_peak_gb": (torch.cuda.max_memory_allocated() - base) / 2**30,
               "resident_gb": (torch.cuda.memory_allocated() - base) / 2**30}
     lines.append(dict(_tp_cell("bitplane-tp2", cfg, engine, _requests(cfg), {8: 4}, tp.rank),
-                      load_s=load_s, started=started, memory=memory))
+                      load_s=load_s, started=started, memory=memory, loader=loader))
     del engine
     gc.collect()
-    engine = _paged_engine(cfg, params, policy, compile_steps=False, model_parallel=tp.size)
+    engine = _paged_engine(cfg, seeded, policy, compile_steps=False, model_parallel=tp.size)
     lines.append(_tp_cell("bitplane-paged-tp2", cfg, engine, _paged_requests(cfg), None,
                           tp.rank))
-    del engine, params
+    del engine
     gc.collect()
+    lines.append(_tp_scrub_cell(tp, cfg, seeded))
+    lines.append(_tp_autopilot_cell(tp, cfg, seeded, policy))
+    lines += _tp_autotune_cells(tp, cfg, seeded, policy, plans_dir)
     torch.cuda.empty_cache()
+    for name in TP_FAMILIES:
+        lines.append(_tp_family_cell(tp, name))
     every = [None] * tp.size
     dist.all_gather_object(every, lines)
     return every
 
 
+def _tp_launch_gate(tag, r, attn_per_step=0, packed=None) -> None:
+    """Every projection of the rank's counted run through rows 1 and 2 (no
+    plain route): each route's calls equal its kernel's launches, row 1
+    launched (``packed``: row 2 alone, the scrub cell's packed route; None:
+    whatever the routes say), and row 5 ``attn_per_step`` times a decode
+    step; nothing else but the fold kernel."""
+    c, routes = r["launches"], r["route_calls"]
+    kernels = set(TP_ROUTES.values()) | {"paged_flash_attention", "fold"}
+    others = {k: v for k, v in c.items() if v and k not in kernels}
+    if routes is None:  # internvl2-patches-tp2: the steps alone, no engine's route report
+        bad = others or not c["fused_plane_linear"] or c["paged_flash_attention"]
+    else:
+        bad = (set(routes) - set(TP_ROUTES) or others
+               or any(c[k] != routes.get(route, 0) for route, k in TP_ROUTES.items())
+               or c["paged_flash_attention"] != attn_per_step * r["decode_steps"]
+               or not c["plane_matmul_packed" if packed else "fused_plane_linear"]
+               or (packed and c["fused_plane_linear"]))
+    if bad:
+        _die(f"{tag}: launches {c} against routes {routes}")
+
+
+def _tp_tokens_gate(tag, r, control: dict, what: str, failed=None) -> None:
+    """The rank's tokens equal ``control``'s, request for request; its
+    failed requests (rid -> reason) are ``failed`` (default none)."""
+    if r["failed"] != (failed or {}):
+        _die(f"{tag}: requests failed: {r['failed']} against {failed or {}} in {what}")
+    got = {int(k): np.asarray(v) for k, v in r["tokens"].items()}
+    if sorted(got) != sorted(int(k) for k in control):
+        _die(f"{tag}: requests {sorted(got)} against {sorted(control)} in {what}")
+    _same_tokens(tag, got, control, what)
+
+
 def run_tp(cfg, controls: dict, p1_bytes: int, p1_memory: tuple, twins: dict) -> dict:
     """Phase 19, tensor-parallel serving: ``TP_SIZE`` ranks spawned over
-    gloo, all on this card, serve bitplane-tp2 and bitplane-paged-tp2. On
-    each rank: the tokens equal the single-device cell's (``controls``),
-    every column- and vocab-parallel projection launches
-    fused_plane_linear and every row-parallel one plane_matmul_packed (the
-    paged cell also paged_flash_attention, layers x decode steps times),
-    no plain route runs; each rank's plane bytes are at most
+    gloo, all on this card, serve bitplane-tp2, bitplane-paged-tp2,
+    bitplane-scrub-tp2, bitplane-autopilot-tp2, bitplane-autotune(-warm)-tp2
+    and the ``TP_FAMILIES`` cells, every model loaded layer by layer. On
+    each rank: the tokens equal the single-device cell's or eager twin's
+    (``controls``; the autopilot cell's its request by request, its
+    switches, tiers and shed set on every rank); every column- and
+    vocab-parallel projection launches fused_plane_linear and every
+    row-parallel one plane_matmul_packed (the scrub cell: every projection
+    packed; the paged cell also paged_flash_attention, layers x decode
+    steps times), no plain route runs; the scrub cell's flip on rank 1 is
+    found on every rank, one scrub each, the fingerprint restored; the
+    autotune cells: every rank the same tiles, rank 0 alone keeps the one
+    store, warm from it with no tune; each rank's plane bytes at most
     ``TP_BYTES_RATIO`` of the single-device tree's ``p1_bytes``. Prints a
     line per cell with each rank's launches, host ms per decode step beside
     the single-device eager twin's (``twins``) and prefill s; the first
-    cell's also each rank's card memory at load (peak, and resident after)
-    beside the single-device load's, ``p1_memory`` (GiB)."""
+    cell's also each rank's card memory at load (peak, and resident after,
+    and the loader's peak part by part) beside the single-device load's,
+    ``p1_memory`` (GiB)."""
+    import shutil
+    import tempfile
+
     from repro_torch.launch import mesh
 
     t0, t0_wall = time.perf_counter(), time.time()
-    every = mesh.spawn_tp(_tp_rank_cells, TP_SIZE, device="cuda", share_device=True,
-                          args=(cfg.n_layers,))
+    plans_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_plans_")
+    try:
+        every = mesh.spawn_tp(_tp_rank_cells, TP_SIZE, device="cuda", share_device=True,
+                              args=(cfg.n_layers, plans_dir))
+    finally:
+        shutil.rmtree(plans_dir, ignore_errors=True)
     spawn_s = time.perf_counter() - t0
+    by_name: dict = {}
+    for lines in every:
+        for line in lines:
+            by_name.setdefault(line["engine"], []).append(line)
     out = {}
-    for i, name in enumerate(("bitplane-tp2", "bitplane-paged-tp2")):
-        ranks = [lines[i] for lines in every]
+
+    def common(name, ranks) -> dict:
+        return {"engine": name, "ranks": TP_SIZE, "backend": "gloo",
+                "device": "cuda:0 (every rank)", "compile_steps": False,
+                "launches_per_rank": [r["launches"] for r in ranks],
+                "route_calls_per_rank": [r["route_calls"] for r in ranks],
+                "host_ms_per_decode_step_per_rank": [r.get("host_ms_per_decode_step")
+                                                     for r in ranks],
+                "cell_s_per_rank": [r["cell_s"] for r in ranks], "card": CARD}
+
+    for name in ("bitplane-tp2", "bitplane-paged-tp2"):
+        ranks = by_name[name]
         for r in ranks:
             tag = f"{name} rank {r['rank']}"
-            if r["failed"]:
-                _die(f"{tag}: requests failed: {r['failed']}")
-            got = {int(k): np.asarray(v) for k, v in r["tokens"].items()}
-            _same_tokens(tag, got, controls[name], "the single-device cell")
-            c, routes = r["launches"], r["route_calls"]
+            _tp_tokens_gate(tag, r, controls[name], "the single-device cell")
             paged = name.endswith("paged-tp2")
-            want_attn = cfg.n_layers * r["decode_steps"] if paged else 0
-            others = {k: v for k, v in c.items() if v and k not in (
-                "fused_plane_linear", "plane_matmul_packed", "paged_flash_attention")}
-            if (not c["fused_plane_linear"] or c["fused_plane_linear"] != routes.get("fused_cached")
-                    or not c["plane_matmul_packed"]
-                    or c["plane_matmul_packed"] != routes.get("cached_packed")
-                    or set(routes) != {"fused_cached", "cached_packed"}
-                    or c["paged_flash_attention"] != want_attn or others):
-                _die(f"{tag}: launches {c} against routes {routes} "
-                     f"({want_attn} paged-kernel launches wanted)")
+            _tp_launch_gate(tag, r, cfg.n_layers if paged else 0)
+            if not r["launches"]["plane_matmul_packed"]:
+                _die(f"{tag}: no row-parallel projection launched plane_matmul_packed")
             if r["plane_cache_bytes"] > TP_BYTES_RATIO * p1_bytes:
                 _die(f"{tag}: {r['plane_cache_bytes']} plane bytes on the rank against "
                      f"{p1_bytes} on one device (more than {TP_BYTES_RATIO} of them)")
         r0 = ranks[0]
-        line = {"engine": name, "layers": cfg.n_layers, "ranks": TP_SIZE, "backend": "gloo",
-                "device": "cuda:0 (every rank)", "compile_steps": False,
-                "tokens_equal_single_device": True,
-                "launches_per_rank": [r["launches"] for r in ranks],
-                "route_calls_per_rank": [r["route_calls"] for r in ranks],
-                "host_ms_per_decode_step_per_rank": [r["host_ms_per_decode_step"] for r in ranks],
-                "single_device_eager_host_ms_per_decode_step": twins[name],
-                "prefill_s_per_rank": [r["prefill_s"] for r in ranks],
-                "tok_per_s_rank0": r0["tok_per_s"], "wall_s_rank0": r0["wall_s"],
-                "decode_steps": r0["decode_steps"],
-                "plane_cache_bytes_per_rank": [r["plane_cache_bytes"] for r in ranks],
-                "plane_cache_bytes_p1": p1_bytes,
-                "bytes_ratio": max(r["plane_cache_bytes"] for r in ranks) / p1_bytes,
-                "cell_s_per_rank": [r["cell_s"] for r in ranks], "card": CARD}
+        line = dict(common(name, ranks), layers=cfg.n_layers, tokens_equal_single_device=True,
+                    single_device_eager_host_ms_per_decode_step=twins[name],
+                    prefill_s_per_rank=[r["prefill_s"] for r in ranks],
+                    tok_per_s_rank0=r0["tok_per_s"], wall_s_rank0=r0["wall_s"],
+                    decode_steps=r0["decode_steps"],
+                    plane_cache_bytes_per_rank=[r["plane_cache_bytes"] for r in ranks],
+                    plane_cache_bytes_p1=p1_bytes,
+                    bytes_ratio=max(r["plane_cache_bytes"] for r in ranks) / p1_bytes)
         print(json.dumps({"engine": name, "profiled_eager_rank0": {
             "device_ms_per_decode_step": r0["device_ms_per_decode_step"],
             "decode_busy_share": r0["decode_busy_share"]}}), flush=True)
@@ -4145,8 +4456,95 @@ def run_tp(cfg, controls: dict, p1_bytes: int, p1_memory: tuple, twins: dict) ->
             line["rank0_started_s_after_spawn"] = r0["started"] - t0_wall
             line["memory_per_rank"] = [r["memory"] for r in ranks]
             line["load_peak_gb_p1"], line["resident_gb_p1"] = p1_memory
+            load = {"check": "tp load, layer by layer", "ranks": TP_SIZE,
+                    "layers": cfg.n_layers, "loader_per_rank": [r["loader"] for r in ranks],
+                    "engine_load_per_rank": [r["memory"] for r in ranks],
+                    "load_peak_gb_p1": p1_memory[0], "resident_gb_p1": p1_memory[1],
+                    "card": CARD}
+            print(json.dumps(load), flush=True)
+            out["load"] = load
         print(json.dumps(line), flush=True)
         out[name] = line
+
+    name = "bitplane-scrub-tp2"
+    ranks = by_name[name]
+    for r in ranks:
+        tag = f"{name} rank {r['rank']}"
+        _tp_tokens_gate(tag, r, controls[name], "bitplane-scrub (bitplane-nofused at 8 bits)")
+        _tp_launch_gate(tag, r, packed=True)
+        ig = r["integrity"]
+        if (ig["audit_alarms"] < 1 or ig["scrubs"] != 1 or not r["fingerprint_restored"]
+                or r["undetected"] or r["injected"] != (1 if r["rank"] == 1 else 0)):
+            _die(f"{tag}: {r['injected']} injected, {r['undetected']} undetected, integrity "
+                 f"{ig}, fingerprint restored {r['fingerprint_restored']}")
+    out[name] = dict(common(name, ranks), spec=TP_SCRUB_SPEC + " on rank 1",
+                     tokens_equal_single_device=True,
+                     integrity_per_rank=[r["integrity"] for r in ranks],
+                     scrub_s_per_rank=[r["scrub_s"] for r in ranks],
+                     source_bytes_per_rank=[r["source_bytes"] for r in ranks],
+                     quantized_tree_bytes_per_rank=[r["quantized_tree_bytes"] for r in ranks])
+    print(json.dumps(out[name]), flush=True)
+
+    name = "bitplane-autopilot-tp2"
+    ranks, single = by_name[name], controls[name]
+    for r in ranks:
+        tag = f"{name} rank {r['rank']}"
+        # the shed set too: the same requests fail with the same reasons
+        _tp_tokens_gate(tag, r, single["tokens"], "bitplane-autopilot (each a static run of "
+                        "its tier there)", failed=single["failed"])
+        _tp_launch_gate(tag, r)
+        mine = {k: r[k] for k in ("switches", "request_tiers", "shed")}
+        if mine != {k: single[k] for k in mine}:
+            _die(f"{tag}: switches, tiers or shed {mine} against the single device's "
+                 f"{[single[k] for k in mine]}")
+    out[name] = dict(common(name, ranks), tokens_equal_single_device=True,
+                     schedule_equal_single_device=True,
+                     switches=ranks[0]["switches"], shed=ranks[0]["shed"],
+                     mixed_steps=ranks[0]["mixed_steps"],
+                     shadow_probes=ranks[0]["shadow_probes"],
+                     host_ms_split_per_rank=[r["host_ms_split"] for r in ranks],
+                     single_device_host_ms=single["host_ms_per_decode_step"])
+    print(json.dumps(out[name]), flush=True)
+
+    cold_tunes = None
+    for name in ("bitplane-autotune-tp2", "bitplane-autotune-warm-tp2"):
+        ranks = by_name[name]
+        for r in ranks:
+            tag = f"{name} rank {r['rank']}"
+            _tp_tokens_gate(tag, r, controls["bitplane-tp2"], "bitplane's")
+            _tp_launch_gate(tag, r)
+            st = r["store"]
+            bad = (r["tiles"] != ranks[0]["tiles"] or not r["tiles"]
+                   or r["keeps_store"] != (r["rank"] == 0) or r["store_files"] != ["plans.json"])
+            if name.endswith("warm-tp2"):
+                bad = bad or st["tunes"] or st["store_misses"] or st["store_hits"] != cold_tunes
+            else:
+                bad = bad or not st["tunes"] or st["store_hits"]
+            if bad:
+                _die(f"{tag}: store {st}, tiles {r['tiles']} against rank 0's "
+                     f"{ranks[0]['tiles']}, keeps the store {r['keeps_store']}, files "
+                     f"{r['store_files']}")
+        cold_tunes = ranks[0]["store"]["tunes"]
+        out[name] = dict(common(name, ranks), tokens_equal_bitplane=True,
+                         tiles_equal_every_rank=True, store=ranks[0]["store"],
+                         tiles=ranks[0]["tiles"])
+        print(json.dumps(out[name]), flush=True)
+
+    for name in TP_FAMILIES:
+        ranks, twin = by_name[name], controls[name]
+        for r in ranks:
+            tag = f"{name} rank {r['rank']}"
+            if name == "internvl2-patches-tp2":
+                if not np.array_equal(np.asarray(r["tokens"]), twin["tokens"]):
+                    _die(f"{tag}: tokens differ from the single-device eager twin's")
+            else:
+                _tp_tokens_gate(tag, r, twin["tokens"], "the single-device eager twin")
+            _tp_launch_gate(tag, r)
+        out[name] = dict(common(name, ranks), layers=ranks[0]["layers"],
+                         tokens_equal_single_device_eager_twin=True,
+                         twin_host_ms_per_decode_step=twin.get("host_ms_per_decode_step"),
+                         twin_s=twin["s"], run_s_per_rank=[r["run_s"] for r in ranks])
+        print(json.dumps(out[name]), flush=True)
     out["phase_s"] = time.perf_counter() - t0
     out["spawn_s"] = spawn_s
     return out
@@ -4203,8 +4601,8 @@ def _head_slices(cfg) -> dict:
 
 
 def run_tp_phase(cfg, controls: dict, twins: dict) -> dict:
-    """Phase 19: tp1-nccl in this process, the head slices, then the gloo
-    cells."""
+    """Phase 19: tp1-nccl in this process, the head slices, the families'
+    single-device eager twins, then the gloo cells."""
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4216,9 +4614,13 @@ def run_tp_phase(cfg, controls: dict, twins: dict) -> dict:
     _head_slices(cfg)
     gc.collect()
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    controls = dict(controls, **_tp_family_twins())
+    twins_s = time.perf_counter() - t1
     out = run_tp(cfg, controls, nccl["plane_cache_bytes_p1"],
                  (nccl["load_peak_gb_p1"], nccl["resident_gb_p1"]), twins)
     out["tp1-nccl"] = nccl
+    out["twins_s"] = twins_s
     out["phase_s"] = time.perf_counter() - t0
     return out
 
@@ -4302,6 +4704,8 @@ def main() -> None:
           f"page faults, {eng_pscr['integrity_faulted']['requeued']} requeued)", flush=True)
     for paged in (False, True):
         eng_ap = run_autopilot(cfg, params, paged)
+        if not paged:
+            ap_single = eng_ap
         print(f"[chip_smoke] engine {eng_ap['engine']} done at {time.perf_counter() - t0:.1f} s "
               f"({eng_ap['finished']} finished, {eng_ap['shed']} shed, tiers "
               f"{sorted(set(eng_ap['request_tiers'].values()))}, {eng_ap['mixed_steps']} "
@@ -4326,7 +4730,8 @@ def main() -> None:
           f"{train['phase_s']:.1f} s; step ms dense {train['train-dense']['step_ms_median']:.1f}, "
           f"qat8 {train['train-qat8']['step_ms_median']:.1f})", flush=True)
     tp = run_tp_phase(
-        cfg, {"bitplane-tp2": res_bit, "bitplane-paged-tp2": res_pag},
+        cfg, {"bitplane-tp2": res_bit, "bitplane-paged-tp2": res_pag,
+              "bitplane-scrub-tp2": res_nof8, "bitplane-autopilot-tp2": ap_single},
         {"bitplane-tp2": eng_bit["eager"]["host_ms_per_decode_step"],
          "bitplane-paged-tp2": eng_pag["eager"]["host_ms_per_decode_step"]})
     print(f"[chip_smoke] tensor-parallel serving done at {time.perf_counter() - t0:.1f} s "
@@ -4419,8 +4824,9 @@ def main() -> None:
     # rows 1, 2 and 5 on every rank of the tensor-parallel cells (phase 19)
     for k in kernels:
         tp_launches = {f"{name} rank {r}": c[k["name"]]
-                       for name in ("bitplane-tp2", "bitplane-paged-tp2")
-                       for r, c in enumerate(tp[name]["launches_per_rank"]) if c[k["name"]]}
+                       for name, cell in tp.items() if isinstance(cell, dict)
+                       and "launches_per_rank" in cell
+                       for r, c in enumerate(cell["launches_per_rank"]) if c[k["name"]]}
         if tp_launches:
             k["tp_launches"] = tp_launches
     missing = [k for k in ("fused_plane_linear", "plane_matmul", "plane_matmul_packed", "fold")

@@ -152,16 +152,19 @@ from repro_torch.models.cache import (
     select_slots,
 )
 from repro_torch.models.quant import quantize_params
-from repro_torch.models.transformer import check_prefill, init_params
+from repro_torch.models.transformer import SeededParams, check_prefill, init_params
 from repro_torch.runtime.autopilot import Autopilot, AutopilotPolicy
 from repro_torch.runtime.faults import FaultInjector, FaultSpec
 from repro_torch.runtime.scheduler import HISTORY_LIMIT, Request, SlotScheduler
 from repro_torch.sharding.tp import (
     MAX_TP_BITS,
+    RankTuner,
     TPContext,
     check_exact_bits,
+    load_shard,
     plane_cache_device_bytes,
     shard_quantized,
+    shard_source,
 )
 
 
@@ -427,14 +430,16 @@ class _IntegrityRuntime:
     def _requantize(self, params):
         """Source -> serving tree. Load time and a scrub's rebuild share
         this one path, so a rebuild from intact source reproduces the
-        load-time fingerprint. ``value_bits`` quantizes the weight values
-        narrower than the storage width (a narrow checkpoint served from
-        the uniform-width cache)."""
+        load-time fingerprint (under tensor parallelism the source is the
+        rank's own: its dense slices, each row slice with its whole K's
+        column maxima, and the replicated leaves; see :meth:`_tp_load`).
+        ``value_bits`` quantizes the weight values narrower than the
+        storage width (a narrow checkpoint served from the uniform-width
+        cache)."""
         tp = getattr(self, "tp", None)
-        if tp is not None:  # this rank's shard tree
-            return shard_quantized(params, self.policy, tp, cfg=self.cfg,
-                                   plane_cache=self.plane_cache, value_bits=self._value_bits,
-                                   device=self.device)
+        if tp is not None:  # this rank's shard tree, from its source tree
+            return shard_source(params, self.policy, tp, cfg=self.cfg,
+                                plane_cache=self.plane_cache, value_bits=self._value_bits)
         return quantize_params(params, self.policy, plane_cache=self.plane_cache,
                                value_bits=self._value_bits, cfg=self.cfg)
 
@@ -506,24 +511,41 @@ class _PlanTuning:
                 )
             plan_mod.DEFAULT_REGISTRY.attach_tuner(None)
             return
+        registry = plan_mod.DEFAULT_REGISTRY
+        current = registry.tuner
+        tp = getattr(self, "tp", None)
+        if tp is not None:
+            # rank 0 tunes and keeps the store; every rank takes its picks
+            if (isinstance(current, RankTuner) and plan_store_path
+                    and current.store_path == plan_store_path):
+                self.autotuner = current
+                return
+            inner = self._make_tuner(None, plan_store_path, device) if tp.rank == 0 else None
+            self.autotuner = RankTuner(tp, inner, plan_store_path)
+        else:
+            self.autotuner = self._make_tuner(current, plan_store_path, device)
+            if self.autotuner is current:
+                return
+        registry.attach_tuner(self.autotuner)
+
+    @staticmethod
+    def _make_tuner(current, plan_store_path, device):
+        """``current`` when it is a tuner on the same store path, else a new
+        tuner (on the store at ``plan_store_path``, if given)."""
         from repro_torch.core.autotune import PlanAutotuner, calibrate_from_bench, hardware_model
         from repro_torch.runtime.plan_store import PlanStore
 
-        registry = plan_mod.DEFAULT_REGISTRY
         store = PlanStore(plan_store_path) if plan_store_path else None
-        current = registry.tuner
         if (
             current is not None
             and store is not None
             and getattr(getattr(current, "store", None), "path", None) == store.path
         ):
-            self.autotuner = current
-            return
+            return current
         backend = "cuda" if device.type == "cuda" else "cpu"
         bench_path = os.environ.get("BENCH_TORCH_KERNEL_JSON")
         hw = calibrate_from_bench(bench_path, backend) if bench_path else hardware_model(backend)
-        self.autotuner = PlanAutotuner(store=store, hw=hw)
-        registry.attach_tuner(self.autotuner)
+        return PlanAutotuner(store=store, hw=hw)
 
     def plan_stats(self) -> dict:
         reg = plan_mod.DEFAULT_REGISTRY
@@ -810,19 +832,29 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
     the only mode); the plain versions (``backend="torch"``) read values
     back and need it on CUDA.
 
+    ``params``: the dense tree, or :class:`SeededParams` (the tree
+    ``init_params`` draws from a seed, drawn here on the engine's device).
+
     ``model_parallel=P > 1`` serves tensor-parallel (``sharding/tp.py``),
     one engine per rank of an initialised default process group of world
     size P (``launch/mesh.spawn_tp``), every rank given the same
     arguments: each holds its shard of the plane caches (column-, row- and
-    vocab-parallel) and a KV cache of ``n_kv_heads / P`` heads (dense or
-    paged), runs the tensor-parallel steps, and returns the tokens the
-    single-device engine returns. ``params`` may lie on the host: a rank
-    slices each weight there and moves only its slice to its device. Over
-    NCCL the decode steps capture into CUDA graphs with their collectives;
-    gloo's collectives cannot be captured, so on CUDA over gloo
-    ``compile_steps=True`` raises. Integrity
-    ``"scrub"``, the autopilot, the tile autotuner and every family but
-    the dense one are ROADMAP item 11b and raise.
+    vocab-parallel; replicated projections whole: the SSM's and the
+    RG-LRU's, the MoE router and experts, the VLM's front end, a dense vocab
+    head) and a KV cache of ``n_kv_heads / P`` heads (dense or paged, the
+    hybrid's ring too; recurrent state whole), runs the tensor-parallel
+    steps, and returns the tokens the single-device engine returns, in
+    every family the reference serves this way and with scrub, the
+    autopilot and the tile autotuner. A rank never holds the whole dense
+    tree: given a tree (it may lie on the host) it slices each weight where
+    it lies and moves only its slice to its device; given
+    :class:`SeededParams` it draws one part at a time and keeps its shard of
+    each (``sharding.tp.load_shard``). In scrub mode it keeps as its source
+    its own dense slices and the replicated leaves. A dense column- or
+    row-parallel projection raises (reference defect I). Over NCCL the
+    decode steps capture into CUDA graphs with their collectives; gloo's
+    collectives cannot be captured, so on CUDA over gloo
+    ``compile_steps=True`` raises.
     """
 
     def __init__(
@@ -857,9 +889,7 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
             raise ValueError(f"{cfg.name} is encoder-only: no decode path")
         self.integrity = integrity.check_integrity_mode(policy.integrity)
         self.model_parallel = int(model_parallel)
-        self.tp = (self._tp_context(cfg, policy, autopilot is not None or degrade_after is not None,
-                                    autotune)
-                   if self.model_parallel > 1 else None)
+        self.tp = self._tp_context(cfg, policy) if self.model_parallel > 1 else None
         #: the config the caches are built with: the rank's heads under TP
         self._kv_cfg = cfg if self.tp is None else self.tp.local_config(cfg)
         self.max_retries = int(max_retries)
@@ -929,9 +959,13 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
         self.backend = backend
         self.autopilot_policy = self._autopilot_policy(policy, autopilot, degrade_after,
                                                        degrade_to)
-        if self.tp is None:  # a rank moves only its slices (shard_quantized)
+        if self.tp is None:
+            if isinstance(params, SeededParams):
+                params = init_params(cfg, params.generator(self.device), device=self.device)
             params = _to_device(params, self.device)
-        self.q_params = self._requantize(params) if policy.default.active else params
+            self.q_params = self._requantize(params) if policy.default.active else params
+        else:  # a rank holds only its slices
+            self.q_params, params = self._tp_load(params)
         self._init_integrity(params)
         # the decode state: allocated once (a captured graph holds its
         # addresses), reset in place by every run
@@ -978,10 +1012,9 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
         self._last_stats: dict = {}
         self._init_dial()
 
-    def _tp_context(self, cfg, policy, autopilot: bool, autotune: bool) -> TPContext:
+    def _tp_context(self, cfg, policy) -> TPContext:
         """Validate a tensor-parallel engine (the reference's checks and
-        messages, then the refusals of this slice) and return its context
-        over the default process group."""
+        messages) and return its context over the default process group."""
         p = self.model_parallel
         if not policy.default.active:
             raise ValueError(
@@ -991,17 +1024,6 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
             )
         check_exact_bits(policy.default.a_bits, policy.default.w_bits)
         TPContext(size=p).local_config(cfg)  # fail fast on head divisibility
-        later = [what for what, on in (
-            (f"the {cfg.family} family", cfg.family != "dense"),
-            ("integrity='scrub'", self.integrity == "scrub"),
-            ("the autopilot", autopilot),
-            ("the tile autotuner", autotune),
-        ) if on]
-        if later:
-            raise NotImplementedError(
-                f"tensor-parallel serving of {', '.join(later)} is not ported "
-                "(ROADMAP item 11b)"
-            )
         dist = torch.distributed
         if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() != p:
             raise ValueError(
@@ -1009,6 +1031,20 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
                 f"world size {p}, one engine per rank (launch/mesh.spawn_tp)"
             )
         return TPContext(size=p, rank=dist.get_rank())
+
+    def _tp_load(self, params):
+        """This rank's shard tree and, in scrub mode, its source tree (else
+        None): from a whole dense tree (sliced where it lies), or drawn one
+        part at a time from :class:`SeededParams` (``sharding.tp.load_shard``),
+        so the whole dense tree is never held."""
+        scrub = self.integrity == "scrub"
+        kw = dict(plane_cache=self.plane_cache, value_bits=self._value_bits, device=self.device,
+                  with_source=scrub)
+        if isinstance(params, SeededParams):
+            out = load_shard(self.cfg, params.generator(self.device), self.policy, self.tp, **kw)
+        else:
+            out = shard_quantized(params, self.policy, self.tp, cfg=self.cfg, **kw)
+        return out if scrub else (out, None)
 
     def _autopilot_policy(self, policy, autopilot, degrade_after, degrade_to):
         """The engine's autopilot policy, its ladder clamped to the storage
@@ -1108,8 +1144,10 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
         tier on CUDA)."""
         body = self._shadow_bodies.get(tier_index)
         if body is None:
-            steps = [make_cb_decode_step(self.cfg, self.policy, precision=p,
-                                         backend=self.backend, with_logits=True)
+            tp = () if self.tp is None else (self.tp,)
+            make = make_cb_decode_step if self.tp is None else make_tp_cb_decode_step
+            steps = [make(self.cfg, *tp, policy=self.policy, precision=p,
+                          backend=self.backend, with_logits=True)
                      for p in (None, self._tier_precision(tier_index))]
             body = self._shadow_bodies[tier_index] = _shadow_body(
                 *steps, self.q_params, self.cfg.vocab_size)
@@ -1416,11 +1454,13 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
             # collective deadlocks. The workload and the precision schedule
             # are rank 0's, broadcast; everything else is the same on every
             # rank by construction: scheduling and deadlines count steps,
-            # greedy and seeded sampling read the gathered logits, and ABFT
-            # alarms (in the steps) and at-rest results (_tally_folds) are
+            # greedy and seeded sampling read the gathered logits (so does
+            # the shadow probe's KL), and ABFT alarms (in the steps) and
+            # at-rest results (_tally_folds, scrub's read-back) are
             # maximized over the ranks before the engine reads them. The
-            # timed inputs (the autopilot's latency, the tuner's timings) are
-            # refused under TP (ROADMAP item 11b); nothing else is timed.
+            # timed inputs are rank 0's: the autopilot's step latency is
+            # broadcast before the controller reads it, and the tile
+            # tuner's picks as each plan resolves (sharding.tp.RankTuner).
             requests, precision_schedule = self.tp.broadcast_object(
                 (requests, precision_schedule))
         schedule = dict(precision_schedule or {})
@@ -1552,13 +1592,19 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
                 else:
                     # scrub acts before admission and the step: one read-back
                     parts = ([fp.reshape(1)] if audit else []) + [moved.to(torch.int64)]
-                    vals = torch.cat(parts).cpu()
-                    if audit and self._audit_params(int(vals[0])):
+                    vals = torch.cat(parts).cpu().tolist()
+                    found = [int(self._audit_params(int(vals[0])))] if audit else []
+                    found += [int(v) for v in vals[int(audit):]]
+                    if self.tp is not None:
+                        # a drift on any rank's shard or KV heads is one on
+                        # every rank: the ranks scrub and requeue together
+                        found = self.tp.reduce_max_host(found, self.device)
+                    if audit and found[0]:
                         integ["audit_alarms"] += 1
                         if injector is not None:
                             injector.mark_detected("params", step_i)
                         self._scrub()
-                    bad = vals[int(audit):].nonzero().flatten().tolist()
+                    bad = [i for i, v in enumerate(found[int(audit):]) if v]
                     if bad:
                         job = self._contain(bad, sched, pager, registry, allocator, job,
                                             clears, page_faults, slot_faults, step_i, integ)
@@ -1567,6 +1613,11 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
                             injector.mark_detected("kv", step_i)
             decision = None
             if ap is not None:
+                if self.tp is not None:
+                    # the controller reads the wall clock: rank 0's reading
+                    # decides on every rank (its other inputs are the same
+                    # on every rank), so the ranks switch and shed together
+                    last_latency = self.tp.broadcast_host([last_latency], self.device)[0]
                 decision = ap.observe(
                     step_i, sched.queue_depth(step_i), scrubs=self._scrubs - scrubs0,
                     step_latency_s=last_latency, tokens_emitted=last_emitted,
@@ -2257,6 +2308,13 @@ def main(argv=None):
     _serve(args, resolve_device(args.device))
 
 
+def _host_peak_rss_gib() -> float:
+    """This process's peak resident set on the host (Linux reports KiB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
 def _serve_rank(tp, device, args) -> str:
     """One rank of a tensor-parallel :func:`main`: rank 0's printed lines."""
     buf = io.StringIO()
@@ -2280,12 +2338,12 @@ def _serve(args, device) -> None:
         if args.bits
         else PrecisionPolicy.off()
     )
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    # a tensor-parallel rank keeps the dense tree on the host: only its
-    # slices reach its card
-    params = init_params(cfg, gen, device=device,
-                         store="cpu" if args.model_parallel > 1 else None)
+    # a tensor-parallel rank draws the weights one part at a time and keeps
+    # only its shard of each (sharding.tp.load_shard): the whole dense tree
+    # is never held
+    seeded = SeededParams(0)
+    params = (seeded if args.model_parallel > 1
+              else init_params(cfg, seeded.generator(device), device=device))
     rng = np.random.default_rng(0)
     run_bits = args.precision or args.bits
     tag = (f"{cfg.name} ({cfg.n_layers} layers) w{run_bits}a{run_bits} "
@@ -2437,13 +2495,16 @@ def _serve(args, device) -> None:
             print(f"[serve]   UNDETECTED: {e.site}@{e.step} at {e.leaf}")
     for rid, reason in sorted(stats["failed"].items()):
         print(f"[serve] rid {rid} FAILED: {reason}")
-    if device.type == "cuda":  # each rank's card
-        peak = torch.cuda.max_memory_allocated(device) / 2**30
-        peaks = [peak]
+    if device.type == "cuda":  # each rank's card and host process
+        mine = (torch.cuda.max_memory_allocated(device) / 2**30,
+                torch.cuda.memory_allocated(device) / 2**30, _host_peak_rss_gib())
+        every = [mine]
         if args.model_parallel > 1:
-            peaks = [None] * args.model_parallel
-            torch.distributed.all_gather_object(peaks, peak)
-        print(f"[serve] card memory peak GiB per rank: {[round(p, 3) for p in peaks]}")
+            every = [None] * args.model_parallel
+            torch.distributed.all_gather_object(every, mine)
+        for name, i in (("card memory peak", 0), ("card memory resident", 1),
+                        ("host peak RSS", 2)):
+            print(f"[serve] {name} GiB per rank: {[round(m[i], 3) for m in every]}")
     for rid in sorted(results):
         print(f"[serve] rid {rid}:", results[rid])
 

@@ -23,8 +23,10 @@ runs unchanged on its column slice; a row-parallel one quantizes its K
 slice with the whole row's scale, runs its plan without an epilogue, sums
 the ranks' int32 accumulators and applies the epilogue once; the
 vocab-parallel head gathers the ranks' logits. Every plan carries the
-shard triple on its key. QAT and on-the-fly quantization under tensor
-parallelism are ROADMAP item 11b.
+shard triple on its key. A dense projection is replicated whole (a dense
+vocab head computes the whole vocabulary on every rank, with no gather).
+QAT and on-the-fly quantization under tensor parallelism are ROADMAP item
+11b.
 """
 
 from __future__ import annotations

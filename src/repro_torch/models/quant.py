@@ -86,9 +86,12 @@ def weight_plane_cache(w_q: torch.Tensor, prec, policy: PrecisionPolicy,
     return wp
 
 
-def map_linears(params, cfg, fn):
+def map_linears(params, cfg, fn, *, path: str = "", leaf=None):
     """The tree with every linear (a ``{'w'}`` of two or more axes) replaced
-    by ``fn(node, path)``, ``path`` its path in the reference's tree."""
+    by ``fn(node, path)``, ``path`` its path in the reference's tree, and
+    every other leaf by ``leaf(leaf)`` (default: kept). ``path``: the
+    tree's own path when it is one part of the whole (a layer's is
+    ``cfg.param_path(i)``)."""
 
     def rec(node, path):
         if _is_linear(node):
@@ -103,9 +106,9 @@ def map_linears(params, cfg, fn):
             return out
         if isinstance(node, (list, tuple)):
             return type(node)(rec(v, f"{path}/{i}") for i, v in enumerate(node))
-        return node
+        return node if leaf is None else leaf(node)
 
-    return rec(params, "")
+    return rec(params, path)
 
 
 def quantize_params(

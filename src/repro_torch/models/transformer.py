@@ -33,6 +33,7 @@ fake-quantizes every projection (QAT).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -98,25 +99,43 @@ def _init_block(gen, cfg: ModelConfig, kind: str, device):
     raise ValueError(f"unknown block kind {kind!r}")
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator, device=None, store=None) -> dict:
+@dataclasses.dataclass(frozen=True)
+class SeededParams:
+    """The parameters :func:`init_params` draws from a generator seeded
+    with ``seed`` on the device they are drawn for, handed to an engine
+    undrawn: a single-device engine draws the whole tree, a
+    tensor-parallel rank only its shard, one part at a time
+    (``sharding.tp.load_shard``)."""
+
+    seed: int = 0
+
+    def generator(self, device) -> torch.Generator:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(self.seed)
+        return gen
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, device=None, each=None) -> dict:
     """Random parameters with the reference's distributions (normal
     weights scaled by 1/sqrt(fan-in), embedding by 1/sqrt(d_model), unit
-    norm scales), drawn from ``gen`` on ``device``. ``store``: the device
-    the tree is kept on, each part moved there as soon as it is drawn (the
-    same values; a tree drawn on the card then needs one layer of card
-    memory at a time, as a tensor-parallel rank loads it)."""
-    keep = (lambda t: t) if store is None else (
-        lambda t: tree_map(lambda x: x.to(store) if isinstance(x, torch.Tensor) else x, t))
-    params = {"embed": keep(embedding_init(gen, cfg.vocab_padded, cfg.d_model, cfg.dtype,
-                                           device))}
+    norm scales), drawn from ``gen`` on ``device``. ``each(part, path)``:
+    what is kept of each part, called as soon as the part is drawn with its
+    path in the reference's tree (``/embed``, ``/frontend``,
+    ``/final_norm``, ``/lm_head``, then each layer's ``cfg.param_path(i)``,
+    in that order): a tensor-parallel rank keeps its shard of each
+    (``sharding.tp.load_shard``), so the whole tree is never held."""
+    put = (lambda t, path: t) if each is None else each
+    params = {"embed": put(embedding_init(gen, cfg.vocab_padded, cfg.d_model, cfg.dtype,
+                                          device), "/embed")}
     if cfg.frontend != "none":
-        params["frontend"] = keep(frontend_init(gen, cfg.frontend_dim, cfg.d_model, cfg.dtype,
-                                                device))
-    params["final_norm"] = keep(rmsnorm_init(cfg.d_model, device))
+        params["frontend"] = put(frontend_init(gen, cfg.frontend_dim, cfg.d_model, cfg.dtype,
+                                               device), "/frontend")
+    params["final_norm"] = put(rmsnorm_init(cfg.d_model, device), "/final_norm")
     if not cfg.tie_embeddings:
-        params["lm_head"] = keep(lm_head_init(gen, cfg.d_model, cfg.vocab_padded, cfg.dtype,
-                                              device))
-    params["layers"] = [keep(_init_block(gen, cfg, kind, device)) for kind in cfg.layer_kinds()]
+        params["lm_head"] = put(lm_head_init(gen, cfg.d_model, cfg.vocab_padded, cfg.dtype,
+                                             device), "/lm_head")
+    params["layers"] = [put(_init_block(gen, cfg, kind, device), cfg.param_path(i))
+                        for i, kind in enumerate(cfg.layer_kinds())]
     return params
 
 

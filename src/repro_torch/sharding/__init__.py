@@ -5,11 +5,14 @@ from repro_torch.sharding.tp import (
     COL_PARALLEL,
     ROW_PARALLEL,
     VOCAB_PARALLEL,
+    RankTuner,
     TPContext,
     current_tp,
+    load_shard,
     plane_cache_device_bytes,
     shard_quantized,
     shard_quantized_all,
+    shard_source,
     tp_role,
 )
 
@@ -17,10 +20,13 @@ __all__ = [
     "COL_PARALLEL",
     "ROW_PARALLEL",
     "VOCAB_PARALLEL",
+    "RankTuner",
     "TPContext",
     "current_tp",
+    "load_shard",
     "plane_cache_device_bytes",
     "shard_quantized",
     "shard_quantized_all",
+    "shard_source",
     "tp_role",
 ]

@@ -46,6 +46,18 @@ builds every rank's in one process, the form the tests hold against the
 reference's stacked leaves. As the port's ``quantize_params`` does, a
 layer's plane cache is compacted on its own (the reference's scanned stack
 keeps the planes alive in any of its layers).
+
+Every other linear replicates whole, as in the reference, which shards
+only the names above: the SSM's and the RG-LRU's projections, the MoE
+router and experts, the VLM's front end. A dense (unquantized) vocab head
+replicates too and computes the whole vocabulary on every rank; a dense
+column- or row-parallel projection is refused (:func:`dense_sharded_error`,
+reference defect I). :func:`load_shard` draws a model one part at a time
+and keeps only the rank's shard of each, so no rank ever holds the whole
+dense tree; with ``with_source`` a rank also keeps its scrub source (its
+dense slices, each row slice with its column maxima, and the replicated
+leaves), from which :func:`shard_source` rebuilds the shard bit for bit.
+:class:`RankTuner` makes rank 0's tile autotuner the picks of every rank.
 """
 
 from __future__ import annotations
@@ -201,6 +213,16 @@ class TPContext:
         t = torch.tensor(values, dtype=torch.int64, device=device)
         return [int(v) for v in self.reduce_max(t).tolist()]
 
+    def broadcast_host(self, values: list, device) -> list:
+        """Rank 0's list of host floats on every rank (one small broadcast
+        on ``device``, the group's; float64 carries a float exactly)."""
+        if not values or not self._live():
+            return list(values)
+        t = torch.tensor(values, dtype=torch.float64, device=device)
+        src = 0 if self.group is None else dist.get_global_rank(self.group, 0)
+        dist.broadcast(t, src=src, group=self.group)
+        return [float(v) for v in t.tolist()]
+
     def broadcast_object(self, obj):
         """Rank 0's ``obj`` on every rank (pickled)."""
         if not self._live():
@@ -244,6 +266,39 @@ class TPContext:
         return rec(cache, None)
 
 
+class RankTuner:
+    """The tile tuner of a tensor-parallel rank (the ``PlanRegistry`` hook
+    of ``core/autotune.PlanAutotuner``): rank 0's ``tuner`` alone times
+    candidates and reads and writes the plan store; every other rank holds
+    None. Each pick is broadcast to every rank as its plan resolves: the
+    ranks resolve the same plans (their local shapes and shard triples) in
+    the same order, in a step's eager warm-up, before any capture. So every
+    rank plans the same tiles, and no rank reads the store while rank 0
+    writes it. ``stats()`` is rank 0's counters, carried with each pick."""
+
+    def __init__(self, tp: TPContext, tuner=None, store_path=None) -> None:
+        self.tp = tp
+        self.tuner = tuner
+        self.store_path = store_path
+        self._stats = tp.broadcast_object(None if tuner is None else tuner.stats())
+
+    def tiles_for(self, key, kernel: str):
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"plan {kernel} {key.m}x{key.k}x{key.n} resolved inside a CUDA-graph "
+                "capture: its tiles are broadcast from rank 0, which a capture forbids; "
+                "resolve every plan of a captured step in its eager warm-up"
+            )
+        msg = None
+        if self.tuner is not None:
+            msg = (self.tuner.tiles_for(key, kernel), self.tuner.stats())
+        tiles, self._stats = self.tp.broadcast_object(msg)
+        return tiles
+
+    def stats(self) -> dict:
+        return dict(self._stats)
+
+
 _TP: contextvars.ContextVar[Optional[TPContext]] = contextvars.ContextVar(
     "tp_context", default=None
 )
@@ -261,7 +316,8 @@ def current_tp() -> Optional[TPContext]:
 
 
 class _PerRank(list):
-    """A linear's nodes, one per rank asked for (split off by :func:`_pick`)."""
+    """A linear's (shard node, source node) pairs, one per rank asked for
+    (split off by :func:`_pick`)."""
 
 
 def _slice(t: torch.Tensor, axis: int, n: int, r: int) -> torch.Tensor:
@@ -272,13 +328,13 @@ def _slice(t: torch.Tensor, axis: int, n: int, r: int) -> torch.Tensor:
     return t.narrow(axis, r * step, step).contiguous()
 
 
-def _pick(node, i: int):
+def _pick(node, i: int, j: int):
     if isinstance(node, _PerRank):
-        return node[i]
+        return node[i][j]
     if isinstance(node, dict):
-        return {k: _pick(v, i) for k, v in node.items()}
+        return {k: _pick(v, i, j) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return type(node)(_pick(v, i) for v in node)
+        return type(node)(_pick(v, i, j) for v in node)
     return node
 
 
@@ -290,47 +346,73 @@ def _to(tree, device):
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
-def _shard_trees(params, policy, cfg, size: int, ranks, *, plane_cache: bool, value_bits,
-                 device, col_max, union):
-    """The shard trees of ``ranks`` on ``device``. ``col_max(list of
-    (1, N) column maxima of the ranks' row slices) -> the whole K's``;
-    ``union(alive lists) -> alive`` gives a weight's global kept-plane set
-    under compaction."""
+def dense_sharded_error(path: str) -> ValueError:
+    """The refusal of a dense (unquantized) column- or row-parallel
+    projection: the reference replicates such a weight whole while its
+    local config divides the heads, and then fails on a shape (reference
+    defect I)."""
+    return ValueError(
+        f"layer {path}: a dense (unquantized) column- or row-parallel projection "
+        "cannot be served tensor-parallel: the reference replicates it whole while "
+        "the local config divides the heads, and then fails on a shape (reference "
+        "defect I); quantize it, or keep only the vocab head, the router or the "
+        "front end dense"
+    )
+
+
+def _relayout(params, policy, size, ranks, *, cfg, plane_cache, value_bits, device, col_max,
+              union, path="", sliced=False, keep_source=True):
+    """``params`` with each linear replaced by a :class:`_PerRank` of the
+    ranks' (shard node, source node) pairs and every other tensor moved to
+    ``device`` (shared by both trees). A source node is the rank's dense
+    slice on ``device`` (a row slice with its whole K's column maxima under
+    ``"w_amax"``), the whole weight of a replicated one; ``sliced``: the
+    tree is already one rank's source tree (a scrub's rebuild).
+    ``col_max(list of (1, N) column maxima of the ranks' row slices) -> the
+    whole K's``; ``union(alive lists) -> alive`` gives a weight's global
+    kept-plane set under compaction. ``path``: the tree's own path in the
+    whole tree (one part of it). Without ``keep_source`` a source node is
+    None: each dense slice is dropped as soon as it is quantized."""
     from repro_torch.core.plan import plan_cacheable
     from repro_torch.core.quantize import quantize
     from repro_torch.models.quant import map_linears, weight_plane_cache, weight_precision
 
     compact = policy.sparsity == "compact" and policy.level == "bitplane"
 
+    def sources(node, role):
+        if sliced:
+            return [node]
+        ws = [_slice(node["w"], -2 if role == "row" else -1, size, r).to(device) for r in ranks]
+        if role != "row":
+            return [{"w": w} for w in ws]
+        # a row slice's per-output-channel scale is over the whole K; a
+        # column slice's own columns are whole, and so is its scale
+        amax = col_max([w.to(torch.float32).abs().amax(dim=-2, keepdim=True) for w in ws])
+        return [{"w": w, "w_amax": amax} for w in ws]
+
     def one(node, path):
         role = tp_role(path)
         prec = weight_precision(path, policy, value_bits)
         if prec is None:
-            if role is not None:
-                raise NotImplementedError(
-                    f"layer {path}: a dense (unquantized) tensor-parallel projection is not "
-                    "ported (ROADMAP item 11b); quantize every sharded projection")
-            return node
+            # a dense vocab head computes the whole vocabulary on every rank
+            if role in ("col", "row"):
+                raise dense_sharded_error(path)
+            node = _to(node, device)
+            return _PerRank([(node, node)] * len(ranks))
         bits = value_bits or prec.w_bits
         cached = plane_cache and plan_cacheable(policy, prec)
         if role is None:
-            q = quantize(node["w"].to(device, torch.float32), bits, axis=-2)
+            src = _to(node, device)
+            q = quantize(src["w"].to(torch.float32), bits, axis=-2)
             out = {"w_q": q.values, "w_scale": q.scale}
             if cached:
                 out["w_planes"] = weight_plane_cache(q.values, prec, policy)
-            return _PerRank([out] * len(ranks))
-        # slice where the dense weight lies, then only the slice to the device
-        ws = [_slice(node["w"], -2 if role == "row" else -1, size, r).to(device, torch.float32)
-              for r in ranks]
-        # a row slice's per-output-channel scale is over the whole K; a
-        # column slice's own columns are whole, and so is its scale
-        amax = (col_max([w.abs().amax(dim=-2, keepdim=True) for w in ws])
-                if role == "row" else None)
+            return _PerRank([(out, src if keep_source else None)] * len(ranks))
+        srcs = sources(node, role)
         parts = []
-        for w in ws:
-            q = quantize(w, bits, axis=-2, amax=amax)
+        for s in srcs:
+            q = quantize(s["w"].to(torch.float32), bits, axis=-2, amax=s.get("w_amax"))
             parts.append({"w_q": q.values, "w_scale": q.scale})
-        del ws
         if cached:
             caches = [weight_plane_cache(p["w_q"], prec, policy, compact=False) for p in parts]
             if compact:
@@ -338,10 +420,9 @@ def _shard_trees(params, policy, cfg, size: int, ranks, *, plane_cache: bool, va
                 caches = [bp.compact_weight_planes(c, alive) for c in caches]
             for p, c in zip(parts, caches):
                 p["w_planes"] = c
-        return _PerRank(parts)
+        return _PerRank(zip(parts, srcs if keep_source else [None] * len(parts)))
 
-    tree = map_linears(params, cfg, one)
-    return [_to(_pick(tree, i), device) for i in range(len(ranks))]
+    return map_linears(params, cfg, one, path=path, leaf=lambda t: _to(t, device))
 
 
 def _or(alive_lists) -> list:
@@ -355,8 +436,19 @@ def _max(tensors) -> torch.Tensor:
     return out
 
 
+def _rank_reducers(tp: TPContext, device):
+    """The ``col_max`` and ``union`` of one rank: all-reduces over the
+    group (one per row weight, one per compacted weight)."""
+
+    def union(alive_lists):
+        local = [int(a) for a in _or(alive_lists)]
+        return [bool(v) for v in tp.reduce_max_host(local, device)]
+
+    return dict(col_max=lambda maxima: tp.reduce_max(maxima[0]), union=union)
+
+
 def shard_quantized(params, policy, tp: TPContext, *, cfg, plane_cache: bool = True,
-                    value_bits=None, device=None):
+                    value_bits=None, device=None, with_source: bool = False):
     """This rank's shard tree of the dense tree ``params``, on ``device``
     (default: where ``params`` lie): each linear's weight sliced where it
     lies (rows for "row", columns for "col" / "vocab"), the slice moved to
@@ -366,16 +458,65 @@ def shard_quantized(params, policy, tp: TPContext, *, cfg, plane_cache: bool = T
     own integers. Under compaction the kept planes are those alive in any
     rank's slice (one all-reduce per weight). Every rank must pass the same
     ``params``; a tree on the host never reaches the card whole. ``cfg``
-    names the layers' paths (``models.quant.quantize_params``)."""
+    names the layers' paths (``models.quant.quantize_params``).
+
+    A dense (policy-inactive) vocab head and every replicated leaf are
+    moved whole; a dense column- or row-parallel projection raises
+    (:func:`dense_sharded_error`). ``with_source``: also return the rank's
+    source tree (:func:`shard_source`), the scrub's."""
     device = _device_of(params) if device is None else torch.device(device)
+    tree = _relayout(params, policy, tp.size, [tp.rank], cfg=cfg, plane_cache=plane_cache,
+                     value_bits=value_bits, device=device, keep_source=with_source,
+                     **_rank_reducers(tp, device))
+    shard = _pick(tree, 0, 0)
+    return (shard, _pick(tree, 0, 1)) if with_source else shard
 
-    def union(alive_lists):
-        local = [int(a) for a in _or(alive_lists)]
-        return [bool(v) for v in tp.reduce_max_host(local, device)]
 
-    return _shard_trees(params, policy, cfg, tp.size, [tp.rank], plane_cache=plane_cache,
-                        value_bits=value_bits, device=device,
-                        col_max=lambda maxima: tp.reduce_max(maxima[0]), union=union)[0]
+def shard_source(source, policy, tp: TPContext, *, cfg, plane_cache: bool = True,
+                 value_bits=None):
+    """The shard tree rebuilt from this rank's source tree (what
+    :func:`shard_quantized` and :func:`load_shard` return ``with_source``:
+    the dense slices, each row slice with its whole K's column maxima, and
+    the replicated leaves, on the rank's device), bit-equal to the shard
+    they were returned with. Under compaction the kept planes are
+    all-reduced again, so every rank rebuilds at the same step; nothing
+    else is a collective."""
+    device = _device_of(source)
+    tree = _relayout(source, policy, tp.size, [tp.rank], cfg=cfg, plane_cache=plane_cache,
+                     value_bits=value_bits, device=device, sliced=True,
+                     **_rank_reducers(tp, device))
+    return _pick(tree, 0, 0)
+
+
+def load_shard(cfg, gen: torch.Generator, policy, tp: TPContext, *, device=None,
+               plane_cache: bool = True, value_bits=None, with_source: bool = False,
+               on_part=None):
+    """This rank's shard tree of ``init_params(cfg, gen, device=device)``,
+    never holding the whole dense tree: each part (the embedding, the front
+    end, the final norm, the head, then one layer at a time) is drawn in
+    ``init_params``' order from ``gen`` on ``device``, sliced, quantized and
+    decomposed there at once (the row maxima and the kept planes
+    all-reduced as in :func:`shard_quantized`), and the rest of the part is
+    dropped. The result is bit-equal to ``shard_quantized(init_params(cfg,
+    gen, device=device), ...)``; the peak is the shard tree and one part.
+    ``with_source``: also return the rank's source tree (the scrub's).
+    ``on_part(path)``: called as each part is done (a progress hook)."""
+    from repro_torch.models.transformer import init_params
+
+    device = gen.device if device is None else torch.device(device)
+    reducers = _rank_reducers(tp, device)
+
+    def part(tree, path):
+        out = _relayout(tree, policy, tp.size, [tp.rank], cfg=cfg, plane_cache=plane_cache,
+                        value_bits=value_bits, device=device, path=path,
+                        keep_source=with_source, **reducers)
+        if on_part is not None:
+            on_part(path)
+        return out
+
+    tree = init_params(cfg, gen, device=device, each=part)
+    shard = _pick(tree, 0, 0)
+    return (shard, _pick(tree, 0, 1)) if with_source else shard
 
 
 def _device_of(tree) -> torch.device:
@@ -392,9 +533,10 @@ def shard_quantized_all(params, policy, size: int, *, cfg, plane_cache: bool = T
                         value_bits=None) -> list:
     """Every rank's shard tree (:func:`shard_quantized`), built in one
     process on the device of ``params``: rank ``r``'s is element ``r``."""
-    return _shard_trees(params, policy, cfg, size, list(range(size)), plane_cache=plane_cache,
-                        value_bits=value_bits, device=_device_of(params), col_max=_max,
-                        union=_or)
+    tree = _relayout(params, policy, size, list(range(size)), cfg=cfg, plane_cache=plane_cache,
+                     value_bits=value_bits, device=_device_of(params), col_max=_max, union=_or,
+                     keep_source=False)
+    return [_pick(tree, r, 0) for r in range(size)]
 
 
 def plane_cache_device_bytes(tree) -> int:

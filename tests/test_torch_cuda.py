@@ -1143,8 +1143,9 @@ def test_decode_attention_over_head_slices_is_bit_equal_on_card(cuda_device, siz
 
 @pytest.mark.cuda
 def test_shards_of_a_host_tree_equal_the_card_quantization(cuda_device):
-    """A dense tree drawn on the card and kept on the host
-    (``init_params(store="cpu")``) holds the card tree's values; its shard,
+    """A dense tree drawn on the card and kept on the host (each part moved
+    there as it is drawn, ``init_params(each=)``) holds the card tree's
+    values; its shard,
     sliced on the host and quantized on the card (a context of one rank),
     equals the single-device quantization of the card tree leaf for leaf,
     every leaf on the card."""
@@ -1152,7 +1153,7 @@ def test_shards_of_a_host_tree_equal_the_card_quantization(cuda_device):
 
     from repro_torch.configs import get_reduced
     from repro_torch.core.precision import PrecisionPolicy
-    from repro_torch.core.tree import leaves
+    from repro_torch.core.tree import leaves, tree_map
     from repro_torch.models.quant import quantize_params
     from repro_torch.models.transformer import init_params
     from repro_torch.sharding.tp import TPContext, shard_quantized
@@ -1160,12 +1161,13 @@ def test_shards_of_a_host_tree_equal_the_card_quantization(cuda_device):
     cfg = get_reduced("granite-3-8b")
     policy = PrecisionPolicy.uniform(8, 8, level="bitplane", integrity="detect")
 
-    def draw(store=None):
+    def draw(each=None):
         g = torch.Generator(device=cuda_device)
         g.manual_seed(0)
-        return init_params(cfg, g, device=cuda_device, store=store)
+        return init_params(cfg, g, device=cuda_device, each=each)
 
-    host, card = draw("cpu"), draw()
+    host = draw(lambda part, path: tree_map(lambda t: t.cpu(), part))
+    card = draw()
     assert all(a.device.type == "cpu" and torch.equal(a, b.cpu())
                for a, b in zip(leaves(host), leaves(card)))
 
@@ -1184,3 +1186,30 @@ def test_shards_of_a_host_tree_equal_the_card_quantization(cuda_device):
     want = flat(quantize_params(card, policy, cfg=cfg, plane_cache=True))
     assert len(got) == len(want)
     assert all(x.is_cuda and x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_deepseek_coder_33b_across_four_cards_equals_one(tmp_path):
+    """deepseek-coder-33b at full width, 16 of its 62 layers, over NCCL
+    with CUDA graphs (the chip smoke's workload: 4 prompts of 32-256
+    tokens, 16 new tokens, int8 KV, the 8 -> 4 switch at step 8): the
+    greedy tokens at P=2 and P=4 (each rank loading its shard layer by
+    layer) equal one card's. Prints each rank's card peak, card resident
+    and host peak RSS (GiB)."""
+    import json
+
+    import _torch_tp_ranks as ranks
+    from repro_torch.launch.mesh import spawn_tp
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    out = {p: spawn_tp(ranks.rank_deepseek, p, device="cuda", args=(16,),
+                       store_dir=str(tmp_path)) for p in (1, 2, 4)}
+    for p, res in out.items():
+        print(json.dumps({"check": "deepseek-coder-33b 16 layers", "P": p,
+                          "memory_gib_per_rank (card peak, card resident, host peak RSS)":
+                          res["memory"], "card": res["card"]}))
+        assert not res["failed"] and sorted(res["tokens"]) == [0, 1, 2, 3]
+        assert res["switches"] == [(8, (4, 4))]
+    assert out[2]["tokens"] == out[1]["tokens"]
+    assert out[4]["tokens"] == out[1]["tokens"]

@@ -20,13 +20,31 @@ carried from the JAX package through numpy:
   engine's and the JAX engine's; at P=2 also with chunked prefill, paged
   KV and ``integrity="detect"`` (no alarm, the single-device ABFT check
   count), and one flipped plane bit on rank 1 alarms on both ranks;
+* so do they at P=2 and 4 under ``integrity="scrub"`` with a plane bit
+  flipped on rank 1 (found on every rank, one scrub each, the load-time
+  fingerprint restored, each rank's retained source only its own slices),
+  under the autopilot (a burst that mixes two tiers: the same switches and
+  tiers on every rank), under the tile autotuner (cold on a fresh store,
+  warm from it; every rank plans the same tiles, rank 0 alone keeps the
+  one store) and with the vocab head kept dense (replicated);
+* the layer-by-layer loader (``load_shard``) at P=2 and 4 gives each
+  rank's element of ``shard_quantized_all`` of the whole tree, leaf for
+  leaf, for granite and deepseek-coder-33b, compaction on and off, and the
+  scrub's rebuild from its source gives it again;
 * tensor-parallel plans key on local shapes and their role, row plans
   without an epilogue; the engine refuses what the reference refuses, with
-  its messages, and what is ROADMAP item 11b.
+  its messages (an encoder, heads that do not divide), and a dense column-
+  or row-parallel projection (reference defect I: the reference's engine
+  crashes on it, measured in a subprocess with 2 XLA host devices).
 """
 
 import contextlib
 import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
 
 import jax
 import jax.numpy as jnp
@@ -72,24 +90,29 @@ def weights():
 
 
 @pytest.fixture(scope="module")
-def single(weights):
+def single(weights, tmp_path_factory):
     """The port's single-device engine in every case."""
     cfg, params = ranks.config(), weights[3]
-    return {case: ranks.serve(cfg, params, case) for case in ranks.CASES}
+    store = str(tmp_path_factory.mktemp("plans1"))
+    return {case: ranks.serve(cfg, params, case, store_dir=store) for case in ranks.CASES}
+
+
+def _spawn(body, size, weights, tmp_path_factory):
+    plans = str(tmp_path_factory.mktemp(f"plans{size}"))
+    return spawn_tp(body, size, device="cpu", args=(weights[2], plans),
+                    store_dir=str(tmp_path_factory.mktemp(f"tp{size}")))
 
 
 @pytest.fixture(scope="module")
 def p2(weights, tmp_path_factory):
     """Every rank's results at P=2 (one spawn)."""
-    return spawn_tp(ranks.rank_p2, 2, device="cpu", args=(weights[2],),
-                    store_dir=str(tmp_path_factory.mktemp("tp2")))
+    return _spawn(ranks.rank_p2, 2, weights, tmp_path_factory)
 
 
 @pytest.fixture(scope="module")
 def p4(weights, tmp_path_factory):
     """Every rank's results at P=4 (one spawn)."""
-    return spawn_tp(ranks.rank_p4, 4, device="cpu", args=(weights[2],),
-                    store_dir=str(tmp_path_factory.mktemp("tp4")))
+    return _spawn(ranks.rank_p4, 4, weights, tmp_path_factory)
 
 
 def _linear_paths(cfg) -> list:
@@ -260,16 +283,25 @@ def test_tp_prefill_and_chunk_steps_equal_single_device(p2):
         assert whole == single and chunked == single, f"rank {rank['rank']}"
 
 
-def _jax_tokens(weights) -> dict:
-    """The JAX engine's tokens, its weights quantized by the port (held
-    equal to its own quantization by test_torch_serving.py)."""
+def _jax_tokens(weights, case="dense", store_dir=None) -> dict:
+    """The JAX engine's tokens in engine case ``case``, its weights
+    quantized by the port (held equal to its own quantization by
+    test_torch_serving.py)."""
+    from repro.runtime.autopilot import AutopilotPolicy as JAutopilotPolicy
+
     jcfg, jp, _, tparams = weights
     cfg = ranks.config()
-    whole = tquantize_params(tparams, ranks.policy(), cfg=cfg, plane_cache=True)
+    pol_kw, eng_kw = ranks.CASES[case]
+    eng_kw = {k: (JAutopilotPolicy(**dataclasses.asdict(v)) if k == "autopilot" else v)
+              for k, v in eng_kw.items()}
+    if case == "autotune":
+        eng_kw["plan_store_path"] = os.path.join(store_dir, "plans.json")
+    whole = tquantize_params(tparams, ranks.policy(**pol_kw), cfg=cfg, plane_cache=True)
     with reference_quantizes_to(lambda: reference_layout(cfg, whole)):
-        engine = JEngine(jcfg, jp, JPolicy.uniform(8, 8, level="bitplane", variant="booth"),
-                         n_slots=ranks.N_SLOTS, max_len=ranks.MAX_LEN)
-    results, _ = engine.run(ranks.requests(jcfg, JRequest))
+        engine = JEngine(jcfg, jp, JPolicy.uniform(8, 8, level="bitplane", variant="booth",
+                                                   **pol_kw),
+                         n_slots=ranks.N_SLOTS, max_len=ranks.MAX_LEN, **eng_kw)
+    results, _ = engine.run(ranks.requests(jcfg, JRequest, burst=case == "autopilot"))
     return {rid: np.asarray(t).tolist() for rid, t in results.items()}
 
 
@@ -277,12 +309,135 @@ def test_engine_tokens_equal_single_device_and_reference(weights, single, p2, p4
     base = single["dense"]
     assert not base["failed"] and sorted(base["tokens"]) == list(range(len(ranks.LENS)))
     assert base["tokens"] == _jax_tokens(weights)
-    for every in (p2, [r["dense"] for r in p4]):
+    for every in (p2, p4):
         for rank in every:
-            res = rank["cases"]["dense"] if "cases" in rank else rank
+            res = rank["cases"]["dense"]
             assert res["tokens"] == base["tokens"]
             # each rank holds ~1/P of the plane bytes
             assert res["plane_bytes"] <= 0.6 * base["plane_bytes"] * 2 / len(every)
+
+
+@pytest.mark.parametrize("size", [2, 4])
+@pytest.mark.parametrize("case", ["scrub", "autopilot", "autotune", "head"])
+def test_later_engine_cases_equal_single_device_and_reference(weights, single, p2, p4, case,
+                                                              size, tmp_path):
+    """Scrub, the autopilot, the tile autotuner and a dense vocab head at
+    P=2 and 4: every rank's tokens are the port's single-device engine's
+    and the JAX engine's, and each case's own record holds on every rank."""
+    one = single[case]
+    assert not one["failed"] and sorted(one["tokens"]) == list(range(len(ranks.LENS)))
+    assert one["tokens"] == _jax_tokens(weights, case, str(tmp_path))
+    every = p2 if size == 2 else p4
+    for rank in every:
+        got, tag = rank["cases"][case], f"rank {rank['rank']}"
+        assert got["tokens"] == one["tokens"] and not got["failed"], tag
+        if case == "scrub":
+            # rank 1's flip is found on every rank before the first step
+            # it would touch; each rank scrubs once and serves its intact
+            # shard again
+            ig = got["integrity"]
+            assert ig["audit_alarms"] >= 1 and ig["scrubs"] == 1, (tag, ig)
+            assert one["integrity"]["audit_alarms"] == one["integrity"]["scrubs"] == 0
+            assert got["fingerprint_restored"], tag
+            assert got["source_bytes"] == rank["source_bytes_wanted"], tag
+        if case == "autopilot":
+            assert got["autopilot"] == one["autopilot"], tag
+            assert one["autopilot"]["mixed_steps"] > 0 and one["autopilot"]["shadow_probes"] > 0
+            assert len(set(one["autopilot"]["request_tiers"].values())) == 2
+        if case == "autotune":
+            cold, warm = got["plans"], got["warm"]["plans"]
+            assert cold["tunes"] > 0 and cold["store_hits"] == 0, (tag, cold)
+            assert warm["tunes"] == 0 and warm["store_hits"] == cold["tunes"], (tag, warm)
+            assert got["warm"]["tokens"] == one["tokens"], tag
+            assert got["tiles"] == every[0]["cases"][case]["tiles"] and got["tiles"], tag
+            assert got["warm_tiles"] == got["tiles"], tag
+            assert got["keeps_store"] == (rank["rank"] == 0), tag
+            assert got["store_files"] == ["plans.json"], tag
+
+
+@pytest.mark.parametrize("size", [2, 4])
+@pytest.mark.parametrize("arch", ranks.LOADER_ARCHS)
+@pytest.mark.parametrize("compact", [False, True])
+def test_layer_by_layer_load_equals_sharding_the_whole_tree(p2, p4, size, arch, compact):
+    for rank in p2 if size == 2 else p4:
+        assert rank["loader"][f"{arch} compact={compact}"] == {"loaded": True, "rebuilt": True}
+
+
+#: the reference's tensor-parallel engine with one projection kept dense,
+#: on 2 XLA host devices (a process of its own: a test worker's JAX has
+#: made its devices before this module can ask for more): for each
+#: projection named on the command line, the exception its run raises
+_DEFECT_I_PROG = textwrap.dedent(
+    """
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+    import dataclasses, json, sys
+    import jax
+    import repro.models  # noqa: F401
+    from repro.configs import get_reduced
+    from repro.core.precision import PrecisionPolicy
+    from repro.launch.serve import ContinuousBatchingEngine
+    from repro.models import quant
+    from repro.models.transformer import init_params
+    from repro.runtime.scheduler import Request
+    from repro_torch.core.precision import PrecisionPolicy as TPolicy
+    from repro_torch.models.quant import quantize_params
+    from repro_torch.models.transformer import params_from_numpy
+    import _torch_tp_ranks as ranks
+    from _torch_parity import reference_layout, to_numpy_tree
+
+    jcfg = dataclasses.replace(get_reduced(ranks.ARCH), n_kv_heads=4)
+    jp = jax.jit(lambda k: init_params(jcfg, k))(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(ranks.config(), to_numpy_tree(jp), device="cpu")
+    out = {}
+    for name in sys.argv[1:]:
+        kw = dict(level="bitplane", variant="booth", keep_dense=(name,))
+        # the port's quantization in the reference's layout, in place of
+        # the reference's eager one (held equal by test_torch_serving.py)
+        whole = quantize_params(tparams, TPolicy.uniform(8, 8, **kw), cfg=ranks.config(),
+                                plane_cache=True)
+        quant.quantize_params = lambda *a, **k: reference_layout(ranks.config(), whole)
+        engine = ContinuousBatchingEngine(jcfg, jp, PrecisionPolicy.uniform(8, 8, **kw),
+                                          n_slots=ranks.N_SLOTS, max_len=ranks.MAX_LEN,
+                                          model_parallel=2)
+        try:
+            engine.run(ranks.requests(jcfg, Request))
+            out[name] = None
+        except (TypeError, ValueError) as err:
+            out[name] = [type(err).__name__, str(err)]
+    print("RESULT" + json.dumps(out))
+    """
+)
+DEFECT_I = {"q_proj": "cannot reshape", "gate_proj": "broadcast", "o_proj": "dot_general"}
+
+
+@pytest.fixture(scope="module")
+def reference_defect_i():
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(os.path.dirname(here), "src")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([src, here, os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", _DEFECT_I_PROG, *DEFECT_I], env=env,
+                          capture_output=True, text=True, timeout=600)
+    line = [x for x in proc.stdout.splitlines() if x.startswith("RESULT")]
+    assert proc.returncode == 0 and line, proc.stderr[-3000:]
+    return json.loads(line[0][len("RESULT"):])
+
+
+@pytest.mark.parametrize("name", list(DEFECT_I))
+def test_dense_sharded_projection_defect_i(weights, p2, reference_defect_i, name):
+    """Reference defect I: the reference's tensor-parallel engine with a
+    dense (kept) column- or row-parallel projection replicates the weight
+    whole while its local config halves the heads, and crashes on a shape;
+    the port refuses it at load, on every rank, naming the defect."""
+    crash = reference_defect_i[name]
+    assert crash is not None and crash[0] == "TypeError" and DEFECT_I[name] in crash[1], crash
+    for rank in p2:
+        msg = rank["defect_i"][name]
+        assert msg is not None and "reference defect I" in msg and name in msg
+    kw = dict(level="bitplane", variant="booth", keep_dense=(name,))
+    with pytest.raises(ValueError, match="reference defect I"):
+        ttp.shard_quantized_all(weights[3], TPolicy.uniform(8, 8, **kw), 2, cfg=ranks.config())
 
 
 @pytest.mark.parametrize("case", ["chunked", "paged", "detect"])
@@ -345,26 +500,25 @@ def test_tp_validation(weights):
         TEngine(cfg, params, pol, device="cpu", model_parallel=2)
 
 
-@pytest.mark.parametrize("what, kw", [
-    ("integrity='scrub'", dict(policy=dict(integrity="scrub"))),
-    ("the autopilot", dict(autopilot=True)),
-    ("the tile autotuner", dict(autotune=True)),
-    ("the ssm family", dict(arch="mamba2-1.3b")),
-])
-def test_later_items_refused_naming_11b(weights, what, kw):
-    from repro_torch.runtime.autopilot import AutopilotPolicy
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "recurrentgemma-2b"])
+def test_refusals_are_the_references(arch):
+    """The encoder (no decode path) and full-width recurrentgemma-2b (one
+    KV head: the heads do not divide over 2 ranks) are refused at P=2 with
+    the reference's messages."""
+    from repro.configs import get_config as jget_config
+    from repro_torch.configs import get_config as tget_config
 
-    cfg = tget(kw["arch"]) if "arch" in kw else ranks.config()
-    params = weights[3] if "arch" not in kw else tinit(cfg, torch.Generator().manual_seed(0))
-    eng_kw = {}
-    if kw.get("autopilot"):
-        eng_kw["autopilot"] = AutopilotPolicy(sla_queue_steps=2)
-    if kw.get("autotune"):
-        eng_kw["autotune"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11b") as err:
-        TEngine(cfg, params, ranks.policy(**kw.get("policy", {})), device="cpu",
-                model_parallel=2, **eng_kw)
-    assert what in str(err.value)
+    pol = dict(level="bitplane", variant="booth")
+    with pytest.raises(ValueError) as t_err:
+        TEngine(tget_config(arch), None, TPolicy.uniform(8, 8, **pol), device="cpu",
+                model_parallel=2)
+    with pytest.raises(ValueError) as j_err:
+        if arch == "hubert-xlarge":
+            JEngine(jget_config(arch), None, JPolicy.uniform(8, 8, **pol), model_parallel=2)
+        else:  # the engine's head check (it first makes a mesh of 2 devices)
+            jtp.TPContext(mesh=None, size=2).local_config(jget_config(arch))
+    assert str(t_err.value) == str(j_err.value)
+    assert ("encoder-only" if arch == "hubert-xlarge" else "must divide") in str(t_err.value)
 
 
 def test_cache_specs_name_the_head_axes():
