@@ -223,7 +223,20 @@ Phases, each failing the run on any error:
    prefill and decode steps), each against a single-device eager twin at
    its depth run in this call; rows 1 and 2 on every rank of every cell,
    no plain route. Before the cells, the plain attention paths over one
-   rank's heads at P = 2 and 4 must give the whole heads' bits.
+   rank's heads at P = 2 and 4 must give the whole heads' bits;
+20. training on a (data x model) mesh (``run_mesh_training``): two gloo
+   ranks sharing the card (``spawn_ranks``, eager) train through
+   ``TrainRun`` on their mesh, each holding its blocks of the parameters
+   and optimizer state: train-fsdp2 (granite-3-8b at full width, 1 layer,
+   AdamW, mesh (2,1)), train-tp2 (the same at (1,2)) and train-ep2
+   (qwen3-moe-235b-a22b at full width, 1 layer, Adafactor, capacity factor
+   2.0, (1,2)), batch 8 x 256, 3 steps (the third traced); the same
+   TrainRun on one device is the control: the first step's loss and grad
+   norm within MESH_FIRST_RTOL / MESH_GNORM_RTOL, every loss within the
+   reference's 2e-2; train-ep2's first MoE call keeps one device's copies.
+   Each cell prints the step ms, each rank's card peak and resident memory
+   beside one device's, the collectives' ms of the traced step and the
+   losses.
 
 Every engine cell's main run replays each decode step from the engine's
 CUDA graph of that precision (captured by the warm-up run; the counted
@@ -3016,11 +3029,12 @@ FAMILY_OPS_STEPS = 4  # decode steps of the profiled eager run
 # run passes even with these cuts (PERF.md, section 4): the route cells
 # mamba2-digit and mamba2-detect run 16 layers, rgemma-window two periods
 # and the tail, and rgemma-bitplane four periods and the 2-layer tail (the
-# tensor-parallel phase took its 26 layers' time); mamba2-bitplane 24 (the
+# tensor-parallel phase took its 26 layers' time); mamba2-bitplane 16 (the
 # dense decode attention's one-head-at-a-time loop took the time of 16, the
-# tensor-parallel phase's later cells that of 8 more)
-FAMILY_LAYERS = {"mamba2-bitplane": 24, "mamba2-digit": 16, "mamba2-detect": 16,
-                 "rgemma-bitplane": 14, "rgemma-window": 8}
+# tensor-parallel phase's later cells that of 8 more, the margin under the
+# time limit 8 more); mamba2-digit and mamba2-detect 8 (the margin)
+FAMILY_LAYERS = {"mamba2-bitplane": 16, "mamba2-digit": 8, "mamba2-detect": 8,
+                 "rgemma-bitplane": 8, "rgemma-window": 8}
 
 
 def _family_ops(engine, reqs, schedule) -> dict:
@@ -3418,9 +3432,10 @@ ARCH_KEEP_DENSE = ("frontend", "router")
 # for the tensor-parallel phase's new cells), internvl2-bitplane for
 # the smoke's time (its plain-route control runs ~1 s a decode step at 24
 # layers, and its decode attention attends one KV head at a time;
-# internvl2-patches serves all 24); PERF.md, section 4
+# internvl2-patches 24 -> 12 to make room for the mesh-training phase);
+# PERF.md, section 4
 ARCH_LAYERS = {"qwen3moe-bitplane": 2, "scout-bitplane": 2, "internvl2-bitplane": 6,
-               "internvl2-patches": 24, "hubert-encode": 48}
+               "internvl2-patches": 12, "hubert-encode": 48}
 VLM_TEXT = 64  # text tokens after internvl2's 256 patches
 VLM_BATCH = 4
 VLM_GEN = 16
@@ -4297,20 +4312,22 @@ def _tp_family_twins() -> dict:
     return out
 
 
-def _tp_rank_cells(tp, device, n_layers: int, plans_dir: str) -> list:
+def _tp_rank_cells(backend, device, n_layers: int, plans_dir: str) -> list:
     """One rank of the gloo cells (every rank on ``cuda:0``), each eager
     (gloo's collectives cannot be captured), every model drawn by the
     layer-by-layer loader from phase 3's seed (``SeededParams(0)``): the
     load line; bitplane-tp2 on phase 3's workload with its 8 -> 4 switch at
     step 8, and bitplane-paged-tp2 on phase 8's; the scrub, autopilot and
     autotune cells; the families (``TP_FAMILIES``). Returns every rank's
-    lines (rank 0's is the one ``spawn_tp`` hands back)."""
+    lines (rank 0's is the one ``spawn_ranks`` hands back)."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.launch.mesh import tp_context
     from repro_torch.models.transformer import SeededParams
 
+    tp = tp_context()
     started = time.time()
     cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=n_layers)
     seeded = SeededParams(0)
@@ -4407,8 +4424,8 @@ def run_tp(cfg, controls: dict, p1_bytes: int, p1_memory: tuple, twins: dict) ->
     t0, t0_wall = time.perf_counter(), time.time()
     plans_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_plans_")
     try:
-        every = mesh.spawn_tp(_tp_rank_cells, TP_SIZE, device="cuda", share_device=True,
-                              args=(cfg.n_layers, plans_dir))
+        every = mesh.spawn_ranks(_tp_rank_cells, TP_SIZE, device="cuda", share_device=True,
+                                 args=(cfg.n_layers, plans_dir))
     finally:
         shutil.rmtree(plans_dir, ignore_errors=True)
     spawn_s = time.perf_counter() - t0
@@ -4625,6 +4642,190 @@ def run_tp_phase(cfg, controls: dict, twins: dict) -> dict:
     return out
 
 
+# -- training on a (data x model) mesh (phase 20) ------------------------------
+
+MESH_RANKS = 2  # gloo ranks sharing the one card, eager
+MESH_STEPS = 3  # the last one traced (left out of the step times)
+MESH_FIRST_RTOL = 1e-3  # first step: only the order of the sums differs
+# the first step's grad norm: on the card one device scatter-adds the
+# embedding's gradient rows in bf16 over all 2048 tokens, a data rank over
+# its 1024 before the float32 reduce-scatter, which moves the whole norm
+# by 3.8e-3 at (2,1)
+MESH_GNORM_RTOL = 1e-2
+MESH_RTOL = MESH_ATOL = 2e-2  # every step: the reference's bound between meshes
+#: name -> (arch, depth, optimizer, model axis): the data axis is the rest
+#: of the ranks; qwen3-moe at the reference's profile for it (Adafactor,
+#: capacity factor 2.0: src/repro/launch/dryrun.py:72-74). granite runs 1
+#: layer: train-fsdp2's gloo steps (whole float32 gradients through the
+#: host) took 9-16 s each at 2 layers, and the smoke's margin under its
+#: time limit
+MESH_CELLS = {
+    "train-fsdp2": ("granite-3-8b", 1, "adamw", 1),
+    "train-tp2": ("granite-3-8b", 1, "adamw", 2),
+    "train-ep2": ("qwen3-moe-235b-a22b", 1, "adafactor", 2),
+}
+MESH_COLLECTIVES = ("train.allgather", "train.reduce_scatter", "train.allreduce",
+                    "moe.ep_gather", "moe.ep_combine")
+
+
+def _mesh_run(arch, layers, opt, model_axis, device):
+    """A TrainRun of a phase-20 cell (the same on every mesh and on one
+    device): full width, ``layers`` deep, batch TRAIN_BATCH x TRAIN_SEQ."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import TrainRun
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    return TrainRun(cfg=cfg, steps=MESH_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                    optimizer=opt, peak_lr=TRAIN_LR, log_every=1000, device=device,
+                    model_axis=model_axis, gather_params=False, profile_step=MESH_STEPS - 1)
+
+
+def _mesh_kept(log, group=None) -> int:
+    """The copies the first MoE call of a run kept (summed over ``group``,
+    the ranks holding its experts)."""
+    import torch.distributed as dist
+
+    s, n, dropped = log[0]
+    d = dropped.to(torch.int64).reshape(1).clone()
+    if group is not None:
+        dist.all_reduce(d, group=group)
+    return int(n) - int(d)
+
+
+def _mesh_rank_cells(backend, device) -> list:
+    """One rank of phase 20: every cell's TrainRun on its mesh of the
+    world, as a rank of it; each rank's line per cell, gathered."""
+    import torch.distributed as dist
+
+    from repro_torch.layers import moe as tmoe
+
+    mine = []
+    for name, (arch, layers, opt, model_axis) in MESH_CELLS.items():
+        run = _mesh_run(arch, layers, opt, model_axis, str(device))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with tmoe.record_drops() as log:
+            out = run.run()
+        torch.cuda.synchronize()
+        prof = run.timings["profile"]
+        mine.append({
+            "cell": name, "mesh": out["mesh"], "losses": out["losses"],
+            "grad_norms": out["grad_norms"], "step_ms": run.timings["step_ms"],
+            "traced_step_ms": prof["step_ms"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "resident_gb": run.timings["resident_bytes"] / 2**30,
+            "collectives_device_ms": {k: prof["device_ms"][k] for k in MESH_COLLECTIVES},
+            "collectives_host_ms": {k: prof["host_ms"][k] for k in MESH_COLLECTIVES},
+            "step_parts_device_ms": {k: prof["device_ms"][k] for k in
+                                     ("train.grads", "train.clip", "train.update")},
+            "kernels_ms": prof["kernels_ms"],
+            "kept_first_call": _mesh_kept(log, dist.group.WORLD) if log else None,
+            "kernel_launches": _read_counts(), "cell_s": time.perf_counter() - t0,
+        })
+        del out, log
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every
+
+
+def run_mesh_training() -> dict:
+    """Phase 20, training on a (data x model) mesh: ``MESH_RANKS`` gloo
+    ranks sharing this card (eager) train each of ``MESH_CELLS`` through
+    ``TrainRun`` on its mesh; the same TrainRun on one device in this
+    process is the control. Gates: every loss finite; the first step's loss
+    within MESH_FIRST_RTOL and grad norm within MESH_GNORM_RTOL of one
+    device's, every step's within the reference's bound; train-ep2 (data 1:
+    one device's capacity) keeps as many copies in its first MoE call as
+    one device; no rank launches the port's kernels. Prints a line per
+    cell: the step ms (median), each rank's card peak and resident memory
+    beside one device's, the collectives' device and host ms of the traced
+    step, and the losses."""
+    from repro_torch.launch import mesh
+    from repro_torch.layers import moe as tmoe
+
+    t0 = time.perf_counter()
+    controls = {}
+    for name, (arch, layers, opt, _) in MESH_CELLS.items():
+        key = (arch, layers, opt)
+        if key in controls:
+            continue
+        run = _mesh_run(arch, layers, opt, 1, "cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with tmoe.record_drops() as log:
+            out = run.run()
+        torch.cuda.synchronize()
+        controls[key] = {
+            "losses": out["losses"], "grad_norms": out["grad_norms"],
+            "step_ms_median": float(np.median(run.timings["step_ms"])),
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "resident_gb": run.timings["resident_bytes"] / 2**30,
+            "kept_first_call": _mesh_kept(log) if log else None,
+        }
+        del out, log, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    every = mesh.spawn_ranks(_mesh_rank_cells, MESH_RANKS, device="cuda", share_device=True)
+    spawn_s = time.perf_counter() - t1
+    cells = {}
+    for i, name in enumerate(MESH_CELLS):
+        arch, layers, opt, model_axis = MESH_CELLS[name]
+        ctl = controls[(arch, layers, opt)]
+        ranks_ = [lines[i] for lines in every]
+        r0 = ranks_[0]
+        losses, gn = r0["losses"], r0["grad_norms"]
+        if any(r["losses"] != losses for r in ranks_):
+            _die(f"{name}: the ranks report different losses {[r['losses'] for r in ranks_]}")
+        if not np.isfinite(losses).all():
+            _die(f"{name}: a loss is not finite: {losses}")
+        rel0 = abs(losses[0] - ctl["losses"][0]) / abs(ctl["losses"][0])
+        grel0 = abs(gn[0] - ctl["grad_norms"][0]) / abs(ctl["grad_norms"][0])
+        if rel0 > MESH_FIRST_RTOL or grel0 > MESH_GNORM_RTOL:
+            _die(f"{name}: first step loss {losses[0]} / grad norm {gn[0]} against one "
+                 f"device's {ctl['losses'][0]} / {ctl['grad_norms'][0]}")
+        if not np.allclose(losses, ctl["losses"], rtol=MESH_RTOL, atol=MESH_ATOL):
+            _die(f"{name}: losses {losses} against one device's {ctl['losses']}")
+        if any(any(r["kernel_launches"].values()) for r in ranks_):
+            _die(f"{name}: training launched the port's kernels "
+                 f"{[r['kernel_launches'] for r in ranks_]}")
+        line = {
+            "mesh_cell": name, "card": CARD, "arch": arch, "layers": layers,
+            "optimizer": opt, "mesh": r0["mesh"], "ranks": MESH_RANKS, "backend": "gloo",
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": MESH_STEPS,
+            "losses": losses, "one_device_losses": ctl["losses"],
+            "grad_norms": gn, "one_device_grad_norms": ctl["grad_norms"],
+            "first_loss_rel": rel0, "first_gnorm_rel": grel0,
+            "step_ms_median": float(np.median(r0["step_ms"])),
+            "one_device_step_ms_median": ctl["step_ms_median"],
+            "peak_gb_per_rank": [r["peak_gb"] for r in ranks_],
+            "resident_gb_per_rank": [r["resident_gb"] for r in ranks_],
+            "one_device_peak_gb": ctl["peak_gb"], "one_device_resident_gb": ctl["resident_gb"],
+            "traced_step_ms_per_rank": [r["traced_step_ms"] for r in ranks_],
+            "collectives_device_ms_per_rank": [r["collectives_device_ms"] for r in ranks_],
+            "collectives_host_ms_per_rank": [r["collectives_host_ms"] for r in ranks_],
+            "step_parts_device_ms_per_rank": [r["step_parts_device_ms"] for r in ranks_],
+            "kernels_ms_per_rank": [r["kernels_ms"] for r in ranks_],
+            "kernel_launches": [r["kernel_launches"] for r in ranks_],
+            "cell_s_per_rank": [r["cell_s"] for r in ranks_],
+        }
+        if arch.startswith("qwen3"):
+            line["kept_first_call"] = r0["kept_first_call"]
+            line["one_device_kept_first_call"] = ctl["kept_first_call"]
+            if r0["kept_first_call"] != ctl["kept_first_call"]:
+                _die(f"{name}: the first MoE call kept {r0['kept_first_call']} copies, one "
+                     f"device {ctl['kept_first_call']}")
+        cells[name] = line
+        print(json.dumps(line), flush=True)
+    cells["spawn_s"] = spawn_s
+    cells["phase_s"] = time.perf_counter() - t0
+    return cells
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _die("no CUDA device: this smoke run needs one GPU")
@@ -4736,6 +4937,11 @@ def main() -> None:
          "bitplane-paged-tp2": eng_pag["eager"]["host_ms_per_decode_step"]})
     print(f"[chip_smoke] tensor-parallel serving done at {time.perf_counter() - t0:.1f} s "
           f"(phase {tp['phase_s']:.1f} s, spawn {tp['spawn_s']:.1f} s)", flush=True)
+    meshed = run_mesh_training()
+    print(f"[chip_smoke] mesh training done at {time.perf_counter() - t0:.1f} s (phase "
+          f"{meshed['phase_s']:.1f} s, spawn {meshed['spawn_s']:.1f} s; step ms "
+          + ", ".join(f"{n} {c['step_ms_median']:.1f}" for n, c in meshed.items()
+                      if isinstance(c, dict)) + ")", flush=True)
 
     def fam_launches(kernel):
         """The kernel's launches in each family cell's counted run."""

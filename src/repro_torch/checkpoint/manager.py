@@ -160,10 +160,13 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, template, step: Optional[int] = None):
+    def restore(self, template, step: Optional[int] = None, place=None):
         """(state shaped like ``template``, meta), or (None, None) with no
         checkpoint. Tensor leaves of ``template`` give the device (the
         dtype is the stored one); other leaves come back as numpy.
+        ``place(key, array)``: what is kept of each stored array before it
+        is checked against the template (a sharded run's rank keeps its
+        block: the template then holds blocks).
 
         Every array's bytes are checked against the crc32 recorded at save
         time; a mismatch raises :class:`CheckpointCorruptionError` naming
@@ -198,7 +201,7 @@ class CheckpointManager:
             key = tr.path_key(path)
             if key not in flat:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
-            arr = flat[key]
+            arr = flat[key] if place is None else place(key, flat[key])
             want = getattr(like, "shape", None)
             if want is not None and tuple(arr.shape) != tuple(want):
                 raise ValueError(f"leaf {key!r}: checkpoint {arr.shape} vs model {tuple(want)}")

@@ -86,7 +86,7 @@ class _SteRound(torch.autograd.Function):
         return g
 
 
-def fake_quant(x: torch.Tensor, bits, axis=None) -> torch.Tensor:
+def fake_quant(x: torch.Tensor, bits, axis=None, amax_reduce=None) -> torch.Tensor:
     """Quantize-dequantize with a straight-through gradient (QAT).
 
     The forward emits the values the bit-serial inference path computes
@@ -98,12 +98,18 @@ def fake_quant(x: torch.Tensor, bits, axis=None) -> torch.Tensor:
     a row's maximum lands exactly on ``qmax``. The gradient then reads
     ``(g * scale) / scale``, as the reference's does. The scale is
     ``amax * float32(1 / qmax)``, as the reference's compiled train step
-    computes it (see :func:`quantize`)."""
+    computes it (see :func:`quantize`).
+
+    ``amax_reduce``: applied to the amax before the scale is taken (a
+    row-parallel operand's maximum over the ranks holding the rest of its
+    reduced axis, so every block quantizes with the whole's scale)."""
     if bits is None:
         return x
     qmax = _qmax(bits)
     xd = x.detach()
     amax = xd.abs().amax() if axis is None else xd.abs().amax(dim=axis, keepdim=True)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
     scale = torch.clamp_min(amax, 1e-8) * _recip(qmax).to(amax.dtype)
     lo_v = -qmax - 1 if bits > 1 else 0
     if not (torch.is_grad_enabled() and x.requires_grad):

@@ -17,20 +17,22 @@ def _children(node):
     return None
 
 
+def _walk(node, path, out) -> None:
+    kids = _children(node)
+    if kids is None:
+        out.append((path, node))
+        return
+    for key, child in kids:
+        _walk(child, path + (key,), out)
+
+
 def flatten_with_path(tree) -> list[tuple[tuple, Any]]:
     """``[(path, leaf), ...]`` in pytree order; a path is the tuple of
-    dict keys and sequence indices from the root."""
-    out = []
-
-    def walk(node, path):
-        kids = _children(node)
-        if kids is None:
-            out.append((path, node))
-            return
-        for key, child in kids:
-            walk(child, path + (key,))
-
-    walk(tree, ())
+    dict keys and sequence indices from the root. (The walk is a module
+    function: a recursive closure would hold the list, and so every leaf,
+    in a reference cycle until the garbage collector ran.)"""
+    out: list = []
+    _walk(tree, (), out)
     return out
 
 
@@ -43,19 +45,19 @@ def leaves(tree) -> list:
     return [leaf for _, leaf in flatten_with_path(tree)]
 
 
+def _build(node, it):
+    if isinstance(node, dict):
+        done = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: done[k] for k in node}  # the template's key order
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, it) for v in node)
+    return next(it)
+
+
 def unflatten_like(template, new_leaves) -> Any:
     """``template``'s structure holding ``new_leaves`` (in pytree order)."""
     it = iter(new_leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            done = {k: build(node[k]) for k in sorted(node)}
-            return {k: done[k] for k in node}  # the template's key order
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
-
-    out = build(template)
+    out = _build(template, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the template holds")
     return out

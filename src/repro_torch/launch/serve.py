@@ -837,7 +837,7 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
 
     ``model_parallel=P > 1`` serves tensor-parallel (``sharding/tp.py``),
     one engine per rank of an initialised default process group of world
-    size P (``launch/mesh.spawn_tp``), every rank given the same
+    size P (``launch/mesh.spawn_ranks``), every rank given the same
     arguments: each holds its shard of the plane caches (column-, row- and
     vocab-parallel; replicated projections whole: the SSM's and the
     RG-LRU's, the MoE router and experts, the VLM's front end, a dense vocab
@@ -1028,7 +1028,7 @@ class ContinuousBatchingEngine(_PrecisionDial, _StepRunner, _IntegrityRuntime, _
         if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() != p:
             raise ValueError(
                 f"model_parallel={p} needs an initialised default process group of "
-                f"world size {p}, one engine per rank (launch/mesh.spawn_tp)"
+                f"world size {p}, one engine per rank (launch/mesh.spawn_ranks)"
             )
         return TPContext(size=p, rank=dist.get_rank())
 
@@ -2299,10 +2299,10 @@ def main(argv=None):
     validate_args(args)
     if args.model_parallel > 1:
         # one process per rank (launch/mesh.py); rank 0's lines are printed
-        from repro_torch.launch.mesh import spawn_tp
+        from repro_torch.launch.mesh import spawn_ranks
 
         on_host = args.device is not None and torch.device(args.device).type == "cpu"
-        print(spawn_tp(_serve_rank, args.model_parallel, device="cpu" if on_host else "cuda",
+        print(spawn_ranks(_serve_rank, args.model_parallel, device="cpu" if on_host else "cuda",
                        args=(args,)), end="")
         return
     _serve(args, resolve_device(args.device))
@@ -2315,12 +2315,12 @@ def _host_peak_rss_gib() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
 
-def _serve_rank(tp, device, args) -> str:
+def _serve_rank(backend, device, args) -> str:
     """One rank of a tensor-parallel :func:`main`: rank 0's printed lines."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         _serve(args, device)
-    return buf.getvalue() if tp.rank == 0 else ""
+    return buf.getvalue() if torch.distributed.get_rank() == 0 else ""
 
 
 def _serve(args, device) -> None:

@@ -54,6 +54,8 @@ def make_train_step(
     policy: Optional[PrecisionPolicy] = None,
     microbatches: int = 1,
     compress_grads: bool = False,
+    mesh=None,
+    specs=None,
 ):
     """Returns train_step(params, opt_state, batch, step) -> (params,
     opt_state, metrics {"loss", "grad_norm"}), the reference's step:
@@ -75,17 +77,49 @@ def make_train_step(
     step runs inside ``torch.profiler`` ranges: ``train.grads`` (the
     forward and backward; the backward itself runs on autograd's thread),
     ``train.clip`` (compression and clipping) and ``train.update`` (the
-    optimizer and ``apply_updates``)."""
-    optimizer = opt_cfg.build()
+    optimizer and ``apply_updates``).
+
+    ``mesh`` (``launch/mesh.Mesh``) and ``specs`` (the parameters' specs,
+    ``sharding/rules.tree_param_specs``): the step of one rank of a
+    sharded run. ``params`` and ``opt_state`` are then the rank's blocks
+    (``optim.state_specs``), ``batch`` the global batch: each microbatch's
+    rows are split over the data axis where they divide, else every data
+    rank takes all of them. The forward and backward run under
+    ``sharding/fsdp.ShardedTrain`` (their collectives in ``train.allgather``,
+    ``train.reduce_scatter`` and ``train.allreduce`` ranges), the clip,
+    the compressor and Adafactor reduce over every block, and the loss
+    reported is the global one."""
+    from repro_torch.sharding.collectives import layout_of
+    from repro_torch.sharding.fsdp import ShardedTrain
+
+    layout = layout_of(mesh, specs)
+    shard = None if mesh is None else ShardedTrain(mesh, specs)
+    optimizer = opt_cfg.build(layout=layout)
     inv_mb = float(np.float32(1.0) / np.float32(microbatches))
+    dsize = 1 if mesh is None else mesh.shape.get("data", 1)
+
+    def rows(mb):
+        """This rank's rows of a (micro)batch on a mesh: its block over the
+        data axis where the rows divide, else all of them."""
+        b = next(iter(mb.values())).shape[0]
+        if dsize == 1 or b % dsize:
+            return mb
+        lo = mesh.coord("data") * (b // dsize)
+        return {k: v[lo:lo + b // dsize] for k, v in mb.items()}
 
     def grads_of(params, mb):
         leaves = [p.detach().requires_grad_() for p in tr.leaves(params)]
-        total, _ = loss_fn(cfg, tr.unflatten_like(params, leaves), mb, policy=policy)
+        if mesh is None:
+            total, _ = loss_fn(cfg, tr.unflatten_like(params, leaves), mb, policy=policy)
+            value = total.detach()
+        else:
+            total, metrics = loss_fn(cfg, tr.unflatten_like(params, leaves), rows(mb),
+                                     policy=policy, shard=shard)
+            value = metrics["total"]
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
         # an unused leaf's gradient is zero, as the reference's
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        return total.detach(), tr.unflatten_like(params, grads)
+        return value, tr.unflatten_like(params, grads)
 
     def train_step(params, opt_state, batch, step):
         with record_function("train.grads"):
@@ -93,9 +127,10 @@ def make_train_step(
         with torch.no_grad():
             with record_function("train.clip"):
                 if compress_grads:
-                    qs, scales, err = gcomp.compress_tree(grads, opt_state["_gc_error"])
+                    qs, scales, err = gcomp.compress_tree(grads, opt_state["_gc_error"],
+                                                          layout=layout)
                     grads = gcomp.decompress_tree(qs, scales)
-                grads, gnorm = clip_by_global_norm(grads, opt_cfg.clip_norm)
+                grads, gnorm = clip_by_global_norm(grads, opt_cfg.clip_norm, layout)
             with record_function("train.update"):
                 inner = {k: v for k, v in opt_state.items() if not k.startswith("_")}
                 updates, inner = optimizer.update(grads, inner, params, step)

@@ -223,6 +223,7 @@ def attention_apply(
     backend: str = "auto",
     name: str = "attn",
     cache: Optional[dict] = None,
+    q_rows: Optional[tuple] = None,
 ):
     """Returns (out, new_cache). ``cache``: a dense slot cache
     ``{'k_q','k_scale','v_q','v_scale','len'}`` (int8) or ``{'k','v','len'}``
@@ -236,18 +237,26 @@ def attention_apply(
     returns a new one. ``training``: the projections fake-quantize under an
     active policy (QAT), and the cache-free attention recomputes each KV
     chunk's scores in the backward. ``use_rope=False`` leaves q and k
-    unrotated; ``causal=False`` (cache-free) attends every position."""
+    unrotated; ``causal=False`` (cache-free) attends every position.
+
+    ``q_rows=(lo, hi)`` (cache-free, unwindowed): only query rows
+    ``lo:hi`` are computed, against every key, and the output holds those
+    rows (a context-parallel rank's share of the sequence)."""
     b, s, _ = x.shape
     la = projection(policy=policy, training=training, backend=backend)
-    q = la(params["q_proj"], x, name=f"{name}/q_proj").reshape(b, s, n_heads, head_dim)
+    lo, hi = (0, s) if q_rows is None else q_rows
+    xq, q_pos = (x, positions) if q_rows is None else (x[:, lo:hi], positions[:, lo:hi])
+    q = la(params["q_proj"], xq, name=f"{name}/q_proj").reshape(b, hi - lo, n_heads, head_dim)
     k = la(params["k_proj"], x, name=f"{name}/k_proj").reshape(b, s, n_kv_heads, head_dim)
     v = la(params["v_proj"], x, name=f"{name}/v_proj").reshape(b, s, n_kv_heads, head_dim)
     if qk_norm:
         q = rmsnorm_apply(params["q_norm"], q)
         k = rmsnorm_apply(params["k_norm"], k)
     if use_rope:
-        q = apply_rope(q, positions, rope_theta)
+        q = apply_rope(q, q_pos, rope_theta)
         k = apply_rope(k, positions, rope_theta)
+    if q_rows is not None and (cache is not None or window):
+        raise ValueError("q_rows is for the cache-free, unwindowed attention")
 
     new_cache = cache
     if cache is not None and s == 1 and "block_table" in cache:  # paged decode
@@ -326,7 +335,7 @@ def attention_apply(
             with record_function("family.ring_attention"):
                 out = _local_gqa(q, k, v, window=window)
         else:
-            out = _chunked_gqa(q, k, v, causal=causal, chunk=chunk, q_offset=0,
+            out = _chunked_gqa(q, k, v, causal=causal, chunk=chunk, q_offset=lo,
                                remat=training)
     elif window:
         # windowed prefill into a fresh raw scratch ring: attend the
@@ -376,5 +385,5 @@ def attention_apply(
             causal=causal, chunk=chunk, q_offset=off, kv_len=off + s,
         )
 
-    out = out.reshape(b, s, n_heads * head_dim).to(x.dtype)
+    out = out.reshape(b, hi - lo, n_heads * head_dim).to(x.dtype)
     return la(params["o_proj"], out, name=f"{name}/o_proj"), new_cache

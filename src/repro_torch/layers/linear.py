@@ -25,8 +25,13 @@ the ranks' int32 accumulators and applies the epilogue once; the
 vocab-parallel head gathers the ranks' logits. Every plan carries the
 shard triple on its key. A dense projection is replicated whole (a dense
 vocab head computes the whole vocabulary on every rank, with no gather).
-QAT and on-the-fly quantization under tensor parallelism are ROADMAP item
-11b.
+QAT and on-the-fly quantization in tensor-parallel *serving* are ROADMAP
+item 17.
+
+In a sharded train step (``sharding/fsdp.py``) the dense and QAT branches
+run on the rank's column or row block as they are given; a row-parallel
+block carries ``params["amax_reduce"]``, which QAT applies to both
+operands' amax (the maximum over the model row).
 """
 
 from __future__ import annotations
@@ -162,10 +167,12 @@ def linear_apply(
 
     if training:
         # QAT; the activation quantizer reads the unrounded gate*up product,
-        # as in the reference's compiled train step
-        wq = fake_quant(w.to(torch.float32), prec.w_bits, axis=0).to(w.dtype)
+        # as in the reference's compiled train step. A row-parallel block
+        # of a sharded train step takes both amax over the model row
+        red = params.get("amax_reduce")
+        wq = fake_quant(w.to(torch.float32), prec.w_bits, axis=0, amax_reduce=red).to(w.dtype)
         xsrc = x.to(torch.float32) if x_f32 is None else x_f32
-        xq = fake_quant(xsrc, prec.a_bits, axis=-1).to(x.dtype)
+        xq = fake_quant(xsrc, prec.a_bits, axis=-1, amax_reduce=red).to(x.dtype)
         y = (xq @ wq.to(x.dtype)).to(x.dtype)
         return _finish_dense(y, bias, activation, x.dtype)
 

@@ -214,11 +214,22 @@ def unstack_layers(cfg: ModelConfig, tree) -> dict:
 
 
 def _apply_block(cfg, kind, params, x, positions, *, policy, backend, name, cache=None,
-                 x_f32=None, training=False):
+                 x_f32=None, training=False, st=None, spec=None):
     """Pre-norm residual block; returns (x, new_cache, the residual sum
     before its rounding to x's dtype, the MoE load-balancing loss or
     None). ``x_f32``: the unrounded value of ``x``, which the first norm's
-    statistics read (see rmsnorm_apply)."""
+    statistics read (see rmsnorm_apply). ``st`` and ``spec``: the sharded
+    train step (``sharding/fsdp.ShardedTrain``) and the block's specs: ``params`` are then the
+    rank's blocks, the norms and mixers gathered whole, attention, the MLP
+    and the experts run tensor or expert parallel."""
+    if st is not None:
+        params = dict(params)
+        for k in ("norm", "attn_norm", "mlp_norm"):
+            if k in params:
+                params[k] = st.whole(params[k], spec[k])
+        for k in ("ssm", "rglru"):
+            if k in params:
+                params[k] = st.whole(params[k], spec[k])
     if kind == "ssm":
         h = rmsnorm_apply(params["norm"], x, x_f32=x_f32)
         out, new_cache = ssm_apply(
@@ -237,14 +248,21 @@ def _apply_block(cfg, kind, params, x, positions, *, policy, backend, name, cach
         )
     else:
         h = rmsnorm_apply(params["attn_norm"], x, x_f32=x_f32)
-        out, new_cache = attention_apply(
-            params["attn"], h, positions,
-            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            causal=cfg.causal, window=cfg.local_window if kind == "attn" else 0,
-            rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-            chunk=cfg.attn_chunk, policy=policy, training=training, backend=backend,
-            name=f"{name}/attn", cache=cache,
-        )
+        window = cfg.local_window if kind == "attn" else 0
+        if st is not None:
+            out = st.attention(params["attn"], spec["attn"], h, positions, cfg=cfg,
+                               window=window, policy=policy, training=training,
+                               backend=backend, name=f"{name}/attn")
+            new_cache = None
+        else:
+            out, new_cache = attention_apply(
+                params["attn"], h, positions,
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                causal=cfg.causal, window=window,
+                rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+                chunk=cfg.attn_chunk, policy=policy, training=training, backend=backend,
+                name=f"{name}/attn", cache=cache,
+            )
     x_f32 = x.to(torch.float32) + out.to(torch.float32)
     x = x + out
     # the norm's statistics read the unrounded residual sum, as the
@@ -255,8 +273,11 @@ def _apply_block(cfg, kind, params, x, positions, *, policy, backend, name, cach
         mlp_out, aux = moe_apply(
             params["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k, policy=policy,
             training=training, name=f"{name}/moe", impl=cfg.moe_impl,
-            capacity_factor=cfg.moe_capacity_factor,
+            capacity_factor=cfg.moe_capacity_factor, mesh=None if st is None else st.mesh,
         )
+    elif st is not None:
+        mlp_out = st.mlp(params["mlp"], spec["mlp"], h, act=cfg.act, policy=policy,
+                         training=training, backend=backend, name=f"{name}/mlp")
     else:
         mlp_out = mlp_apply(
             params["mlp"], h, act=cfg.act, policy=policy, training=training, backend=backend,
@@ -307,6 +328,7 @@ def forward(
     cache=None,
     last_only: bool | int = False,
     backend: str = "auto",
+    shard=None,
 ):
     """Returns (logits, aux_loss, new_cache). ``batch = {"tokens": (B, S)}``,
     plus ``"patches"`` (B, P, frontend_dim) for a VLM (put in front of the
@@ -329,14 +351,24 @@ def forward(
     policy = policy or PrecisionPolicy.off()
     if training and cache is not None:
         raise ValueError("training runs without a cache")
+    st = shard
+    if st is not None and cache is not None:
+        raise ValueError("a sharded train step runs without a cache")
+    specs = st.layer_specs(cfg) if st is not None else None
     params = unstack_layers(cfg, params)
+    front = params.get("frontend")
+    if st is not None and front is not None:
+        front = st.whole(front, specs["frontend"])
     if cfg.frontend == "audio":
-        x = frontend_apply(params["frontend"], batch["features"], policy=policy,
+        x = frontend_apply(front, batch["features"], policy=policy,
                            training=training, backend=backend)
     else:
-        x = embedding_apply(params["embed"], batch["tokens"])
+        if st is not None:
+            x = st.embed(params["embed"], specs["embed"], batch["tokens"])
+        else:
+            x = embedding_apply(params["embed"], batch["tokens"])
         if cfg.frontend == "vision" and "patches" in batch:
-            patch = frontend_apply(params["frontend"], batch["patches"], policy=policy,
+            patch = frontend_apply(front, batch["patches"], policy=policy,
                                    training=training, backend=backend)
             x = torch.cat([patch.to(x.dtype), x], dim=1)
     b, s = x.shape[:2]
@@ -381,6 +413,7 @@ def forward(
                 cfg, kinds[i], params["layers"][i], x, positions, policy=policy,
                 backend=backend, name=cfg.layer_name(i), cache=blk_cache,
                 x_f32=x_f32 if fused else None, training=training,
+                st=st, spec=None if specs is None else specs["layers"][i],
             )
             if a is not None:
                 aux = aux + a
@@ -427,8 +460,14 @@ def forward(
         rows = 1 if last_only is True else int(last_only)
         x = x[:, -rows:]
         x_last = None if x_last is None else x_last[:, -rows:]
-    x = rmsnorm_apply(params["final_norm"], x, x_f32=x_last)
-    if cfg.tie_embeddings:
+    final_norm = params["final_norm"]
+    if st is not None:
+        final_norm = st.whole(final_norm, specs["final_norm"])
+    x = rmsnorm_apply(final_norm, x, x_f32=x_last)
+    if st is not None:
+        logits, _ = st.head(params, specs, x, cfg=cfg, policy=policy, training=training,
+                            backend=backend)
+    elif cfg.tie_embeddings:
         with record_function("family.tied_head"):
             logits = x.to(torch.float32) @ params["embed"]["embedding"].to(torch.float32).T
     else:
@@ -455,14 +494,36 @@ def cross_entropy(logits, targets, mask=None, n_valid=None) -> torch.Tensor:
     return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
 
-def loss_fn(cfg: ModelConfig, params, batch, *, policy=None, training=True, aux_weight=0.01):
+def loss_fn(cfg: ModelConfig, params, batch, *, policy=None, training=True, aux_weight=0.01,
+            shard=None):
     """Returns (total, {"loss", "aux_loss"}): the cross entropy of
     ``batch["targets"]`` (``batch.get("loss_mask")`` weighting tokens) plus
     ``aux_weight`` times the MoE layers' load-balancing loss. A VLM's
-    patch positions carry no target: their logits are dropped."""
-    logits, aux, _ = forward(cfg, params, batch, policy=policy, training=training)
+    patch positions carry no target: their logits are dropped. ``shard``
+    (``sharding/fsdp.ShardedTrain``): one rank's term of a sharded train
+    step; ``params`` and ``batch`` are then the rank's blocks and rows,
+    and the metrics add ``"total"``, the global value."""
+    logits, aux, _ = forward(cfg, params, batch, policy=policy, training=training, shard=shard)
     if cfg.frontend == "vision" and "patches" in batch:
         logits = logits[:, batch["patches"].shape[1]:, :]
+    st = shard
+    if st is not None:
+        # this rank's term of the loss (the data ranks' terms sum to it);
+        # "total" is the global value the one-device step reports
+        term, loss = st.cross_entropy(logits, batch["targets"], batch.get("loss_mask"),
+                                      cfg.vocab_size, _vocab_lo(st, cfg, logits))
+        total = loss + aux_weight * aux.detach()
+        return term + aux_weight * aux, {"loss": loss, "aux_loss": aux, "total": total}
     loss = cross_entropy(logits, batch["targets"], batch.get("loss_mask"),
                          n_valid=cfg.vocab_size)
     return loss + aux_weight * aux, {"loss": loss, "aux_loss": aux}
+
+
+def _vocab_lo(st, cfg, logits):
+    """The first vocab column of a sharded step's logits block, or None
+    when the logits are whole."""
+    if cfg.tie_embeddings:
+        sharded = st.vocab_block(st.specs["embed"]["embedding"]) == 0
+    else:
+        sharded = st.vocab_block(st.specs["lm_head"]["head"]["w"]) == 1
+    return st.model_rank * logits.shape[-1] if sharded else None

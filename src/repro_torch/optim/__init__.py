@@ -9,6 +9,7 @@ from repro_torch.optim.adamw import (
     clip_by_global_norm,
     constant_lr,
     global_norm,
+    state_specs,
     warmup_cosine,
 )
 from repro_torch.optim import compress
@@ -22,6 +23,7 @@ __all__ = [
     "clip_by_global_norm",
     "constant_lr",
     "global_norm",
+    "state_specs",
     "warmup_cosine",
     "compress",
 ]

@@ -18,6 +18,13 @@ rounded; the port's is (float64, rounded once), so the cosine schedule
 may differ from the reference's in the last place. Adafactor's means
 sum in XLA's order, which the port does not repeat
 (``tests/test_torch_optim.py`` bounds both).
+
+On a mesh the optimizer state is sharded like the parameters
+(:func:`state_specs`) and every leaf is updated on its block; a
+``layout`` (``sharding/collectives.LeafLayout``) makes each reduction
+over a sharded dim global: the clip's sum of squares (a replicated leaf
+counted once), Adafactor's row and column means and its update RMS
+(divided by the global size).
 """
 
 from __future__ import annotations
@@ -77,21 +84,47 @@ def constant_lr(lr: float):
 # --------------------------------------------------------------------------
 
 
-def global_norm(tree) -> torch.Tensor:
+def _grouped(values: list, layout, leaves, op=None) -> list:
+    """Each 0-dim ``values[i]`` reduced over the ranks holding leaf ``i``'s
+    blocks (one all-reduce per group)."""
+    if layout is None:
+        return values
+    from repro_torch.sharding.collectives import all_reduce_
+
+    by_group: dict = {}
+    for i, leaf in enumerate(leaves):
+        g = layout.group(i, leaf.dim())
+        if g is not None:
+            by_group.setdefault(id(g), (g, []))[1].append(i)
+    out = list(values)
+    for g, idx in by_group.values():
+        stacked = all_reduce_(torch.stack([values[i] for i in idx]), g, op)
+        for j, i in enumerate(idx):
+            out[i] = stacked[j]
+    return out
+
+
+def global_norm(tree, layout=None) -> torch.Tensor:
     """sqrt of the sum over leaves (pytree order) of each leaf's sum of
-    squares, in float32; a 0-dim tensor on the leaves' device."""
-    total = None
-    for leaf in tr.leaves(tree):
+    squares, in float32; a 0-dim tensor on the leaves' device. With a
+    ``layout`` each leaf's sum runs over all its blocks (once per
+    block: a replicated leaf counts once)."""
+    leaves = tr.leaves(tree)
+    sqs = []
+    for leaf in leaves:
         lf = leaf.to(torch.float32)
-        sq = torch.sum(lf * lf)
+        sqs.append(torch.sum(lf * lf))
+    total = None
+    for sq in _grouped(sqs, layout, leaves):
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, layout=None):
     """(tree scaled by min(1, max_norm / norm), norm); each leaf multiplied
-    in float32 and cast back to its dtype, as the reference promotes."""
-    norm = global_norm(tree)
+    in float32 and cast back to its dtype, as the reference promotes.
+    ``layout``: the norm over every rank's blocks (:func:`global_norm`)."""
+    norm = global_norm(tree, layout)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
     return tr.tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), tree), norm
 
@@ -185,7 +218,11 @@ def adafactor(
     clip_threshold: float = 1.0,
     momentum: bool = False,
     weight_decay: float = 0.0,
+    layout=None,
 ) -> Optimizer:
+    """``layout``: the parameters are blocks of a sharded tree; each mean
+    sums over every block of the dims it reduces and divides by their
+    whole size."""
     def _factored(p):
         return p.dim() >= 2
 
@@ -209,23 +246,35 @@ def adafactor(
     def update(grads, state, params, step):
         lr = schedule(step)
 
-        def upd(g, st, p):
+        def upd(g, st, p, i):
+            nd = p.dim()
+
+            def mean(x, dim=None, pdim=None, keepdim=False):
+                # x's mean over ``dim`` (all: None), param dim ``pdim`` of
+                # the leaf, over every block of it
+                if layout is None:
+                    return _mean(x, dim, keepdim)
+                dims = None if pdim is None else [pdim]
+                n = (x.numel() if dim is None else x.shape[dim]) * layout.extent(i, nd, dims)
+                sm = torch.sum(x) if dim is None else torch.sum(x, dim=dim, keepdim=keepdim)
+                return layout.sum_(sm, i, nd, dims) * float(_recip32(n))
+
             gf = g.to(torch.float32)
             g2 = torch.addcmul(_scalar(eps, gf).expand_as(gf), gf, gf)
             new_st = dict(st)
             if _factored(p):
                 dec = _scalar(decay, gf)
-                vr = torch.addcmul(_mean(g2, -1) * (1 - decay), st["vr"], dec)
-                vc = torch.addcmul(_mean(g2, -2) * (1 - decay), st["vc"], dec)
+                vr = torch.addcmul(mean(g2, -1, nd - 1) * (1 - decay), st["vr"], dec)
+                vc = torch.addcmul(mean(g2, -2, nd - 2) * (1 - decay), st["vc"], dec)
                 new_st["vr"], new_st["vc"] = vr, vc
-                rfac = torch.clamp_min(vr / _mean(vr, -1, keepdim=True), eps)
+                rfac = torch.clamp_min(vr / mean(vr, -1, nd - 2, keepdim=True), eps)
                 upd_ = gf / (_sqrt(rfac)[..., None] * _sqrt(torch.clamp_min(vc, eps))[..., None, :])
             else:
                 v = torch.addcmul(g2 * (1 - decay), st["v"], _scalar(decay, gf))
                 new_st["v"] = v
                 upd_ = gf / _sqrt(torch.clamp_min(v, eps))
             # update clipping (Adafactor's RMS rule)
-            rms = _sqrt(_mean(upd_ * upd_) + 1e-30)
+            rms = _sqrt(mean(upd_ * upd_) + 1e-30)
             upd_ = upd_ / torch.clamp_min(rms / clip_threshold, 1.0)
             if momentum:
                 m = torch.addcmul(upd_, st["m"].to(torch.float32), _scalar(0.9, gf))
@@ -235,12 +284,33 @@ def adafactor(
                 upd_ = torch.addcmul(upd_, p.to(torch.float32), _scalar(weight_decay, gf))
             return (upd_ * -lr).to(p.dtype), new_st
 
-        outs = [upd(g, st, p) for g, st, p in
-                zip(tr.leaves(grads), state["leaves"], tr.leaves(params))]
+        outs = [upd(g, st, p, i) for i, (g, st, p) in
+                enumerate(zip(tr.leaves(grads), state["leaves"], tr.leaves(params)))]
         return (tr.unflatten_like(grads, [o[0] for o in outs]),
                 {"leaves": [o[1] for o in outs]})
 
     return Optimizer(init, update)
+
+
+def state_specs(kind: str, params, params_specs):
+    """The specs of the optimizer state, from the parameters' (the
+    reference's ``state_specs``): AdamW's ``m`` / ``v`` are sharded like
+    their parameter; Adafactor's row statistic ``vr`` drops the last dim's
+    entry, its column statistic ``vc`` the second to last."""
+    from repro_torch.sharding.rules import P
+
+    if kind == "adamw":
+        return {"m": params_specs, "v": params_specs}
+    if kind == "adafactor":
+        out = []
+        for p, spec in zip(tr.leaves(params), tr.leaves(params_specs)):
+            entries = list(spec) + [None] * (p.dim() - len(spec))
+            if p.dim() >= 2:
+                out.append({"vr": P(*entries[:-1]), "vc": P(*(entries[:-2] + entries[-1:]))})
+            else:
+                out.append({"v": P(*entries)})
+        return {"leaves": out}
+    raise ValueError(kind)
 
 
 def apply_updates(params, updates):
@@ -259,10 +329,12 @@ class OptimConfig:
     weight_decay: float = 0.1
     clip_norm: float = 1.0
 
-    def build(self) -> Optimizer:
+    def build(self, layout=None) -> Optimizer:
+        """The optimizer; ``layout``: its reductions over sharded leaves
+        run over every block (Adafactor's; AdamW's update is per element)."""
         sched = warmup_cosine(self.peak_lr, self.warmup_steps, self.total_steps)
         if self.kind == "adamw":
             return adamw(sched, weight_decay=self.weight_decay)
         if self.kind == "adafactor":
-            return adafactor(sched, weight_decay=self.weight_decay)
+            return adafactor(sched, weight_decay=self.weight_decay, layout=layout)
         raise ValueError(self.kind)

@@ -9,13 +9,19 @@ from repro_torch.runtime.autopilot import (
     AutopilotPolicy,
     OverloadError,
 )
-from repro_torch.runtime.recovery import HealthMonitor, StragglerDetector, retry_step
+from repro_torch.runtime.recovery import (
+    ElasticMesh,
+    HealthMonitor,
+    StragglerDetector,
+    retry_step,
+)
 from repro_torch.runtime.scheduler import Request, SchedulerStats, SlotScheduler
 
 __all__ = [
     "Autopilot",
     "AutopilotDecision",
     "AutopilotPolicy",
+    "ElasticMesh",
     "HealthMonitor",
     "OverloadError",
     "Request",

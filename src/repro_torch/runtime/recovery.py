@@ -9,9 +9,9 @@
 * ``StragglerDetector`` — robust step-time outlier detection (median +
                           k*MAD over a sliding window).
 * ``HealthMonitor``     — heartbeat bookkeeping for worker liveness.
-
-The reference's ``ElasticMesh`` rebuilds a device mesh; it comes with the
-port of tensor-parallel training (ROADMAP.md, queue 1, item 11b).
+* ``ElasticMesh``       — rebuilds the ``(data, model)`` rank mesh when the
+                          number of healthy ranks changes, and puts a
+                          restored whole tree onto the new layout.
 """
 
 from __future__ import annotations
@@ -96,4 +96,44 @@ class HealthMonitor:
         return [w for w, t in self._last.items() if now - t > self.timeout_s]
 
 
-__all__ = ["HealthMonitor", "StragglerDetector", "retry_step"]
+class ElasticMesh:
+    """Rebuilds ``(data, model)`` meshes when the healthy-rank count
+    changes: the model axis stays fixed (the tensor-parallel degree is a
+    property of the model's sharding) and the data axis flexes, the
+    reference's elastic policy."""
+
+    def __init__(self, model_axis: int = 1):
+        self.model_axis = model_axis
+
+    def mesh_for(self, n_devices: int):
+        """The mesh ``(max(n // model, 1), model)`` over the world's ranks
+        (``launch/mesh.make_mesh``: every rank calls it)."""
+        from repro_torch.launch.mesh import make_mesh
+
+        data = max(n_devices // self.model_axis, 1)
+        return make_mesh((data, self.model_axis), ("data", "model"))
+
+    @staticmethod
+    def place(arr, spec, mesh, device=None):
+        """One restored whole leaf as this rank's block of it: a copy that
+        holds nothing else of the leaf (a tensor moved to ``device`` when
+        given; a numpy array stays on the host)."""
+        import torch
+
+        from repro_torch.sharding.rules import shard_leaf
+
+        block = shard_leaf(arr, spec, mesh)
+        if isinstance(block, torch.Tensor):
+            return block.to(block.device if device is None else device, copy=True)
+        return np.array(block)
+
+    def reshard(self, state, specs, mesh, device=None):
+        """A restored whole tree as this rank's blocks of it on the new
+        mesh (``specs``: the tree's specs on that mesh); every leaf via
+        :meth:`place`."""
+        from repro_torch.core import tree as tr
+
+        return tr.tree_map(lambda x, s: self.place(x, s, mesh, device), state, specs)
+
+
+__all__ = ["ElasticMesh", "HealthMonitor", "StragglerDetector", "retry_step"]

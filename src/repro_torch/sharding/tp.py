@@ -163,7 +163,7 @@ class TPContext:
         if self.size > 1:
             raise RuntimeError(
                 f"tensor-parallel size {self.size} needs an initialised process group "
-                "(launch/mesh.init_tp_group or spawn_tp)"
+                "(launch/mesh.init_tp_group or spawn_ranks)"
             )
         return False
 

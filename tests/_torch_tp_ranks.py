@@ -2,7 +2,7 @@
 ``tests/test_torch_tp_families.py``: spawned rank processes import this
 module by name, so it imports ``torch`` and the port only (no JAX). Every
 body ends by gathering each rank's results, so rank 0's return value (what
-``spawn_tp`` hands back) holds all of them."""
+``spawn_ranks`` hands back) holds all of them."""
 
 import dataclasses
 import os
@@ -17,6 +17,7 @@ from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.kernels import fold
 from repro_torch.launch import sampling
 from repro_torch.launch.inputs import make_batch
+from repro_torch.launch.mesh import tp_context
 from repro_torch.launch.serve import ContinuousBatchingEngine
 from repro_torch.launch.steps import (make_cb_decode_step, make_prefill_step,
                                       make_tp_cb_decode_step, make_tp_chunk_prefill_step,
@@ -300,10 +301,11 @@ def _defect_i(tp, cfg, params) -> dict:
     return out
 
 
-def rank_p2(tp, device, tree, store_dir) -> list:
+def rank_p2(backend, device, tree, store_dir) -> list:
     """P=2: the linear cases, the rank's own shards, the loader, every
     engine case (scrub with a flipped bit on rank 1), detect with a flipped
     bit on rank 1, defect I, and the plan keys this rank resolved."""
+    tp = tp_context()
     cfg = config()
     params = params_from_numpy(cfg, tree, device=device)
     out = {"rank": tp.rank, "linear": _linear_cases(tp), "prefills": _prefills(tp, cfg, params),
@@ -323,9 +325,10 @@ def rank_p2(tp, device, tree, store_dir) -> list:
     return every
 
 
-def rank_p4(tp, device, tree, store_dir) -> list:
+def rank_p4(backend, device, tree, store_dir) -> list:
     """P=4: the loader and the engine cases of ``P4_CASES`` (scrub with a
     flipped bit on rank 1)."""
+    tp = tp_context()
     cfg = config()
     params = params_from_numpy(cfg, tree, device=device)
     out = {"rank": tp.rank, "loader": _loader(tp),
@@ -417,10 +420,11 @@ def vlm_prefix(params, tp=None) -> dict:
     return {"logits": logits.view(torch.int16).tolist(), "tokens": toks}
 
 
-def rank_families(tp, device, trees) -> list:
+def rank_families(backend, device, trees) -> list:
     """Every family in ``trees`` (name -> the reference's numpy tree)
     through the engine at this group's size; at P=2 also internvl2's image
     prefix."""
+    tp = tp_context()
     out = {"rank": tp.rank, "tokens": {}}
     for name, tree in trees.items():
         params = params_from_numpy(family_config(name), tree, device=device)
@@ -439,13 +443,14 @@ def rank_families(tp, device, trees) -> list:
 SMOKE_LENS, SMOKE_GEN, SMOKE_SLOTS, SMOKE_SWITCH = (32, 64, 128, 256), 16, 4, {8: 4}
 
 
-def rank_deepseek(tp, device, n_layers: int) -> dict:
+def rank_deepseek(backend, device, n_layers: int) -> dict:
     """deepseek-coder-33b at full width and ``n_layers`` layers on this
     group (one rank: the single-device engine), drawn from seed 0 on the
     card (``SeededParams``: a rank loads its shard layer by layer), served
     over the chip smoke's workload with CUDA graphs and int8 KV. Returns
     the tokens and each rank's card peak, card resident and host peak RSS
     (GiB)."""
+    tp = tp_context()
     import resource
 
     from repro_torch.configs import get_config

@@ -1199,11 +1199,11 @@ def test_deepseek_coder_33b_across_four_cards_equals_one(tmp_path):
     import json
 
     import _torch_tp_ranks as ranks
-    from repro_torch.launch.mesh import spawn_tp
+    from repro_torch.launch.mesh import spawn_ranks
 
     if torch.cuda.device_count() < 4:
         pytest.skip("needs four CUDA devices")
-    out = {p: spawn_tp(ranks.rank_deepseek, p, device="cuda", args=(16,),
+    out = {p: spawn_ranks(ranks.rank_deepseek, p, device="cuda", args=(16,),
                        store_dir=str(tmp_path)) for p in (1, 2, 4)}
     for p, res in out.items():
         print(json.dumps({"check": "deepseek-coder-33b 16 layers", "P": p,
@@ -1213,3 +1213,85 @@ def test_deepseek_coder_33b_across_four_cards_equals_one(tmp_path):
         assert res["switches"] == [(8, (4, 4))]
     assert out[2]["tokens"] == out[1]["tokens"]
     assert out[4]["tokens"] == out[1]["tokens"]
+
+
+def _card() -> str:
+    import subprocess
+
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+@pytest.mark.cuda
+def test_deepseek_coder_33b_mesh_training_across_four_cards(tmp_path):
+    """deepseek-coder-33b at full width trained through ``TrainRun`` on
+    (data, model) meshes of NCCL ranks, one card each (batch 8 x 256, 3
+    steps, the third traced), all in one world of four ranks:
+
+    * at 4 layers with AdamW, meshes (2,2), (4,1) and (1,4) give one card's
+      losses (a world of one rank, started after the four have ended, so
+      no rank shares its card): the first within 1e-3 (only the order of
+      the sums differs), all within the reference's 2e-2 between meshes;
+    * at 16 layers (8.94 G parameters: ~107 GB of bf16 parameters, bf16
+      gradients and float32 AdamW state, more than one card holds) the
+      (2,2) mesh trains;
+    * a checkpoint written at (2,2) (1 layer, Adafactor: a small state to
+      write) resumes at (4,1) through ``ElasticMesh`` with every parameter
+      bit-equal.
+
+    A run that takes longer than ``WATCHDOG_S`` makes every rank print its
+    stacks and exit (a hung collective fails the test with its place). Prints per run the losses,
+    the step ms (median), each rank's card peak and resident GiB, and the
+    traced step's collective and kernel ms, with the card's name and power
+    limit."""
+    import dataclasses
+    import json
+
+    import numpy as np
+
+    import _torch_mesh_ranks as ranks
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.train import TrainRun
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    card, full = _card(), get_config("deepseek-coder-33b")
+    ck = str(tmp_path / "ckpt")
+
+    def run(layers, model_axis, **kw):
+        return TrainRun(cfg=dataclasses.replace(full, n_layers=layers), global_batch=8,
+                        seq_len=256, model_axis=model_axis, log_every=1000,
+                        **{"steps": 3, "gather_params": False, "profile_step": 2, **kw})
+
+    mesh_runs = {"(2,2)": run(4, 2), "(4,1)": run(4, 1), "(1,4)": run(4, 4),
+                 "(2,2) 16 layers": run(16, 2),
+                 "save (2,2)": run(1, 2, steps=2, optimizer="adafactor", profile_step=None,
+                                   gather_params=True, ckpt_dir=ck, ckpt_every=100),
+                 "resume (4,1)": run(1, 1, steps=2, optimizer="adafactor", profile_step=None,
+                                     gather_params=True, ckpt_dir=ck, ckpt_every=100)}
+    got = spawn_ranks(ranks.rank_train_runs, 4, device="cuda", args=(
+        mesh_runs, ("save (2,2)", "resume (4,1)"), WATCHDOG_S))
+    got.update(spawn_ranks(ranks.rank_train_runs, 1, device="cuda",
+                           args=({"(1,1)": run(4, 1, profile_step=None)}, None, WATCHDOG_S)))
+    for name, r in got.items():
+        if name == "bit_equal":
+            continue
+        print(json.dumps({"check": f"deepseek-coder-33b mesh training {name}", "card": card,
+                          **{k: v for k, v in r.items() if k != "step_ms"},
+                          "step_ms_median": float(np.median(r["step_ms"]))
+                          if r["step_ms"] else None}), flush=True)
+    one = got["(1,1)"]
+    for name in ("(2,2)", "(4,1)", "(1,4)"):
+        assert got[name]["losses"][0] == pytest.approx(one["losses"][0], rel=1e-3), name
+        np.testing.assert_allclose(got[name]["losses"], one["losses"], rtol=2e-2, atol=2e-2)
+    big = got["(2,2) 16 layers"]
+    assert len(big["losses"]) == 3 and np.isfinite(big["losses"]).all()
+    assert got["resume (4,1)"]["losses"] == []
+    assert got["resume (4,1)"]["mesh"] == {"data": 4, "model": 1}
+    assert got["bit_equal"] is True
+
+
+#: seconds a run of the four-card test may take before its ranks print their
+#: stacks and exit
+WATCHDOG_S = 150

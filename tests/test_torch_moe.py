@@ -198,10 +198,32 @@ def test_router_quantizing_policy_is_refused_naming_defect_g():
 
 
 def test_mesh_branch_raises_naming_item_11():
+    """The mesh branch runs. On a one-rank mesh (no process group: its
+    collectives are the identity) it gives the
+    single-device dispatch's output and aux bit for bit, at cf 0 and 2.0,
+    and its gradients; experts that do not divide the model axis raise the
+    reference's message. (The branch on gloo ranks:
+    tests/test_torch_moe_ep.py.)"""
+    from repro_torch.launch.mesh import Mesh, make_mesh
+
     _, tp = _layer()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        tmoe.moe_apply_gshard(tp, _x((1, 2, D))[1], n_experts=E, top_k=K,
-                              policy=TPolicy.off(), mesh=object())
+    x = _x((2, 6, D))[1]
+    mesh = make_mesh((1, 1), ("data", "model"))
+    for cf in (0.0, 2.0):
+        ref = tmoe.moe_apply_gshard(tp, x, n_experts=E, top_k=K, policy=TPolicy.off(),
+                                    capacity_factor=cf)
+        got = tmoe.moe_apply_gshard(tp, x, n_experts=E, top_k=K, policy=TPolicy.off(),
+                                    capacity_factor=cf, mesh=mesh)
+        assert all(torch.equal(a, b) for a, b in zip(ref, got))
+    xs = [x.clone().requires_grad_() for _ in range(2)]
+    outs = [tmoe.moe_apply_gshard(tp, xi, n_experts=E, top_k=K, policy=TPolicy.off(),
+                                  mesh=m)[0] for xi, m in zip(xs, (None, mesh))]
+    for o in outs:
+        o.float().square().sum().backward()
+    assert torch.equal(xs[0].grad, xs[1].grad)
+    three = Mesh(devices=np.arange(3).reshape(1, 3), axis_names=("data", "model"))
+    with pytest.raises(ValueError, match=r"n_experts=8 must divide over model axis \(3\)"):
+        tmoe.moe_apply_gshard(tp, x, n_experts=E, top_k=K, policy=TPolicy.off(), mesh=three)
 
 
 def test_decode_step_reads_nothing_back():

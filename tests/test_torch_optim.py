@@ -369,8 +369,19 @@ def test_train_cli_defaults_and_choices_are_the_references(monkeypatch):
 
 
 def test_train_cli_model_axis_dies_naming_item_11():
-    with pytest.raises(SystemExit, match="item 11"):
-        ttrain.main(["--reduced", "--device", "cpu", "--model-axis", "2"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        from repro_torch.configs import get_reduced
-        ttrain.TrainRun(cfg=get_reduced("granite-3-8b"), model_axis=2, device="cpu").run()
+    """``--model-axis 2 --device cpu`` trains on a (1, 2) mesh of two gloo
+    ranks, and its losses equal ``TrainRun``'s on the
+    same mesh, bit for bit; a model axis below 1 dies."""
+    from repro_torch.configs import get_reduced
+
+    out = ttrain.main(["--reduced", "--device", "cpu", "--model-axis", "2", "--steps", "2",
+                       "--batch", "2", "--seq", "8"])
+    run = ttrain.TrainRun(cfg=get_reduced("granite-3-8b"), model_axis=2, device="cpu",
+                          steps=2, global_batch=2, seq_len=8)
+    assert run.world() == 2
+    ref = run.run()
+    assert out["mesh"] == ref["mesh"] == {"data": 1, "model": 2}
+    assert out["losses"] == ref["losses"] and len(out["losses"]) == 2
+    assert out["params"] is None and ref["params"] is not None
+    with pytest.raises(SystemExit, match="--model-axis 0"):
+        ttrain.main(["--reduced", "--device", "cpu", "--model-axis", "0"])

@@ -1,6 +1,6 @@
 """Port parity of tensor-parallel serving (``sharding/tp.py``), on the CPU.
 
-The ranks are processes spawned by ``launch/mesh.spawn_tp`` over gloo
+The ranks are processes spawned by ``launch/mesh.spawn_ranks`` over gloo
 (FileStore rendezvous in ``tmp_path``), one spawn per world size, each
 running every case of its size (``_torch_tp_ranks.py``). On the reference
 test's setup (reduced granite-3-8b with 4 KV heads, prompts 5/9/13/7/11,
@@ -64,7 +64,7 @@ from repro.sharding import tp as jtp
 from repro_torch.configs import get_reduced as tget
 from repro_torch.core.precision import PrecisionPolicy as TPolicy
 from repro_torch.core.quantize import quantize
-from repro_torch.launch.mesh import spawn_tp
+from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.launch.serve import ContinuousBatchingEngine as TEngine
 from repro_torch.models.quant import map_linears
 from repro_torch.models.quant import quantize_params as tquantize_params
@@ -99,7 +99,7 @@ def single(weights, tmp_path_factory):
 
 def _spawn(body, size, weights, tmp_path_factory):
     plans = str(tmp_path_factory.mktemp(f"plans{size}"))
-    return spawn_tp(body, size, device="cpu", args=(weights[2], plans),
+    return spawn_ranks(body, size, device="cpu", args=(weights[2], plans),
                     store_dir=str(tmp_path_factory.mktemp(f"tp{size}")))
 
 

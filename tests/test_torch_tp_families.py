@@ -1,7 +1,7 @@
 """Port parity of tensor-parallel serving of the families, on the CPU.
 
 Reduced configs, the reference's weights carried through numpy, one
-``spawn_tp`` per world size over gloo (rank bodies in
+``spawn_ranks`` per world size over gloo (rank bodies in
 ``_torch_tp_ranks.py``), 2 slots, 6 new tokens:
 
 * mamba2-1.3b (prompts 8/16/8/16/8: the SSD scan takes multiples of 8; it
@@ -40,7 +40,7 @@ from repro.models.cache import init_cache as jinit_cache
 from repro.models.transformer import init_params as jinit
 from repro.runtime.scheduler import Request as JRequest
 from repro.sharding import tp as jtp
-from repro_torch.launch.mesh import spawn_tp
+from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.models.cache import init_cache as tinit_cache
 from repro_torch.models.quant import quantize_params as tquantize_params
 from repro_torch.models.transformer import params_from_numpy
@@ -73,14 +73,14 @@ def trees():
 
 @pytest.fixture(scope="module")
 def p2(trees, tmp_path_factory):
-    return spawn_tp(ranks.rank_families, 2, device="cpu",
+    return spawn_ranks(ranks.rank_families, 2, device="cpu",
                     args=({n: t[1] for n, t in trees.items()},),
                     store_dir=str(tmp_path_factory.mktemp("fam2")))
 
 
 @pytest.fixture(scope="module")
 def p4(trees, tmp_path_factory):
-    return spawn_tp(ranks.rank_families, 4, device="cpu",
+    return spawn_ranks(ranks.rank_families, 4, device="cpu",
                     args=({n: trees[n][1] for n in ranks.FAMILIES_P4},),
                     store_dir=str(tmp_path_factory.mktemp("fam4")))
 
