@@ -237,6 +237,19 @@ Phases, each failing the run on any error:
    Each cell prints the step ms, each rank's card peak and resident memory
    beside one device's, the collectives' ms of the traced step and the
    losses.
+21. the analysis layer (``run_analysis``): the paper's §IV-A protocol for
+   the cycle-accurate systolic simulator (``core/systolic.py``) on the
+   card — every pair of 8-bit values, both variants; 1000 random 16-bit
+   dot products of 1000 values; ``serial_sa_matmul`` on a 64 x 16 array —
+   each result equal to the exact product (modulo 2^32, the int32
+   accumulator) and to the same call on the CPU, the cycles Eq. 8's; then
+   ``launch/cost.py``'s report of two steps run on meta tensors (a
+   prediction for the H100 row): phase 3's ``bitplane`` decode step, whose
+   bound over the device ms a decode step phase 3 measured must be <= 1,
+   and phase 18's ``train-dense`` step, whose predicted peak must lie
+   within ``ANALYSIS_PEAK_RTOL`` of the measured ``max_memory_allocated``,
+   its resident within ``ANALYSIS_RESIDENT_RTOL`` of TrainRun's, and its
+   bound no greater than the measured median step.
 
 Every engine cell's main run replays each decode step from the engine's
 CUDA graph of that precision (captured by the warm-up run; the counted
@@ -412,27 +425,11 @@ def _host_ms(fn, reps: int = 50) -> float:
     return host
 
 
-def _signed_bytes(t: torch.Tensor) -> int:
-    """Signed bytes that hold every value of the integer tensor ``t``."""
-    lo, hi, n = int(t.min()), int(t.max()), 1
-    while not (-(1 << (8 * n - 1)) <= lo and hi < (1 << (8 * n - 1))):
-        n += 1
-    return n
-
-
-def _split_products(a: torch.Tensor, w: torch.Tensor) -> int:
-    """Fewest int8 products per (m, n, k) that the byte split proves enough
-    for these operands: the signed bytes of A's values times those of W's
-    (plane sums regrouped by the outer-product pair weights). The kernels
-    run at least this many (two at 8 Booth weight planes), so the bound
-    stays a floor."""
-    return _signed_bytes(a) * _signed_bytes(w)
-
-
 def _bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_INT8_OPS_PER_S) -> tuple[float, str]:
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / peak_ops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """A call's bound on the H100 row (``launch/roofline.bound_ms``)."""
+    from repro_torch.launch import roofline
+
+    return roofline.bound_ms(n_bytes, n_ops, peak_ops)
 
 
 def _library_ms(x_q: torch.Tensor, w_q: torch.Tensor):
@@ -453,22 +450,6 @@ def _library_ms(x_q: torch.Tensor, w_q: torch.Tensor):
     return None, None, reason
 
 
-def _packed_bound(m, n, pa, pw, products, gate_tiles=None) -> tuple[float, str]:
-    """Bound of one packed product: A and W words read once, the int32
-    output written once; ``products`` int8 products per (m, n, k) (see
-    ``_split_products``). With ``gate_tiles`` (the weight's (P_w, chunks)
-    tile occupancy) only the occupied (plane, chunk) tiles' words are
-    counted: that is what these data need."""
-    from repro_torch.kernels.bytesplit import CHUNK_WORDS
-
-    sides_a = 1 if pa.sign is None else 2
-    sides_w = 1 if pw.sign is None else 2
-    n_w, kw, _ = pw.mag.shape
-    w_words = n_w * kw if gate_tiles is None else int(gate_tiles.sum()) * CHUNK_WORDS
-    n_bytes = 4 * (sides_a * pa.mag.numel() + sides_w * w_words * n + m * n)
-    return _bound(n_bytes, 2.0 * m * n * pa.k * products)
-
-
 def check_packed(summary: dict, name, m, k, n, x_q, w_q, wp, wp4, x4, lib_ms) -> list:
     """The packed kernel against its plain version: the blocked 8x8 Booth
     cache (cached_packed), the 4-bit truncated tier, SBMwC in the global
@@ -478,6 +459,7 @@ def check_packed(summary: dict, name, m, k, n, x_q, w_q, wp, wp4, x4, lib_ms) ->
     from repro_torch.kernels import ops
     from repro_torch.kernels import plane_mm_packed as pmp
     from repro_torch.kernels.bytesplit import CHUNK_WORDS
+    from repro_torch.launch import roofline
 
     dev = x_q.device
 
@@ -491,17 +473,16 @@ def check_packed(summary: dict, name, m, k, n, x_q, w_q, wp, wp4, x4, lib_ms) ->
     sb = bp.make_weight_planes(w_q, w_bits=8, variant="sbmwc", level="bitplane", block=None)
     small = bp.make_weight_planes(w_q >> 3, w_bits=8, variant="booth", level="bitplane")
     w4 = bp.shift_requantize(w_q, 8, 4, "booth")  # the values the 4-bit tier's planes hold
-    cases = []  # (name, A, W, pair weights, gate, A values, W values)
+    cases = []  # (name, A, W, pair weights, gate, A bits, W bits)
     pa8, da8 = pack_a(x_q, 8, "booth", wp.packed.block)
-    cases.append(("booth8_blocked", pa8, wp.packed, pair_w(da8, wp.packed), False, x_q, w_q))
+    cases.append(("booth8_blocked", pa8, wp.packed, pair_w(da8, wp.packed), False, 8, 8))
     pa4, da4 = pack_a(x4, 4, "booth", wp4.packed.block)
-    cases.append(("booth4_truncated", pa4, wp4.packed, pair_w(da4, wp4.packed), False, x4, w4))
+    cases.append(("booth4_truncated", pa4, wp4.packed, pair_w(da4, wp4.packed), False, 4, 4))
     pas, das = pack_a(x_q, 8, "sbmwc", None)
-    cases.append(("sbmwc8_planar", pas, sb.packed, pair_w(das, sb.packed), False, x_q, w_q))
-    cases.append(("booth8_gated", pa8, small.packed, pair_w(da8, small.packed), True, x_q,
-                  w_q >> 3))
+    cases.append(("sbmwc8_planar", pas, sb.packed, pair_w(das, sb.packed), False, 8, 8))
+    cases.append(("booth8_gated", pa8, small.packed, pair_w(da8, small.packed), True, 8, 8))
     lines = []
-    for variant, pa, pw, pairs, gate, a_vals, w_vals in cases:
+    for variant, pa, pw, pairs, gate, a_bits, w_bits in cases:
         got = pmp.plane_matmul_packed(pa, pw, pairs, gate=gate)
         plain = pmp.plane_matmul_packed_plain(pa, pw, pairs)
         dense = pmp.plane_matmul_packed(pa, pw, pairs) if gate else got
@@ -513,8 +494,8 @@ def check_packed(summary: dict, name, m, k, n, x_q, w_q, wp, wp4, x4, lib_ms) ->
         h_ms = _host_ms(lambda: pmp.plane_matmul_packed(pa, pw, pairs, gate=gate))
         p_ms = _time_ms(lambda: pmp.plane_matmul_packed_plain(pa, pw, pairs), reps=3, warmup=1)
         tiles = bp.occupancy_per_tile(pw.occupancy, CHUNK_WORDS) if gate else None
-        products = _split_products(a_vals, w_vals)
-        b_ms, b_by = _packed_bound(m, n, pa, pw, products, tiles)
+        products = roofline.split_products(a_bits, w_bits)
+        b_ms, b_by = roofline.packed_call_bound(m, n, pa, pw, products, tiles)
         line = {
             "kernel": "plane_matmul_packed", "shape": name, "M": m, "K": k, "N": n,
             "variant": variant, "gate": gate, "planes": [pa.n_planes, pw.n_planes],
@@ -815,6 +796,7 @@ def check_kernels(summary: dict) -> list:
     from repro_torch.core import bitplanes as bp
     from repro_torch.kernels import ops
     from repro_torch.kernels import plane_mm_fused
+    from repro_torch.launch import roofline
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -860,7 +842,7 @@ def check_kernels(summary: dict) -> list:
                        + 4 * m + 4 * n + m * n * 2)
             if bias is not None:
                 n_bytes += 4 * n
-            products = _split_products(x_q, w_q)
+            products = roofline.split_products(8, 8)
             b_ms, b_by = _bound(n_bytes, 2.0 * m * n * k * products)
             line = {
                 "kernel": "fused_plane_linear", "shape": name, "M": m, "K": k, "N": n,
@@ -3700,6 +3682,7 @@ def _train_cell(name: str, cfg, **kw) -> tuple[dict, dict, object]:
         "losses": out["losses"], "step_ms": step_ms, "step_ms_median": med,
         "steps_per_s": 1e3 / med, "trainrun_steps_per_s": out["steps_per_s"],
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "resident_bytes": run.timings.get("resident_bytes"),
         "kernel_launches": counts, "cell_s": time.perf_counter() - t0,
     }
     return line, out, run
@@ -4048,10 +4031,10 @@ def run_tp_nccl(cfg, params, base: int) -> dict:
 
 
 def _tp_cell(name, cfg, engine, reqs, schedule, rank) -> dict:
-    """One tensor-parallel cell on this rank: a warm-up run, the counted
-    run (launch counts set to 0 just before it, read just after) and a
-    profiled run of the first request alone (rank 0 reports the device
-    time of its decode ranges)."""
+    """One tensor-parallel cell on this rank: a warm-up run and the counted
+    run (launch counts set to 0 just before it, read just after). No run
+    is profiled: a profiled gloo run took ~30 s a cell on the host (PR 28,
+    a cut for the smoke's limit; PERF.md §4)."""
     t0 = time.perf_counter()
     engine.run(reqs[:1], precision_schedule=schedule)
     engine.set_precision(None)
@@ -4059,18 +4042,12 @@ def _tp_cell(name, cfg, engine, reqs, schedule, rank) -> dict:
     results, stats = engine.run(reqs, precision_schedule=schedule)
     counts = _read_counts()
     engine.set_precision(None)
-    profile = _profile(engine, reqs[:1], schedule)
-    engine.set_precision(None)
     return {"engine": name, "rank": rank, "cell_s": time.perf_counter() - t0,
             "tokens": {rid: t.tolist() for rid, t in results.items()},
             "failed": stats["failed"], "launches": counts, "route_calls": stats["route_calls"],
             "decode_steps": stats["decode_steps"], "prefill_s": stats["prefill_s"],
             "host_ms_per_decode_step": 1e3 * stats["decode_s"] / stats["decode_steps"],
             "tok_per_s": stats["tok_per_s"], "wall_s": stats["wall_s"],
-            "device_ms_per_decode_step": (1e3 * profile["decode_device_s"]
-                                          / profile["decode_ranges"]
-                                          if profile["decode_ranges"] else None),
-            "decode_busy_share": profile["decode_device_s"] / max(stats["decode_s"], 1e-9),
             "plane_cache_bytes": engine.plane_cache_bytes_per_device()}
 
 
@@ -4465,9 +4442,6 @@ def run_tp(cfg, controls: dict, p1_bytes: int, p1_memory: tuple, twins: dict) ->
                     plane_cache_bytes_per_rank=[r["plane_cache_bytes"] for r in ranks],
                     plane_cache_bytes_p1=p1_bytes,
                     bytes_ratio=max(r["plane_cache_bytes"] for r in ranks) / p1_bytes)
-        print(json.dumps({"engine": name, "profiled_eager_rank0": {
-            "device_ms_per_decode_step": r0["device_ms_per_decode_step"],
-            "decode_busy_share": r0["decode_busy_share"]}}), flush=True)
         if "load_s" in r0:  # the first cell: the rank's start-up and load
             line["load_s_rank0"] = r0["load_s"]
             line["rank0_started_s_after_spawn"] = r0["started"] - t0_wall
@@ -4826,6 +4800,179 @@ def run_mesh_training() -> dict:
     return cells
 
 
+# -- the analysis layer (phase 21) ---------------------------------------------
+
+# the cost report's predictions against the card's measurements (PERF.md,
+# written before the first chip run): the train step's predicted peak and
+# resident bytes within these shares of max_memory_allocated and of
+# TrainRun's resident; a step's bound never above its measured time
+ANALYSIS_PEAK_RTOL = 0.15
+ANALYSIS_RESIDENT_RTOL = 0.05
+SA_DOT_VALUES = 1000  # the paper's §IV-A protocol: random dot products of 1000 values
+SA_DOTS = 1000
+
+
+def _wrapped(t: torch.Tensor) -> torch.Tensor:
+    """int64 values modulo 2^32 as int32 (the simulated accumulator's range)."""
+    return (((t + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def check_systolic() -> dict:
+    """Phase 21 (a): the paper's §IV-A protocol for the cycle-accurate
+    simulator on the card: every pair of 8-bit values, both variants;
+    ``SA_DOTS`` random 16-bit dot products of ``SA_DOT_VALUES`` values;
+    ``serial_sa_matmul`` on a 64 x 16 array. Each result must equal the
+    exact integer product (modulo 2^32: the int32 accumulator) and the
+    same call on the CPU; the cycles must follow Eq. 8."""
+    from repro_torch.core import systolic as sa
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(21)
+    vals = torch.arange(-128, 128, dtype=torch.int32)
+    mc, ml = (t[..., None] for t in torch.meshgrid(vals, vals, indexing="ij"))
+    a16 = torch.randint(-(1 << 15), 1 << 15, (SA_DOTS, SA_DOT_VALUES), generator=gen,
+                        dtype=torch.int32)
+    b16 = torch.randint(-(1 << 15), 1 << 15, (SA_DOTS, SA_DOT_VALUES), generator=gen,
+                        dtype=torch.int32)
+    cfg = sa.SAConfig(64, 16)
+    am = torch.randint(-(1 << 15), 1 << 15, (cfg.height, 100), generator=gen, dtype=torch.int32)
+    bm = torch.randint(-(1 << 15), 1 << 15, (100, cfg.width), generator=gen, dtype=torch.int32)
+    cases = []  # (name, card call, cpu call, exact, cycles expected)
+    for variant in ("booth", "sbmwc"):
+        cases.append((f"pairs8_{variant}",
+                      lambda v=variant: sa.serial_mac_dot(mc.to(dev), ml.to(dev), 8, v),
+                      lambda v=variant: sa.serial_mac_dot(mc, ml, 8, v),
+                      (mc * ml)[..., 0], sa.bitsmm_dot_cycles(8, 1)))
+        cases.append((f"dots16_{variant}",
+                      lambda v=variant: sa.serial_mac_dot(a16.to(dev), b16.to(dev), 16, v),
+                      lambda v=variant: sa.serial_mac_dot(a16, b16, 16, v),
+                      _wrapped((a16.long() * b16.long()).sum(dim=-1)),
+                      sa.bitsmm_dot_cycles(16, SA_DOT_VALUES)))
+        cases.append((f"sa_matmul_64x16_{variant}",
+                      lambda v=variant: sa.serial_sa_matmul(am.to(dev), bm.to(dev), 16, cfg, v),
+                      lambda v=variant: sa.serial_sa_matmul(am, bm, 16, cfg, v),
+                      _wrapped(am.long() @ bm.long()),
+                      sa.bitsmm_dot_cycles(16, 100) + cfg.n_macs))
+    out = {"analysis": "systolic", "card": CARD, "cases": {}}
+    for name, card, cpu, exact, cycles in cases:
+        got, cyc = card()
+        torch.cuda.synchronize()
+        host, cyc_host = cpu()
+        got = got.cpu()
+        ok = torch.equal(got, exact) and torch.equal(got, host) and cyc == cyc_host == cycles
+        out["cases"][name] = {"results": int(got.numel()), "equal_exact": torch.equal(got, exact),
+                              "equal_cpu": torch.equal(got, host), "cycles": cyc,
+                              "eq8_cycles": cycles}
+        if not ok:
+            _die(f"phase 21: the systolic simulator's {name} on the card: "
+                 f"{out['cases'][name]}")
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _dry_decode_report(cfg):
+    """The cost report of phase 3's ``bitplane`` decode step (its engine's
+    config: 8-bit Booth bit planes, int8 KV of ``N_SLOTS`` slots of the
+    workload's max length), run on meta tensors: a prediction, no card."""
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.launch import cost
+    from repro_torch.launch.steps import make_cb_decode_step
+    from repro_torch.models.cache import init_cache
+    from repro_torch.models.quant import quantize_params
+    from repro_torch.models.transformer import init_params
+
+    policy = PrecisionPolicy.uniform(8, 8, variant="booth", level="bitplane")
+    meta = torch.device("meta")
+    params = quantize_params(init_params(cfg, torch.Generator(), device=meta), policy, cfg=cfg,
+                             plane_cache=True)
+    cache = init_cache(cfg, N_SLOTS, max(PROMPT_LENS) + GEN_TOKENS, cfg.dtype, kv_quant=True,
+                       device=meta)
+    tokens = torch.empty((N_SLOTS, 1), dtype=torch.int32, device=meta)
+    temps = torch.empty((N_SLOTS,), dtype=torch.float32, device=meta)
+    with cost.report(resident={"params": params, "cache": cache},
+                     inputs=(tokens, temps)) as rep:
+        make_cb_decode_step(cfg, policy)(params, cache, tokens, temps)
+    return rep
+
+
+def _dry_train_report(cfg):
+    """The cost report of phase 18's ``train-dense`` step (TrainRun's:
+    AdamW, the reference's tree, batch ``TRAIN_BATCH`` x ``TRAIN_SEQ``),
+    run on meta tensors: a prediction, no card."""
+    from repro_torch.launch import cost
+    from repro_torch.launch.inputs import batch_struct
+    from repro_torch.launch.steps import init_opt_state, make_train_step
+    from repro_torch.models.transformer import init_params, stack_layers
+    from repro_torch.optim import OptimConfig
+
+    meta = torch.device("meta")
+    opt = OptimConfig(kind="adamw", peak_lr=TRAIN_LR, total_steps=TRAIN_STEPS)
+    params = stack_layers(cfg, init_params(cfg, torch.Generator(), device=meta))
+    state = init_opt_state(cfg, opt, params)
+    batch = {k: torch.empty(s, dtype=d, device=meta)
+             for k, (s, d) in batch_struct(cfg, TRAIN_BATCH, TRAIN_SEQ, "train").items()}
+    with cost.report(resident={"params": params, "opt": state}, inputs=batch) as rep:
+        make_train_step(cfg, opt)(params, state, batch, 0)
+    return rep
+
+
+def run_analysis(cfg, eng_bit: dict, train_dense: dict) -> dict:
+    """Phase 21: the analysis layer. (a) the systolic simulator on the
+    card; (b) the cost report of phase 3's ``bitplane`` decode step against
+    the device ms a decode step phase 3 measured: its bound / the
+    measurement <= 1; (c) the cost report of phase 18's ``train-dense``
+    step: the predicted peak within ``ANALYSIS_PEAK_RTOL`` of the measured
+    ``max_memory_allocated``, the predicted resident within
+    ``ANALYSIS_RESIDENT_RTOL`` of TrainRun's, the bound no greater than the
+    measured median step."""
+    t0 = time.perf_counter()
+    out = {"systolic": check_systolic()}
+    rep = _dry_decode_report(cfg)
+    bound_ms, by = rep.bound()
+    device_ms = eng_bit["device_ms_per_decode_step"]
+    line = {"analysis": "bitplane_decode_cost", "card": CARD, "layers": cfg.n_layers,
+            "predicted": {"flops": rep.flops, "int8_ops": rep.int8_ops,
+                          "hbm_bytes": rep.hbm_bytes, "calls": rep.calls,
+                          "resident_bytes": rep.resident_bytes, "peak_bytes": rep.peak_bytes},
+            "bound_ms": bound_ms, "bottleneck": by,
+            "device_ms_per_decode_step": device_ms, "share": bound_ms / device_ms}
+    print(json.dumps(line), flush=True)
+    if not line["share"] <= 1.0:
+        _die(f"phase 21: the bitplane decode step's bound {bound_ms:.4f} ms exceeds its "
+             f"measured {device_ms:.4f} device ms: the count is wrong")
+    out["bitplane_decode_cost"] = line
+    rep = _dry_train_report(cfg)
+    bound_ms, by = rep.bound()
+    peak = train_dense["peak_memory_gb"] * 1e9
+    resident = train_dense["resident_bytes"]
+    step_ms = train_dense["step_ms_median"]
+    line = {"analysis": "train_dense_cost", "card": CARD, "layers": cfg.n_layers,
+            "predicted": {"flops": rep.flops, "hbm_bytes": rep.hbm_bytes,
+                          "resident_bytes": rep.resident_bytes, "peak_bytes": rep.peak_bytes,
+                          "top": rep.top[:5]},
+            "bound_ms": bound_ms, "bottleneck": by,
+            "measured": {"peak_bytes": peak, "resident_bytes": resident,
+                         "step_ms_median": step_ms},
+            "peak_ratio": rep.peak_bytes / peak, "resident_ratio": rep.resident_bytes / resident,
+            "share": bound_ms / step_ms}
+    print(json.dumps(line), flush=True)
+    if abs(line["peak_ratio"] - 1.0) > ANALYSIS_PEAK_RTOL:
+        _die(f"phase 21: train-dense predicted peak {rep.peak_bytes / 1e9:.3f} GB against "
+             f"{peak / 1e9:.3f} measured, beyond {ANALYSIS_PEAK_RTOL:.0%}")
+    if abs(line["resident_ratio"] - 1.0) > ANALYSIS_RESIDENT_RTOL:
+        _die(f"phase 21: train-dense predicted resident {rep.resident_bytes / 1e9:.3f} GB "
+             f"against {resident / 1e9:.3f} measured, beyond {ANALYSIS_RESIDENT_RTOL:.0%}")
+    if not line["share"] <= 1.0:
+        _die(f"phase 21: train-dense bound {bound_ms:.2f} ms exceeds its measured median "
+             f"step {step_ms:.2f} ms: the count is wrong")
+    out["train_dense_cost"] = line
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _die("no CUDA device: this smoke run needs one GPU")
@@ -4942,6 +5089,12 @@ def main() -> None:
           f"{meshed['phase_s']:.1f} s, spawn {meshed['spawn_s']:.1f} s; step ms "
           + ", ".join(f"{n} {c['step_ms_median']:.1f}" for n, c in meshed.items()
                       if isinstance(c, dict)) + ")", flush=True)
+    analysis = run_analysis(cfg, eng_bit, train["train-dense"])
+    print(f"[chip_smoke] analysis done at {time.perf_counter() - t0:.1f} s (phase "
+          f"{analysis['phase_s']:.1f} s; bound / measured: bitplane decode "
+          f"{analysis['bitplane_decode_cost']['share']:.3f}, train-dense "
+          f"{analysis['train_dense_cost']['share']:.3f}; train-dense peak predicted / measured "
+          f"{analysis['train_dense_cost']['peak_ratio']:.3f})", flush=True)
 
     def fam_launches(kernel):
         """The kernel's launches in each family cell's counted run."""

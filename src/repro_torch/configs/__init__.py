@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import SHAPES, ModelConfig, ShapeCell, cell_applicable
 
 _MODULES = {
     "llama3-405b": "repro_torch.configs.llama3_405b",
@@ -35,4 +35,25 @@ def get_reduced(name: str) -> ModelConfig:
     return importlib.import_module(_MODULES[name]).REDUCED
 
 
-__all__ = ["ARCH_NAMES", "ModelConfig", "get_config", "get_reduced"]
+def all_cells():
+    """Every (arch, shape) cell with its applicability verdict:
+    ``[(arch, shape name, applies, reason)]``."""
+    out = []
+    for arch in ARCH_NAMES:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            ok, why = cell_applicable(cfg, shape)
+            out.append((arch, shape.name, ok, why))
+    return out
+
+
+__all__ = [
+    "ARCH_NAMES",
+    "SHAPES",
+    "ModelConfig",
+    "ShapeCell",
+    "all_cells",
+    "cell_applicable",
+    "get_config",
+    "get_reduced",
+]

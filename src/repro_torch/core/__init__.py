@@ -1,10 +1,11 @@
 """Core numerics: precision policy, quantization, plane decompositions, plans
-and their tile autotuner. The reference's exports (``src/repro/core``) but
-``booth_nonzero_digit_count`` and ``systolic``, the cycle model (ROADMAP
-item 14b)."""
+and their tile autotuner, and the paper's systolic cycle and MAC model
+(``systolic``). The reference's exports (``src/repro/core``)."""
 
+from repro_torch.core import systolic
 from repro_torch.core.bitplanes import (
     PlaneDecomposition,
+    booth_nonzero_digit_count,
     shift_requantize,
     signed_range,
     to_bitplanes,
@@ -34,7 +35,9 @@ from repro_torch.core.quantize import (
 )
 
 __all__ = [
+    "systolic",
     "PlaneDecomposition",
+    "booth_nonzero_digit_count",
     "shift_requantize",
     "signed_range",
     "to_bitplanes",

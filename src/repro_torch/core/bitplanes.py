@@ -440,14 +440,15 @@ def make_weight_planes(
 ) -> WeightPlanes:
     """Decompose (and, at bit-plane level, pack) a quantized ``(K, N)``
     weight. ``store="auto"`` keeps only the packed words for a CUDA
-    weight (the lean serving format the fused kernel reads) and also the
-    raw planes for a host weight."""
+    weight (the lean serving format the fused kernel reads; for a meta
+    weight too: a dry run of the card) and also the raw planes for a host
+    weight."""
     if w_q.dim() != 2:
         raise ValueError(f"make_weight_planes expects (K, N), got {tuple(w_q.shape)}")
     if store not in ("auto", "packed", "both"):
         raise ValueError(f"unknown store mode {store!r}")
     if store == "auto":
-        store = "packed" if w_q.is_cuda else "both"
+        store = "packed" if w_q.is_cuda or w_q.is_meta else "both"
     if level == "bitplane":
         k, n = w_q.shape
         step = max(1, _DECOMPOSE_WEIGHTS // max(k, 1))
@@ -714,3 +715,11 @@ def verify_packed(packed: PackedPlanes) -> torch.Tensor:
     if packed.sign is not None:
         ok = ok & torch.all((packed.sign & ~packed.mag) == 0)
     return ok
+
+
+def booth_nonzero_digit_count(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Number of non-zero Booth digits per element (the paper's motivation:
+    runs of ones collapse to two non-zero digits; plane-skip scheduling
+    analytics), int32."""
+    dec = to_bitplanes(x, bits, "booth")
+    return dec.planes.to(torch.int32).abs().sum(dim=0, dtype=torch.int32)

@@ -31,6 +31,7 @@ takes the packed route and returns its raw int32 accumulator.
 from __future__ import annotations
 
 import collections
+import contextvars
 import dataclasses
 import warnings
 from typing import Any, Callable, Optional, Tuple
@@ -52,6 +53,20 @@ __all__ = [
     "plan_cacheable",
     "truncation_audit",
 ]
+
+
+#: a cost report's hook (``launch/cost.py``), set only inside the report:
+#: ``hook(cost, run, empty, meta)`` charges one call by its function
+CHARGE: contextvars.ContextVar = contextvars.ContextVar("plan_charge", default=None)
+
+
+def charged(cost: Callable, run: Callable, empty: Callable, meta: bool):
+    """``run()`` — or, inside a cost report, what the report's hook makes of
+    it: the call charged once by ``cost()`` (a ``launch/roofline.CallCost``)
+    and nothing it runs inside counted; on meta operands (a dry run) the
+    body is not run and ``empty()``, an output of its shape, stands in."""
+    hook = CHARGE.get()
+    return run() if hook is None else hook(cost, run, empty, meta)
 
 
 def _ops():
@@ -598,7 +613,44 @@ class MatmulPlan:
         if self.requant_w:
             w = bp.shift_requantize(w, key.w_in_bits, key.w_bits, key.variant)
         self.registry.calls[self.kernel] += 1
-        return _EXECUTORS[self.kernel](self, x, w, w_planes, epilogue)
+        return charged(
+            lambda: self._cost(x, w, w_planes, epilogue),
+            lambda: _EXECUTORS[self.kernel](self, x, w, w_planes, epilogue),
+            lambda: x.new_empty(
+                tuple(x.shape[:-1]) + (key.n,),
+                dtype=getattr(torch, key.accum) if epilogue is None else epilogue.out_dtype),
+            x.is_meta,
+        )
+
+    def _cost(self, x, w, w_planes, epilogue):
+        """What this call's function needs (``launch/roofline.plan_call``):
+        its int8 products at the executed widths, and the bytes of the
+        activation, the stored weight it reads at the executed width (the
+        packed planes or the digits of a cache, the integer weight
+        otherwise), the epilogue's tensors and the output."""
+        from repro_torch.launch import roofline
+
+        key = self.key
+
+        def nbytes(t):
+            return 0 if t is None else t.numel() * t.element_size()
+
+        packed = None if w_planes is None else w_planes.packed
+        if packed is not None:
+            w_bytes = (nbytes(packed.mag) + nbytes(packed.sign)) * key.w_bits / key.w_in_bits
+        elif w_planes is not None:
+            w_bytes = nbytes(w_planes.planes) * key.w_bits / key.w_in_bits
+        else:
+            w_bytes = nbytes(w)
+        m = x.numel() // max(key.k, 1)
+        if epilogue is None:
+            tail = m * key.n * getattr(torch, key.accum).itemsize
+        else:
+            tail = (nbytes(epilogue.a_scale) + nbytes(epilogue.w_scale) + nbytes(epilogue.bias)
+                    + m * key.n * epilogue.out_dtype.itemsize)
+        return roofline.plan_call(m, key.k, key.n, key.a_bits, key.w_bits,
+                                  n_bytes=nbytes(x) + w_bytes + tail,
+                                  a_signed=key.variant != "unsigned")
 
     def with_precision(
         self, a_bits: Optional[int] = None, w_bits: Optional[int] = None

@@ -666,7 +666,46 @@ def paged_flash_attention(
     kernel's body follows the arguments (:func:`paged_body`): the split-KV
     decode body on the tensor cores for bf16 q (two launches: the splits,
     then their combine; nothing is read back on the host), the float32
-    CUDA-core body otherwise."""
+    CUDA-core body otherwise. Inside a cost report (``launch/cost.py``) the
+    call is charged by its function (``paged_attention_cost``)."""
+    from repro_torch.core.plan import charged
+
+    args = (q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables, kv_lens)
+    kw = dict(sm_scale=sm_scale, block_q=block_q, out_dtype=out_dtype)
+    return charged(
+        lambda: paged_attention_cost(*args),
+        lambda: _paged_flash_attention(*args, **kw),
+        lambda: q.new_empty(q.shape, dtype=torch.bfloat16 if out_dtype is None else out_dtype),
+        q.is_meta,
+    )
+
+
+def paged_attention_cost(q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables,
+                         kv_lens):
+    """What one paged call's function needs (``launch/roofline.attention_call``):
+    4 operations per (query head, query, live key, d); q, the live pages'
+    K/V and scales, the tables and lengths read once, the output written
+    once. The live keys are the lengths' sum (read back), or on meta
+    tensors the tables' whole span."""
+    from repro_torch.launch import roofline
+
+    b, hq, sq, d = q.shape
+    _, page, hkv, _ = k_pool.shape
+    if kv_lens.is_meta:
+        keys = b * block_tables.shape[1] * page
+        pages = b * block_tables.shape[1]
+    else:
+        lens = [int(v) for v in kv_lens.tolist()]
+        keys, pages = sum(lens), sum(-(-n // page) for n in lens)
+    page_bytes = page * hkv * (2 * d * k_pool.element_size() + 2 * k_scale_pool.element_size())
+    n_bytes = (2 * q.numel() * q.element_size() + pages * page_bytes
+               + block_tables.numel() * block_tables.element_size()
+               + kv_lens.numel() * kv_lens.element_size())
+    return roofline.attention_call(hq, keys * sq, d, n_bytes)
+
+
+def _paged_flash_attention(q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables,
+                           kv_lens, *, sm_scale, block_q, out_dtype):
     if not q.is_cuda:
         return paged_flash_attention_plain(
             q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables, kv_lens,

@@ -391,7 +391,46 @@ def flash_attention(
     K/V, folded into the kernel. The torch backend dequantizes K/V, casts
     them to q's dtype and runs :func:`attention_ref`, as the reference's
     jnp path does (its causal mask is aligned to the bottom right, the
-    kernel's to the top left: they agree when Sq == Sk)."""
+    kernel's to the top left: they agree when Sq == Sk). Inside a cost
+    report (``launch/cost.py``) the call is charged by its function
+    (:func:`attention_cost`)."""
+    from repro_torch.core.plan import charged
+
+    return charged(
+        lambda: attention_cost(q, k, v, causal=causal, kv_lens=kv_lens, k_scale=k_scale,
+                               v_scale=v_scale),
+        lambda: _flash_attention(q, k, v, causal=causal, sm_scale=sm_scale, backend=backend,
+                                 block_q=block_q, block_k=block_k, kv_lens=kv_lens,
+                                 k_scale=k_scale, v_scale=v_scale),
+        lambda: q.new_empty(q.shape),
+        q.is_meta,
+    )
+
+
+def attention_cost(q, k, v, *, causal=True, kv_lens=None, k_scale=None, v_scale=None):
+    """What one dense attention call's function needs
+    (``launch/roofline.attention_call``): 4 operations per (query head,
+    (query, key) pair, d) over the pairs its masks keep (causal from the
+    top left; a lane's keys below its length, read back, or on meta
+    tensors all of them); q, K, V and their scales read once, the output
+    written once."""
+    from repro_torch.launch import roofline
+
+    b, hq, sq, d = q.shape
+    sk = k.shape[2]
+    lens = [sk] * b if kv_lens is None or kv_lens.is_meta else [
+        min(int(n), sk) for n in kv_lens.tolist()]
+    pairs = sum(roofline.attention_pairs(sq, n, causal) for n in lens)
+
+    def nbytes(t):
+        return 0 if t is None else t.numel() * t.element_size()
+
+    n_bytes = 2 * nbytes(q) + nbytes(k) + nbytes(v) + nbytes(k_scale) + nbytes(v_scale)
+    return roofline.attention_call(hq, pairs, d, n_bytes)
+
+
+def _flash_attention(q, k, v, *, causal, sm_scale, backend, block_q, block_k, kv_lens,
+                     k_scale, v_scale):
     backend = resolve_backend(backend, q.device)
     if backend == "torch":
         if k_scale is not None:

@@ -1,6 +1,7 @@
-"""Model inputs: the shapes and dtypes of one step's batch, and concrete
-random batches from a numpy generator (the same values as the
-reference's ``make_batch`` from the same generator).
+"""Model inputs: the shapes and dtypes of one step's batch (a dry-run cell's
+as meta tensors: no memory), and concrete random batches from a numpy
+generator (the same values as the reference's ``make_batch`` from the
+same generator).
 
 The audio and vision front ends take precomputed features: the encoder's
 batch holds frame ``features``, the VLM's image ``patches`` beside the
@@ -14,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeCell
 
 
 def batch_struct(cfg: ModelConfig, batch: int, seq: int, kind: str) -> dict:
@@ -40,6 +41,16 @@ def batch_struct(cfg: ModelConfig, batch: int, seq: int, kind: str) -> dict:
     if kind == "train":
         out["targets"] = ((batch, seq), i32)
     return out
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeCell, meta: bool = False) -> dict:
+    """The cell's inputs: ``{name: (shape, dtype)}`` (the reference's
+    ``ShapeDtypeStruct`` s), or with ``meta`` tensors of those shapes on
+    the meta device (the dry run's; nothing is allocated)."""
+    specs = batch_struct(cfg, shape.global_batch, shape.seq_len, shape.kind)
+    if not meta:
+        return specs
+    return {k: torch.empty(s, dtype=d, device="meta") for k, (s, d) in specs.items()}
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int, kind: str = "train",

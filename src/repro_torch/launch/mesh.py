@@ -163,9 +163,34 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The reference's deployment mesh: ``("data", "model")`` of 16 x 16,
     or ``("pod", "data", "model")`` of 2 x 16 x 16 (pure data parallelism
     across pods). It needs a world of 256 (512) ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh(shape, axes)
+    return _mesh(*production_shape(multi_pod))
+
+
+def make_dry_mesh(shape, axes, rank: int = 0) -> Mesh:
+    """A mesh of ``shape`` for a dry run (``launch/dryrun.py``), with no
+    process group: rank ``rank``'s groups are ``sharding/collectives.DryGroup``
+    stand-ins, one for each set of axes whose extent exceeds 1 (its size
+    and this rank's index in it), so the collectives record their calls
+    and return outputs of the right shape without communicating."""
+    from repro_torch.sharding.collectives import DryGroup
+
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    layout = Mesh(devices=np.arange(math.prod(shape)).reshape(shape), axis_names=axes,
+                  rank=rank)
+    groups = {}
+    for k in range(1, len(axes) + 1):
+        for sub in itertools.combinations(axes, k):
+            n = layout.extent(sub)
+            if n > 1:
+                groups[frozenset(sub)] = DryGroup(n, layout.index(sub))
+    return dataclasses.replace(layout, groups=groups)
+
+
+def production_shape(multi_pod: bool = False) -> tuple:
+    """(shape, axes) of the reference's deployment mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
 
 
 # --------------------------------------------------------------------------

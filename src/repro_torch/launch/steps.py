@@ -56,14 +56,17 @@ def make_train_step(
     compress_grads: bool = False,
     mesh=None,
     specs=None,
+    grad_accum_dtype=torch.float32,
 ):
     """Returns train_step(params, opt_state, batch, step) -> (params,
     opt_state, metrics {"loss", "grad_norm"}), the reference's step:
 
     * the gradients of :func:`~repro_torch.models.transformer.loss_fn`
       (``training=True``; eager autograd); with ``microbatches`` > 1 they
-      accumulate in float32 over equal slices of the batch
-      and are divided by their number, as is the loss;
+      accumulate in ``grad_accum_dtype`` (a torch dtype or its name;
+      float32 by default, the dry run's profiles take bfloat16 for the
+      largest models) over equal slices of the batch and are divided by
+      their number, as is the loss (the gradients then keep that dtype);
     * with ``compress_grads`` they pass through int8 error-feedback
       compression, the error buffer riding in ``opt_state["_gc_error"]``;
     * then :func:`~repro_torch.optim.clip_by_global_norm`
@@ -83,28 +86,34 @@ def make_train_step(
     ``sharding/rules.tree_param_specs``): the step of one rank of a
     sharded run. ``params`` and ``opt_state`` are then the rank's blocks
     (``optim.state_specs``), ``batch`` the global batch: each microbatch's
-    rows are split over the data axis where they divide, else every data
-    rank takes all of them. The forward and backward run under
+    rows are split over the batch axes (``pod`` and ``data``) where they
+    divide, else every such rank takes all of them; on a mesh with a
+    ``pod`` axis the gradients are then all-reduced over it. The forward
+    and backward run under
     ``sharding/fsdp.ShardedTrain`` (their collectives in ``train.allgather``,
     ``train.reduce_scatter`` and ``train.allreduce`` ranges), the clip,
     the compressor and Adafactor reduce over every block, and the loss
     reported is the global one."""
-    from repro_torch.sharding.collectives import layout_of
-    from repro_torch.sharding.fsdp import ShardedTrain
+    from repro_torch.sharding.collectives import all_reduce_, layout_of
+    from repro_torch.sharding.fsdp import ShardedTrain, batch_axes
 
     layout = layout_of(mesh, specs)
     shard = None if mesh is None else ShardedTrain(mesh, specs)
     optimizer = opt_cfg.build(layout=layout)
     inv_mb = float(np.float32(1.0) / np.float32(microbatches))
-    dsize = 1 if mesh is None else mesh.shape.get("data", 1)
+    if isinstance(grad_accum_dtype, str):
+        grad_accum_dtype = getattr(torch, grad_accum_dtype)
+    baxes = () if mesh is None else batch_axes(mesh)
+    dsize = 1 if mesh is None else mesh.extent(baxes)
+    pod = None if mesh is None or "pod" not in mesh.axis_names else mesh.group("pod")
 
     def rows(mb):
         """This rank's rows of a (micro)batch on a mesh: its block over the
-        data axis where the rows divide, else all of them."""
+        batch axes where the rows divide, else all of them."""
         b = next(iter(mb.values())).shape[0]
         if dsize == 1 or b % dsize:
             return mb
-        lo = mesh.coord("data") * (b // dsize)
+        lo = mesh.index(baxes) * (b // dsize)
         return {k: v[lo:lo + b // dsize] for k, v in mb.items()}
 
     def grads_of(params, mb):
@@ -124,6 +133,9 @@ def make_train_step(
     def train_step(params, opt_state, batch, step):
         with record_function("train.grads"):
             loss, grads = accumulated_grads(params, batch)
+            if pod is not None:  # pure data parallel across pods
+                for g in tr.leaves(grads):
+                    all_reduce_(g, pod)
         with torch.no_grad():
             with record_function("train.clip"):
                 if compress_grads:
@@ -145,12 +157,12 @@ def make_train_step(
             mbs = {k: v.reshape((microbatches, v.shape[0] // microbatches) + v.shape[1:])
                    for k, v in batch.items()}
             gsum = tr.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+                lambda p: torch.zeros(p.shape, dtype=grad_accum_dtype, device=p.device), params)
             lsum = None
             for i in range(microbatches):
                 loss_i, g = grads_of(params, {k: v[i] for k, v in mbs.items()})
                 for a, b in zip(tr.leaves(gsum), tr.leaves(g)):
-                    a.add_(b.to(torch.float32))
+                    a.add_(b.to(grad_accum_dtype))
                 lsum = loss_i if lsum is None else lsum + loss_i
             # XLA's form of the divisions by the constant count
             return lsum * inv_mb, tr.tree_map(lambda g: g * inv_mb, gsum)

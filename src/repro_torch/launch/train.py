@@ -56,6 +56,26 @@ from repro_torch.runtime import ElasticMesh, StragglerDetector, retry_step
 from repro_torch.sharding import rules as sh
 
 
+def init_blocks(cfg, gen, dev, mesh):
+    """This rank's blocks of the parameters drawn part by part from ``gen``
+    on ``dev``, each part cut to the rank's blocks as it is drawn (the
+    whole tree is never held), in the reference's tree; and their specs.
+    Under the mesh's rules (``sharding.rules.use_rules``)."""
+    specs = {}
+
+    def keep(part, path):
+        pairs = tr.flatten_with_path(part)
+        sp = [sh.param_spec(f"{path}/{tr.path_key(p)}", leaf) for p, leaf in pairs]
+        specs[path] = tr.unflatten_like(part, sp)
+        return tr.unflatten_like(part, [sh.shard_leaf(leaf, s, mesh).clone()
+                                        for (_, leaf), s in zip(pairs, sp)])
+
+    params = init_params(cfg, gen, device=dev, each=keep)
+    spec_tree = {k: specs[f"/{k}"] for k in params if k != "layers"}
+    spec_tree["layers"] = [specs[cfg.param_path(i)] for i in range(cfg.n_layers)]
+    return stack_layers(cfg, params), _stack_specs(cfg, spec_tree)
+
+
 @dataclasses.dataclass
 class TrainRun:
     """Programmatic entry point; the reference's fields, plus ``device``."""
@@ -83,6 +103,8 @@ class TrainRun:
     #: a mesh run's step traced under ``torch.profiler`` (left out of
     #: ``step_ms``): ``timings["profile"]`` holds its ranges' times
     profile_step: int | None = None
+    #: the dtype the microbatch gradients sum in (``make_train_step``)
+    grad_accum_dtype: object = torch.float32
 
     def world(self) -> int:
         """The ranks this run trains on (1: the single-device trainer)."""
@@ -127,24 +149,9 @@ class TrainRun:
         return out
 
     def _init_blocks(self, cfg, dev, mesh):
-        """The parameters drawn part by part from the seeded generator,
-        each part cut to this rank's blocks as it is drawn (the whole tree
-        is never held), in the reference's tree; and their specs."""
         gen = torch.Generator(device=dev)
         gen.manual_seed(self.seed)
-        specs = {}
-
-        def keep(part, path):
-            pairs = tr.flatten_with_path(part)
-            sp = [sh.param_spec(f"{path}/{tr.path_key(p)}", leaf) for p, leaf in pairs]
-            specs[path] = tr.unflatten_like(part, sp)
-            return tr.unflatten_like(part, [sh.shard_leaf(leaf, s, mesh).clone()
-                                            for (_, leaf), s in zip(pairs, sp)])
-
-        params = init_params(cfg, gen, device=dev, each=keep)
-        spec_tree = {k: specs[f"/{k}"] for k in params if k != "layers"}
-        spec_tree["layers"] = [specs[cfg.param_path(i)] for i in range(cfg.n_layers)]
-        return stack_layers(cfg, params), _stack_specs(cfg, spec_tree)
+        return init_blocks(cfg, gen, dev, mesh)
 
     def _train(self, resume: bool, mesh) -> dict:
         """The training loop of one device (``mesh`` None) or of this rank
@@ -205,6 +212,7 @@ class TrainRun:
             microbatches=self.microbatches,
             compress_grads=self.compress_grads,
             mesh=mesh,
+            grad_accum_dtype=self.grad_accum_dtype,
             specs=specs,
         )
 

@@ -372,7 +372,8 @@ def attention_apply(
                 "afterwards with models.cache.quantize_scratch"
             )
         s_max = cache["k"].shape[1]
-        off = int(cache["len"][0])
+        # a dry run's fresh scratch (meta tensors, no values) starts at 0
+        off = 0 if cache["len"].is_meta else int(cache["len"][0])
         if off + s > s_max:
             raise ValueError(f"{off + s} tokens exceed the cache extent {s_max}")
         k_cache = cache["k"].clone()

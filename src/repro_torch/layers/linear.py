@@ -44,7 +44,7 @@ from repro_torch.core import plan as plan_mod
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.quantize import fake_quant, quantize
 from repro_torch.kernels import ops
-from repro_torch.sharding.tp import check_exact_bits, current_tp, tp_role
+from repro_torch.sharding.tp import check_exact_bits, current_tp
 
 
 def _accum_dtype(w_bits: int, a_bits: int):
@@ -129,7 +129,7 @@ def linear_apply(
             raise ValueError(f"layer {name}: quantized params but inactive policy")
         eff = policy.effective(prec)
         tp = current_tp()
-        role = tp_role(name) if tp is not None else None
+        role = tp.role(name) if tp is not None else None
         shard = None if role is None else (tp.axis, tp.size, role)
         xsrc = x.to(torch.float32) if x_f32 is None else x_f32
         if role == "row":

@@ -79,7 +79,9 @@ def _causal_conv(x, w, b, cache=None, cache_out=None):
     if cache_out is not None:
         cache_out.copy_(tail)
         return y + b, cache_out
-    return y + b, tail.to(torch.float32).contiguous()
+    # a copy: a view of one row's tail would keep the whole (L + W - 1) x C
+    # input alive in the cache
+    return y + b, tail.to(torch.float32).clone()
 
 
 def _segsum_decay(da):

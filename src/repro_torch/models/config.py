@@ -172,3 +172,32 @@ class ModelConfig:
         if i < n_full * plen:
             return f"/periods/b{i % plen}_{period[i % plen]}"
         return f"/tail/{i - n_full * plen}"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One (input-shape) evaluation cell of the dry run."""
+
+    name: str  # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ModelConfig, shape: ShapeCell) -> tuple[bool, str]:
+    """The reference's skip rules (its DESIGN.md §5): (applies, reason)."""
+    if shape.kind == "decode" and not cfg.is_decoder:
+        return False, "encoder-only arch has no autoregressive decode step"
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "pure full-attention arch: 500k decode needs sub-quadratic attention"
+    if shape.kind == "prefill" and not cfg.is_decoder:
+        return True, "encoder forward pass (no cache)"
+    return True, ""

@@ -388,7 +388,8 @@ def forward(
     if cache is not None and s > 1 and set(kinds) & {"ssm", "rec", "attn"}:
         rows = next((blk["k"].shape[1] for k, blk in zip(kinds, cache["layers"])
                      if k == "attn" and "k" in blk), 0)
-        check_prefill(cfg, s, int(cache["step"].max()), rows)
+        # a dry run's fresh cache (meta tensors, no values) starts at 0
+        check_prefill(cfg, s, 0 if cache["step"].is_meta else int(cache["step"].max()), rows)
 
     period, n_full = cfg.period_layout()
     plen = len(period)

@@ -28,6 +28,17 @@ runs inside a ``torch.profiler`` range named by its caller
 ``moe.ep_gather``, ``moe.ep_combine``), so a trace gives their share of
 a step. A collective that fails raises: nothing falls back to one rank.
 
+Every collective of the port — these and ``sharding/tp.py``'s — goes
+through :func:`note`: under :func:`recording` (``launch/cost.py``'s
+report) each call is handed to the recorder with its kind (the
+reference's name: ``all-gather``, ``reduce-scatter``, ``all-reduce``),
+operand bytes, group size and range name, as the function
+it computes (gloo's reduce-scatter, an all-reduce and a slice, is
+recorded as a reduce-scatter). A :class:`DryGroup` stands in for a
+process group in a dry run: it knows its size and this rank's index, and
+a collective over it is recorded and returns an output of the right
+shape without communicating.
+
 :class:`LeafLayout` gives the optimizer's per-leaf reductions their
 groups: a reduction over a sharded dim (Adafactor's means, the clip's
 sum of squares, the compressor's amax) runs over the ranks that hold the
@@ -36,8 +47,10 @@ leaf's blocks, and a replicated leaf counts once.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -46,17 +59,61 @@ from torch.profiler import record_function
 from repro_torch.core import tree as tr
 
 
+@dataclasses.dataclass(frozen=True)
+class DryGroup:
+    """A process group's stand-in for a dry run (no process group): ``size``
+    ranks, this one at ``rank`` within it."""
+
+    size: int
+    rank: int = 0
+
+
+_RECORDER: contextvars.ContextVar[Optional[Callable]] = contextvars.ContextVar(
+    "collective_recorder", default=None)
+
+
+@contextlib.contextmanager
+def recording(fn: Callable):
+    """Hand every collective of the block to ``fn(kind, operand_bytes,
+    group_size, name)``."""
+    token = _RECORDER.set(fn)
+    try:
+        yield fn
+    finally:
+        _RECORDER.reset(token)
+
+
+def note(kind: str, t: torch.Tensor, size: int, name: str) -> None:
+    """Record one collective over ``size`` ranks whose operand is ``t``."""
+    fn = _RECORDER.get()
+    if fn is not None:
+        fn(kind, t.numel() * t.element_size(), size, name)
+
+
+def _dry(group) -> bool:
+    return isinstance(group, DryGroup)
+
+
 def _size(group) -> int:
-    return 1 if group is None else dist.get_world_size(group)
+    if group is None:
+        return 1
+    return group.size if _dry(group) else dist.get_world_size(group)
+
+
+def _rank(group) -> int:
+    return group.rank if _dry(group) else dist.get_rank(group)
 
 
 def _nccl(group) -> bool:
-    return dist.get_backend(group) == "nccl"
+    return not _dry(group) and dist.get_backend(group) == "nccl"
 
 
-def _gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+def _gather(t: torch.Tensor, dim: int, group, name: str = "train.allgather") -> torch.Tensor:
     n = _size(group)
     t = t.contiguous()
+    note("all-gather", t, n, name)
+    if _dry(group):
+        return torch.cat([t] * n, dim=dim)
     if _nccl(group) and dim == 0:
         out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype,
                           device=t.device)
@@ -67,10 +124,15 @@ def _gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
-def _scatter_sum(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+def _scatter_sum(t: torch.Tensor, dim: int, group,
+                 name: str = "train.reduce_scatter") -> torch.Tensor:
     """This rank's block of the float32 sum of ``t`` over the group."""
-    n, me = _size(group), dist.get_rank(group)
+    n, me = _size(group), _rank(group)
     tf = t.to(torch.float32)
+    note("reduce-scatter", tf, n, name)
+    if _dry(group):
+        size = tf.shape[dim] // n
+        return tf.narrow(dim, me * size, size).clone()
     if _nccl(group):
         moved = tf.movedim(dim, 0).contiguous()
         out = torch.empty((moved.shape[0] // n,) + tuple(moved.shape[1:]),
@@ -84,10 +146,12 @@ def _scatter_sum(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     return tf.narrow(dim, me * size, size)
 
 
-def _sum(t: torch.Tensor, group) -> torch.Tensor:
+def _sum(t: torch.Tensor, group, name: str = "train.allreduce") -> torch.Tensor:
     out = t.to(torch.float32)
     out = out.clone() if out is t else out
-    dist.all_reduce(out, group=group)
+    note("all-reduce", out, _size(group), name)
+    if not _dry(group):
+        dist.all_reduce(out, group=group)
     return out
 
 
@@ -97,12 +161,12 @@ class _AllGather(torch.autograd.Function):
         ctx.dim, ctx.group, ctx.bwd, ctx.name = dim, group, bwd, name
         ctx.block = t.shape[dim]
         with record_function(name):
-            return _gather(t, dim, group)
+            return _gather(t, dim, group, name)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.bwd == "slice":
-            me = dist.get_rank(ctx.group)
+            me = _rank(ctx.group)
             return g.narrow(ctx.dim, me * ctx.block, ctx.block).contiguous(), None, None, None, None
         with record_function("train.reduce_scatter"):
             return _scatter_sum(g, ctx.dim, ctx.group).to(g.dtype), None, None, None, None
@@ -124,7 +188,7 @@ class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group, name):
         with record_function(name):
-            return _sum(t, group).to(t.dtype)
+            return _sum(t, group, name).to(t.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -136,7 +200,7 @@ class _ReduceScatter(torch.autograd.Function):
     def forward(ctx, t, dim, group, name):
         ctx.dim, ctx.group = dim, group
         with record_function(name):
-            return _scatter_sum(t, dim, group).to(t.dtype)
+            return _scatter_sum(t, dim, group, name).to(t.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -219,8 +283,10 @@ def scale_grad(t: torch.Tensor, factor: float) -> torch.Tensor:
 def all_reduce_(t: torch.Tensor, group, op=None) -> torch.Tensor:
     """In-place all-reduce without a gradient (``op``: SUM by default)."""
     if _size(group) > 1:
-        with record_function("train.allreduce"):
-            dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op, group=group)
+        note("all-reduce", t, _size(group), "train.allreduce")
+        if not _dry(group):
+            with record_function("train.allreduce"):
+                dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op, group=group)
     return t
 
 

@@ -10,6 +10,9 @@ order of its sums.
   checkpoint (so the backward gathers again), and its gradient
   reduce-scattered back (a leaf the data axis does not shard: all-reduced).
   Each rank takes its rows of every microbatch.
+* ``pod`` (a multi-pod mesh) is pure data parallel: the rows are split
+  over ``(pod, data)``, the loss reduced over both, and the step
+  all-reduces every gradient over the pod axis (``launch/steps.py``).
 * ``model`` is tensor parallel, Megatron's split: a block's input enters
   the region (identity forward, all-reduce backward); q/k/v and gate/up
   run on their column blocks (the rank's heads, its ffn slice), o_proj
@@ -52,6 +55,11 @@ from repro_torch.layers.mlp import mlp_apply
 from repro_torch.sharding import collectives as col
 from repro_torch.sharding.rules import P
 
+def batch_axes(mesh) -> tuple:
+    """The mesh's batch axes: ``pod`` and ``data``, those it has."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
 def _dim_of(spec, axis: str) -> Optional[int]:
     for i, entry in enumerate(spec):
         if entry == axis or (isinstance(entry, tuple) and axis in entry):
@@ -74,6 +82,11 @@ class ShardedTrain:
     @property
     def data_group(self):
         return self.mesh.group("data")
+
+    @property
+    def batch_group(self):
+        """The group over the batch axes (``pod`` and ``data``)."""
+        return self.mesh.group(batch_axes(self.mesh))
 
     @property
     def model_group(self):
@@ -261,9 +274,9 @@ class ShardedTrain:
         else:
             mask = mask.to(torch.float32)
             num, den = torch.sum(nll * mask), torch.sum(mask).detach()
-        den = col.all_reduce_(den.clone(), self.data_group)
+        den = col.all_reduce_(den.clone(), self.batch_group)
         term = num / torch.clamp_min(den, 1.0)
-        value = col.all_reduce_(term.detach().clone(), self.data_group)
+        value = col.all_reduce_(term.detach().clone(), self.batch_group)
         return term, value
 
 

@@ -58,6 +58,12 @@ dense tree; with ``with_source`` a rank also keeps its scrub source (its
 dense slices, each row slice with its column maxima, and the replicated
 leaves), from which :func:`shard_source` rebuilds the shard bit for bit.
 :class:`RankTuner` makes rank 0's tile autotuner the picks of every rank.
+
+A context whose ``group`` is a ``sharding/collectives.DryGroup`` is a dry
+run's (``launch/dryrun.py``): its collectives are recorded
+(``collectives.note``, as a live context's are) and return outputs of the
+right shape without communicating, and it lays out heads the ranks do not
+divide (:func:`head_layout`), which serving refuses.
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import bitplanes as bp
+from repro_torch.sharding.collectives import DryGroup, note
 
 #: parameter-path suffixes whose output dim is sharded
 COL_PARALLEL = frozenset({"q_proj", "k_proj", "v_proj", "gate_proj", "up_proj"})
@@ -85,6 +92,10 @@ VOCAB_PARALLEL = frozenset({"head", "lm_head"})
 _KV_VALUE_LEAVES = frozenset({"k", "v", "k_q", "v_q"})
 _KV_SCALE_LEAVES = frozenset({"k_scale", "v_scale"})
 
+
+#: the attention projections, replicated whole where the query heads do
+#: not divide the ranks (a dry run's layout, :func:`head_layout`)
+ATTENTION = frozenset({"q_proj", "k_proj", "v_proj", "o_proj"})
 
 #: the widest operands the row-parallel int32 partial sums hold exactly
 MAX_TP_BITS = 8
@@ -114,20 +125,48 @@ def tp_role(name: str) -> Optional[str]:
     return None
 
 
+def head_layout(cfg, size: int) -> tuple[str, frozenset, int, int]:
+    """The attention layout of ``size`` ranks: (description, the projections
+    replicated whole, a rank's query heads, its KV heads). Heads that
+    divide the ranks are sharded (serving's only layout); KV heads that do
+    not, where each rank's query heads read one KV head, are each kept by
+    the ranks that read it (the Megatron GQA rule); query heads that do not
+    divide run whole on every rank (q/k/v/o replicated, the cache holding
+    every head)."""
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    if nh % size == 0 and nkv % size == 0:
+        return "heads sharded", frozenset(), nh // size, nkv // size
+    if nh % size == 0 and (nh // nkv) % (nh // size) == 0:
+        return "query heads sharded, one KV head a rank", frozenset(), nh // size, 1
+    return "attention replicated", ATTENTION, nh, nkv
+
+
 @dataclasses.dataclass(frozen=True)
 class TPContext:
     """One tensor-parallel serving configuration: ``size`` ranks of the
-    process group ``group`` (None: the default group), this process being
-    ``rank``. The collectives run in an initialised process group (a world
-    of one included: a CUDA graph then captures them as it would for more
-    ranks); with no process group a context of size 1 makes them the
-    identity."""
+    process group ``group`` (None: the default group; a ``DryGroup``: a dry
+    run), this process being ``rank``. The collectives run in an
+    initialised process group (a world of one included: a CUDA graph then
+    captures them as it would for more ranks); with no process group a
+    context of size 1 makes them the identity. ``replicated``: projection
+    names that run whole on every rank (:func:`head_layout`; a dry run's)."""
 
     size: int
     rank: int = 0
     group: Any = None
+    replicated: frozenset = frozenset()
     #: the axis name a plan's shard triple carries, the reference's
     axis: ClassVar[str] = "model"
+
+    def role(self, name: str) -> Optional[str]:
+        """The projection's role under this context (:func:`tp_role`)."""
+        if name.rsplit("/", 1)[-1] in self.replicated:
+            return None
+        return tp_role(name)
+
+    @property
+    def dry(self) -> bool:
+        return isinstance(self.group, DryGroup)
 
     # -- ambient scope -----------------------------------------------------
 
@@ -144,7 +183,11 @@ class TPContext:
 
     def local_config(self, cfg):
         """Per-rank model config: the head counts divide over the ranks;
-        every other dimension follows from the sliced parameter shapes."""
+        every other dimension follows from the sliced parameter shapes. A
+        dry context takes :func:`head_layout`'s other layouts too."""
+        if self.dry:
+            _, _, nh, nkv = head_layout(cfg, self.size)
+            return dataclasses.replace(cfg, n_heads=nh, n_kv_heads=nkv)
         if cfg.n_heads % self.size or cfg.n_kv_heads % self.size:
             raise ValueError(
                 f"model_parallel={self.size} must divide n_heads="
@@ -158,6 +201,8 @@ class TPContext:
     # -- collectives ---------------------------------------------------------
 
     def _live(self) -> bool:
+        if self.dry:
+            return False
         if dist.is_available() and dist.is_initialized():
             return True
         if self.size > 1:
@@ -167,40 +212,51 @@ class TPContext:
             )
         return False
 
-    def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
-        if self._live():
+    def _recorded(self, kind: str, t: torch.Tensor, name: str) -> bool:
+        """Record a collective the step issues (a dry context's too);
+        True where it must run."""
+        live = self._live()
+        if live or self.dry:
+            note(kind, t, self.size, name)
+        return live
+
+    def _all_reduce(self, t: torch.Tensor, op, name: str) -> torch.Tensor:
+        if self._recorded("all-reduce", t, name):
             dist.all_reduce(t, op=op, group=self.group)
         return t
 
-    def reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+    def reduce_max(self, t: torch.Tensor, name: str = "tp.reduce_max") -> torch.Tensor:
         """Element-wise maximum of ``t`` over the ranks, in place (exact)."""
-        return self._all_reduce(t, dist.ReduceOp.MAX)
+        return self._all_reduce(t, dist.ReduceOp.MAX, name)
 
     def reduce_alarms(self, alarms: torch.Tensor) -> torch.Tensor:
         """OR of a per-rank ABFT alarm vector over the ranks (all-reduce
         MAX), so every rank sees an alarm raised on any rank's planes."""
         if alarms.numel() == 0:
             return alarms
-        return self.reduce_max(alarms.to(torch.int32)).to(torch.bool)
+        return self.reduce_max(alarms.to(torch.int32), "tp.alarms").to(torch.bool)
 
     def global_amax(self, x: torch.Tensor) -> torch.Tensor:
         """Per-row |x| maximum of a K-sharded activation over every rank's
         slice (keepdim; float32, whose maximum is exact): the row-parallel
         quantizer's scale is then the unsharded one."""
-        return self.reduce_max(x.abs().amax(dim=-1, keepdim=True).to(torch.float32))
+        return self.reduce_max(x.abs().amax(dim=-1, keepdim=True).to(torch.float32),
+                               "tp.amax")
 
     def sum_partials(self, acc: torch.Tensor) -> torch.Tensor:
         """Sum of the ranks' raw int32 accumulators, in place (exact at
         <= 8 bits: no partial or total reaches 2^31)."""
-        return self._all_reduce(acc, dist.ReduceOp.SUM)
+        return self._all_reduce(acc, dist.ReduceOp.SUM, "tp.sum_partials")
 
     def gather_columns(self, out: torch.Tensor) -> torch.Tensor:
         """The ranks' column blocks of ``out`` concatenated in rank order on
         the last axis (list-form all-gather, which gloo takes on CUDA
         tensors too)."""
-        if not self._live():
+        if not (self.dry or self._live()):
             return out
         out = out.contiguous()
+        if not self._recorded("all-gather", out, "tp.gather_columns"):
+            return torch.cat([out] * self.size, dim=-1)  # a dry context's stand-in
         parts = [torch.empty_like(out) for _ in range(self.size)]
         dist.all_gather(parts, out, group=self.group)
         return torch.cat(parts, dim=-1)

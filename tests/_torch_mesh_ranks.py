@@ -227,3 +227,26 @@ def rank_train_runs(backend, dev, runs, compare=None, watchdog_s=None):
     if watchdog_s:
         faulthandler.cancel_dump_traceback_later()
     return out
+
+
+def rank_collectives(backend, dev, cases, arch, batch_np):
+    """One sharded train step of the reduced ``arch`` for each case
+    ``(mesh shape, config override, whole weights as numpy)`` with the
+    collective recorder on: every recorded call ``(kind, operand bytes,
+    group size, range name)`` in order, per case."""
+    from repro_torch.sharding.collectives import recording
+
+    out = []
+    for shape, cfg_over, params_np in cases:
+        mesh = make_mesh(shape, AXES)
+        cfg = dataclasses.replace(get_reduced(arch), **cfg_over)
+        params, specs = blocks_of(to_torch(params_np, dev), mesh)
+        opt = OptimConfig(kind="adamw", peak_lr=1e-3, total_steps=10)
+        step_fn = make_train_step(cfg, opt, mesh=mesh, specs=specs)
+        state = init_opt_state(cfg, opt, params)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        calls = []
+        with recording(lambda *c: calls.append(c)):
+            step_fn(params, state, batch, 0)
+        out.append(calls)
+    return out

@@ -616,6 +616,41 @@ def test_capture_error_raises_and_runs_nothing_eagerly(cuda_device, monkeypatch)
     torch.cuda.synchronize()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["booth", "sbmwc"])
+def test_systolic_simulator_on_card_equals_cpu(cuda_device, variant):
+    """The cycle-accurate serial-MAC simulator (``core/systolic.py``) on the
+    card gives its CPU result and the exact products (modulo 2^32, the
+    int32 accumulator): every 8-bit pair, random 16-bit dot products of
+    1000 values, and a product on the 64 x 16 array."""
+    from repro_torch.core import systolic as sa
+
+    g = torch.Generator()
+    g.manual_seed(7)
+    vals = torch.arange(-128, 128, dtype=torch.int32)
+    mc, ml = (t[..., None] for t in torch.meshgrid(vals, vals, indexing="ij"))
+    a = torch.randint(-(1 << 15), 1 << 15, (64, 1000), generator=g, dtype=torch.int32)
+    b = torch.randint(-(1 << 15), 1 << 15, (64, 1000), generator=g, dtype=torch.int32)
+    am = torch.randint(-(1 << 15), 1 << 15, (16, 100), generator=g, dtype=torch.int32)
+    bm = torch.randint(-(1 << 15), 1 << 15, (100, 64), generator=g, dtype=torch.int32)
+    cfg = sa.SAConfig(64, 16)
+
+    def wrapped(t):
+        return (((t + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+    for call, exact in (
+        (lambda d: sa.serial_mac_dot(mc.to(d), ml.to(d), 8, variant), (mc * ml)[..., 0]),
+        (lambda d: sa.serial_mac_dot(a.to(d), b.to(d), 16, variant),
+         wrapped((a.long() * b.long()).sum(dim=-1))),
+        (lambda d: sa.serial_sa_matmul(am.to(d), bm.to(d), 16, cfg, variant),
+         wrapped(am.long() @ bm.long())),
+    ):
+        got, cycles = call(cuda_device)
+        host, host_cycles = call(torch.device("cpu"))
+        assert got.is_cuda and cycles == host_cycles
+        assert torch.equal(got.cpu(), host) and torch.equal(host, exact)
+
+
 # ---------------------------------------------------------------------------
 # Scrub-and-retry and paged integrity on the card
 # ---------------------------------------------------------------------------

@@ -212,7 +212,7 @@ def test_core_exports_the_reference_front_door():
     import repro.core as jcore
 
     missing = set(jcore.__all__) - set(tcore.__all__)
-    assert missing == {"booth_nonzero_digit_count", "systolic"}  # ROADMAP item 14b
+    assert missing == set()
     for name in tcore.__all__:
         assert getattr(tcore, name) is not None
 
