@@ -218,7 +218,7 @@ Phases, each failing the run on any error:
    static runs of their tiers), bitplane-autotune-tp2 and -warm-tp2 (a
    fresh plan store then warm from it: rank 0 alone tunes and keeps the one
    store, every rank the same tiles, warm no tune; bitplane's tokens), and
-   mamba2-tp2 (4 layers), qwen3moe-tp2 (1 layer, router dense) and
+   mamba2-tp2 (2 layers), qwen3moe-tp2 (1 layer, router dense) and
    internvl2-patches-tp2 (2 layers, the image prefix through the TP
    prefill and decode steps), each against a single-device eager twin at
    its depth run in this call; rows 1 and 2 on every rank of every cell,
@@ -250,6 +250,23 @@ Phases, each failing the run on any error:
    within ``ANALYSIS_PEAK_RTOL`` of the measured ``max_memory_allocated``,
    its resident within ``ANALYSIS_RESIDENT_RTOL`` of TrainRun's, and its
    bound no greater than the measured median step.
+22. the paper's four example scenarios (``run_examples``): each function
+   of ``repro_torch.examples`` as its script calls it, on phase 3's
+   granite-3-8b (full width, ``LAYERS`` deep), and again on the plain route
+   (``backend="torch"``, which must launch no kernel): quickstart (§4's
+   logits bit-equal, row 3 alone launched), serve_quantized at its defaults
+   (batch 4, prompt 32, 24 new tokens; five lockstep engines: every
+   engine's tokens equal to its plain twin's, ``sbmwc == booth`` and
+   ``digit == bitplane``, the dial's plans truncating the stored planes,
+   row 1 on the bit-plane engines and row 3 on the digit one),
+   precision_sweep unrolled (16 to 1 bits, the mixed policy and the dial:
+   every policy's logits bit-equal to the plain route's, each on its route
+   and kernel), and the trainer runs, each the script's command line in a
+   process of its own started before phase 19 and run beside phases 19-21
+   (``start_example_trainers``): train_tiny_lm --model-100m (300 steps,
+   checkpoints) and tiny_7m --qat-bits 8 (100 steps), which must exit 0
+   (the script asserts the loss falls) having launched no kernel; steps/s
+   and the card's peak memory are printed.
 
 Every engine cell's main run replays each decode step from the engine's
 CUDA graph of that precision (captured by the warm-up run; the counted
@@ -270,7 +287,8 @@ Prints one JSON line per kernel check and per engine cell (the scrub and
 paged-integrity cells' lines carry the card's name and power limit), one
 ``{"kernels": [...]}`` summary line (the fold kernel's entry included; the
 fused kernel's entry also counts its launches on the QAT-trained weights,
-``train_launches``, and in each phase-17 cell, ``arch_launches``; rows 1-3
+``train_launches``, and in each phase-17 cell, ``arch_launches``; every
+kernel its launches in each section of phase 22, ``examples_launches``; rows 1-3
 also their default and tuned device ms, ``autotune``; rows 1, 2 and 5 their
 launches on each rank of the phase-19 cells, ``tp_launches``), the card's
 name and power limit, and last
@@ -3007,16 +3025,12 @@ def _device_us(evt) -> float:
 
 FAMILY_OPS_STEPS = 4  # decode steps of the profiled eager run
 # depth of each family's cells (full: 48 and 26 = 8 periods + a 2-layer tail).
-# The smoke has 1200 s and aims to finish in half of that, which the whole
-# run passes even with these cuts (PERF.md, section 4): the route cells
-# mamba2-digit and mamba2-detect run 16 layers, rgemma-window two periods
-# and the tail, and rgemma-bitplane four periods and the 2-layer tail (the
-# tensor-parallel phase took its 26 layers' time); mamba2-bitplane 16 (the
-# dense decode attention's one-head-at-a-time loop took the time of 16, the
-# tensor-parallel phase's later cells that of 8 more, the margin under the
-# time limit 8 more); mamba2-digit and mamba2-detect 8 (the margin)
-FAMILY_LAYERS = {"mamba2-bitplane": 16, "mamba2-digit": 8, "mamba2-detect": 8,
-                 "rgemma-bitplane": 8, "rgemma-window": 8}
+# Cut for the smoke's 1200 s, never the width (PERF.md, section 4): the
+# mamba2 cells 8, the rgemma cells one (rec, rec, attn) period and the
+# 2-layer tail (the examples phase took the time of 8 more mamba2 layers and
+# of three rgemma layers in each cell)
+FAMILY_LAYERS = {"mamba2-bitplane": 8, "mamba2-digit": 8, "mamba2-detect": 8,
+                 "rgemma-bitplane": 5, "rgemma-window": 5}
 
 
 def _family_ops(engine, reqs, schedule) -> dict:
@@ -3414,10 +3428,11 @@ ARCH_KEEP_DENSE = ("frontend", "router")
 # for the tensor-parallel phase's new cells), internvl2-bitplane for
 # the smoke's time (its plain-route control runs ~1 s a decode step at 24
 # layers, and its decode attention attends one KV head at a time;
-# internvl2-patches 24 -> 12 to make room for the mesh-training phase);
-# PERF.md, section 4
-ARCH_LAYERS = {"qwen3moe-bitplane": 2, "scout-bitplane": 2, "internvl2-bitplane": 6,
-               "internvl2-patches": 12, "hubert-encode": 48}
+# internvl2-patches 24 -> 12 to make room for the mesh-training phase, and
+# for the examples phase the MoE cells 2 -> 1, internvl2-bitplane 6 -> 4 and
+# internvl2-patches 12 -> 6); PERF.md, section 4
+ARCH_LAYERS = {"qwen3moe-bitplane": 1, "scout-bitplane": 1, "internvl2-bitplane": 4,
+               "internvl2-patches": 6, "hubert-encode": 48}
 VLM_TEXT = 64  # text tokens after internvl2's 256 patches
 VLM_BATCH = 4
 VLM_GEN = 16
@@ -4056,7 +4071,7 @@ TP_SCRUB_SPEC = "planes@2;seed=11"
 #: the families served tensor-parallel in phase 19: name -> (arch, depth,
 #: dense layers). Depth is cut for the phase's time, never width; each is
 #: held against a single-device eager twin at the same depth
-TP_FAMILIES = {"mamba2-tp2": ("mamba2-1.3b", 4, ()),
+TP_FAMILIES = {"mamba2-tp2": ("mamba2-1.3b", 2, ()),
                "qwen3moe-tp2": ("qwen3-moe-235b-a22b", 1, ARCH_KEEP_DENSE),
                "internvl2-patches-tp2": ("internvl2-2b", 2, ARCH_KEEP_DENSE)}
 #: the routes of the plane kernels on the TP main path (rows 1 and 2)
@@ -4973,6 +4988,263 @@ def run_analysis(cfg, eng_bit: dict, train_dense: dict) -> dict:
     return out
 
 
+# -- the paper's four example scenarios (phase 22) -----------------------------
+
+#: the two trainer runs of phase 22, each the script's command line in a
+#: process of its own, started before phase 19 and run beside phases 19-21
+#: (their steps host-bound, the card idle through most of the gloo phases):
+#: --model-100m at its default 300 steps, and tiny_7m at 8-bit QAT
+EXAMPLE_TRAINERS = {"train_tiny_lm --model-100m": ["--model-100m"],
+                    "train_tiny_lm --qat-bits 8": ["--qat-bits", "8", "--steps", "100"]}
+EXAMPLE_TRAINER_TIMEOUT_S = 600
+#: the plan route each sweep row takes on the kernel route and on the plain
+#: one (``backend="torch"``), and the kernel it launches: 16 bits, the
+#: runtime dial, and 1-8 bits with the mixed policy
+SWEEP_ROUTES = {"w16": ("oracle", "oracle", None),
+                "dial": ("fused_cached", "cached_scan", "fused_plane_linear"),
+                "digit": ("staged", "oracle", "plane_matmul")}
+#: each serve_quantized engine's kernel on the card (none on the dense one)
+SERVE_KERNELS = {"booth-bitplane-w8": "fused_plane_linear",
+                 "booth-bitplane-w6": "fused_plane_linear",
+                 "booth-bitplane-w4": "fused_plane_linear",
+                 "booth-digit": "plane_matmul", "sbmwc-bitplane": "fused_plane_linear"}
+
+
+def _example_section(name, fn) -> tuple:
+    """``fn()`` with the plan registry cleared (the script's registry report
+    is the section's own) and every launch count set to 0 just before it
+    and read just after: (its result, launches, route calls, seconds). A
+    failed assert of the script fails the run."""
+    from repro_torch.core import plan as plan_mod
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan_mod.DEFAULT_REGISTRY.clear()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+    except AssertionError as e:
+        _die(f"phase 22 {name}: the script's assert failed: {e}")
+    torch.cuda.synchronize()
+    return out, _read_counts(), dict(plan_mod.DEFAULT_REGISTRY.calls), time.perf_counter() - t0
+
+
+def _plain_twin(name, fn) -> dict:
+    """The section again on the plain route (``backend="torch"``), which
+    must launch no kernel."""
+    out, counts, routes, _ = _example_section(f"{name} (plain route)", fn)
+    if any(counts.values()):
+        _die(f"phase 22 {name}: the plain route launched kernels {counts}")
+    return out
+
+
+def _only(name, launches: dict, kernel) -> None:
+    """``kernel`` (None: no kernel) and no other launched in ``launches``."""
+    others = {k: v for k, v in launches.items() if k != kernel and v}
+    if others or (kernel and not launches.get(kernel)):
+        _die(f"phase 22 {name}: launches {launches}, expected {kernel} alone")
+
+
+def _example_quickstart(cfg, params) -> dict:
+    from repro_torch.examples import quickstart
+
+    qs, counts, routes, secs = _example_section(
+        "quickstart", lambda: quickstart.quickstart(cfg, params, "cuda"))
+    plain = _plain_twin("quickstart", lambda: quickstart.quickstart(cfg, params, "cuda",
+                                                                      backend="torch"))
+    _only("quickstart", counts, "plane_matmul")
+    if set(routes) != {"staged"} or counts["plane_matmul"] != routes["staged"]:
+        _die(f"phase 22 quickstart: routes {routes} against launches {counts}")
+    for k in ("dense", "quant"):
+        if not torch.equal(qs[k], plain[k]):
+            _die(f"phase 22 quickstart §4: the {k} logits differ from the plain route's "
+                 f"(max |d| {float((qs[k].float() - plain[k].float()).abs().max())})")
+    line = {"example": "quickstart", "card": CARD, "layers": cfg.n_layers,
+            "exact": all(qs["exact"].values()), "mac": qs["mac"],
+            "gops": {f"{c}x{r}": g for (c, r), g in qs["gops"].items()},
+            "rel_l1": qs["rel_l1"], "rel_l1_plain": plain["rel_l1"],
+            "logits_equal_plain": True, "launches": counts, "routes": routes,
+            "section_s": secs}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def _example_serve(cfg, params) -> dict:
+    from repro_torch.examples import serve_quantized
+
+    sq, counts, routes, secs = _example_section(
+        "serve_quantized", lambda: serve_quantized.serve_quantized(cfg, params, "cuda"))
+    audit = sq["truncation_audit"]
+    t_plain = time.perf_counter()
+    plain = _plain_twin("serve_quantized", lambda: serve_quantized.serve_quantized(
+        cfg, params, "cuda", backend="torch"))
+    plain_s = time.perf_counter() - t_plain
+    for name, toks in sq["tokens"].items():
+        if not torch.equal(toks, plain["tokens"][name]):
+            _die(f"phase 22 serve_quantized {name}: tokens differ from the plain route's")
+        _only(f"serve_quantized {name}", sq["launches"][name], SERVE_KERNELS.get(name))
+    if not (sq["sbmwc_eq_booth"] and sq["digit_eq_bitplane"]):
+        _die("phase 22 serve_quantized: sbmwc == booth or digit == bitplane failed")
+    if not audit["truncated_ok"] or audit["routes"] != ["fused_cached"]:
+        _die(f"phase 22 serve_quantized: truncation audit {audit}")
+    line = {"example": "serve_quantized", "card": CARD, "layers": cfg.n_layers,
+            "batch": 4, "prompt_len": 32, "gen": 24,
+            "tok_per_s": sq["tok_per_s"], "plain_tok_per_s": plain["tok_per_s"],
+            "agreement": sq["agreement"], "sbmwc_eq_booth": True, "digit_eq_bitplane": True,
+            "tokens_equal_plain": True, "registry": sq["registry"],
+            "plain_registry": plain["registry"], "truncation_audit": audit,
+            "routes": sq["routes"], "launches": sq["launches"],
+            "plain_routes": plain["routes"], "section_s": secs, "plain_s": plain_s}
+    print(json.dumps(line), flush=True)
+    line["all_launches"] = counts
+    return line
+
+
+def _example_sweep(cfg, params) -> dict:
+    from repro_torch.examples import precision_sweep
+
+    scfg = precision_sweep.sweep_config(cfg)
+    sw, counts, routes, secs = _example_section(
+        "precision_sweep", lambda: precision_sweep.precision_sweep(scfg, params, "cuda"))
+    plain = _plain_twin("precision_sweep", lambda: precision_sweep.precision_sweep(
+        scfg, params, "cuda", backend="torch"))
+    audit = sw["truncation_audit"]
+    for name, logits in sw["logits"].items():
+        other = plain["logits"][name]
+        if not torch.equal(logits, other):
+            _die(f"phase 22 precision_sweep {name}: logits differ from the plain route's "
+                 f"(max |d| {float((logits.float() - other.float()).abs().max())})")
+        if name == "dense":
+            continue
+        row = "w16" if name == "w16" else "dial" if name.startswith("dial") else "digit"
+        route, plain_route, kernel = SWEEP_ROUTES[row]
+        if set(sw["routes"][name]) != {route} or set(plain["routes"][name]) != {plain_route}:
+            _die(f"phase 22 precision_sweep {name}: routes {sw['routes'][name]}, plain "
+                 f"{plain['routes'][name]}; expected {route}, {plain_route}")
+        _only(f"precision_sweep {name}", sw["launches"][name], kernel)
+    if not audit["truncated_ok"] or audit["routes"] != ["fused_cached"]:
+        _die(f"phase 22 precision_sweep: truncation audit {audit}")
+    line = {"example": "precision_sweep", "card": CARD, "layers": scfg.n_layers,
+            "scan_layers": scfg.scan_layers, "kl": sw["kl"], "kl_plain": plain["kl"],
+            "cycles": sw["cycles"], "logits_equal_plain": True, "registry": sw["registry"],
+            "truncation_audit": audit, "routes": sw["routes"], "launches": sw["launches"],
+            "tf32": torch.backends.cuda.matmul.allow_tf32, "section_s": secs}
+    print(json.dumps(line), flush=True)
+    line["all_launches"] = counts
+    return line
+
+
+def _trainer_child(argv_json: str) -> None:
+    """A trainer run of phase 22 in its own process: the script's ``main``
+    on its command line (a checkpoint directory appended), with every
+    launch count set to 0 just before and read just after; prints one JSON
+    line with the run's numbers."""
+    from repro_torch.examples import train_tiny_lm
+
+    argv = json.loads(argv_json)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    tr = train_tiny_lm.main(argv)
+    torch.cuda.synchronize()
+    print(json.dumps({
+        "child_s": time.perf_counter() - t0, "launches": _read_counts(),
+        "steps": len(tr["losses"]), "loss_first10": tr["first"], "loss_last10": tr["last"],
+        "steps_per_s": tr["steps_per_s"],
+        "step_ms_median": float(np.median(tr["timings"]["step_ms"])),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "saves": tr["timings"]["saves"]}), flush=True)
+
+
+def start_example_trainers() -> dict:
+    """Start phase 22's trainer runs (``EXAMPLE_TRAINERS``), each in a child
+    process with its checkpoints and output under a temp dir; they are
+    collected by ``run_examples`` and killed if this process ends first."""
+    import atexit
+    import tempfile
+
+    where = tempfile.mkdtemp(prefix="chip_smoke_trainers_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    for i, (name, argv) in enumerate(EXAMPLE_TRAINERS.items()):
+        log = open(os.path.join(where, f"trainer{i}.log"), "w+")
+        args = json.dumps(argv + ["--ckpt", os.path.join(where, f"ckpt{i}")])
+        proc = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke._trainer_child({args!r})"],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT, text=True)
+        atexit.register(lambda p=proc: p.poll() is None and p.kill())
+        out[name] = (proc, log, time.perf_counter())
+    out["dir"] = where
+    return out
+
+
+def _example_trainers(trainers: dict) -> dict:
+    """Wait for the trainer runs: each must exit 0 (its script asserts the
+    loss falls) having launched no kernel (fake quant: a plain bf16 matmul,
+    as the reference's)."""
+    import shutil
+
+    lines = {}
+    for name in EXAMPLE_TRAINERS:
+        proc, log, started = trainers[name]
+        t0 = time.perf_counter()
+        try:
+            rc = proc.wait(timeout=EXAMPLE_TRAINER_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _die(f"phase 22 {name}: no end within {EXAMPLE_TRAINER_TIMEOUT_S} s")
+        log.seek(0)
+        text = log.read()
+        log.close()
+        print("\n".join(l for l in text.splitlines() if l.startswith("[tiny-lm]")), flush=True)
+        if rc != 0:
+            _die(f"phase 22 {name}: exit {rc}: {text[-2000:]}")
+        res = json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+        _only(name, res["launches"], None)
+        line = {"example": name, "card": CARD, **res,
+                "beside": "phases 19-21 (their gloo ranks and the analysis) in this call",
+                "wall_s": time.perf_counter() - started, "waited_s": time.perf_counter() - t0}
+        print(json.dumps(line), flush=True)
+        lines[name] = line
+    shutil.rmtree(trainers["dir"], ignore_errors=True)
+    return lines
+
+
+def run_examples(trainers: dict) -> dict:
+    """Phase 22: the paper's four example scenarios (``repro_torch.examples``)
+    on the card, each function called as its script calls it, on phase 3's
+    granite-3-8b (full width, ``LAYERS`` deep, seed 0), and again on the
+    plain route: quickstart (§1-3 on the card's tensors; §4's logits equal
+    the plain route's, row 3 alone launched); serve_quantized at its
+    defaults (every engine's tokens equal its plain twin's, ``sbmwc ==
+    booth`` and ``digit == bitplane``, the dial's plans truncating the
+    stored planes; row 1 on the bit-plane engines, row 3 on the digit one);
+    precision_sweep unrolled (every policy's logits equal the plain
+    route's: 1-8 bits and the mixed policy through row 3, the dial through
+    row 1, 16 bits on the float32 oracle); then the trainer runs started by
+    ``start_example_trainers`` (train_tiny_lm --model-100m, 300 steps with
+    checkpoints, and tiny_7m --qat-bits 8, 100 steps), whose loss must
+    fall. Launch counts are set to 0 just before each section."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=LAYERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device="cuda")
+    out = {"quickstart": _example_quickstart(cfg, params),
+           "serve_quantized": _example_serve(cfg, params),
+           "precision_sweep": _example_sweep(cfg, params)}
+    del params
+    out.update(_example_trainers(trainers))
+    out["launches"] = {name: sec.get("all_launches", sec["launches"])
+                       for name, sec in out.items()}
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _die("no CUDA device: this smoke run needs one GPU")
@@ -5077,6 +5349,7 @@ def main() -> None:
     print(f"[chip_smoke] training done at {time.perf_counter() - t0:.1f} s (phase "
           f"{train['phase_s']:.1f} s; step ms dense {train['train-dense']['step_ms_median']:.1f}, "
           f"qat8 {train['train-qat8']['step_ms_median']:.1f})", flush=True)
+    trainers = start_example_trainers()  # phase 22's trainer runs, beside phases 19-21
     tp = run_tp_phase(
         cfg, {"bitplane-tp2": res_bit, "bitplane-paged-tp2": res_pag,
               "bitplane-scrub-tp2": res_nof8, "bitplane-autopilot-tp2": ap_single},
@@ -5095,6 +5368,11 @@ def main() -> None:
           f"{analysis['bitplane_decode_cost']['share']:.3f}, train-dense "
           f"{analysis['train_dense_cost']['share']:.3f}; train-dense peak predicted / measured "
           f"{analysis['train_dense_cost']['peak_ratio']:.3f})", flush=True)
+    examples = run_examples(trainers)
+    big = examples["train_tiny_lm --model-100m"]
+    print(f"[chip_smoke] examples done at {time.perf_counter() - t0:.1f} s (phase "
+          f"{examples['phase_s']:.1f} s; 100M: {big['steps_per_s']:.2f} steps/s, peak "
+          f"{big['peak_memory_gb']:.2f} GB, waited {big['waited_s']:.1f} s)", flush=True)
 
     def fam_launches(kernel):
         """The kernel's launches in each family cell's counted run."""
@@ -5188,6 +5466,14 @@ def main() -> None:
                        for r, c in enumerate(cell["launches_per_rank"]) if c[k["name"]]}
         if tp_launches:
             k["tp_launches"] = tp_launches
+    # every kernel's launches in each section of phase 22 (the examples)
+    for k in kernels:
+        ex = {name: c[k["name"]] for name, c in examples["launches"].items()
+              if c.get(k["name"])}
+        if ex:
+            k["examples_launches"] = ex
+    if not (kernels[0].get("examples_launches") and kernels[1].get("examples_launches")):
+        _die("phase 22 launched no fused_plane_linear or no plane_matmul")
     missing = [k for k in ("fused_plane_linear", "plane_matmul", "plane_matmul_packed", "fold")
                if not fam_launches(k)]
     if missing:

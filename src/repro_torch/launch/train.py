@@ -105,6 +105,9 @@ class TrainRun:
     profile_step: int | None = None
     #: the dtype the microbatch gradients sum in (``make_train_step``)
     grad_accum_dtype: object = torch.float32
+    #: the initial parameters in the reference's tree (one device only;
+    #: None: drawn from ``seed``), e.g. the reference's own, carried
+    initial_params: dict | None = None
 
     def world(self) -> int:
         """The ranks this run trains on (1: the single-device trainer)."""
@@ -176,10 +179,14 @@ class TrainRun:
         self.timings = {"step_ms": [], "restore_s": None, "saves": []}
         before = _allocated(dev)
 
-        if mesh is None:
+        if mesh is None and self.initial_params is not None:
+            params, specs = tr.tree_map(lambda t: t.to(dev), self.initial_params), None
+        elif mesh is None:
             gen = torch.Generator(device=dev)
             gen.manual_seed(self.seed)
             params, specs = stack_layers(cfg, init_params(cfg, gen, device=dev)), None
+        elif self.initial_params is not None:
+            raise ValueError("initial_params trains on one device, not on a mesh")
         else:
             with sh.use_rules(sh.rules_for_mesh(mesh)):
                 params, specs = self._init_blocks(cfg, dev, mesh)
